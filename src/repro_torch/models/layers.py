@@ -1,0 +1,95 @@
+"""Shared layer primitives (``repro/models/layers.py``): norm, rope, gated
+MLP, embedding and the f32 logits, on one device."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+F32 = torch.float32
+
+
+# ----------------------------------------------------------------- norms
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(F32)
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w).to(dt)
+
+
+# ------------------------------------------------------------------ rope
+def rope_tables(positions: torch.Tensor, dim: int, theta: float):
+    """positions (…,) int → cos/sin (…, dim/2) fp32."""
+    half = dim // 2
+    exponent = torch.arange(half, dtype=F32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exponent)
+    ang = positions.to(F32)[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (B, S, H, dh); cos/sin (S, dh/2) or (B, S, dh/2). NeoX half-rotation
+    in f32."""
+    dt = x.dtype
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].to(F32), x[..., half:].to(F32)
+    if cos.dim() == 2:  # (S, half) → broadcast over batch & heads
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    else:               # (B, S, half)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(dt)
+
+
+# ------------------------------------------------------------- dense MLP
+def gate_fn(act: str):
+    if act == "swiglu":
+        return F.silu
+    if act == "geglu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise NotImplementedError(f"activation {act!r} is not ported")
+
+
+def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Gated MLP, x (…, D) → (…, D); projections on cuBLAS."""
+    h = x @ p["w_up"]
+    h = gate_fn(cfg.act)(x @ p["w_gate"]) * h
+    return h @ p["w_down"]
+
+
+# -------------------------------------------------------------- embedding
+def embed(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (…) int → (…, D) in the parameter dtype."""
+    h = p["table"][tokens].to(cfg.pdtype)
+    if cfg.embed_scale:
+        h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    return h
+
+
+# ----------------------------------------------------------------- logits
+def _softcap(x, cap):
+    return torch.tanh(x / cap) * cap if cap else x
+
+
+def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(…, D) @ (D, V) with f32 products and sums, f32 out, without an f32
+    copy of ``w``: on the card ``torch.mm(..., out_dtype=float32)``
+    (``aten::mm.dtype``, CUDA only); on the host the operands are upcast."""
+    lead = h.shape[:-1]
+    h2 = h.reshape(-1, h.shape[-1])
+    if h.dtype == F32 and w.dtype == F32:
+        out = h2 @ w
+    elif h.is_cuda:
+        out = torch.mm(h2, w, out_dtype=F32)
+    else:
+        out = h2.to(F32) @ w.to(F32)
+    return out.reshape(*lead, w.shape[-1])
+
+
+def logits_fn(cfg: ModelConfig, embed_p, unembed_p,
+              h: torch.Tensor) -> torch.Tensor:
+    """h (…, D) → logits (…, V) fp32."""
+    w = embed_p["table"].T if cfg.tie_embeddings else unembed_p["w"]
+    return _softcap(matmul_f32(h, w.to(h.dtype)), cfg.final_softcap)

@@ -1,0 +1,80 @@
+"""Per-layer block schedule (``repro/models/transformer.py``).
+
+The JAX stack compresses the layer list into repeating :class:`Segment`s
+and scans over stacked parameters. The port runs layers in a Python loop
+over an unstacked list; ``layer_schedule`` stays so that a JAX parameter
+tree can be unstacked in layer order (``params.params_from_numpy``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.configs.base import ModelConfig
+
+
+@dataclass(frozen=True)
+class BlockCfg:
+    mixer: str          # "attn" | "mamba"
+    window: int         # 0 = full attention
+    ffn: str            # "dense" | "moe" | "none"
+    d_ff: int
+
+
+@dataclass(frozen=True)
+class Segment:
+    pattern: tuple[BlockCfg, ...]
+    repeat: int
+
+
+def block_cfg_for_layer(cfg: ModelConfig, i: int) -> BlockCfg:
+    mixer = "attn" if cfg.is_attn_layer(i) else "mamba"
+    window = cfg.window_for_layer(i) if mixer == "attn" else 0
+    if cfg.d_ff == 0 and cfg.moe is None:
+        ffn, d_ff = "none", 0
+    elif cfg.is_moe_layer(i):
+        ffn, d_ff = "moe", cfg.moe.d_expert
+    elif cfg.moe is not None and i < cfg.moe.first_dense:
+        ffn, d_ff = "dense", cfg.moe.dense_d_ff or cfg.d_ff
+    else:
+        ffn, d_ff = "dense", cfg.d_ff
+    return BlockCfg(mixer, window, ffn, d_ff)
+
+
+def block_cfgs(cfg: ModelConfig) -> list[BlockCfg]:
+    """One :class:`BlockCfg` per layer, in layer order."""
+    return [block_cfg_for_layer(cfg, i) for i in range(cfg.n_layers)]
+
+
+def layer_schedule(cfg: ModelConfig) -> tuple[Segment, ...]:
+    """Compress the per-layer block list into maximal repeating segments
+    (the JAX parameter tree's ``blocks`` structure)."""
+    blocks = block_cfgs(cfg)
+    segs: list[Segment] = []
+    i = 0
+    while i < len(blocks):
+        best_plen, best_reps = 1, 1
+        for plen in range(1, min(16, len(blocks) - i) + 1):
+            pat = blocks[i:i + plen]
+            reps = 1
+            while blocks[i + reps * plen:i + (reps + 1) * plen] == pat:
+                reps += 1
+            if reps > 1 and reps * plen > best_plen * best_reps:
+                best_plen, best_reps = plen, reps
+        segs.append(Segment(tuple(blocks[i:i + best_plen]), best_reps))
+        i += best_plen * best_reps
+    assert sum(s.repeat * len(s.pattern) for s in segs) == len(blocks)
+    return tuple(segs)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """This slice serves dense full-attention GQA decoders only."""
+    for i, bc in enumerate(block_cfgs(cfg)):
+        if bc.mixer != "attn" or bc.window or bc.ffn != "dense":
+            raise NotImplementedError(
+                f"{cfg.name} layer {i} is {bc}; the port serves dense "
+                "full-attention decoders only")
+    if cfg.mla or cfg.enc_dec or cfg.frontend != "none" or \
+            cfg.use_post_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA, enc-dec, front-end and post-norm models are "
+            "not ported")

@@ -1,0 +1,206 @@
+"""Single-token paged decode and the fused decode quantum
+(``repro/serve/decode.py``, paged full-attention GQA on one device).
+
+Each layer writes the new token's K/V into its page pools in place
+(``_paged_write``), then the hand-written paged kernel
+(``kernels/paged_attention``) walks the page table and returns the
+unnormalized ``(o, m, l)`` partials, which ``_combine`` normalizes.
+
+``decode_loop`` runs a quantum of ``num_steps`` tokens as a Python loop
+whose state (tokens, positions, masks, cache) never leaves the device;
+the engine reads the packed result back once per quantum.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models.layers import (apply_rope, embed, logits_fn, mlp,
+                                       rmsnorm, rope_tables)
+
+F32 = torch.float32
+NEG = -1e30
+
+
+# ------------------------------------------------------------ flash decode
+def _combine(o, m, l):
+    """Exact softmax from (o, m, l) partials. On one device there is one
+    partial per row, so this is o / l; ``m`` stays in the contract for the
+    cross-rank max/sum combine a sharded decode adds."""
+    del m
+    return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _paged_write(pool, new_row, pt, pos):
+    """Write ``new_row`` (B,…) at logical position ``pos`` (B,) through page
+    table ``pt`` (B,T) into ``pool`` (N, ps, …), IN PLACE (``index_put_``).
+    Distinct live slots hold disjoint pages (allocator invariant), so only
+    the trash page 0 can receive duplicate writes."""
+    ps = pool.shape[1]
+    T = pt.shape[1]
+    idx = torch.clamp(pos // ps, max=T - 1).long()
+    page = pt.gather(1, idx[:, None])[:, 0]
+    # a slot frozen at pos == max_len still scribbles each step; route it
+    # to the trash page, never a live one
+    page = torch.where(pos < T * ps, page, torch.zeros_like(page))
+    pool.index_put_((page.long(), (pos % ps).long()), new_row)
+    return pool
+
+
+def _check_paged_args(page_table, pos, *, update: bool = True,
+                      window: int = 0) -> None:
+    """Typed validation of the paged decode entry point."""
+    if not update:
+        raise ValueError(
+            "paged decode always writes the new token's K/V; attend-only "
+            "(update=False) callers must use the dense cache path")
+    if window:
+        raise ValueError(
+            f"paged cache is full-attention only (window={window}); "
+            "sliding-window layers keep their dense ring buffers")
+    if page_table.dim() != 2:
+        raise ValueError(
+            f"page_table must be (batch, table_width) int32, got shape "
+            f"{tuple(page_table.shape)}")
+    if page_table.shape[0] != pos.shape[0]:
+        raise ValueError(
+            f"page_table batch {page_table.shape[0]} != pos batch "
+            f"{pos.shape[0]}")
+
+
+def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
+                     softcap: float, page_table, window: int = 0,
+                     update: bool = True):
+    """q (B,Hkv,G,dh); k_new/v_new (B,Hkv,dh); pools (N, ps, Hkv, dh); pos
+    (B,) int32; page_table (B,T) int32 → (out (B,Hkv,G,dh), pool_k,
+    pool_v), the pools updated in place."""
+    _check_paged_args(page_table, pos, update=update, window=window)
+    _paged_write(pool_k, k_new, page_table, pos)
+    _paged_write(pool_v, v_new, page_table, pos)
+    B, hkv, grp, dh = q.shape
+    o, m, l = paged_ops.paged_attend_gqa(
+        q, pool_k, pool_v, page_table, pos, 0, page_size=pool_k.shape[1],
+        scale=scale, softcap=softcap)
+    out = _combine(o.reshape(B, hkv, grp, dh), m.reshape(B, hkv, grp),
+                   l.reshape(B, hkv, grp))
+    return out.to(q.dtype), pool_k, pool_v
+
+
+# --------------------------------------------------------- per-block decode
+def gqa_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
+    """x (B,D) → (out (B,D), cache)."""
+    B, D = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].reshape(D, -1)).view(B, H, dh)
+    k = (x @ p["wk"].reshape(D, -1)).view(B, Hkv, dh)
+    v = (x @ p["wv"].reshape(D, -1)).view(B, Hkv, dh)
+    if cfg.use_rope:
+        cos, sin = rope_tables(pos, dh, cfg.rope_theta)         # (B, dh/2)
+        q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
+        k = apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
+    qg = q.reshape(B, Hkv, H // Hkv, dh)
+    out, ck, cv = flash_decode_gqa(
+        qg, k, v, cache["k"], cache["v"], pos, scale=dh ** -0.5,
+        softcap=cfg.attn_softcap, page_table=page_table)
+    o = out.reshape(B, H * dh) @ p["wo"].reshape(-1, D)
+    return o, {"k": ck, "v": cv}
+
+
+def block_decode(cfg: ModelConfig, p, cache, h, pos, page_table):
+    x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    y, new_cache = gqa_decode(cfg, p["attn"], x, cache, pos, page_table)
+    h = h + y
+    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    return h + mlp(cfg, p["mlp"], x), new_cache
+
+
+# ------------------------------------------------------------- decode step
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos, page_table):
+    """tokens (B,), pos (B,) int32 → (logits (B,V) f32, cache). The page
+    pools of ``cache`` are updated in place."""
+    h = embed(cfg, params["embed"], tokens)
+    layers = []
+    for p, c in zip(params["layers"], cache["layers"]):
+        h, c = block_decode(cfg, p, c, h, pos, page_table)
+        layers.append(c)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    logits = logits_fn(cfg, params["embed"], params["unembed"], h)
+    return logits, {"layers": layers}
+
+
+# ------------------------------------------------------ fused decode loop
+def _filter_logits(logits, *, temperature: float, top_k: int,
+                   top_p: float = 0.0):
+    """Temperature / top-k / nucleus (top-p) filtering → f32 logits with the
+    truncated entries at NEG. ``temperature`` must be > 0 here."""
+    lg = logits.to(F32) / temperature
+    neg = torch.tensor(NEG, dtype=F32, device=lg.device)
+    if top_k:
+        kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
+        lg = torch.where(lg < kth, neg, lg)
+    if top_p and top_p < 1.0:
+        probs = torch.softmax(lg, dim=-1)
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        csum = torch.cumsum(srt, dim=-1)
+        # smallest prefix whose mass reaches top_p; (csum - srt) is the mass
+        # before each entry, so the count is always ≥ 1
+        n_keep = torch.sum((csum - srt < top_p).to(torch.int64), dim=-1,
+                           keepdim=True)
+        thr = torch.gather(srt, -1, n_keep - 1)
+        lg = torch.where(probs < thr, neg, lg)
+    return lg
+
+
+def _sample_tokens(logits, generator, *, temperature: float, top_k: int,
+                   top_p: float = 0.0):
+    """Next token on the device: greedy argmax at ``temperature == 0``;
+    otherwise a categorical over the filtered logits by the Gumbel-max rule
+    (as ``jax.random.categorical``), noise drawn from ``generator``."""
+    if not temperature:
+        return torch.argmax(logits, -1).to(torch.int32)
+    lg = _filter_logits(logits, temperature=temperature, top_k=top_k,
+                        top_p=top_p)
+    u = torch.rand(lg.shape, generator=generator, device=lg.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(F32).tiny)))
+    return torch.argmax(lg + gumbel, -1).to(torch.int32)
+
+
+def decode_loop(cfg: ModelConfig, params, cache, tokens, pos, active,
+                remaining, *, num_steps: int, eos_id: int, max_len: int,
+                page_table, temperature: float = 0.0, top_k: int = 0,
+                top_p: float = 0.0, generator=None):
+    """A quantum of ``num_steps`` decode steps with on-device sampling and
+    per-slot done masking; nothing is read back to the host.
+
+    A slot emits while ``active``; it deactivates when its budget
+    (``remaining``) drains, it samples ``eos_id``, or its write position
+    reaches ``max_len - 1``. Inactive slots still run (fixed batch) but
+    their emissions are masked and their state frozen.
+
+    Returns ((cache, tokens, pos, active, remaining),
+             emitted (num_steps, B) int32, emitted_mask (num_steps, B) bool).
+    """
+    toks, msks = [], []
+    for _ in range(num_steps):
+        logits, cache = decode_step(cfg, params, cache, tokens, pos,
+                                    page_table)
+        nxt = _sample_tokens(logits, generator, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+        toks.append(torch.where(active, nxt, -1))
+        msks.append(active)
+        remaining = remaining - active.to(remaining.dtype)
+        pos = pos + active.to(pos.dtype)
+        still = active & (remaining > 0) & (nxt != eos_id) & \
+            (pos < max_len - 1)
+        tokens = torch.where(still, nxt, tokens)
+        active = still
+    carry = (cache, tokens, pos, active, remaining)
+    return carry, torch.stack(toks), torch.stack(msks)
+
+
+def _pack(active, toks, msks):
+    """One (2·num_steps + 1, B) int32 array — emitted tokens, emission masks,
+    then the post-quantum ``active`` — so a quantum costs one host read."""
+    return torch.cat([toks.to(torch.int32), msks.to(torch.int32),
+                      active[None].to(torch.int32)], dim=0)

@@ -1,0 +1,564 @@
+"""Continuous-batching paged serving engine (``repro/serve/engine.py``,
+fast paged path).
+
+Slot-based: a fixed decode batch of ``max_slots`` sequences. Pending
+requests are prefilled in power-of-2 length buckets, batched, and their
+page-aligned cache rows are copied into pages of a shared pool
+``(num_pages, page_size, Hkv, dh)`` per layer, addressed through a
+per-slot page table kept by a host-side free-list allocator. Decode runs
+``decode_quantum`` tokens per cycle with every piece of state on the
+device and exactly one device-to-host read per quantum (``_host_fetch``).
+
+Admission follows the paper's scheduling law: the decode quantum is the
+fixed accelerator chunk ``S_f``; the prompt-token budget admitted per
+cycle is the adaptive ``S_c`` side, driven by the measured prefill:decode
+throughput ratio ``f``.
+
+This slice ports ``Engine(fast=True, paged=True)`` with the paged kernel.
+The dense engine, ``fast=False``, speculative decode and the gathered-view
+decode (``paged_kernel=False``) are not ported. The kernels are built when
+an engine is constructed on the card, so no timed interval includes a
+build.
+"""
+from __future__ import annotations
+
+import time
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.chunking import cpu_chunk
+from repro_torch.core.tracker import ThroughputTracker
+from repro_torch.kernels import _build
+from repro_torch.models.transformer import check_supported
+from repro_torch.serve.decode import _pack, _sample_tokens, decode_loop
+from repro_torch.serve.kv_cache import make_cache, paged_cache_defs
+from repro_torch.serve.prefill import bucket_len, prefill
+
+
+class PromptTooLongError(ValueError):
+    """Raised at ``submit()`` for a prompt the engine can never schedule:
+    an ``n``-token prompt needs ``n < max_len`` (one decode slot after
+    prefill)."""
+
+
+class EngineStallError(RuntimeError):
+    """``run()``/``drain()`` made no forward progress for far longer than
+    the outstanding workload warrants (see ``Engine._guard_limit``): a
+    scheduling bug or slot/pool starvation, not a slow model."""
+
+
+def worst_case_pages(prompt_len: int, max_new: int, decode_quantum: int,
+                     max_len: int, page_size: int) -> int:
+    """Worst-case pages a request can ever be granted: its context can reach
+    prompt+max_new-1, plus quantum-granularity slack for the frozen-slot
+    scribble positions, all capped at max_len."""
+    end = min(prompt_len + max_new - 1 + decode_quantum, max_len)
+    return max(1, -(-end // page_size))
+
+
+def _host_fetch(x: torch.Tensor) -> np.ndarray:
+    """Every device→host read of the engine goes through here, so tests can
+    count them (one per decode quantum, one per admitted prefill group)."""
+    return x.cpu().numpy()
+
+
+@dataclass
+class Request:
+    """One generation request: ``prompt`` token ids (non-empty, shorter than
+    ``max_len``), a decode budget ``max_new`` (the first token is sampled at
+    prefill), the generated ``out`` and ``done``."""
+    rid: int
+    prompt: list[int]
+    max_new: int = 16
+    out: list[int] = field(default_factory=list)
+    done: bool = False
+
+
+@dataclass
+class StepReport:
+    """What one engine cycle did: requests admitted, tokens emitted, the
+    wall seconds of the decode quantum (the kernels are built at
+    construction, so no interval measures a build)."""
+    admitted: int = 0
+    decoded: int = 0
+    dt: float = 0.0
+
+
+class PageAllocator:
+    """Host-side free-list allocator over the shared KV page pool.
+
+    Page 0 is a reserved trash page: table rows of empty slots point at it,
+    so the masked scribbles of inactive decode rows never touch a live
+    page. Admission reserves a worst-case page budget (``commit``) per
+    request; pages are handed out lazily (``grow_to``). The invariant
+    ``sum(committed - count) <= len(free)`` makes every ``grow_to``
+    infallible — pool pressure surfaces only as admission backpressure.
+    """
+
+    def __init__(self, num_pages: int, max_slots: int, pages_per_slot: int):
+        if num_pages - 1 < pages_per_slot:
+            raise ValueError(
+                f"pool of {num_pages} pages (1 reserved) cannot hold one "
+                f"full {pages_per_slot}-page context")
+        self.num_pages = num_pages
+        self.free = list(range(num_pages - 1, 0, -1))   # pop() → low pages
+        self.table = np.zeros((max_slots, pages_per_slot), np.int32)
+        self.count = np.zeros(max_slots, np.int32)      # pages held per slot
+        self.committed = np.zeros(max_slots, np.int32)  # worst-case budget
+        self.total_grants = 0                           # page reuse evidence
+
+    @property
+    def usable_pages(self) -> int:
+        return self.num_pages - 1
+
+    def outstanding(self) -> int:
+        """Pages promised to live slots but not yet handed out."""
+        return int((self.committed - self.count).sum())
+
+    def can_commit(self, n_pages: int) -> bool:
+        return len(self.free) - self.outstanding() >= n_pages
+
+    def commit(self, slot: int, n_pages: int) -> None:
+        if self.committed[slot] or self.count[slot]:
+            raise RuntimeError(f"slot {slot} already holds pages")
+        if not self.can_commit(n_pages):
+            raise RuntimeError(
+                f"admitted past pool capacity ({n_pages} pages, "
+                f"{len(self.free)} free, {self.outstanding()} outstanding)")
+        self.committed[slot] = n_pages
+
+    def grow_to(self, slot: int, n_pages: int) -> None:
+        if n_pages > self.committed[slot]:
+            raise RuntimeError(
+                f"slot {slot}: grant of {n_pages} pages exceeds the "
+                f"committed budget {int(self.committed[slot])}")
+        while self.count[slot] < n_pages:
+            self.table[slot, self.count[slot]] = self.free.pop()
+            self.count[slot] += 1
+            self.total_grants += 1
+
+    def release(self, slot: int) -> None:
+        for t in range(int(self.count[slot])):
+            self.free.append(int(self.table[slot, t]))
+        self.table[slot, :] = 0                         # back to trash page
+        self.count[slot] = 0
+        self.committed[slot] = 0
+
+    def check(self) -> None:
+        """Pool conservation invariant: every usable page is exactly once
+        either on the free list or held by exactly one slot. Raises
+        :class:`RuntimeError` naming the offending pages."""
+        held = [int(self.table[s, t])
+                for s in range(self.table.shape[0])
+                for t in range(int(self.count[s]))]
+        seen = sorted(self.free + held)
+        want = list(range(1, self.num_pages))
+        if seen != want:
+            c = Counter(seen)
+            dup = sorted(p for p, k in c.items() if k > 1)
+            lost = sorted(set(want) - set(c))
+            bad = sorted(set(seen) - set(want))
+            raise RuntimeError(
+                f"page pool invariant violated: leaked={lost} "
+                f"double-held={dup} out-of-range={bad}")
+        if any(self.count[s] > self.committed[s]
+               for s in range(len(self.count))):
+            raise RuntimeError(
+                f"page pool invariant violated: a slot holds more pages "
+                f"than its commit (count={self.count.tolist()}, "
+                f"committed={self.committed.tolist()})")
+
+
+class Engine:
+    def __init__(self, cfg: ModelConfig, params, *, device=None,
+                 max_slots: int = 4, max_len: int = 128, eos_id: int = -1,
+                 decode_quantum: int = 8, prefill_batch: int | None = None,
+                 min_bucket: int = 16, page_size: int = 16,
+                 num_pages: int | None = None, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 0.0, sample_seed: int = 0):
+        """Build a paged serving engine over an existing parameter tree
+        (``params.init_params`` or ``params.params_from_numpy``) that lies
+        on ``device`` (the card unless ``device="cpu"``).
+
+        ``max_slots`` concurrent streams of up to ``max_len`` tokens each;
+        ``decode_quantum`` tokens per decode cycle (one host read each);
+        ``prefill_batch`` rows per batched prefill (default ``max_slots``);
+        ``min_bucket`` the smallest prompt-length bucket; ``page_size``
+        tokens per page, dividing ``max_len``; ``num_pages`` pool size
+        including the trash page 0 (default: every slot at full
+        ``max_len``). ``temperature`` 0 decodes greedily, > 0 samples on
+        the device with top-k / top-p truncation, from ``sample_seed``.
+        """
+        check_supported(cfg)
+        self.device = resolve_device(device)
+        if params["embed"]["table"].device.type != self.device.type:
+            raise ValueError(f"params lie on "
+                             f"{params['embed']['table'].device}, the engine "
+                             f"on {self.device}")
+        self.cfg, self.params = cfg, params
+        self.max_slots, self.max_len, self.eos_id = max_slots, max_len, eos_id
+        self.decode_quantum = max(1, decode_quantum)
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if not 0 <= top_k <= cfg.vocab:
+            raise ValueError(f"top_k must be in [0, vocab={cfg.vocab}], "
+                             f"got {top_k}")
+        if not 0.0 <= top_p <= 1.0:
+            raise ValueError(f"top_p must be in [0, 1], got {top_p}")
+        self.temperature, self.top_k = float(temperature), int(top_k)
+        self.top_p = float(top_p)
+        self.prefill_batch = prefill_batch or max_slots
+        self.min_bucket = min_bucket
+        if page_size <= 0:
+            raise ValueError(f"page_size {page_size} must be positive")
+        if max_len % page_size:
+            raise ValueError(f"max_len {max_len} must be a multiple of "
+                             f"page_size {page_size}")
+        self.page_size = page_size
+        self.pages_per_slot = max_len // page_size
+        self.num_pages = num_pages or 1 + max_slots * self.pages_per_slot
+        self.alloc = PageAllocator(self.num_pages, max_slots,
+                                   self.pages_per_slot)
+        if self.device.type == "cuda":
+            _build.build()
+            for name in _build.NAMES:
+                _build.load(name)
+        dev = self.device
+        self.cache = make_cache(paged_cache_defs(
+            cfg, num_pages=self.num_pages, page_size=page_size), dev)
+        self.page_table_dev = torch.tensor(self.alloc.table, device=dev)
+        self._table_dirty = False
+        self.pos_host = np.zeros(max_slots, np.int64)  # device-pos mirror
+        self.slot_req: list[Optional[Request]] = [None] * max_slots
+        self.pending: list[Request] = []
+        self.tracker = ThroughputTracker(
+            {"decode": "accelerator", "prefill": "core"}, f0=2.0)
+        self._last_admitted = 0
+        self.quanta = 0                                # decode dispatches
+        self.prefill_groups = 0                        # prefill dispatches
+        # device-resident decode state
+        self.tokens_dev = torch.zeros(max_slots, dtype=torch.int32,
+                                      device=dev)
+        self.pos_dev = torch.zeros(max_slots, dtype=torch.int32, device=dev)
+        self.active_dev = torch.zeros(max_slots, dtype=torch.bool, device=dev)
+        self.remaining_dev = torch.zeros(max_slots, dtype=torch.int32,
+                                         device=dev)
+        self._gen = torch.Generator(device=dev).manual_seed(sample_seed)
+        # independent stream for first-token sampling at prefill
+        self._prefill_gen = torch.Generator(device=dev).manual_seed(
+            sample_seed + 1)
+
+    # ---- admission ---------------------------------------------------------
+    def submit(self, req: Request) -> None:
+        n = len(req.prompt)
+        if n == 0:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        if n >= self.max_len:
+            raise PromptTooLongError(
+                f"request {req.rid}: prompt of {n} tokens needs at least "
+                f"one decode slot; engine max_len is {self.max_len}")
+        self.pending.append(req)
+
+    def free_slots(self) -> list[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def has_work(self) -> bool:
+        """True while any request is pending or occupies a decode slot."""
+        return bool(self.pending) or any(r is not None for r in self.slot_req)
+
+    def take_pending(self) -> list[Request]:
+        """Hand back the not-yet-admitted queue (admitted requests stay —
+        their KV lives in this engine's pool)."""
+        out, self.pending = self.pending, []
+        return out
+
+    def plan_admission(self, reqs: list[Request]) -> int:
+        """How many of ``reqs`` (a prefix, in order) this engine could admit
+        right now: bounded by free slots net of pending work and by the
+        pool's worst-case commit budget. Advisory only."""
+        n = min(len(reqs), len(self.free_slots()) - len(self.pending))
+        if n <= 0:
+            return 0
+        planned = sum(self._worst_pages(r) for r in self.pending)
+        k = 0
+        for req in reqs[:n]:
+            w = self._worst_pages(req)
+            if not self.alloc.can_commit(planned + w):
+                break
+            planned += w
+            k += 1
+        return k
+
+    def drain(self) -> None:
+        """Step until no pending or admitted work remains."""
+        guard, limit = 0, self._guard_limit()
+        while self.has_work():
+            if guard >= limit:
+                raise EngineStallError(
+                    f"drain made no progress after {guard} cycles "
+                    f"(limit {limit}): {len(self.pending)} pending")
+            self.step()
+            guard += 1
+
+    def abort(self) -> list:
+        """Reclaim every admitted request without stepping the model: each
+        is handed back with the tokens it already emitted, its pages are
+        released and the device-side active/remaining vectors are zeroed.
+        Pending requests are not included (see ``take_pending``). Returns
+        the reclaimed requests in slot order."""
+        out = []
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            out.append(req)
+            self.slot_req[i] = None
+            self._release_slot_pages(i)
+            self.pos_host[i] = 0
+        self._push_page_table()
+        self.active_dev.zero_()
+        self.remaining_dev.zero_()
+        return out
+
+    # ---- paged-pool bookkeeping ------------------------------------------
+    def _worst_pages(self, req: Request) -> int:
+        return worst_case_pages(len(req.prompt), req.max_new,
+                                self.decode_quantum, self.max_len,
+                                self.page_size)
+
+    def _grant_quantum_pages(self, active_slots: list[int]) -> None:
+        """Pre-grant every occupied slot enough pages to cover the coming
+        quantum, so the decode loop never needs a device-side allocator."""
+        for i in active_slots:
+            end = min(int(self.pos_host[i]) + self.decode_quantum,
+                      self.max_len)
+            target = -(-end // self.page_size)
+            if target > self.alloc.count[i]:
+                self.alloc.grow_to(i, target)
+                self._table_dirty = True
+
+    def _release_slot_pages(self, slot: int) -> None:
+        self.alloc.release(slot)
+        self._table_dirty = True
+
+    def _push_page_table(self) -> None:
+        if self._table_dirty:
+            # torch.tensor copies: the host table keeps changing
+            self.page_table_dev = torch.tensor(self.alloc.table,
+                                               device=self.device)
+            self._table_dirty = False
+
+    def _live_page_table(self, active_slots: list[int]) -> torch.Tensor:
+        """Page-table columns handed to the decode quantum: enough pages to
+        cover every active slot through the quantum, rounded up to a power
+        of two and floored at 8, as the JAX engine buckets them. The kernel
+        reads no page past a slot's ``pos`` either way; a stale ``pos``
+        beyond the slice writes to the trash page (``_paged_write``)."""
+        end = max(min(int(self.pos_host[i]) + self.decode_quantum,
+                      self.max_len) for i in active_slots)
+        n_live = max(-(-end // self.page_size), 8)
+        n_live = min(self.pages_per_slot, 1 << (n_live - 1).bit_length())
+        if n_live == self.pages_per_slot:
+            return self.page_table_dev
+        return self.page_table_dev[:, :n_live].contiguous()
+
+    # ---- one engine cycle -------------------------------------------------
+    def step(self) -> StepReport:
+        """One engine cycle: admit pending prompts (HBB token budget), run
+        one decode quantum, retire finished slots."""
+        self._last_admitted = 0
+        free = self.free_slots()
+        if self.pending and free:
+            self._admit_pending(free)
+        active_slots = [i for i, r in enumerate(self.slot_req)
+                        if r is not None]
+        if not active_slots:          # everything finished at prefill
+            return StepReport(admitted=self._last_admitted)
+        self._grant_quantum_pages(active_slots)
+        self._push_page_table()
+        t0 = time.perf_counter()
+        carry, toks, msks = decode_loop(
+            self.cfg, self.params, self.cache, self.tokens_dev, self.pos_dev,
+            self.active_dev, self.remaining_dev,
+            num_steps=self.decode_quantum, eos_id=self.eos_id,
+            max_len=self.max_len,
+            page_table=self._live_page_table(active_slots),
+            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
+            generator=self._gen)
+        (self.cache, self.tokens_dev, self.pos_dev, self.active_dev,
+         self.remaining_dev) = carry
+        packed_h = _host_fetch(_pack(self.active_dev, toks, msks))  # ONE sync
+        dt = time.perf_counter() - t0
+        self.quanta += 1
+        N = self.decode_quantum
+        toks_h = packed_h[:N]
+        msks_h = packed_h[N:2 * N].astype(bool)
+        act_h = packed_h[-1].astype(bool)
+        emitted = int(msks_h.sum())
+        if emitted:
+            self.tracker.record("decode", emitted, dt)
+        self.pos_host += msks_h.sum(axis=0)
+        for q in range(N):
+            for i in active_slots:
+                if msks_h[q, i]:
+                    self.slot_req[i].out.append(int(toks_h[q, i]))
+        for i in active_slots:
+            if not act_h[i]:
+                self.slot_req[i].done = True
+                self.slot_req[i] = None
+                self._release_slot_pages(i)
+        return StepReport(admitted=self._last_admitted, decoded=emitted,
+                          dt=dt)
+
+    def _admit_pending(self, free: list[int]) -> None:
+        """HBB chunking law over token units: the decode quantum is the
+        fixed accelerator chunk (S_f = quantum × slots tokens); the prompt-
+        token budget admitted this cycle is the adaptive S_c side. Admission
+        also stops at the pool's worst-case page budget."""
+        r_tokens = sum(len(q.prompt) for q in self.pending)
+        budget = cpu_chunk(S_f=self.decode_quantum * self.max_slots,
+                           f=self.tracker.f(), r=r_tokens, n_cores=1)
+        take: list[Request] = []
+        planned_pages = 0
+        while self.pending and len(take) < len(free):
+            req = self.pending[0]
+            n = len(req.prompt)
+            if take and budget < n:            # always admit ≥ 1
+                break
+            W = self._worst_pages(req)
+            if not self.alloc.can_commit(planned_pages + W):
+                break                          # pool backpressure
+            planned_pages += W
+            budget -= n
+            take.append(self.pending.pop(0))
+        if not take:
+            return
+        self._last_admitted = len(take)
+        groups: dict[int, list[Request]] = {}
+        for req in take:
+            b = bucket_len(len(req.prompt), min_bucket=self.min_bucket,
+                           max_bucket=self.max_len)
+            groups.setdefault(b, []).append(req)
+        ptoks = 0
+        pdt = 0.0
+        for Sb in sorted(groups):
+            grp = groups[Sb]
+            for k0 in range(0, len(grp), self.prefill_batch):
+                chunk = grp[k0:k0 + self.prefill_batch]
+                pdt += self._prefill_group(Sb, chunk, free)
+                ptoks += sum(len(q.prompt) for q in chunk)
+        if ptoks:
+            self.tracker.record("prefill", ptoks, pdt)
+
+    def _prefill_group(self, Sb: int, reqs: list[Request],
+                       free: list[int]) -> float:
+        """Prefill + admit one bucket group; returns the device seconds of
+        the prefill and the admit copy (synchronized)."""
+        P = self.prefill_batch
+        toks = np.zeros((P, Sb), np.int32)
+        pl = np.ones(P, np.int32)
+        slots = np.zeros(len(reqs), np.int64)
+        for j, req in enumerate(reqs):
+            toks[j, :len(req.prompt)] = req.prompt
+            pl[j] = len(req.prompt)
+            slots[j] = free.pop(0)
+        page_src = self._alloc_group_pages(Sb, reqs, slots)
+        dev = self.device
+        t0 = time.perf_counter()
+        pl_dev = torch.tensor(pl, device=dev)
+        logits, new_cache = prefill(self.cfg, self.params,
+                                    torch.tensor(toks, device=dev),
+                                    prompt_len=pl_dev,
+                                    page_size=self.page_size)
+        first = _sample_tokens(logits, self._prefill_gen,
+                               temperature=self.temperature, top_k=self.top_k,
+                               top_p=self.top_p)
+        self._admit(new_cache, first, pl_dev, reqs, slots, page_src)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        self.prefill_groups += 1
+        first_h = _host_fetch(first)           # one sync per admitted group
+        for j, req in enumerate(reqs):
+            req.out.append(int(first_h[j]))
+            if req.max_new <= 1:
+                req.done = True                # budget spent at prefill
+                free.insert(0, int(slots[j]))
+                self._release_slot_pages(int(slots[j]))
+            else:
+                self.slot_req[int(slots[j])] = req
+                self.pos_host[int(slots[j])] = len(req.prompt)
+        return dt
+
+    def _admit(self, new_cache, first, pl_dev, reqs, slots, page_src):
+        """Move a prefilled group into its slots: the page-aligned cache rows
+        are copied into their freshly granted pool pages IN PLACE
+        (``index_copy_``), and the slot state vectors take the group's first
+        token, position and budget. ``page_src`` (num_pages,) is the flat
+        (row · pages_per_row + page) source of each pool page, -1 where the
+        group writes nothing."""
+        dev = self.device
+        n = len(reqs)
+        slot_dev = torch.tensor(slots, device=dev)
+        rem = np.array([r.max_new - 1 for r in reqs], np.int32)
+        act = (rem > 0) & (np.array([len(r.prompt) for r in reqs])
+                           < self.max_len)
+        self.tokens_dev[slot_dev] = first[:n]
+        self.pos_dev[slot_dev] = pl_dev[:n]
+        self.remaining_dev[slot_dev] = torch.tensor(rem, device=dev)
+        self.active_dev[slot_dev] = torch.tensor(act, device=dev)
+        dst = np.nonzero(page_src >= 0)[0]
+        dst_dev = torch.tensor(dst, device=dev)
+        src_dev = torch.tensor(page_src[dst].astype(np.int64), device=dev)
+        ps = self.page_size
+        for pools, rows in zip(self.cache["layers"], new_cache["layers"]):
+            for name in ("k", "v"):
+                src = rows[name].reshape((-1, ps) + tuple(rows[name].shape[2:]))
+                pools[name].index_copy_(0, dst_dev, src.index_select(0, src_dev))
+
+    def _alloc_group_pages(self, Sb: int, reqs: list[Request],
+                           slots: np.ndarray) -> np.ndarray:
+        """Commit each request's worst-case page budget, hand out the pages
+        its prompt needs now, and build the pool-page → prefill-row source
+        map the admit copy consumes."""
+        ps = self.page_size
+        Tb = -(-Sb // ps)                      # pages per bucket row
+        page_src = np.full(self.num_pages, -1, np.int32)
+        for j, req in enumerate(reqs):
+            slot = int(slots[j])
+            self.alloc.commit(slot, self._worst_pages(req))
+            need = -(-len(req.prompt) // ps)
+            self.alloc.grow_to(slot, need)
+            self._table_dirty = True
+            for t in range(need):
+                page_src[self.alloc.table[slot, t]] = j * Tb + t
+        return page_src
+
+    def _guard_limit(self) -> int:
+        """Cycle budget proportional to outstanding work: every request
+        needs ≲ 1 admission cycle plus max_new/quantum decode cycles; 8× is
+        generous slack for admission backpressure."""
+        reqs = self.pending + [r for r in self.slot_req if r is not None]
+        tokens = sum(max(1, r.max_new) for r in reqs)
+        return 64 + 8 * (len(reqs) + -(-tokens // self.decode_quantum))
+
+    def run(self, requests: list[Request]) -> list[Request]:
+        for r in requests:
+            self.submit(r)
+        guard, limit = 0, self._guard_limit()
+        while self.has_work():
+            if guard >= limit:
+                undone = sum(1 for r in requests if not r.done)
+                raise EngineStallError(
+                    f"no forward progress after {guard} cycles "
+                    f"(limit {limit}): {len(self.pending)} pending, "
+                    f"{undone} unfinished requests — engine scheduling bug "
+                    f"or pool/slot starvation")
+            self.step()
+            guard += 1
+        return requests

@@ -1,0 +1,101 @@
+"""Prefill: full forward pass that also builds the cache rows
+(``repro/serve/prefill.py``, full-attention GQA).
+
+Bucketed serving path: prompts are right-padded to a power-of-2 length
+bucket and prefilled batched with an explicit per-row ``prompt_len``.
+Causality keeps real rows from attending pad keys, and the last-token
+logits are gathered at ``prompt_len - 1`` per row. With ``page_size`` the
+cache rows come out page-aligned, ``(B, ceil(S / page_size) · page_size,
+Hkv, dh)``, ready for the engine's admit scatter into its pools.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import attend, gqa_project
+from repro_torch.models.layers import embed, logits_fn, mlp, rmsnorm
+from repro_torch.models.transformer import BlockCfg, block_cfgs
+
+
+def _pad_to(k: torch.Tensor, Sc: int) -> torch.Tensor:
+    S = k.shape[1]
+    if S >= Sc:
+        return k[:, :Sc]
+    pad = k.new_zeros((k.shape[0], Sc - S) + tuple(k.shape[2:]))
+    return torch.cat([k, pad], dim=1)
+
+
+def bucket_len(n: int, *, min_bucket: int = 16,
+               max_bucket: int | None = None) -> int:
+    """Smallest power-of-2 length bucket holding an n-token prompt.
+
+    Bounded below by `min_bucket` and above by `max_bucket` (the engine's
+    max_len); n must fit the cap.
+    """
+    b = max(min_bucket, 1 << (max(int(n), 1) - 1).bit_length())
+    if max_bucket is not None:
+        b = min(b, max_bucket)
+    if b < n:   # typed, not assert: Engine.submit surfaces this upstream
+        raise ValueError(
+            f"prompt of {n} tokens exceeds the {max_bucket}-token cap")
+    return b
+
+
+def gqa_prefill(cfg: ModelConfig, p, x, *, window: int, positions,
+                seq_len_cache: int):
+    """Attention + cache build. x (B,S,D) → (out, {"k", "v"}) with the cache
+    rows padded to ``seq_len_cache``. Pad rows land at positions ≥
+    prompt_len, which decode never attends before overwriting."""
+    if window:
+        raise NotImplementedError("sliding-window ring caches are not ported")
+    B, S = x.shape[:2]
+    q, k, v = gqa_project(cfg, p, x, positions)
+    out = attend(q, k, v, scale=cfg.head_dim ** -0.5, causal=True,
+                 window=window, softcap=cfg.attn_softcap)
+    o = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \
+        p["wo"].reshape(-1, cfg.d_model)
+    return o, {"k": _pad_to(k, seq_len_cache), "v": _pad_to(v, seq_len_cache)}
+
+
+def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
+                  seq_len: int, max_len: int | None = None,
+                  page_size: int | None = None):
+    x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    if page_size:
+        # paged engine: rows sized by the bucket, rounded up to whole pages
+        Sc = -(-seq_len // page_size) * page_size
+    else:
+        Sc = max_len or seq_len
+    y, cache = gqa_prefill(cfg, p["attn"], x, window=bc.window,
+                           positions=positions, seq_len_cache=Sc)
+    h = h + y
+    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    return h + mlp(cfg, p["mlp"], x), cache
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
+            max_len: int | None = None, prompt_len: torch.Tensor | None = None,
+            page_size: int | None = None):
+    """tokens (B,S) → (last-token logits (B,V) f32, {"layers": [{"k","v"}]}).
+
+    ``prompt_len`` (B,) marks right-padded rows: logits are gathered at
+    prompt_len-1 per row. ``page_size`` sizes the cache rows by the bucket
+    (page-aligned) instead of ``max_len``.
+    """
+    S = tokens.shape[1]
+    h = embed(cfg, params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device)
+    caches = []
+    for bc, p in zip(block_cfgs(cfg), params["layers"]):
+        h, c = block_prefill(cfg, bc, p, h, positions, S, max_len,
+                             page_size=page_size)
+        caches.append(c)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    if prompt_len is None:
+        last = h[:, -1, :]
+    else:
+        idx = torch.clamp(prompt_len.long() - 1, 0, S - 1)
+        last = h[torch.arange(h.shape[0], device=h.device), idx]
+    logits = logits_fn(cfg, params["embed"], params["unembed"], last)
+    return logits, {"layers": caches}
