@@ -65,7 +65,7 @@ def build(names=NAMES) -> float:
             so.with_suffix(".log").write_text(log)
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-            os.replace(tmp, so)        # atomic: concurrent builders agree
+            os.replace(tmp, so)        # atomic: concurrent builds agree
     finally:
         for _, _, _, proc in procs:
             if proc.poll() is None:

@@ -21,7 +21,7 @@ BF16_TOL = 3e-2          # as tests/test_kernels.py
 
 def _gqa_case(page_size, seed=0, hkv=2, grp=3, dh=16, B=3, T=4):
     """Random pools + disjoint-page table + multi-page positions (the
-    tests/test_paged_kernel.py case builder, as numpy arrays)."""
+    tests/test_paged_kernel.py cases, as numpy arrays)."""
     rng = np.random.default_rng(seed)
     N = 1 + B * T
     q = rng.normal(size=(B, hkv, grp, dh)).astype(np.float32)
