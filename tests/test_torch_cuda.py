@@ -68,6 +68,22 @@ def test_paged_kernel_matches_plain(dev, dtype, page_size, softcap, grp, dh):
             torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("shard", [0, 1])
+def test_paged_kernel_shard_local_pool(dev, shard):
+    """Pools holding one shard's half of every page (ps = page_size / 2,
+    base = shard · ps): the kernel's keys skip the other shard's offsets."""
+    q, pk, pv, pt, pos = _paged_case(dev, torch.float32, 16, 4, 128)
+    half = slice(shard * 8, shard * 8 + 8)
+    pk, pv = pk[:, half].contiguous(), pv[:, half].contiguous()
+    got = paged_ops.paged_attend_gqa(q, pk, pv, pt, pos, shard * 8,
+                                     page_size=16, scale=0.25)
+    want = paged_ref.paged_flash_decode_gqa_ref(q, pk, pv, pt, pos,
+                                                shard * 8, page_size=16,
+                                                scale=0.25)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
 def test_paged_kernel_empty_row(dev):
     """A slot whose pos lies before the shard base has nothing live."""
     q, pk, pv, pt, pos = _paged_case(dev, torch.float32, 8, 4, 128)

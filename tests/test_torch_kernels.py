@@ -53,6 +53,26 @@ def test_paged_plain_matches_jax(page_size, softcap, base_frac):
                                    atol=F32_TOL)
 
 
+@pytest.mark.parametrize("shard", [0, 1])
+def test_paged_plain_shard_local_pool(shard):
+    """A pool holding one model shard's half of every page: in-page dim
+    ps_loc = page_size / 2, offset 0 at global position base = shard·ps_loc
+    (the JAX kernel's sharded contract)."""
+    q, pk, pv, pt, pos = _gqa_case(16)
+    ps_loc = 8
+    pk, pv = pk[:, shard * ps_loc:(shard + 1) * ps_loc], \
+        pv[:, shard * ps_loc:(shard + 1) * ps_loc]
+    case = (q, np.ascontiguousarray(pk), np.ascontiguousarray(pv), pt, pos)
+    kw = dict(page_size=16, scale=0.25, softcap=0.0)
+    got = paged_ops.paged_attend_gqa(*map(torch.from_numpy, case),
+                                     shard * ps_loc, **kw)
+    want = paged_flash_decode_gqa(*map(jnp.asarray, case), shard * ps_loc,
+                                  interpret=True, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+
 def test_paged_plain_leaves_counter():
     """The plain version is no kernel launch."""
     n0 = paged_ops.launches
