@@ -4,18 +4,24 @@
     python3 chip_smoke.py
 
 1. Requires a CUDA device; prints the card's name and power limit.
-2. Builds the hand-written kernels from this checkout (nvcc, sm_90a).
-3. Holds each kernel against its plain PyTorch version at the main path's
-   shapes in bf16, and times kernel, plain version and (flash) PyTorch's
-   scaled_dot_product_attention with CUDA events.
+2. Builds the hand-written kernels from this checkout (nvcc, sm_90a, one
+   process per source, all started together).
+3. Holds each kernel against its plain PyTorch version at the main paths'
+   shapes (paged GQA and MLA decode, flash prefill at GQA and MLA head
+   dims, the grouped expert GEMM in bf16 and f32), and times kernel, plain
+   version and the PyTorch call that computes the same function, where
+   there is one, with CUDA events.
 4. Serves full-width mistral-nemo-12b (seeded random weights made on the
    card) through the paged engine, twice, and checks that every request
-   finishes with in-vocabulary tokens, the page pool is whole, both kernels
-   were launched, and the two runs give the same streams.
-5. Profiles one decode quantum (device busy share, kernels by time).
-6. Checks prefill → decode against a one-token-longer prefill at full width
-   (f32, depth cut to 2 layers; the bf16 40-layer error is reported).
-7. Prints one JSON line {"kernels": [...]}, then as the last line
+   finishes with in-vocabulary tokens, the page pool is whole, its kernels
+   were launched, and the two runs give the same streams; profiles one
+   decode quantum; checks prefill → decode against a one-token-longer
+   prefill at full width (f32, depth cut to 2 layers).
+5. The same for deepseek-v2-236b (MLA + MoE) at full width with depth cut
+   to 6 layers (the dense first layer and 5 MoE layers): serve twice,
+   profile one decode quantum, and the f32 prefill → decode check with
+   depth cut to 2 layers.
+6. Prints one JSON line {"kernels": [...]}, then as the last line
    {"ok": true, "device": {...}}. Any failed check exits non-zero without it.
 """
 from __future__ import annotations
@@ -36,7 +42,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 BF16_TOL = 3e-2          # as tests/test_kernels.py for bf16
+F32_REL_TOL = 1e-4       # grouped GEMM in f32, as tests/test_kernels.py
 FAILURES: list[str] = []
+# MoE capacity couples the rows of a prefill group, so two serve runs give
+# the same streams only if they form the same groups: the engines of this
+# script admit with one fixed HBB speed ratio instead of the measured one
+PINNED_F = 0.05
 
 
 def check(ok: bool, what: str) -> None:
@@ -124,36 +135,45 @@ def paged_phase(dev) -> dict:
 
 # ------------------------------------------------------------ flash prefill
 def flash_phase(dev) -> dict:
+    """GQA prefill shapes of mistral-nemo-12b (B=8, H=32, Hkv=8, dh=128) and
+    the MLA prefill shape of deepseek-v2-236b (H=128, G=1, q/k dim 192 =
+    nope 128 + rope 64, v dim 128, v a strided slice as prefill passes
+    it)."""
     from repro_torch.kernels.flash_attention import ops, ref
-    B, H, Hk, dh = 8, 32, 8, 128
     dt = torch.bfloat16
-    scale = dh ** -0.5
-    err, main = 0.0, None
-    for T, causal, window, softcap in ((1024, True, 0, 0.0),
-                                       (2048, True, 0, 0.0),
-                                       (1024, True, 256, 30.0),
-                                       (1000, True, 0, 0.0)):
-        g = torch.Generator(device=dev).manual_seed(T + window)
-        # the prefill's layout: (B, T, heads, dh) memory, head-major views
+    err, main, mla = 0.0, None, None
+    for B, H, Hk, dh, dv, T, causal, window, softcap in (
+            (8, 32, 8, 128, 128, 1024, True, 0, 0.0),
+            (8, 32, 8, 128, 128, 2048, True, 0, 0.0),
+            (8, 32, 8, 128, 128, 1024, True, 256, 30.0),
+            (8, 32, 8, 128, 128, 1000, True, 0, 0.0),
+            (8, 128, 128, 192, 128, 1024, True, 0, 0.0)):
+        scale = dh ** -0.5
+        g = torch.Generator(device=dev).manual_seed(T + window + dh)
+        # the prefill's layout: (B, T, heads, d) memory, head-major views
         q = torch.randn((B, T, H, dh), generator=g, device=dev).to(dt)
         k = torch.randn((B, T, Hk, dh), generator=g, device=dev).to(dt)
-        v = torch.randn((B, T, Hk, dh), generator=g, device=dev).to(dt)
+        if dv == dh:
+            v = torch.randn((B, T, Hk, dv), generator=g, device=dev).to(dt)
+        else:   # MLA: v is the tail of the up-projected (nope + v) rows
+            v = torch.randn((B, T, Hk, 128 + dv), generator=g,
+                            device=dev).to(dt)[..., 128:]
         qv, kv, vv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
         kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
         out = ops.attend(qv, kv, vv, **kw)
         want = ref.flash_attention_ref(qv, kv, vv, **kw)
         e = float((out.float() - want.float()).abs().max())
         err = max(err, e)
-        check(e <= BF16_TOL, f"flash T={T} causal={causal} window={window} "
-              f"softcap={softcap}: max |out - ref| {e:.3g} "
-              f"(tol {BF16_TOL})")
+        check(e <= BF16_TOL, f"flash H={H} dh={dh} dv={dv} T={T} "
+              f"causal={causal} window={window} softcap={softcap}: max "
+              f"|out - ref| {e:.3g} (tol {BF16_TOL})")
         del want
         rows = np.arange(T)
         lo = np.maximum(0, rows - window + 1) if window else np.zeros(T)
         hi = rows if causal else np.full(T, T - 1)
         pairs = int((hi - lo + 1).sum())
-        n_ops = 4 * dh * pairs * B * H
-        n_bytes = 2 * B * T * (2 * H + 2 * Hk) * dh
+        n_ops = 2 * (dh + dv) * pairs * B * H
+        n_bytes = 2 * B * T * (H * dh + Hk * (dh + dv) + H * dv)
         b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
         ms = time_ms(lambda: ops.attend(qv, kv, vv, **kw), 10)
         plain = time_ms(lambda: ref.flash_attention_ref(qv, kv, vv, **kw), 2,
@@ -162,14 +182,21 @@ def flash_phase(dev) -> dict:
         if not window and not softcap:
             qc, kc, vc = qv.contiguous(), kv.contiguous(), vv.contiguous()
             lib = time_ms(lambda: F.scaled_dot_product_attention(
-                qc, kc, vc, is_causal=causal, scale=scale, enable_gqa=True),
-                10)
-        print(f"flash B={B} H={H} Hkv={Hk} T={T} window={window} "
-              f"softcap={softcap}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-              f"sdpa {lib if lib is None else round(lib, 4)} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}), {n_ops / ms / 1e9:.2f} TFLOP/s")
+                qc, kc, vc, is_causal=causal, scale=scale,
+                enable_gqa=Hk != H), 10)
+            del qc, kc, vc
+        print(f"flash B={B} H={H} Hkv={Hk} dh={dh} dv={dv} T={T} "
+              f"window={window} softcap={softcap}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, sdpa {lib if lib is None else round(lib, 4)} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{n_ops / ms / 1e9:.2f} TFLOP/s")
         if main is None:
             main = (ms, plain, b_ms, b_by, lib)
+        if dh != dv:
+            mla = {"shape": f"B={B} H={H} dqk={dh} dv={dv} T={T} causal",
+                   "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": lib}
+        del q, k, v, qv, kv, vv, out
         torch.cuda.empty_cache()
     ms, plain, b_ms, b_by, lib = main
     return {"name": "flash_attention_fwd", "route": "cuda",
@@ -178,18 +205,220 @@ def flash_phase(dev) -> dict:
                         "flash_attention.py:92",
             "max_abs_err": err, "tol": BF16_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "mla": mla,
             "check": "out against flash_attention_ref, bf16, B=8 H=32 Hkv=8 "
                      "dh=128: T=1024/2048 causal, window 256 + softcap 30, "
-                     "ragged T=1000; times at T=1024 causal"}
+                     "ragged T=1000; B=8 H=128 dqk=192 dv=128 T=1024 causal; "
+                     "times at B=8 H=32 T=1024 causal (mla: the MLA shape)"}
+
+
+# ------------------------------------------------------- paged MLA decode
+def mla_phase(dev) -> dict:
+    """deepseek-v2's absorbed decode: B=8, H=128, R=576, kv_lora 512,
+    page 16, positions up to 4095 with 0, ps - 1 and ps, base 0 and 8."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    B, H, lora, rope, ps, max_len = 8, 128, 512, 64, 16, 4096
+    R = lora + rope
+    T = max_len // ps
+    N = 1 + B * T
+    rng = np.random.default_rng(0)
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, H, R), generator=g, device=dev).to(dt)
+    pool = torch.randn((N, ps, R), generator=g, device=dev).to(dt)
+    table = torch.tensor(1 + rng.permutation(N - 1).reshape(B, T),
+                         dtype=torch.int32, device=dev)
+    pos_h = np.concatenate([[max_len - 1, 0, ps - 1, ps],
+                            rng.integers(1, max_len, B - 4)])
+    pos = torch.tensor(pos_h, dtype=torch.int32, device=dev)
+    scale = (128 + rope) ** -0.5
+    kw = dict(page_size=ps, kv_lora=lora, scale=scale)
+    err = 0.0
+    for base in (0, ps // 2):
+        o, m, l = ops.paged_attend_mla(q, pool, table, pos, base, **kw)
+        o_r, m_r, l_r = ref.paged_flash_decode_mla_ref(q, pool, table, pos,
+                                                       base, **kw)
+        live = l_r > 0
+        ok_live = bool(torch.equal(live, l > 0))
+        e = float((o[live] / l[live][:, None]
+                   - o_r[live] / l_r[live][:, None]).abs().max())
+        e_m = float((m - m_r).abs().max())
+        e_l = float(((l - l_r).abs()[live] / l_r[live]).max())
+        err = max(err, e)
+        check(ok_live and e <= 1e-3 and e_m <= 1e-3 and e_l <= 1e-3,
+              f"paged MLA decode base={base}: |o/l - ref| {e:.3g}, |m - ref| "
+              f"{e_m:.3g}, rel |l - ref| {e_l:.3g} (tol 1e-3)")
+    keys = int((pos_h + 1).sum())
+    n_bytes = (q.numel() * 2 + keys * R * 2
+               + 4 * int(sum(-(-(p + 1) // ps) for p in pos_h)) + 4 * B
+               + B * H * (lora + 2) * 4)
+    n_ops = 2 * keys * H * (R + lora)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
+    ms = time_ms(lambda: ops.paged_attend_mla(q, pool, table, pos, 0, **kw),
+                 50, 5)
+    plain = time_ms(lambda: ref.paged_flash_decode_mla_ref(
+        q, pool, table, pos, 0, **kw), 10)
+    print(f"paged MLA decode B={B} H={H} R={R} kv_lora={lora} ps={ps} "
+          f"pos={pos_h.tolist()}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}; on f32 CUDA cores "
+          f"{1e3 * n_ops / PEAK_OPS_PER_S[torch.float32]:.4f} ms), "
+          f"{n_ops / ms / 1e9:.2f} TFLOP/s")
+    return {"name": "paged_attention_mla", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention/"
+                        "paged_attention.py:213",
+            "max_abs_err": err, "tol": 1e-3, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "check": "o/l, m, l against paged_flash_decode_mla_ref, bf16 "
+                     "pool, B=8 H=128 R=576 kv_lora=512 page 16, mixed pos "
+                     "up to 4095, base 0 and 8"}
+
+
+# ------------------------------------------------------------ grouped GEMM
+def gg_phase(dev) -> dict:
+    """deepseek-v2's expert products: prefill up/gate (160, 384, 5120) x
+    (160, 5120, 1536) and down (160, 384, 1536) x (160, 1536, 5120) at the
+    capacity of 8 rows x 1024 tokens; decode (M = 8, a broadcast with
+    stride 0); a ragged M. bf16 within 3e-2 and f32 within 1e-4 of the
+    largest value, against the plain version."""
+    from repro_torch.kernels.grouped_gemm import ops, ref
+    E, D, Fe = 160, 5120, 1536
+    err, main = 0.0, None
+    for name, M, K, N, bcast in (("prefill up", 384, D, Fe, False),
+                                 ("prefill down", 384, Fe, D, False),
+                                 ("decode up", 8, D, Fe, True),
+                                 ("decode down", 8, Fe, D, False),
+                                 ("ragged", 100, D, Fe, False)):
+        g = torch.Generator(device=dev).manual_seed(M + K)
+        if bcast:
+            x = torch.randn((M, K), generator=g, device=dev)
+            a32 = x.unsqueeze(0).expand(E, M, K)
+        else:
+            a32 = torch.randn((E, M, K), generator=g, device=dev)
+        w32 = torch.randn((E, K, N), generator=g, device=dev) * K ** -0.5
+        res = {}
+        for dt, tol in ((torch.float32, F32_REL_TOL), (torch.bfloat16,
+                                                       BF16_TOL)):
+            if dt == torch.float32 and name.startswith("decode"):
+                continue            # f32 at the prefill shapes and ragged
+            a, w = a32.to(dt), w32.to(dt)
+            if bcast:
+                a = x.to(dt).unsqueeze(0).expand(E, M, K)
+            out = ops.grouped_gemm(a, w)
+            want = ref.grouped_gemm_ref(a, w)
+            e = float((out.float() - want.float()).abs().max()
+                      / want.float().abs().max())
+            check(e <= tol, f"grouped GEMM {name} ({E}, {M}, {K}) x ({E}, "
+                  f"{K}, {N}) {'stride-0 a ' if bcast else ''}{dt}: "
+                  f"relative max error {e:.3g} (tol {tol})")
+            if dt == torch.bfloat16:
+                err = max(err, e)
+                res = dict(a=a, w=w)
+            del out, want
+        a, w = res["a"], res["w"]
+        a_bytes = (M * K if bcast else E * M * K) * 2
+        n_bytes = a_bytes + E * K * N * 2 + E * M * N * 2
+        n_ops = 2 * E * M * K * N
+        b_ms, b_by = bound_ms(n_bytes, n_ops, torch.bfloat16)
+        ms = time_ms(lambda: ops.grouped_gemm(a, w), 10)
+        plain = time_ms(lambda: ref.grouped_gemm_ref(a, w), 3, 1)
+        lib = time_ms(lambda: torch.bmm(a, w), 10)
+        print(f"grouped GEMM {name} E={E} M={M} K={K} N={N} bf16: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, torch.bmm {lib:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), {n_ops / ms / 1e9:.2f} "
+              f"TFLOP/s, {n_bytes / ms / 1e6:.1f} GB/s")
+        if main is None:
+            main = (ms, plain, b_ms, b_by, lib)
+        del a32, w32, a, w, res
+        torch.cuda.empty_cache()
+    ms, plain, b_ms, b_by, lib = main
+    return {"name": "grouped_gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+            "replaces": "src/repro/kernels/grouped_gemm/grouped_gemm.py:34",
+            "max_abs_err": err, "tol": BF16_TOL, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "check": "relative max error against grouped_gemm_ref, bf16 "
+                     "(tol 3e-2) and f32 (tol 1e-4): (160,384,5120)x"
+                     "(160,5120,1536), (160,384,1536)x(160,1536,5120), "
+                     "decode M=8 with stride-0 a, ragged M=100; times "
+                     "(library: torch.bmm) at the first shape"}
 
 
 # ------------------------------------------------------- full-width serving
+def _counters() -> dict:
+    """Kernel name → (wrapper module, name of its launch count)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    return {"paged_attention_gqa": (paged_ops, "launches"),
+            "flash_attention_fwd": (flash_ops, "launches"),
+            "paged_attention_mla": (paged_ops, "mla_launches"),
+            "grouped_gemm": (gg_ops, "launches")}
+
+
+def serve_twice(eng, cfg, lens, prompts, max_new: int, path: list[str],
+                entries: list[dict]) -> None:
+    """Serve one workload twice through ``eng``. Checks: every request
+    finishes with in-vocabulary tokens, the pool is whole after each run,
+    every kernel of ``path`` was launched in the first run (the counts are
+    set to 0 just before it and read just after), and the second run gives
+    the same streams. Adds the first run's counts to ``entries``."""
+    from repro_torch.serve.engine import Request
+    counters = _counters()
+
+    def serve():
+        reqs = [Request(rid=i, prompt=p, max_new=max_new)
+                for i, p in enumerate(prompts)]
+        torch.cuda.reset_peak_memory_stats()
+        pre0 = eng.tracker.stats["prefill"].busy_time
+        dec0 = eng.tracker.stats["decode"].busy_time
+        q0, g0 = eng.quanta, eng.prefill_groups
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t = time.perf_counter()
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {n: getattr(mod, attr)
+                    for n, (mod, attr) in counters.items()}
+        pre = eng.tracker.stats["prefill"].busy_time - pre0
+        dec = eng.tracker.stats["decode"].busy_time - dec0
+        emitted = sum(len(r.out) - 1 for r in reqs)  # first token: prefill
+        print(f"serve {cfg.name}: {len(reqs)} requests, prompt lengths "
+              f"{lens.tolist()}, max_new {max_new}: wall {wall:.3f} s, "
+              f"prefill {pre:.3f} s over {eng.prefill_groups - g0} groups "
+              f"({int(lens.sum()) / pre:.1f} prompt tok/s), decode "
+              f"{dec:.3f} s over {eng.quanta - q0} quanta "
+              f"({emitted / dec:.1f} tok/s), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches {launches}")
+        eng.alloc.check()
+        check(len(eng.alloc.free) == eng.alloc.usable_pages,
+              f"{cfg.name}: page pool whole and every page free after the "
+              "run")
+        return reqs, launches
+
+    reqs, launches = serve()
+    check(all(r.done and len(r.out) == max_new for r in reqs),
+          f"{cfg.name}: every request finished with max_new tokens")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          f"{cfg.name}: every token is in the vocabulary")
+    for e in entries:
+        n = launches[e["name"]]
+        e.setdefault("launches_by_path", {})[cfg.name] = n
+        e["launches"] = e.get("launches", 0) + n
+        if e["name"] in path:
+            check(n > 0, f"{e['name']} launched on the {cfg.name} path "
+                  f"({n} times)")
+    again, _ = serve()
+    check([r.out for r in again] == [r.out for r in reqs],
+          f"{cfg.name}: a second run of the workload gives the same streams")
+
+
 def serve_phase(dev, entries) -> None:
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.params import init_params, n_params
-    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.serve.engine import Engine
 
     cfg = get_config("mistral-nemo-12b")
     t0 = time.perf_counter()
@@ -202,51 +431,8 @@ def serve_phase(dev, entries) -> None:
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 2001, 12)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
-    max_new = 32
-
-    def serve():
-        reqs = [Request(rid=i, prompt=p, max_new=max_new)
-                for i, p in enumerate(prompts)]
-        flash_ops.launches = 0
-        paged_ops.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        pre0 = eng.tracker.stats["prefill"].busy_time
-        dec0 = eng.tracker.stats["decode"].busy_time
-        q0, g0 = eng.quanta, eng.prefill_groups
-        t = time.perf_counter()
-        eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = {"flash_attention_fwd": flash_ops.launches,
-                    "paged_attention_gqa": paged_ops.launches}
-        pre = eng.tracker.stats["prefill"].busy_time - pre0
-        dec = eng.tracker.stats["decode"].busy_time - dec0
-        emitted = sum(len(r.out) - 1 for r in reqs)  # first token: prefill
-        print(f"serve: {len(reqs)} requests, prompt lengths {lens.tolist()},"
-              f" max_new {max_new}: wall {wall:.3f} s, prefill "
-              f"{pre:.3f} s over {eng.prefill_groups - g0} groups "
-              f"({int(lens.sum()) / pre:.1f} prompt tok/s), decode "
-              f"{dec:.3f} s over {eng.quanta - q0} quanta "
-              f"({emitted / dec:.1f} tok/s), peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"launches {launches}")
-        return reqs, launches
-
-    reqs, launches = serve()
-    check(all(r.done and len(r.out) == max_new for r in reqs),
-          "every request finished with max_new tokens")
-    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
-          "every token is in the vocabulary")
-    eng.alloc.check()
-    check(len(eng.alloc.free) == eng.alloc.usable_pages,
-          "page pool whole and every page free after the run")
-    for e in entries:
-        e["launches"] = launches[e["name"]]
-        check(e["launches"] > 0, f"{e['name']} launched on the main path "
-              f"({e['launches']} times)")
-    again, _ = serve()
-    check([r.out for r in again] == [r.out for r in reqs],
-          "a second run of the workload gives the same streams")
+    serve_twice(eng, cfg, lens, prompts, 32,
+                ["flash_attention_fwd", "paged_attention_gqa"], entries)
     profile_phase(eng, cfg)
     rel = prefill_decode_rel(cfg, params, dev)
     print(f"full width bf16, 40 layers: prefill(S) + paged decode vs "
@@ -260,6 +446,52 @@ def serve_phase(dev, entries) -> None:
     check(rel < 1e-3, f"full width f32, depth cut to 2 layers: prefill(S) + "
           f"paged decode ≡ prefill(S+1), relative max error {rel:.3g} "
           f"(tol 1e-3)")
+    torch.cuda.empty_cache()
+
+
+def deepseek_phase(dev, entries) -> None:
+    """deepseek-v2-236b at its published width (d 5120, 128 heads, MLA
+    kv_lora 512 / q_lora 1536 / rope 64, 160 routed experts top-6 + 2
+    shared, expert hidden 1536, dense first layer 12288, vocab 102400),
+    depth cut to 6 layers (the dense layer and 5 MoE layers, 21.25 B
+    params) so the bf16 weights fit one card."""
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params, n_params
+    from repro_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=6)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}, depth cut to {cfg.n_layers} layers: "
+          f"{n_params(cfg) / 1e9:.3f} B params made on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    eng = Engine(cfg, params, device=dev, max_slots=8, max_len=2048,
+                 page_size=16, decode_quantum=8)
+    eng.tracker.f = lambda: PINNED_F
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 1001, 8)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    serve_twice(eng, cfg, lens, prompts, 16,
+                ["flash_attention_fwd", "paged_attention_mla",
+                 "grouped_gemm"], entries)
+    profile_phase(eng, cfg)
+    del eng, params
+    torch.cuda.empty_cache()
+    m = cfg.moe
+    cf = m.n_experts / m.top_k
+    cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32",
+                                moe=dataclasses.replace(m,
+                                                        capacity_factor=cf))
+    print(f"f32 check: capacity_factor raised from {m.capacity_factor} to "
+          f"{cf:.4g} so that no token is dropped at prefill (Ce >= tokens); "
+          "decode never drops")
+    rel = prefill_decode_rel(cfg32, init_params(cfg32, seed=0, device=dev),
+                             dev)
+    check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 layers "
+          f"(dense + MoE): prefill(S) + paged decode ≡ prefill(S+1), "
+          f"relative max error {rel:.3g} (tol 1e-3)")
+    torch.cuda.empty_cache()
 
 
 def profile_phase(eng, cfg) -> None:
@@ -357,13 +589,17 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-    entries = [paged_phase(dev), flash_phase(dev)]
+    entries = [paged_phase(dev), flash_phase(dev), mla_phase(dev),
+               gg_phase(dev)]
     torch.cuda.empty_cache()
     serve_phase(dev, entries)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "check")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    deepseek_phase(dev, entries)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms", "check")
+    print(json.dumps({"kernels": [
+        {k: e[k] for k in keys + (("mla",) if "mla" in e else ())}
+        for e in entries]}))
     print(smi)
     print(f"total {time.perf_counter() - t0:.1f} s")
     if FAILURES:

@@ -4,4 +4,8 @@ from repro_torch.configs.base import (  # noqa: F401
     smoke_config,
 )
 
-from repro_torch.configs import mistral_nemo_12b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    deepseek_v2_236b,
+    mistral_nemo_12b,
+    phi35_moe_42b,
+)

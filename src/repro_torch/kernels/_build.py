@@ -20,7 +20,7 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-NAMES = ("flash_attention", "paged_attention")
+NAMES = ("flash_attention", "grouped_gemm", "paged_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -16,8 +16,9 @@
 //
 // Two paths, one contract.
 //
-// flash_fwd_mma (bf16, dh == dv in {16, 32, 64, 128}, 16-byte aligned rows;
-// the main path): the tensor cores through mma.sync m16n8k16 (bf16 in, f32
+// flash_fwd_mma (bf16, dh == dv in {16, 32, 64, 128} or MLA's dh = 192 (nope
+// 128 + rope 64) with dv = 128, 16-byte aligned rows; the main path of both
+// served models): the tensor cores through mma.sync m16n8k16 (bf16 in, f32
 // accumulate), as in FlashAttention-2. One block of 4 warps per (64-row
 // query tile, batch * head); each warp owns 16 query rows, keeps its Q
 // fragments, the scores of a 64-key tile, the output accumulator and the
@@ -27,10 +28,11 @@
 // bf16 (the row sums l stay f32). Not yet used: wgmma, TMA, a pipelined
 // ring of K/V tiles, warp specialisation.
 //
-// flash_fwd_kernel (f32, and any other head dim): CUDA cores in f32. One
-// block of 256 threads per (64-row query tile, batch * head) loops over
-// 32-key tiles; each thread owns a 4 x 2 tile of scores and a 4 x 8 slice of
-// the output, with Q, K, V in shared memory (rows padded to dh + 1 floats).
+// flash_fwd_kernel (f32, and any other head dims: dh <= 256, dv <= 128):
+// CUDA cores in f32. One block of 256 threads per (64-row query tile,
+// batch * head) loops over 32-key tiles; each thread owns a 4 x 2 tile of
+// scores and a 4 x 8 slice of the output, with Q, K, V in shared memory
+// (rows padded to dh + 1 floats).
 //
 // Both run the query tiles in reverse so the longest causal rows start
 // first, and visit only the key tiles between the first key the window
@@ -46,7 +48,8 @@ constexpr float NEG = -1e30f;
 constexpr int BQ = 64;
 constexpr int BK = 32;
 constexpr int THREADS = 256;
-constexpr int MAXD = 128;
+constexpr int MAXDQK = 256;   // q/k head dim limit (f32 path: dynamic smem)
+constexpr int MAXDV = 128;    // v head dim limit (acc covers 8 x 16 columns)
 constexpr int SP = BK + 1;   // padded score row
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -235,7 +238,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int DH>
+template <int DH, int DV>
 __global__ void __launch_bounds__(MTHREADS)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
@@ -246,7 +249,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   constexpr int KP = DH + 8;      // padded K row (bf16)
   constexpr int VP = MK + 8;      // padded V^T row (bf16)
   __shared__ __align__(16) __nv_bfloat16 Ks[MK][KP];
-  __shared__ __align__(16) __nv_bfloat16 Vt[DH][VP];
+  __shared__ __align__(16) __nv_bfloat16 Vt[DV][VP];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tg = lane & 3;     // fragment row / column pair
@@ -270,9 +273,9 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
                            : 0u;
     }
   }
-  float oacc[DH / 8][4];
+  float oacc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
     oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
   float mrow[2] = {NEG, NEG}, lrow[2] = {0.f, 0.f};
 
@@ -288,7 +291,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
         val = *reinterpret_cast<const uint4*>(kb + key * ks.t + c);
       *reinterpret_cast<uint4*>(&Ks[r][c]) = val;
     }
-    for (int idx = tid; idx < MK * DH / 8; idx += MTHREADS) {
+    for (int idx = tid; idx < MK * DV / 8; idx += MTHREADS) {
       const int r = idx % MK, c = (idx / MK) * 8, key = k0 + r;
       uint4 val = make_uint4(0u, 0u, 0u, 0u);
       if (key < Tk)
@@ -353,7 +356,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
       lrow[rr] = lrow[rr] * corr + sum;
       mrow[rr] = m_new;
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         oacc[j][2 * rr] *= corr;
         oacc[j][2 * rr + 1] *= corr;
       }
@@ -367,7 +370,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
           pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
           pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const __nv_bfloat16* vr = &Vt[j * 8 + gq][kk * 16 + tg * 2];
         mma_bf16(oacc[j], pa, *reinterpret_cast<const uint32_t*>(vr),
                  *reinterpret_cast<const uint32_t*>(vr + 8));
@@ -381,7 +384,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
     if (row >= Tq) continue;
     const float inv = 1.f / fmaxf(lrow[rr], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(ob + row * os.t + j * 8 + tg * 2) =
           __floats2bfloat162_rn(oacc[j][2 * rr] * inv,
                                 oacc[j][2 * rr + 1] * inv);
@@ -389,13 +392,13 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DH>
+template <int DH, int DV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        Strides qs, Strides ks, Strides vs, Strides os, int B,
                        int H, int Hk, int Tq, int Tk, float scale, int causal,
                        int window, float softcap, cudaStream_t stream) {
   dim3 grid((Tq + MQ - 1) / MQ, B * H);
-  flash_fwd_mma<DH><<<grid, MTHREADS, 0, stream>>>(
+  flash_fwd_mma<DH, DV><<<grid, MTHREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -445,7 +448,7 @@ int flash_attention_fwd(int device, int dtype, const void* q, const void* k,
                         float softcap, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (dh < 1 || dh > MAXD || dv < 1 || dv > MAXD || Hk < 1 || H % Hk ||
+  if (dh < 1 || dh > MAXDQK || dv < 1 || dv > MAXDV || Hk < 1 || H % Hk ||
       Tq < 1 || Tk < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst},
@@ -454,11 +457,15 @@ int flash_attention_fwd(int device, int dtype, const void* q, const void* k,
   if (dtype == 0)
     err = launch<float>(q, k, v, o, qs, ks, vs, os, B, H, Hk, Tq, Tk, dh, dv,
                         scale, causal, window, softcap, st);
-  else if (dtype == 1 && dh == dv && mma_ok(q, qs) && mma_ok(k, ks) &&
-           mma_ok(v, vs) && mma_ok(o, os) &&
-           (dh == 16 || dh == 32 || dh == 64 || dh == 128)) {
-    auto fn = dh == 16 ? launch_mma<16> : dh == 32 ? launch_mma<32>
-            : dh == 64 ? launch_mma<64> : launch_mma<128>;
+  else if (dtype == 1 && mma_ok(q, qs) && mma_ok(k, ks) && mma_ok(v, vs) &&
+           mma_ok(o, os) &&
+           ((dh == dv && (dh == 16 || dh == 32 || dh == 64 || dh == 128)) ||
+            (dh == 192 && dv == 128))) {
+    auto fn = dh == 16    ? launch_mma<16, 16>
+            : dh == 32    ? launch_mma<32, 32>
+            : dh == 64    ? launch_mma<64, 64>
+            : dh == 128   ? launch_mma<128, 128>
+                          : launch_mma<192, 128>;   // MLA: nope + rope, v
     err = fn(q, k, v, o, qs, ks, vs, os, B, H, Hk, Tq, Tk, scale, causal,
              window, softcap, st);
   } else if (dtype == 1)

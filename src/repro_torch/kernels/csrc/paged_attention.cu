@@ -1,4 +1,5 @@
-// Paged flash-decode attention for GQA on Hopper (sm_90a).
+// Paged flash-decode attention on Hopper (sm_90a): GQA (paged_gqa_kernel)
+// and absorbed MLA (paged_mla_kernel, below).
 //
 // Replaces the TPU kernel repro/kernels/paged_attention/paged_attention.py::
 // paged_flash_decode_gqa (_gqa_kernel, _online_update, _store_partials):
@@ -295,6 +296,259 @@ cudaError_t dispatch(int G, const void* q, const void* pk, const void* pv,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------ absorbed MLA
+// Replaces paged_attention.py::paged_flash_decode_mla (_mla_kernel): one
+// absorbed query row q (R = kv_lora + rope dims) per (slot, head) attends to
+// the latent rows its page table points at in one pool (N, ps, R); the row
+// is the key and its first kv_lora dims the value. Same partials as GQA.
+//
+// What bounds it. Each live key costs R dims for the score and kv_lora for
+// the value of every head: 2 * (R + kv_lora) flops per key and head, 2.28
+// GFLOP at B = 8, H = 128, R = 576, 1k context, against 9.4 MB of rows
+// read. So it is bound by its arithmetic unless that runs on the tensor
+// cores (989 TFLOP/s bf16: 2.3 us; f32 CUDA cores, 67 TFLOP/s: 34 us).
+//
+// Design (CUDA cores, f32 arithmetic). A slot's 128 heads do not fit one
+// block (128 x 576 queries), so the grid is (head group of MLA_HB = 8 heads,
+// slot, key split). The slot's live keys, a prefix of page-table order as
+// for GQA, are cut into chunks of at most `chunk` keys, one per grid z (a
+// block whose chunk lies past the slot's last key stores an empty
+// partial); each block walks its chunk in tiles of MLA_KT = 32 rows:
+//   load    the tile's rows once into shared memory (16-byte loads, row
+//           stride R + 1 floats so a warp reading one dim of 32 rows hits
+//           32 banks); every row then serves all 8 heads of the block;
+//   scores  lane j takes key j, warp w a 1/8 slice of the R dims, and each
+//           thread keeps the 8 heads' partial dots (queries transposed in
+//           shared memory, read as two float4 broadcasts); the 8 slices are
+//           summed through shared memory;
+//   softmax warp h keeps head h's running (m, l) over the tile's 32 keys;
+//   values  thread t owns value dims t and t + 256 of all 8 heads and adds
+//           p * row for each key.
+// With more than one chunk, each block stores its (o, m, l) partial and
+// mla_combine merges a row's partials exactly, as the GQA kernel merges
+// its warps. A tensor-core product of Q (heads x R) against the key tile is the later
+// step that moves it toward its bound.
+constexpr int MLA_HB = 8;          // heads per block
+constexpr int MLA_KT = 32;         // keys per tile, one per lane
+constexpr int MLA_WARPS = 8;
+constexpr int MLA_THREADS = MLA_WARPS * 32;
+constexpr int MLA_MAXR = 1024;     // row dims
+constexpr int MLA_VPT = 2;         // value dims per thread
+constexpr int MLA_MAXV = MLA_VPT * MLA_THREADS;
+static_assert(MLA_HB == 8 && MLA_WARPS == MLA_HB,
+              "the score loop unrolls 8 heads; warp h runs head h's softmax");
+
+size_t mla_smem_bytes(int R) {
+  return sizeof(long long) * MLA_KT +
+         sizeof(float) * ((size_t)MLA_KT * (R + 1) + (size_t)R * MLA_HB +
+                          MLA_WARPS * MLA_HB * MLA_KT + MLA_KT * MLA_HB +
+                          MLA_HB);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(MLA_THREADS)
+paged_mla_kernel(const T* __restrict__ q,         // (B, H, R)
+                 const T* __restrict__ pool,      // (N, ps, R)
+                 const int* __restrict__ table,   // (B, width)
+                 const int* __restrict__ pos,     // (B,)
+                 float* __restrict__ o,           // (splits, B, H, kv_lora)
+                 float* __restrict__ m_out,       // (splits, B, H)
+                 float* __restrict__ l_out,       // (splits, B, H)
+                 int H, int R, int kv_lora, int n_pages, int ps, int width,
+                 int page_size, int base, float scale, int chunk) {
+  extern __shared__ __align__(16) unsigned char mla_smem[];
+  long long* roff = reinterpret_cast<long long*>(mla_smem);  // KT row offsets
+  float* Ks = reinterpret_cast<float*>(roff + MLA_KT);       // KT x (R + 1)
+  float* Qt = Ks + MLA_KT * (R + 1);                         // R x HB
+  float* Sp = Qt + R * MLA_HB;                  // WARPS x HB x KT partials
+  float* Pt = Sp + MLA_WARPS * MLA_HB * MLA_KT;              // KT x HB
+  float* corr_s = Pt + MLA_KT * MLA_HB;                      // HB
+  const int RP = R + 1;
+
+  const int b = blockIdx.y, h0 = blockIdx.x * MLA_HB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int i = tid; i < R * MLA_HB; i += MLA_THREADS) {
+    const int r = i / MLA_HB, h = i % MLA_HB;
+    Qt[i] = h0 + h < H
+                ? to_f(q[((size_t)b * H + h0 + h) * R + r]) * scale
+                : 0.f;
+  }
+
+  // live keys: a prefix of the page-table order (see paged_gqa_kernel)
+  const int p = pos[b];
+  int n_keys = 0;
+  if (p >= base) {
+    const int t_last = (p - base) / page_size;
+    const int off_last = (p - base) - t_last * page_size;
+    n_keys = min(t_last * ps + min(ps, off_last + 1), width * ps);
+  }
+  const int k_begin = blockIdx.z * chunk;             // this block's chunk
+  const int k_end = min(n_keys, k_begin + chunk);
+  const size_t row0 = ((size_t)blockIdx.z * gridDim.y + b) * H + h0;
+  const int rc = (R + MLA_WARPS - 1) / MLA_WARPS;     // dims per warp slice
+  const int r_lo = warp * rc, r_hi = min(R, r_lo + rc);
+  const int h_me = warp;                              // softmax: warp = head
+  const bool head_live = h0 + h_me < H;
+
+  float acc[MLA_HB][MLA_VPT];
+#pragma unroll
+  for (int h = 0; h < MLA_HB; ++h)
+#pragma unroll
+    for (int i = 0; i < MLA_VPT; ++i) acc[h][i] = 0.f;
+  float m_run = NEG, l_run = 0.f;
+
+  for (int k0 = k_begin; k0 < k_end; k0 += MLA_KT) {
+    __syncthreads();                    // the previous tile is consumed
+    if (tid < MLA_KT) {
+      const int kk = k0 + tid;
+      long long off = -1;
+      if (kk < k_end) {
+        const int page =
+            min(max(table[(size_t)b * width + kk / ps], 0), n_pages - 1);
+        off = ((long long)page * ps + kk % ps) * R;
+      }
+      roff[tid] = off;
+    }
+    __syncthreads();
+    for (int i = tid; i < MLA_KT * (R / 8); i += MLA_THREADS) {
+      const int j = i / (R / 8), c = (i % (R / 8)) * 8;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (roff[j] >= 0) Raw8<T>::unpack(Raw8<T>::load(pool + roff[j] + c), v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) Ks[j * RP + c + e] = v[e];
+    }
+    __syncthreads();
+
+    float s[MLA_HB];
+#pragma unroll
+    for (int h = 0; h < MLA_HB; ++h) s[h] = 0.f;
+    const float* krow = Ks + lane * RP;
+    for (int r = r_lo; r < r_hi; ++r) {
+      const float k = krow[r];
+      const float4 qa = reinterpret_cast<const float4*>(Qt)[2 * r];
+      const float4 qb = reinterpret_cast<const float4*>(Qt)[2 * r + 1];
+      s[0] += qa.x * k; s[1] += qa.y * k; s[2] += qa.z * k; s[3] += qa.w * k;
+      s[4] += qb.x * k; s[5] += qb.y * k; s[6] += qb.z * k; s[7] += qb.w * k;
+    }
+#pragma unroll
+    for (int h = 0; h < MLA_HB; ++h)
+      Sp[(warp * MLA_HB + h) * MLA_KT + lane] = s[h];
+    __syncthreads();
+
+    {
+      const bool live = head_live && k0 + lane < k_end;
+      float x = 0.f;
+#pragma unroll
+      for (int w = 0; w < MLA_WARPS; ++w)
+        x += Sp[(w * MLA_HB + h_me) * MLA_KT + lane];
+      x = live ? x : NEG;
+      const float m_new = fmaxf(m_run, warp_max(x));
+      const float pr = live ? expf(x - m_new) : 0.f;
+      const float corr = expf(m_run - m_new);   // 0 while m_run == NEG
+      l_run = l_run * corr + warp_sum(pr);
+      m_run = m_new;
+      Pt[lane * MLA_HB + h_me] = pr;
+      if (lane == 0) corr_s[h_me] = corr;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int h = 0; h < MLA_HB; ++h) {
+      const float c = corr_s[h];
+#pragma unroll
+      for (int i = 0; i < MLA_VPT; ++i) acc[h][i] *= c;
+    }
+    const int n = min(MLA_KT, k_end - k0);
+    for (int j = 0; j < n; ++j) {
+      const float4 pa = reinterpret_cast<const float4*>(Pt)[2 * j];
+      const float4 pb = reinterpret_cast<const float4*>(Pt)[2 * j + 1];
+      const float pj[MLA_HB] = {pa.x, pa.y, pa.z, pa.w,
+                                pb.x, pb.y, pb.z, pb.w};
+#pragma unroll
+      for (int i = 0; i < MLA_VPT; ++i) {
+        const int d = tid + i * MLA_THREADS;
+        const float v = d < kv_lora ? Ks[j * RP + d] : 0.f;
+#pragma unroll
+        for (int h = 0; h < MLA_HB; ++h) acc[h][i] += pj[h] * v;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < MLA_HB; ++h) {
+    if (h0 + h >= H) break;
+    const size_t row = row0 + h;
+#pragma unroll
+    for (int i = 0; i < MLA_VPT; ++i) {
+      const int d = tid + i * MLA_THREADS;
+      if (d < kv_lora) o[row * kv_lora + d] = acc[h][i];
+    }
+  }
+  if (head_live && lane == 0) {
+    m_out[row0 + h_me] = m_run;
+    l_out[row0 + h_me] = l_run;
+  }
+}
+
+// Exact merge of the per-chunk partials of one (slot, head) row: rescale
+// each chunk's (o, l) by exp(m_z - max m) and sum (chunks with nothing live
+// hold m = -1e30 and contribute 0).
+__global__ void __launch_bounds__(MLA_THREADS)
+mla_combine(const float* __restrict__ o_part, const float* __restrict__ m_part,
+            const float* __restrict__ l_part, float* __restrict__ o,
+            float* __restrict__ m, float* __restrict__ l, int rows,
+            int kv_lora, int splits) {
+  const int row = blockIdx.x;
+  float mg = NEG;
+  for (int z = 0; z < splits; ++z)
+    mg = fmaxf(mg, m_part[(size_t)z * rows + row]);
+  const float m_safe = mg <= NEG / 2 ? 0.f : mg;
+  for (int d = threadIdx.x; d < kv_lora; d += MLA_THREADS) {
+    float ov = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      const float mz = m_part[(size_t)z * rows + row];
+      ov += o_part[((size_t)z * rows + row) * kv_lora + d] *
+            expf((mz <= NEG / 2 ? NEG : mz) - m_safe);
+    }
+    o[(size_t)row * kv_lora + d] = ov;
+  }
+  if (threadIdx.x == 0) {
+    float lv = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      const float mz = m_part[(size_t)z * rows + row];
+      lv += l_part[(size_t)z * rows + row] *
+            expf((mz <= NEG / 2 ? NEG : mz) - m_safe);
+    }
+    m[row] = mg;
+    l[row] = lv;
+  }
+}
+
+template <typename T>
+cudaError_t launch_mla(const void* q, const void* pool, const int* table,
+                       const int* pos, float* o, float* m, float* l,
+                       float* o_part, float* m_part, float* l_part, int B,
+                       int H, int R, int kv_lora, int n_pages, int ps,
+                       int width, int page_size, int base, float scale,
+                       int splits, int chunk, cudaStream_t stream) {
+  const size_t smem = mla_smem_bytes(R);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_mla_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((H + MLA_HB - 1) / MLA_HB, B, splits);
+  const bool one = splits == 1;         // one chunk: its partial is the result
+  paged_mla_kernel<T><<<grid, MLA_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(pool), table, pos,
+      one ? o : o_part, one ? m : m_part, one ? l : l_part, H, R, kv_lora,
+      n_pages, ps, width, page_size, base, scale, chunk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || one) return err;
+  mla_combine<<<B * H, MLA_THREADS, 0, stream>>>(o_part, m_part, l_part, o, m,
+                                                 l, B * H, kv_lora, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -326,6 +580,48 @@ int paged_attention_gqa(int device, int dtype, const void* q, const void* pk,
     err = dispatch<__nv_bfloat16>(G, q, pk, pv, tb, pp, of, mf, lf, B, hkv,
                                   dh, n_pages, ps, width, page_size, base,
                                   scale, softcap, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (q and the pool). R must be a multiple
+// of 8 and at most 1024, kv_lora at most 512 and R, the pool 16-byte
+// aligned. The keys of a slot are cut into `splits` chunks of `chunk` keys
+// (splits * chunk >= width * ps); with splits > 1, o_part (splits, B, H,
+// kv_lora), m_part and l_part (splits, B, H) are f32 scratch. Returns the
+// CUDA error of the launches (0 = success).
+int paged_attention_mla(int device, int dtype, const void* q,
+                        const void* pool, const void* table, const void* pos,
+                        void* o, void* m, void* l, void* o_part, void* m_part,
+                        void* l_part, int B, int H, int R, int kv_lora,
+                        int n_pages, int ps, int width, int page_size,
+                        int base, float scale, int splits, int chunk,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (R < 8 || R % 8 || R > MLA_MAXR || kv_lora < 1 || kv_lora > R ||
+      kv_lora > MLA_MAXV || B < 1 || H < 1 || width < 1 || ps < 1 ||
+      ps > page_size || B > 65535 || (uintptr_t)pool % 16 || splits < 1 ||
+      splits > 65535 || chunk < 1 || (long long)splits * chunk < width * ps)
+    return (int)cudaErrorInvalidValue;
+  float* op = static_cast<float*>(o_part);
+  float* mp = static_cast<float*>(m_part);
+  float* lp = static_cast<float*>(l_part);
+  const int* tb = static_cast<const int*>(table);
+  const int* pp = static_cast<const int*>(pos);
+  float* of = static_cast<float*>(o);
+  float* mf = static_cast<float*>(m);
+  float* lf = static_cast<float*>(l);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    err = launch_mla<float>(q, pool, tb, pp, of, mf, lf, op, mp, lp, B, H, R,
+                            kv_lora, n_pages, ps, width, page_size, base,
+                            scale, splits, chunk, st);
+  else if (dtype == 1)
+    err = launch_mla<__nv_bfloat16>(q, pool, tb, pp, of, mf, lf, op, mp, lp,
+                                    B, H, R, kv_lora, n_pages, ps, width,
+                                    page_size, base, scale, splits, chunk, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

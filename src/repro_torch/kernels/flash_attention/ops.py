@@ -17,7 +17,8 @@ from repro_torch.kernels.flash_attention import ref
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_DIM = 128
+_MAX_DQK = 256           # q/k head dim (MLA prefill: nope 128 + rope 64)
+_MAX_DV = 128
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
 _ARGTYPES = [_I, _I, _P, _P, _P, _P] + [_LL] * 12 + [_I] * 7 + \
@@ -45,8 +46,9 @@ def _check(q, k, v) -> None:
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError(f"q, k, v must share one dtype of {list(_DTYPES)}; "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if dh > _MAX_DIM or v.shape[3] > _MAX_DIM:
-        raise ValueError(f"head dims above {_MAX_DIM} are not supported")
+    if dh > _MAX_DQK or v.shape[3] > _MAX_DV:
+        raise ValueError(f"q/k head dims above {_MAX_DQK} and v head dims "
+                         f"above {_MAX_DV} are not supported")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the last dim of q, k and v must be contiguous")
     if not (q.device == k.device == v.device):

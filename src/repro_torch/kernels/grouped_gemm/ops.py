@@ -1,0 +1,77 @@
+"""Public grouped-GEMM op, the MoE expert product.
+
+On CUDA tensors it launches the hand-written kernel
+(``kernels/csrc/grouped_gemm.cu``) or raises; the plain version in
+``ref.py`` runs only for tensors on the CPU. ``a`` may be a strided view
+(stride 0 over experts: decode passes its tokens broadcast to every expert
+without a copy); ``w`` is contiguous. ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.grouped_gemm import ref
+
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_ARGTYPES = [_I, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("grouped_gemm")
+    lib.grouped_gemm.argtypes = _ARGTYPES
+    lib.grouped_gemm.restype = ctypes.c_int
+    return lib
+
+
+def _check(a, w) -> None:
+    if a.dim() != 3 or w.dim() != 3:
+        raise ValueError("grouped GEMM wants a (E, M, K) and w (E, K, N)")
+    if a.shape[0] != w.shape[0] or a.shape[2] != w.shape[1]:
+        raise ValueError(f"shape mismatch: a {tuple(a.shape)}, w "
+                         f"{tuple(w.shape)}")
+    if a.dtype != w.dtype or a.dtype not in _DTYPES:
+        raise ValueError(f"a and w must share one dtype of {list(_DTYPES)}; "
+                         f"got {a.dtype}, {w.dtype}")
+    if a.device != w.device:
+        raise ValueError("a and w must lie on one device")
+    if not w.is_contiguous() or a.stride(2) != 1:
+        raise ValueError("w must be contiguous and a's last dim contiguous")
+    if a.dtype == torch.bfloat16:
+        # 16-byte vector loads along K of a and along N of w (the stride of
+        # a dim of size 1 is never used)
+        E, M, K = a.shape
+        N = w.shape[2]
+        if K % 8 or N % 8 or (E > 1 and a.stride(0) % 8) or \
+                (M > 1 and a.stride(1) % 8) or a.data_ptr() % 16 or \
+                w.data_ptr() % 16:
+            raise ValueError("bf16 grouped GEMM wants K and N multiples of 8 "
+                             "and 16-byte aligned rows")
+
+
+def grouped_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a (E, M, K) @ w (E, K, N) → (E, M, N) in a's dtype, f32 sums."""
+    global launches
+    if a.device.type == "cpu":
+        return ref.grouped_gemm_ref(a, w)
+    if a.device.type != "cuda":
+        raise ValueError(f"grouped GEMM runs on cuda or cpu, not {a.device}")
+    _check(a, w)
+    E, M, K = a.shape
+    N = w.shape[2]
+    out = torch.empty((E, M, N), dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    lib = _lib()
+    err = lib.grouped_gemm(
+        a.device.index or 0, _DTYPES[a.dtype], _build.ptr(a), _build.ptr(w),
+        _build.ptr(out), a.stride(0), a.stride(1), E, M, K, N,
+        _build.stream(a.device))
+    _build.check(lib, err, "grouped_gemm")
+    launches += 1
+    return out

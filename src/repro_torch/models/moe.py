@@ -1,0 +1,113 @@
+"""Mixture-of-Experts FFN on one device (``repro/models/moe.py``).
+
+The JAX block runs inside a ``shard_map`` over the ``model`` axis, each
+shard computing its local experts; on one device that axis has size 1, so
+``E_loc = E`` and ``e0 = 0`` and no collective remains. The routing keeps
+the JAX semantics exactly: router product with f32 result, softmax, top-k,
+renormalized gates, a stable sort by expert, a fixed capacity ``Ce`` per
+expert over EVERY row of the (padded) batch, Switch-style dropping past it.
+
+The expert products (up, gate, down) go through the hand-written grouped
+GEMM (``kernels/grouped_gemm``), one launch per product; the router and the
+shared experts are plain ``torch.matmul``, as XLA computes them in JAX.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+from repro_torch.models.layers import gate_fn, matmul_f32
+
+F32 = torch.float32
+
+
+def _route(cfg: ModelConfig, p, xf: torch.Tensor):
+    """xf (T, D) → (probs (T,E) f32, gates (T,k) f32, eidx (T,k) int64)."""
+    logits = matmul_f32(xf, p["router"].to(xf.dtype))
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    return probs, gates / gates.sum(-1, keepdim=True), eidx
+
+
+def _experts(cfg: ModelConfig, p, buf: torch.Tensor) -> torch.Tensor:
+    """buf (E, M, D) → (E, M, D): the gated expert FFN, three grouped GEMMs."""
+    h = grouped_gemm(buf, p["w_up"])
+    h = gate_fn(cfg.act)(grouped_gemm(buf, p["w_gate"])) * h
+    return grouped_gemm(h, p["w_down"])
+
+
+def _shared(cfg: ModelConfig, p, xf: torch.Tensor) -> torch.Tensor:
+    hs = xf @ p["ws_up"]
+    hs = gate_fn(cfg.act)(xf @ p["ws_gate"]) * hs
+    return hs @ p["ws_down"]
+
+
+def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Per-expert capacity ``Ce`` for a batch of ``n_tokens`` rows."""
+    m = cfg.moe
+    return max(1, math.ceil(n_tokens * m.top_k * m.capacity_factor /
+                            m.n_experts))
+
+
+def moe_block(cfg: ModelConfig, p, x: torch.Tensor):
+    """x (B, S, D) → (out (B, S, D), router stats (2, E) f32).
+
+    Stats rows: the mean softmax probability per expert and the fraction of
+    the ``T·k`` routing slots per expert (``moe.py::aux_loss_from_stats``).
+    Capacity counts every row of ``x``, pad rows and pad tokens included, as
+    the JAX engine's padded prefill does."""
+    m = cfg.moe
+    E, k = m.n_experts, m.top_k
+    b, S, D = x.shape
+    T = b * S
+    xf = x.reshape(T, D)
+    probs, gates, eidx = _route(cfg, p, xf)
+    counts = torch.bincount(eidx.reshape(-1), minlength=E)
+    stats = torch.stack([probs.mean(0), counts.to(F32) / (T * k)])
+
+    # dispatch: stable sort by expert, position within the expert, capacity
+    flat_e = eidx.reshape(-1)                                   # (T·k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    offsets = torch.cumsum(counts, 0) - counts                  # (E,)
+    slot_pos = torch.arange(T * k, device=x.device) - offsets[sorted_e]
+    Ce = capacity(cfg, T)
+    keep = slot_pos < Ce
+    tok = order // k
+    rows = torch.where(keep, sorted_e * Ce + slot_pos,
+                       torch.full_like(sorted_e, E * Ce))       # drop row
+    buf = x.new_zeros((E * Ce + 1, D))
+    buf[rows] = xf[tok]
+    eo = _experts(cfg, p, buf[:E * Ce].view(E, Ce, D)).reshape(E * Ce, D)
+    eo = torch.cat([eo, eo.new_zeros((1, D))])
+
+    # combine: each routing slot's gated output goes back to its (token, j)
+    # place — a permutation, so no atomics — then the k slots are summed
+    slot = eo[rows] * (gates.reshape(-1)[order] * keep).unsqueeze(1).to(
+        eo.dtype)
+    per_slot = torch.empty_like(slot)
+    per_slot[order] = slot
+    out = per_slot.view(T, k, D).sum(1)
+    if m.n_shared:
+        out = out + _shared(cfg, p, xf)
+    return out.reshape(b, S, D), stats
+
+
+def moe_decode(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Decode-path MoE, x (T, D) → (T, D): every expert computes every token
+    (no capacity), weighted by the token's renormalized gate (0 off its
+    top-k). The tokens reach the grouped GEMM broadcast over the experts with
+    stride 0, so each product is one launch over (E, T, D)."""
+    m = cfg.moe
+    T, D = x.shape
+    _, gates, eidx = _route(cfg, p, x)
+    w_tok = torch.zeros((T, m.n_experts), dtype=F32, device=x.device)
+    w_tok.scatter_(1, eidx, gates)                 # top-k experts are distinct
+    o = _experts(cfg, p, x.unsqueeze(0).expand(m.n_experts, T, D))
+    out = (o * w_tok.t().unsqueeze(-1).to(o.dtype)).sum(0)
+    if m.n_shared:
+        out = out + _shared(cfg, p, x)
+    return out

@@ -67,14 +67,18 @@ def layer_schedule(cfg: ModelConfig) -> tuple[Segment, ...]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice serves dense full-attention GQA decoders only."""
+    """The port serves full-attention decoders: GQA or MLA attention, a
+    dense or MoE gated FFN on every layer."""
     for i, bc in enumerate(block_cfgs(cfg)):
-        if bc.mixer != "attn" or bc.window or bc.ffn != "dense":
+        if bc.mixer != "attn" or bc.window or bc.ffn == "none":
             raise NotImplementedError(
-                f"{cfg.name} layer {i} is {bc}; the port serves dense "
-                "full-attention decoders only")
-    if cfg.mla or cfg.enc_dec or cfg.frontend != "none" or \
-            cfg.use_post_norm:
+                f"{cfg.name} layer {i} is {bc}; the port serves "
+                "full-attention decoders with an FFN on every layer only")
+    if cfg.enc_dec or cfg.frontend != "none" or cfg.use_post_norm:
         raise NotImplementedError(
-            f"{cfg.name}: MLA, enc-dec, front-end and post-norm models are "
-            "not ported")
+            f"{cfg.name}: enc-dec, front-end and post-norm models are not "
+            "ported")
+    if cfg.act not in ("swiglu", "geglu"):
+        raise NotImplementedError(
+            f"{cfg.name}: activation {cfg.act!r} is not ported (gated "
+            "swiglu/geglu only)")

@@ -3,12 +3,13 @@
 
 The tree keeps the JAX layouts leaf by leaf — ``wq`` (D,H,dh), ``wk``/``wv``
 (D,Hkv,dh), ``wo`` (H,dh,D), ``w_up``/``w_gate`` (D,F), ``w_down`` (F,D),
-the embedding (V,D), the unembedding (D,V), f32 norm weights — but holds
-the blocks as a plain list ``layers`` in layer order instead of stacked
-scan segments:
+the MLA projections (``wdq`` (D,q_lora) … ``wukv`` (kv_lora,H,nope+v)),
+the expert stacks (``w_up`` (E,D,F) …), the embedding (V,D), the
+unembedding (D,V), f32 norm weights and router — but holds the blocks as a
+plain list ``layers`` in layer order instead of stacked scan segments:
 
     {"embed": {"table"}, "layers": [{"norm1", "attn": {...}, "norm2",
-     "mlp": {...}}, ...], "final_norm", "unembed": {"w"}}
+     "mlp" or "moe": {...}}, ...], "final_norm", "unembed": {"w"}}
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import check_supported, layer_schedule
+from repro_torch.models.transformer import (block_cfgs, check_supported,
+                                            layer_schedule)
 
 F32 = torch.float32
 
@@ -48,31 +50,60 @@ def tree_leaves(tree) -> list:
 
 def param_specs(cfg: ModelConfig):
     """The shape tree, with the JAX init scales: normal·0.02, out-projections
-    normal·0.02/sqrt(2L), ones for the norms."""
+    normal·0.02/sqrt(2L), ones for the norms, the MoE router in f32. Each
+    layer follows its :class:`BlockCfg`: GQA (``attention.py::gqa_defs``)
+    or MLA attention (``mla_defs``), a dense MLP of the block's width
+    (``layers.py::mlp_defs``) or the MoE tree (``moe.py::moe_defs``)."""
     check_supported(cfg)
-    D, H, Hkv, dh, Fd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                         cfg.head_dim, cfg.d_ff)
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pdt = cfg.pdtype
     out_scale = 0.02 / max(1.0, (2 * max(cfg.n_layers, 1)) ** 0.5)
-    norm = ParamSpec((D,), F32, "ones")
 
-    def layer():
-        return {
-            "norm1": norm,
-            "attn": {"wq": ParamSpec((D, H, dh), pdt),
-                     "wk": ParamSpec((D, Hkv, dh), pdt),
-                     "wv": ParamSpec((D, Hkv, dh), pdt),
-                     "wo": ParamSpec((H, dh, D), pdt, scale=out_scale)},
-            "norm2": norm,
-            "mlp": {"w_up": ParamSpec((D, Fd), pdt),
-                    "w_down": ParamSpec((Fd, D), pdt, scale=out_scale),
-                    "w_gate": ParamSpec((D, Fd), pdt)},
-        }
+    def norm(n):
+        return ParamSpec((n,), F32, "ones")
+
+    def attn():
+        if cfg.mla is None:
+            return {"wq": ParamSpec((D, H, dh), pdt),
+                    "wk": ParamSpec((D, Hkv, dh), pdt),
+                    "wv": ParamSpec((D, Hkv, dh), pdt),
+                    "wo": ParamSpec((H, dh, D), pdt, scale=out_scale)}
+        m = cfg.mla
+        return {"wdq": ParamSpec((D, m.q_lora), pdt),
+                "q_norm": norm(m.q_lora),
+                "wuq": ParamSpec((m.q_lora, H, m.nope_dim + m.rope_dim), pdt),
+                "wdkv": ParamSpec((D, m.kv_lora), pdt),
+                "kv_norm": norm(m.kv_lora),
+                "wukv": ParamSpec((m.kv_lora, H, m.nope_dim + m.v_dim), pdt),
+                "wkr": ParamSpec((D, m.rope_dim), pdt),
+                "wo": ParamSpec((H, m.v_dim, D), pdt, scale=out_scale)}
+
+    def moe():
+        m = cfg.moe
+        E, Fe = m.n_experts, m.d_expert
+        d = {"router": ParamSpec((D, E), F32),
+             "w_up": ParamSpec((E, D, Fe), pdt),
+             "w_down": ParamSpec((E, Fe, D), pdt, scale=out_scale),
+             "w_gate": ParamSpec((E, D, Fe), pdt)}
+        if m.n_shared:
+            Fs = m.n_shared * Fe
+            d.update({"ws_up": ParamSpec((D, Fs), pdt),
+                      "ws_down": ParamSpec((Fs, D), pdt, scale=out_scale),
+                      "ws_gate": ParamSpec((D, Fs), pdt)})
+        return d
+
+    def layer(bc):
+        ffn = ({"moe": moe()} if bc.ffn == "moe" else
+               {"mlp": {"w_up": ParamSpec((D, bc.d_ff), pdt),
+                        "w_down": ParamSpec((bc.d_ff, D), pdt,
+                                            scale=out_scale),
+                        "w_gate": ParamSpec((D, bc.d_ff), pdt)}})
+        return {"norm1": norm(D), "attn": attn(), "norm2": norm(D), **ffn}
 
     return {
         "embed": {"table": ParamSpec((cfg.vocab, D), pdt)},
-        "layers": [layer() for _ in range(cfg.n_layers)],
-        "final_norm": norm,
+        "layers": [layer(bc) for bc in block_cfgs(cfg)],
+        "final_norm": norm(D),
         "unembed": ({} if cfg.tie_embeddings
                     else {"w": ParamSpec((D, cfg.vocab), pdt)}),
     }

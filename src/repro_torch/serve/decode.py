@@ -1,10 +1,13 @@
 """Single-token paged decode and the fused decode quantum
-(``repro/serve/decode.py``, paged full-attention GQA on one device).
+(``repro/serve/decode.py``, paged full-attention GQA or MLA, dense or MoE
+FFN, on one device).
 
-Each layer writes the new token's K/V into its page pools in place
-(``_paged_write``), then the hand-written paged kernel
+Each layer writes the new token's K/V (GQA) or latent row (MLA) into its
+page pools in place (``_paged_write``), then a hand-written paged kernel
 (``kernels/paged_attention``) walks the page table and returns the
-unnormalized ``(o, m, l)`` partials, which ``_combine`` normalizes.
+unnormalized ``(o, m, l)`` partials, which ``_combine`` normalizes. MLA
+decodes in the latent space with the absorbed weights: the cache row is
+both key and value (MQA-style, dim kv_lora + rope).
 
 ``decode_loop`` runs a quantum of ``num_steps`` tokens as a Python loop
 whose state (tokens, positions, masks, cache) never leaves the device;
@@ -18,6 +21,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.layers import (apply_rope, embed, logits_fn, mlp,
                                        rmsnorm, rope_tables)
+from repro_torch.models.moe import moe_decode
+from repro_torch.models.transformer import BlockCfg, block_cfgs
 
 F32 = torch.float32
 NEG = -1e30
@@ -87,6 +92,19 @@ def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
     return out.to(q.dtype), pool_k, pool_v
 
 
+def flash_decode_mla(q_eff, new_row, pool, pos, *, kv_lora: int,
+                     scale: float, page_table):
+    """q_eff (B,H,R); new_row (B,R); pool (N, ps, R); pos (B,) int32;
+    page_table (B,T) int32 → (out (B,H,kv_lora), pool), the pool updated in
+    place. Key = the pool row, value = its first kv_lora dims."""
+    _check_paged_args(page_table, pos)
+    _paged_write(pool, new_row, page_table, pos)
+    o, m, l = paged_ops.paged_attend_mla(
+        q_eff, pool, page_table, pos, 0, page_size=pool.shape[1],
+        kv_lora=kv_lora, scale=scale)
+    return _combine(o, m, l).to(q_eff.dtype), pool
+
+
 # --------------------------------------------------------- per-block decode
 def gqa_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
     """x (B,D) → (out (B,D), cache)."""
@@ -107,11 +125,46 @@ def gqa_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
     return o, {"k": ck, "v": cv}
 
 
-def block_decode(cfg: ModelConfig, p, cache, h, pos, page_table):
+def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
+    """x (B,D) → (out (B,D), cache). Absorbed query ``q_c = qn · W_uk``
+    in the latent space, the rope part beside it, the scale of the expanded
+    form (nope + rope)^-0.5, and the un-absorb through ``W_uv``: plain
+    matmuls around the paged MLA kernel."""
+    m = cfg.mla
+    B, D = x.shape
+    H = cfg.n_heads
+    cq = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wuq"].reshape(m.q_lora, -1)).view(B, H,
+                                                   m.nope_dim + m.rope_dim)
+    qn, qr = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    cos, sin = rope_tables(pos, m.rope_dim, cfg.rope_theta)       # (B, r/2)
+    qr = apply_rope(qr[:, None], cos[:, None], sin[:, None])[:, 0]
+    wuk = p["wukv"][..., :m.nope_dim]                  # (kv_lora, H, nope)
+    q_c = torch.einsum("bhn,rhn->bhr", qn, wuk)        # (B, H, kv_lora)
+    q_eff = torch.cat([q_c, qr], dim=-1)
+    ckv_t = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
+    kr_t = x @ p["wkr"]
+    kr_t = apply_rope(kr_t[:, None, None], cos[:, None], sin[:, None])[:, 0, 0]
+    row = torch.cat([ckv_t, kr_t], dim=-1).to(cache["ckv"].dtype)
+    o_c, ckv = flash_decode_mla(q_eff, row, cache["ckv"], pos,
+                                kv_lora=m.kv_lora,
+                                scale=(m.nope_dim + m.rope_dim) ** -0.5,
+                                page_table=page_table)
+    wuv = p["wukv"][..., m.nope_dim:]                  # (kv_lora, H, v)
+    o = torch.einsum("bhr,rhv->bhv", o_c, wuv)
+    o = o.reshape(B, H * m.v_dim) @ p["wo"].reshape(-1, D)
+    return o, {"ckv": ckv}
+
+
+def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
+                 page_table):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
-    y, new_cache = gqa_decode(cfg, p["attn"], x, cache, pos, page_table)
+    attn = mla_decode if cfg.mla else gqa_decode
+    y, new_cache = attn(cfg, p["attn"], x, cache, pos, page_table)
     h = h + y
     x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    if bc.ffn == "moe":
+        return h + moe_decode(cfg, p["moe"], x), new_cache
     return h + mlp(cfg, p["mlp"], x), new_cache
 
 
@@ -121,8 +174,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, page_table):
     pools of ``cache`` are updated in place."""
     h = embed(cfg, params["embed"], tokens)
     layers = []
-    for p, c in zip(params["layers"], cache["layers"]):
-        h, c = block_decode(cfg, p, c, h, pos, page_table)
+    for bc, p, c in zip(block_cfgs(cfg), params["layers"], cache["layers"]):
+        h, c = block_decode(cfg, bc, p, c, h, pos, page_table)
         layers.append(c)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(cfg, params["embed"], params["unembed"], h)

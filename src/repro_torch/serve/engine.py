@@ -3,9 +3,11 @@ fast paged path).
 
 Slot-based: a fixed decode batch of ``max_slots`` sequences. Pending
 requests are prefilled in power-of-2 length buckets, batched, and their
-page-aligned cache rows are copied into pages of a shared pool
-``(num_pages, page_size, Hkv, dh)`` per layer, addressed through a
-per-slot page table kept by a host-side free-list allocator. Decode runs
+page-aligned cache rows are copied into pages of the shared pools of each
+layer (``(num_pages, page_size, Hkv, dh)`` K and V for GQA, one
+``(num_pages, page_size, kv_lora + rope)`` latent pool for MLA), addressed
+through a per-slot page table kept by a host-side free-list allocator.
+The engine does not otherwise depend on the model family. Decode runs
 ``decode_quantum`` tokens per cycle with every piece of state on the
 device and exactly one device-to-host read per quantum (``_host_fetch``).
 
@@ -517,8 +519,8 @@ class Engine:
         src_dev = torch.tensor(page_src[dst].astype(np.int64), device=dev)
         ps = self.page_size
         for pools, rows in zip(self.cache["layers"], new_cache["layers"]):
-            for name in ("k", "v"):
-                src = rows[name].reshape((-1, ps) + tuple(rows[name].shape[2:]))
+            for name, r in rows.items():       # "k", "v" or MLA's "ckv"
+                src = r.reshape((-1, ps) + tuple(r.shape[2:]))
                 pools[name].index_copy_(0, dst_dev, src.index_select(0, src_dev))
 
     def _alloc_group_pages(self, Sb: int, reqs: list[Request],

@@ -1,8 +1,10 @@
 """Paged KV-cache layout (``repro/serve/kv_cache.py``, full-attention pools).
 
-Every full-attention layer owns two pools ``(num_pages, page_size, Hkv,
-dh)`` addressed through the engine's per-slot page table. Page 0 is the
-allocator's reserved trash page.
+Every full-attention GQA layer owns two pools ``(num_pages, page_size, Hkv,
+dh)``, every MLA layer one latent pool ``{"ckv": (num_pages, page_size,
+kv_lora + rope)}`` (the row is both key and value), addressed through the
+engine's per-slot page table. Page 0 is the allocator's reserved trash
+page.
 """
 from __future__ import annotations
 
@@ -15,6 +17,10 @@ from repro_torch.params import ParamSpec, tree_map
 
 def page_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int):
     """Pool leaves for one full-attention layer: (num_pages, page_size, …)."""
+    if cfg.mla:
+        R = cfg.mla.kv_lora + cfg.mla.rope_dim
+        return {"ckv": ParamSpec((num_pages, page_size, R), cfg.pdtype,
+                                 "zeros")}
     shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": ParamSpec(shape, cfg.pdtype, "zeros"),
             "v": ParamSpec(shape, cfg.pdtype, "zeros")}

@@ -1,20 +1,23 @@
 """Prefill: full forward pass that also builds the cache rows
-(``repro/serve/prefill.py``, full-attention GQA).
+(``repro/serve/prefill.py``, full-attention GQA or MLA, dense or MoE FFN).
 
 Bucketed serving path: prompts are right-padded to a power-of-2 length
 bucket and prefilled batched with an explicit per-row ``prompt_len``.
 Causality keeps real rows from attending pad keys, and the last-token
 logits are gathered at ``prompt_len - 1`` per row. With ``page_size`` the
 cache rows come out page-aligned, ``(B, ceil(S / page_size) · page_size,
-Hkv, dh)``, ready for the engine's admit scatter into its pools.
+Hkv, dh)`` for GQA, ``(B, …, kv_lora + rope)`` for MLA, ready for the
+engine's admit scatter into its pools.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attend, gqa_project
+from repro_torch.models.attention import (attend, gqa_project, mla_latents,
+                                          mla_queries)
 from repro_torch.models.layers import embed, logits_fn, mlp, rmsnorm
+from repro_torch.models.moe import moe_block
 from repro_torch.models.transformer import BlockCfg, block_cfgs
 
 
@@ -58,6 +61,28 @@ def gqa_prefill(cfg: ModelConfig, p, x, *, window: int, positions,
     return o, {"k": _pad_to(k, seq_len_cache), "v": _pad_to(v, seq_len_cache)}
 
 
+def mla_prefill(cfg: ModelConfig, p, x, *, positions, seq_len_cache: int):
+    """MLA attention in the expanded form (latents up-projected to 128
+    full heads, q/k dim nope + rope, v dim v_dim) + the cache rows
+    ``ckv = concat(c_kv, k_rope)`` (B, seq_len_cache, kv_lora + rope) in the
+    parameter dtype."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qn, qr = mla_queries(cfg, p, x, positions)
+    c_kv, k_r = mla_latents(cfg, p, x, positions)
+    kv = (c_kv @ p["wukv"].reshape(m.kv_lora, -1)).view(
+        B, S, H, m.nope_dim + m.v_dim)
+    kn, v = kv[..., :m.nope_dim], kv[..., m.nope_dim:]
+    k = torch.cat([kn, k_r.expand(B, S, H, m.rope_dim).to(kn.dtype)], dim=-1)
+    q = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]          # G = 1
+    out = attend(q, k, v, scale=(m.nope_dim + m.rope_dim) ** -0.5,
+                 causal=True)
+    o = out.reshape(B, S, H * m.v_dim) @ p["wo"].reshape(-1, cfg.d_model)
+    ckv = torch.cat([c_kv, k_r[:, :, 0, :]], dim=-1)
+    return o, {"ckv": _pad_to(ckv, seq_len_cache).to(cfg.pdtype)}
+
+
 def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
                   seq_len: int, max_len: int | None = None,
                   page_size: int | None = None):
@@ -67,17 +92,26 @@ def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
         Sc = -(-seq_len // page_size) * page_size
     else:
         Sc = max_len or seq_len
-    y, cache = gqa_prefill(cfg, p["attn"], x, window=bc.window,
-                           positions=positions, seq_len_cache=Sc)
+    if cfg.mla:
+        y, cache = mla_prefill(cfg, p["attn"], x, positions=positions,
+                               seq_len_cache=Sc)
+    else:
+        y, cache = gqa_prefill(cfg, p["attn"], x, window=bc.window,
+                               positions=positions, seq_len_cache=Sc)
     h = h + y
     x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-    return h + mlp(cfg, p["mlp"], x), cache
+    if bc.ffn == "moe":
+        y, _ = moe_block(cfg, p["moe"], x)
+    else:
+        y = mlp(cfg, p["mlp"], x)
+    return h + y, cache
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             max_len: int | None = None, prompt_len: torch.Tensor | None = None,
             page_size: int | None = None):
-    """tokens (B,S) → (last-token logits (B,V) f32, {"layers": [{"k","v"}]}).
+    """tokens (B,S) → (last-token logits (B,V) f32, {"layers": [{"k","v"}
+    or {"ckv"}]}).
 
     ``prompt_len`` (B,) marks right-padded rows: logits are gathered at
     prompt_len-1 per row. ``page_size`` sizes the cache rows by the bucket

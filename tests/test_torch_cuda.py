@@ -12,6 +12,8 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.grouped_gemm import ops as gg_ops
+from repro_torch.kernels.grouped_gemm import ref as gg_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.params import init_params, tree_map
@@ -189,10 +191,14 @@ def test_bf16_prefill_decode_on_card_match_host(dev):
         assert (a - b).abs().max() / a.abs().max() < 3e-2
 
 
-def test_engine_on_card_matches_host(dev):
-    """The paged engine on the card (both kernels) gives the greedy streams
-    of the same engine on the host (plain versions), in f32."""
-    cfg = dataclasses.replace(smoke_config(get_config("mistral-nemo-12b")),
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-236b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_engine_on_card_matches_host(dev, arch):
+    """The paged engine on the card (every kernel of the model's path) gives
+    the greedy streams of the same engine on the host (plain versions), in
+    f32. Admission is pinned to one speed ratio, so both form the same
+    prefill groups (MoE capacity couples a group's rows)."""
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
                               param_dtype="float32")
     params = init_params(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(3)
@@ -203,9 +209,152 @@ def test_engine_on_card_matches_host(dev):
         eng = Engine(cfg, tree_map(lambda t: t.to(device), params),
                      device=device, max_slots=3, max_len=64, page_size=8,
                      decode_quantum=4)
+        eng.tracker.f = lambda: 0.01
         reqs = [Request(rid=i, prompt=p, max_new=6)
                 for i, p in enumerate(prompts)]
         eng.run(reqs)
         eng.alloc.check()
         outs.append([r.out for r in reqs])
     assert outs[0] == outs[1]
+
+
+# ------------------------------------------------------------ grouped GEMM
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,K,N", [(4, 8, 128, 64), (3, 13, 64, 136),
+                                     (5, 100, 96, 256), (2, 384, 1536, 40)])
+def test_grouped_gemm_matches_plain(dev, dtype, E, M, K, N):
+    """M = 8 (decode) and ragged M, N and K tile edges; both bf16 tile
+    shapes (M <= 16 and above)."""
+    g = torch.Generator(device=dev).manual_seed(E)
+    a = torch.randn((E, M, K), generator=g, device=dev).to(dtype)
+    w = torch.randn((E, K, N), generator=g, device=dev).to(dtype)
+    n0 = gg_ops.launches
+    got = gg_ops.grouped_gemm(a, w)
+    assert gg_ops.launches == n0 + 1 and got.dtype == dtype
+    want = gg_ref.grouped_gemm_ref(a, w)
+    rel = float((got.float() - want.float()).abs().max() /
+                want.float().abs().max())
+    assert rel < (3e-2 if dtype == torch.bfloat16 else 1e-5), rel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 8, 24])
+def test_grouped_gemm_stride0_operand(dev, dtype, T):
+    """Decode's tokens broadcast over the experts (stride 0, no copy)."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    x = torch.randn((T, 256), generator=g, device=dev).to(dtype)
+    w = torch.randn((6, 256, 64), generator=g, device=dev).to(dtype)
+    a = x.unsqueeze(0).expand(6, T, 256)
+    got = gg_ops.grouped_gemm(a, w)
+    want = gg_ops.grouped_gemm(a.contiguous(), w)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    ref = gg_ref.grouped_gemm_ref(a, w)
+    assert float((got.float() - ref.float()).abs().max() /
+                 ref.float().abs().max()) < 3e-2
+
+
+def test_grouped_gemm_rejects_bad_inputs(dev):
+    a = torch.randn((2, 8, 12), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                 # K not a multiple of 8
+        gg_ops.grouped_gemm(a, torch.randn((2, 12, 16), device=dev,
+                                           dtype=torch.bfloat16))
+    with pytest.raises(ValueError):                 # dtypes differ
+        gg_ops.grouped_gemm(a.float(), torch.randn((2, 12, 16), device=dev,
+                                                   dtype=torch.bfloat16))
+    with pytest.raises(ValueError):                 # w not contiguous
+        gg_ops.grouped_gemm(a[..., :8], torch.randn(
+            (2, 16, 8), device=dev, dtype=torch.bfloat16).transpose(1, 2))
+
+
+# ------------------------------------------------------ paged MLA decode
+def _mla_case(dev, dtype, page_size, H=12, R=72, B=4, T=260, seed=0):
+    rng = np.random.default_rng(seed)
+    N = 1 + B * T
+    q = torch.tensor(rng.normal(size=(B, H, R)), dtype=torch.float32,
+                     device=dev).to(dtype)
+    pool = torch.tensor(rng.normal(size=(N, page_size, R)),
+                        dtype=torch.float32, device=dev).to(dtype)
+    pool[0] = 1e4                                  # trash page: never read
+    pt = torch.tensor(1 + rng.permutation(N - 1).reshape(B, T),
+                      dtype=torch.int32, device=dev)
+    pos = torch.tensor([0, page_size - 1, page_size, 4095][:B],
+                       dtype=torch.int32, device=dev)
+    return q, pool, pt, pos
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("H,R,kv_lora", [(12, 72, 64), (16, 576, 512)])
+def test_paged_mla_kernel_matches_plain(dev, dtype, page_size, H, R,
+                                        kv_lora):
+    """pos 0, ps - 1, ps and 4095; a head count that leaves a partial head
+    group; the shard base as a second case."""
+    q, pool, pt, pos = _mla_case(dev, dtype, page_size, H=H, R=R,
+                                 T=4096 // page_size)
+    for base in (0, page_size // 2):
+        n0 = paged_ops.mla_launches
+        got = paged_ops.paged_attend_mla(q, pool, pt, pos, base,
+                                         page_size=page_size,
+                                         kv_lora=kv_lora, scale=0.05)
+        assert paged_ops.mla_launches == n0 + 1
+        want = paged_ref.paged_flash_decode_mla_ref(
+            q, pool, pt, pos, base, page_size=page_size, kv_lora=kv_lora,
+            scale=0.05)
+        o, m, l = got
+        wo, wm, wl = want
+        live = wl > 0
+        assert torch.equal(live, l > 0)
+        torch.testing.assert_close(m, wm, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(l, wl, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(o[live] / l[live][:, None],
+                                   wo[live] / wl[live][:, None], rtol=1e-4,
+                                   atol=1e-4)
+        assert float(o.abs().max() / l.clamp(min=1).max()) < 1e3
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+def test_paged_mla_kernel_shard_local_pool(dev, shard):
+    q, pool, pt, pos = _mla_case(dev, torch.float32, 16, T=256)
+    pool = pool[:, shard * 8:shard * 8 + 8].contiguous()
+    got = paged_ops.paged_attend_mla(q, pool, pt, pos, shard * 8,
+                                     page_size=16, kv_lora=64, scale=0.05)
+    want = paged_ref.paged_flash_decode_mla_ref(q, pool, pt, pos, shard * 8,
+                                                page_size=16, kv_lora=64,
+                                                scale=0.05)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_paged_mla_kernel_empty_row_and_bad_inputs(dev):
+    q, pool, pt, pos = _mla_case(dev, torch.float32, 8, T=512)
+    o, m, l = paged_ops.paged_attend_mla(q, pool, pt, pos * 0, 4,
+                                         page_size=8, kv_lora=64, scale=0.1)
+    assert torch.all(m == -1e30) and torch.all(l == 0) and torch.all(o == 0)
+    with pytest.raises(ValueError):                 # R not a multiple of 8
+        paged_ops.paged_attend_mla(q[..., :70].contiguous(),
+                                   pool[..., :70].contiguous(), pt, pos,
+                                   page_size=8, kv_lora=64, scale=0.1)
+    with pytest.raises(ValueError):                 # kv_lora above R
+        paged_ops.paged_attend_mla(q, pool, pt, pos, page_size=8,
+                                   kv_lora=80, scale=0.1)
+
+
+# ------------------------------------------------ flash, MLA head dims
+@pytest.mark.parametrize("T", [1024, 333])
+def test_flash_kernel_mla_dims_match_plain(dev, T):
+    """q/k dim 192 (nope 128 + rope 64), v dim 128, 16 heads, G = 1, in the
+    prefill's layout: q and k contiguous (B, T, H, 192), v a strided slice
+    of the up-projected (B, T, H, 256)."""
+    g = torch.Generator(device=dev).manual_seed(T)
+    B, H = 2, 16
+    q = torch.randn((B, T, H, 192), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, T, H, 192), generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn((B, T, H, 256), generator=g, device=dev).to(
+        torch.bfloat16)
+    qv, kvv, vv = (x.permute(0, 2, 1, 3) for x in (q, k, kv[..., 128:]))
+    got = flash_ops.attend(qv, kvv, vv, scale=192 ** -0.5, causal=True)
+    want = flash_ref.flash_attention_ref(qv, kvv, vv, scale=192 ** -0.5,
+                                         causal=True)
+    assert got.shape == (B, H, T, 128)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
