@@ -8,9 +8,15 @@
    process per source, all started together).
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (paged GQA and MLA decode, flash prefill at GQA and MLA head
-   dims, the grouped expert GEMM in bf16 and f32), and times kernel, plain
-   version and the PyTorch call that computes the same function, where
-   there is one, with CUDA events.
+   dims, the grouped expert GEMM in bf16 and f32, the tiled GEMM at 4096²
+   in f32 and bf16 with the Table 2 sweep of bn, the SSD intra-chunk at
+   mamba2-130m's shapes), and times kernel, plain version and the PyTorch
+   call that computes the same function, where there is one, with CUDA
+   events.
+   Then the paper's experiment (Fig. 5): HBB ``parallel_for`` over the
+   rows of a 1024² f32 GEMM with the card's kernel as the accelerator
+   class and host threads as the core class, every result checked against
+   the plain product; offload-only against heterogeneous at 4096².
 4. Serves full-width mistral-nemo-12b (seeded random weights made on the
    card) through the paged engine, twice, and checks that every request
    finishes with in-vocabulary tokens, the page pool is whole, its kernels
@@ -20,7 +26,9 @@
 5. The same for deepseek-v2-236b (MLA + MoE) at full width with depth cut
    to 6 layers (the dense first layer and 5 MoE layers): serve twice,
    profile one decode quantum, and the f32 prefill → decode check with
-   depth cut to 2 layers.
+   depth cut to 2 layers. And for mamba2-130m at its published width and
+   depth (exact-length prefill through the SSD kernel, per-slot state),
+   with the f32 check at full depth.
 6. Prints one JSON line {"kernels": [...]}, then as the last line
    {"ok": true, "device": {...}}. Any failed check exits non-zero without it.
 """
@@ -344,16 +352,194 @@ def gg_phase(dev) -> dict:
                      "(library: torch.bmm) at the first shape"}
 
 
+# -------------------------------------------------------------- tiled GEMM
+def gemm_phase(dev) -> dict:
+    """The paper's GEMM at the scaling study's 4096² in f32 (the contract's
+    type, CUDA cores) and bf16 (tensor cores) at the default block shape,
+    then Table 2 on the card: the bn ("buffered columns") sweep at bm = 64,
+    bk = 32 with each shape's shared memory. f32 within 1e-5 and bf16 within
+    2e-2 of the largest value, against the plain version."""
+    from repro_torch.kernels.gemm import ops, ref
+    n = 4096
+    g = torch.Generator(device=dev).manual_seed(0)
+    a32 = torch.randn((n, n), generator=g, device=dev)
+    b32 = torch.randn((n, n), generator=g, device=dev)
+    tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    n_ops = 2 * n ** 3
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        a, b = a32.to(dt), b32.to(dt)
+        want = ref.gemm_ref(a, b)
+        out = ops.gemm(a, b)
+        e = float((out.float() - want.float()).abs().max()
+                  / want.float().abs().max())
+        blk = (ops.BM, ops.BN, ops.BK)
+        check(e <= tols[dt], f"gemm {n}² {dt} block {blk}: relative max "
+              f"error {e:.3g} (tol {tols[dt]})")
+        n_bytes = 3 * n * n * a.element_size()
+        b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
+        ms = time_ms(lambda: ops.gemm(a, b), 10)
+        plain = time_ms(lambda: ref.gemm_ref(a, b), 10)
+        lib = time_ms(lambda: torch.matmul(a, b), 10)
+        print(f"gemm {n}³ {dt}: kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f} "
+              f"TFLOP/s), plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        sweep = []
+        for bn in (32, 64, 128, 256):
+            blk = dict(bm=64, bn=bn, bk=32)
+            es = float((ops.gemm(a, b, **blk).float() - want.float()).abs()
+                       .max() / want.float().abs().max())
+            check(es <= tols[dt], f"gemm {n}² {dt} bn={bn}: relative max "
+                  f"error {es:.3g} (tol {tols[dt]})")
+            t = time_ms(lambda: ops.gemm(a, b, **blk), 5)
+            smem = ops.smem_bytes(64, bn, 32, a.element_size())
+            sweep.append({"bn": bn, "smem_bytes": smem, "ms": t})
+            print(f"  Table 2 {dt} bm=64 bn={bn:3d} bk=32: shared memory "
+                  f"{smem} B ({100 * smem / ops.SMEM_LIMIT:.1f} % of "
+                  f"{ops.SMEM_LIMIT}), {t:.4f} ms, "
+                  f"{n_ops / t / 1e9:.2f} TFLOP/s")
+        res[dt] = dict(max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib, table2=sweep)
+        del a, b, want, out
+    del a32, b32
+    torch.cuda.empty_cache()
+    f32, bf16 = res[torch.float32], res[torch.bfloat16]
+    return {"name": "gemm", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gemm.cu",
+            "replaces": "src/repro/kernels/gemm/gemm.py:39",
+            "tol": tols[torch.float32],
+            **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")},
+            "bf16": bf16,
+            "check": f"relative max error against gemm_ref at {n}²: f32 "
+                     "(tol 1e-5) and bf16 (tol 2e-2), at the default block "
+                     "and every bn of the Table 2 sweep; times (library: "
+                     "torch.matmul, allow_tf32 off) in f32 at the default "
+                     "block"}
+
+
+# ------------------------------------------------------------ SSD intra-chunk
+def ssd_phase(dev) -> dict:
+    """mamba2-130m's intra-chunk shapes: one 2000-token prompt is 8 chunks
+    of Q = 256 (zero-padded to 2048), 24 heads of P = 64, N = 128 — G = 8
+    chunk rows × 24 heads — with B and C shared by the heads (stride 0) and
+    the operands in ssd_scan's layout; also an exact-length Q = 97.
+    Relative max error within 1e-4 of the plain version (f32, other sum
+    order and exp)."""
+    from repro_torch.kernels.ssd import ops, ref
+    H, P, N = 24, 64, 128
+    err, main = 0.0, None
+    for Gb, Q in ((8, 256), (1, 97)):
+        g = torch.Generator(device=dev).manual_seed(Q)
+        x = torch.randn((Gb, Q, H, P), generator=g, device=dev)
+        cs = torch.cumsum(-F.softplus(torch.randn((Gb, Q, H), generator=g,
+                                                  device=dev)), dim=1)
+        Bm = torch.randn((Gb, Q, N), generator=g, device=dev)
+        Cm = torch.randn((Gb, Q, N), generator=g, device=dev)
+        args = (x.permute(0, 2, 1, 3), cs.permute(0, 2, 1),
+                Bm[:, None].expand(-1, H, -1, -1),
+                Cm[:, None].expand(-1, H, -1, -1))
+        y, st = ops.intra_chunk(*args)
+        yr, str_ = ref.ssd_intra_chunk_ref(*args)
+        e = max(float((y - yr).abs().max() / yr.abs().max()),
+                float((st - str_).abs().max() / str_.abs().max()))
+        err = max(err, e)
+        check(e <= 1e-4, f"ssd intra-chunk G={Gb}x{H} Q={Q} P={P} N={N}: "
+              f"relative max error of y and st {e:.3g} (tol 1e-4)")
+        n_ops = Gb * H * (2 * (N + P) * Q * (Q + 1) // 2 + 2 * Q * N * P)
+        n_bytes = 4 * (2 * Gb * Q * H * P + Gb * Q * H + 2 * Gb * Q * N
+                       + Gb * H * N * P)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, torch.float32)
+        ms = time_ms(lambda: ops.intra_chunk(*args), 20)
+        plain = time_ms(lambda: ref.ssd_intra_chunk_ref(*args), 5)
+        print(f"ssd intra-chunk G={Gb}x{H} Q={Q} P={P} N={N}: kernel "
+              f"{ms:.4f} ms ({n_ops / ms / 1e9:.2f} TFLOP/s), plain "
+              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if main is None:
+            main = (ms, plain, b_ms, b_by)
+    ms, plain, b_ms, b_by = main
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/ssd.py:46",
+            "max_abs_err": err, "tol": 1e-4, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "check": "relative max error of y and st against "
+                     "ssd_intra_chunk_ref, f32, 24 heads P=64 N=128, "
+                     "stride-0 B/C: G=8 Q=256 (a 2000-token prefill) and "
+                     "G=1 Q=97; times at the first; library: none, no "
+                     "single PyTorch call computes it"}
+
+
+# ----------------------------------------------------- the paper's Fig. 5
+def hbb_phase(dev, entries) -> None:
+    """HBB ``parallel_for`` over the rows of C = A @ B (f32): the card's
+    GEMM kernel as the accelerator class (one token), host threads running
+    the per-row numpy path as the core class. Fig. 5 at 1024² — configs
+    (ncc, 0), (0, 1), (ncc, 1) over S_f in FPGA_CHUNK_SWEEP, every result
+    against the plain product (max error within 1e-5 of the largest value)
+    — then offload-only
+    against heterogeneous at 4096². The kernel's launch count is read from
+    the 1024² sweep. Also the accelerator's per-chunk host overhead: its
+    mean service time in the offload-only runs against the kernel alone."""
+    import os
+    from repro_torch.configs.gemm_paper import (FPGA_CHUNK_SWEEP,
+                                                GEMM_N_MAIN, GEMM_N_SCALING)
+    from repro_torch.examples import hetero_gemm
+    from repro_torch.kernels.gemm import ops
+    cores = os.cpu_count() or 2
+    ncc = max(1, cores - 1)
+    print(f"Fig. 5 on the card: {ncc} core tokens (the host has {cores} "
+          "cores; one drives the card), 1 accelerator token, f0 = 8")
+    ops.launches = 0
+    rows = hetero_gemm.fig5(GEMM_N_MAIN, ncc, FPGA_CHUNK_SWEEP, device=dev)
+    n = ops.launches
+    for e in entries:
+        if e["name"] == "gemm":
+            e["launches"] = n
+            e["launches_by_path"] = {"hbb": n}
+    check(n > 0, f"gemm launched on the hbb path ({n} times)")
+    check(all(r.ok for r in rows), f"Fig. 5 at {GEMM_N_MAIN}²: every "
+          "config's C equals the plain product (relative max error ≤ 1e-5)")
+    t_off, t_het, red = hetero_gemm.reduction(rows)
+    print(f"Fig. 5 at {GEMM_N_MAIN}²: offload-only best {t_off:.4f} s, "
+          f"heterogeneous best {t_het:.4f} s → reduction {100 * red:.1f} % "
+          "(paper §6: 25–50 %)")
+    A, B = hetero_gemm.make_operands(GEMM_N_MAIN, dev)
+    for r in rows:
+        if r.ncc:
+            continue
+        recs = [x for x in r.report.records if x.resource == "FC0"]
+        service = sum(x.t_end - x.t_start for x in recs) / len(recs)
+        k = time_ms(lambda: ops.gemm(A[:r.chunk], B), 20) / 1e3
+        print(f"  S_f={r.chunk:4d}: accelerator chunk service "
+              f"{service * 1e3:.4f} ms, kernel alone {k * 1e3:.4f} ms → host "
+              f"overhead {(service - k) * 1e3:.4f} ms per chunk "
+              f"({len(recs)} chunks)")
+    del A, B
+    rows = hetero_gemm.fig5(GEMM_N_SCALING, ncc, FPGA_CHUNK_SWEEP,
+                            device=dev, configs=[(0, 1), (ncc, 1)])
+    check(all(r.ok for r in rows), f"Fig. 5 at {GEMM_N_SCALING}²: every "
+          "config's C equals the plain product (relative max error ≤ 1e-5)")
+    t_off, t_het, red = hetero_gemm.reduction(rows)
+    print(f"scaling at {GEMM_N_SCALING}²: offload-only best {t_off:.4f} s, "
+          f"heterogeneous best {t_het:.4f} s → reduction {100 * red:.1f} %")
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------- full-width serving
 def _counters() -> dict:
     """Kernel name → (wrapper module, name of its launch count)."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.gemm import ops as gemm_ops
     from repro_torch.kernels.grouped_gemm import ops as gg_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
     return {"paged_attention_gqa": (paged_ops, "launches"),
             "flash_attention_fwd": (flash_ops, "launches"),
             "paged_attention_mla": (paged_ops, "mla_launches"),
-            "grouped_gemm": (gg_ops, "launches")}
+            "grouped_gemm": (gg_ops, "launches"),
+            "gemm": (gemm_ops, "launches"),
+            "ssd_intra_chunk": (ssd_ops, "launches")}
 
 
 def serve_twice(eng, cfg, lens, prompts, max_new: int, path: list[str],
@@ -494,6 +680,41 @@ def deepseek_phase(dev, entries) -> None:
     torch.cuda.empty_cache()
 
 
+def mamba_phase(dev, entries) -> None:
+    """mamba2-130m at its published width and depth (24 Mamba-2 layers, d
+    768, d_inner 1536, 24 heads of 64, N 128, conv 4, chunk 256, V 50280,
+    tied embeddings; random weights made on the card from seed 0). Its
+    prefill runs in exact-length groups (a state scan would absorb pad
+    tokens) through the SSD kernel; decode steps the per-slot state."""
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params, n_params
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config("mamba2-130m")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {n_params(cfg) / 1e6:.3f} M params made on the card "
+          f"in {time.perf_counter() - t0:.1f} s")
+    eng = Engine(cfg, params, device=dev, max_slots=8, max_len=4096,
+                 page_size=16, decode_quantum=8)
+    check(not eng.pad_safe, f"{cfg.name}: exact-length prefill (pad_safe "
+          "False)")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 2001, 12)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    serve_twice(eng, cfg, lens, prompts, 32, ["ssd_intra_chunk"], entries)
+    profile_phase(eng, cfg)
+    del eng, params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    rel = prefill_decode_rel(cfg32, init_params(cfg32, seed=0, device=dev),
+                             dev)
+    check(rel < 1e-3, f"{cfg.name} full width and depth, f32: prefill(S) + "
+          f"decode ≡ prefill(S+1), relative max error {rel:.3g} (tol 1e-3)")
+    torch.cuda.empty_cache()
+
+
 def profile_phase(eng, cfg) -> None:
     """One decode quantum of 8 full slots at ~1k context under
     torch.profiler (admission done before): device busy share of the wall
@@ -531,7 +752,8 @@ def profile_phase(eng, cfg) -> None:
     print(f"profile: one decode quantum ({rep.decoded} tokens, "
           f"{eng.decode_quantum} steps, 8 slots at ~1k context, profiler "
           f"on): wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-          f"({busy / 1e4 / wall:.1f} %), {len(kernels)} kernels")
+          f"({busy / 1e4 / wall:.1f} %), {len(kernels)} kernels "
+          f"({len(kernels) / eng.decode_quantum:.0f} per step)")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :12]:
         print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
@@ -539,8 +761,11 @@ def profile_phase(eng, cfg) -> None:
 
 def prefill_decode_rel(cfg, params, dev) -> float:
     """prefill(S) + paged decode of token S against the last logits of
-    prefill(S + 1): the relative max error (tests/test_serve.py's check)."""
+    prefill(S + 1): the relative max error (tests/test_serve.py's check).
+    Pooled layers get their prefill rows as pages; Mamba-2 layers carry
+    their state."""
     from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kv_cache import cache_kinds
     from repro_torch.serve.prefill import prefill
     S, ps = 100, 16
     g = torch.Generator(device=dev).manual_seed(1)
@@ -550,17 +775,20 @@ def prefill_decode_rel(cfg, params, dev) -> float:
     _, rows = prefill(cfg, params, toks[:, :S], page_size=ps)
     n_rows = -(-S // ps)
     T = -(-(S + 1) // ps)
-    pools = []
-    for layer in rows["layers"]:
+    layers = []
+    for kind, layer in zip(cache_kinds(cfg), rows["layers"]):
+        if kind == "dense":
+            layers.append(layer)
+            continue
         pool = {}
         for name, r in layer.items():
             p = r.new_zeros((1 + T, ps) + tuple(r.shape[2:]))
             p[1:1 + n_rows] = r[0].reshape((n_rows, ps) + tuple(r.shape[2:]))
             pool[name] = p
-        pools.append(pool)
+        layers.append(pool)
     table = torch.arange(1, 1 + T, dtype=torch.int32, device=dev)[None]
     pos = torch.tensor([S], dtype=torch.int32, device=dev)
-    got, _ = decode_step(cfg, params, {"layers": pools}, toks[:, S], pos,
+    got, _ = decode_step(cfg, params, {"layers": layers}, toks[:, S], pos,
                          table)
     check(bool(torch.isfinite(got).all()), "decode logits are finite")
     return float((got - ref).abs().max() / ref.abs().max())
@@ -590,15 +818,17 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
     entries = [paged_phase(dev), flash_phase(dev), mla_phase(dev),
-               gg_phase(dev)]
+               gg_phase(dev), gemm_phase(dev), ssd_phase(dev)]
     torch.cuda.empty_cache()
+    hbb_phase(dev, entries)
     serve_phase(dev, entries)
     deepseek_phase(dev, entries)
+    mamba_phase(dev, entries)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check")
     print(json.dumps({"kernels": [
-        {k: e[k] for k in keys + (("mla",) if "mla" in e else ())}
+        {k: e[k] for k in keys + tuple(x for x in ("mla", "bf16") if x in e)}
         for e in entries]}))
     print(smi)
     print(f"total {time.perf_counter() - t0:.1f} s")

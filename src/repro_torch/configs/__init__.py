@@ -6,6 +6,7 @@ from repro_torch.configs.base import (  # noqa: F401
 
 from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
+    mamba2_130m,
     mistral_nemo_12b,
     phi35_moe_42b,
 )

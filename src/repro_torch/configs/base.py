@@ -87,6 +87,10 @@ class ModelConfig:
 
     # -- derived ---------------------------------------------------------
     @property
+    def d_inner(self) -> int:
+        return self.ssm.expand * self.d_model if self.ssm else 0
+
+    @property
     def pdtype(self) -> torch.dtype:
         return _DTYPES[self.param_dtype]
 

@@ -54,3 +54,13 @@ class ThroughputTracker:
             if not acc or not cor or min(cor) <= 0:
                 return self._f0
             return max(1e-3, (sum(acc) / len(acc)) / (sum(cor) / len(cor)))
+
+    def throughput(self, name: str) -> float:
+        with self._lock:
+            return self.stats[name].ewma_thr
+
+    def snapshot(self) -> dict[str, ResourceStats]:
+        with self._lock:
+            return {n: ResourceStats(s.kind, s.ewma_thr, s.n_chunks,
+                                     s.iters_done, s.busy_time)
+                    for n, s in self.stats.items()}

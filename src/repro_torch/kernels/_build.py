@@ -2,11 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library under ``build/`` next
-to this file (ignored by git), named by a hash of its source and flags, so
-a stale library is never loaded. Libraries are loaded with ``ctypes``; no
-PyTorch headers are compiled. Every C entry point returns
-``cudaGetLastError()`` after its launch, and :func:`check` raises on a
-non-zero code.
+to this file (ignored by git), named by a hash of its source, the shared
+headers ``csrc/*.cuh`` and the flags, so a stale library is never loaded.
+Libraries are loaded with ``ctypes``; no PyTorch headers are compiled.
+Every C entry point returns ``cudaGetLastError()`` after its launch, and
+:func:`check` raises on a non-zero code.
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-NAMES = ("flash_attention", "grouped_gemm", "paged_attention")
+NAMES = ("flash_attention", "gemm", "grouped_gemm", "paged_attention",
+         "ssd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,6 +39,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -67,18 +67,33 @@ def layer_schedule(cfg: ModelConfig) -> tuple[Segment, ...]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves full-attention decoders: GQA or MLA attention, a
-    dense or MoE gated FFN on every layer."""
-    for i, bc in enumerate(block_cfgs(cfg)):
-        if bc.mixer != "attn" or bc.window or bc.ffn == "none":
-            raise NotImplementedError(
-                f"{cfg.name} layer {i} is {bc}; the port serves "
-                "full-attention decoders with an FFN on every layer only")
+    """The port serves decoders whose every layer is full attention (GQA
+    or MLA) with a dense or MoE gated FFN, or a Mamba-2 (SSD) mixer with no
+    FFN."""
     if cfg.enc_dec or cfg.frontend != "none" or cfg.use_post_norm:
         raise NotImplementedError(
             f"{cfg.name}: enc-dec, front-end and post-norm models are not "
             "ported")
-    if cfg.act not in ("swiglu", "geglu"):
+    if cfg.ssm is not None:
+        if cfg.ssm.version != 2:
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba-1 (selective scan) is not ported; the "
+                "port serves Mamba-2 (SSD)")
+        if cfg.ssm.attn_period:
+            raise NotImplementedError(
+                f"{cfg.name}: hybrid SSM/attention models are not ported")
+    for i, bc in enumerate(block_cfgs(cfg)):
+        if bc.mixer == "mamba" and bc.ffn != "none":
+            raise NotImplementedError(
+                f"{cfg.name} layer {i} is {bc}; Mamba-2 blocks with an FFN "
+                "are not ported")
+        if bc.mixer == "attn" and (bc.window or bc.ffn == "none"):
+            raise NotImplementedError(
+                f"{cfg.name} layer {i} is {bc}; the port serves "
+                "full-attention layers with an FFN only (no sliding "
+                "windows)")
+    if any(bc.ffn != "none" for bc in block_cfgs(cfg)) and \
+            cfg.act not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"{cfg.name}: activation {cfg.act!r} is not ported (gated "
             "swiglu/geglu only)")

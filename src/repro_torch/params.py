@@ -30,7 +30,7 @@ F32 = torch.float32
 class ParamSpec:
     shape: tuple[int, ...]
     dtype: torch.dtype
-    init: str = "normal"          # normal | ones | zeros (caches)
+    init: str = "normal"          # normal | ones | zeros
     scale: float = 0.02
 
 
@@ -53,7 +53,9 @@ def param_specs(cfg: ModelConfig):
     normal·0.02/sqrt(2L), ones for the norms, the MoE router in f32. Each
     layer follows its :class:`BlockCfg`: GQA (``attention.py::gqa_defs``)
     or MLA attention (``mla_defs``), a dense MLP of the block's width
-    (``layers.py::mlp_defs``) or the MoE tree (``moe.py::moe_defs``)."""
+    (``layers.py::mlp_defs``) or the MoE tree (``moe.py::moe_defs``), or a
+    Mamba-2 mixer (``mamba.py::mamba2_defs``: A_log, D_skip and dt_bias in
+    f32, zeros for A_log, dt_bias and the conv biases, ones for D_skip)."""
     check_supported(cfg)
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pdt = cfg.pdtype
@@ -92,7 +94,28 @@ def param_specs(cfg: ModelConfig):
                       "ws_gate": ParamSpec((D, Fs), pdt)})
         return d
 
+    def mamba():
+        s = cfg.ssm
+        C, N, K = cfg.d_inner, s.d_state, s.d_conv
+        H = C // s.head_dim
+        return {"wz": ParamSpec((D, C), pdt), "wx": ParamSpec((D, C), pdt),
+                "wB": ParamSpec((D, N), pdt), "wC": ParamSpec((D, N), pdt),
+                "wdt": ParamSpec((D, H), pdt),
+                "conv_x": ParamSpec((K, C), pdt, scale=0.1),
+                "conv_x_b": ParamSpec((C,), pdt, "zeros"),
+                "conv_B": ParamSpec((K, N), pdt, scale=0.1),
+                "conv_B_b": ParamSpec((N,), pdt, "zeros"),
+                "conv_C": ParamSpec((K, N), pdt, scale=0.1),
+                "conv_C_b": ParamSpec((N,), pdt, "zeros"),
+                "A_log": ParamSpec((H,), F32, "zeros"),
+                "D_skip": ParamSpec((H,), F32, "ones"),
+                "dt_bias": ParamSpec((H,), F32, "zeros"),
+                "gn": norm(C),
+                "wo": ParamSpec((C, D), pdt, scale=out_scale)}
+
     def layer(bc):
+        if bc.mixer == "mamba":
+            return {"norm1": norm(D), "mamba": mamba()}
         ffn = ({"moe": moe()} if bc.ffn == "moe" else
                {"mlp": {"w_up": ParamSpec((D, bc.d_ff), pdt),
                         "w_down": ParamSpec((bc.d_ff, D), pdt,
@@ -122,6 +145,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     def leaf(spec: ParamSpec) -> torch.Tensor:
         if spec.init == "ones":
             return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
         x = torch.randn(spec.shape, generator=gen, dtype=F32, device=device)
         return x.mul_(spec.scale).to(spec.dtype)
 

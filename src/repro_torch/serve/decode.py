@@ -1,13 +1,15 @@
 """Single-token paged decode and the fused decode quantum
-(``repro/serve/decode.py``, paged full-attention GQA or MLA, dense or MoE
-FFN, on one device).
+(``repro/serve/decode.py``, paged full-attention GQA or MLA with a dense or
+MoE FFN, or Mamba-2 mixers, on one device).
 
 Each layer writes the new token's K/V (GQA) or latent row (MLA) into its
 page pools in place (``_paged_write``), then a hand-written paged kernel
 (``kernels/paged_attention``) walks the page table and returns the
 unnormalized ``(o, m, l)`` partials, which ``_combine`` normalizes. MLA
 decodes in the latent space with the absorbed weights: the cache row is
-both key and value (MQA-style, dim kv_lora + rope).
+both key and value (MQA-style, dim kv_lora + rope). A Mamba-2 layer steps
+its per-slot state (``mamba2_step``) for every slot, active or not, as JAX
+does: a slot's state is overwritten by the admit that next fills it.
 
 ``decode_loop`` runs a quantum of ``num_steps`` tokens as a Python loop
 whose state (tokens, positions, masks, cache) never leaves the device;
@@ -21,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.layers import (apply_rope, embed, logits_fn, mlp,
                                        rmsnorm, rope_tables)
+from repro_torch.models.mamba import mamba2_step
 from repro_torch.models.moe import moe_decode
 from repro_torch.models.transformer import BlockCfg, block_cfgs
 
@@ -159,6 +162,9 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
 def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
                  page_table):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    if bc.mixer == "mamba":
+        y, new_state = mamba2_step(cfg, p["mamba"], x, cache)
+        return h + y, new_state                # Mamba-2 blocks have no FFN
     attn = mla_decode if cfg.mla else gqa_decode
     y, new_cache = attn(cfg, p["attn"], x, cache, pos, page_table)
     h = h + y
@@ -171,7 +177,7 @@ def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
 # ------------------------------------------------------------- decode step
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos, page_table):
     """tokens (B,), pos (B,) int32 → (logits (B,V) f32, cache). The page
-    pools of ``cache`` are updated in place."""
+    pools of ``cache`` are updated in place; Mamba-2 states are replaced."""
     h = embed(cfg, params["embed"], tokens)
     layers = []
     for bc, p, c in zip(block_cfgs(cfg), params["layers"], cache["layers"]):

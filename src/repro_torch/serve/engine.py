@@ -7,9 +7,13 @@ page-aligned cache rows are copied into pages of the shared pools of each
 layer (``(num_pages, page_size, Hkv, dh)`` K and V for GQA, one
 ``(num_pages, page_size, kv_lora + rope)`` latent pool for MLA), addressed
 through a per-slot page table kept by a host-side free-list allocator.
-The engine does not otherwise depend on the model family. Decode runs
-``decode_quantum`` tokens per cycle with every piece of state on the
-device and exactly one device-to-host read per quantum (``_host_fetch``).
+Mamba-2 layers keep dense per-slot state beside the pool, written per slot
+at admit; their state scan would absorb pad tokens, so such models
+(``pad_safe`` False) prefill in exact-length groups of the smallest
+power-of-2 batch. The engine does not otherwise depend on the model
+family. Decode runs ``decode_quantum`` tokens per cycle with every piece
+of state on the device and exactly one device-to-host read per quantum
+(``_host_fetch``).
 
 Admission follows the paper's scheduling law: the decode quantum is the
 fixed accelerator chunk ``S_f``; the prompt-token budget admitted per
@@ -37,9 +41,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.chunking import cpu_chunk
 from repro_torch.core.tracker import ThroughputTracker
 from repro_torch.kernels import _build
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import block_cfgs, check_supported
 from repro_torch.serve.decode import _pack, _sample_tokens, decode_loop
-from repro_torch.serve.kv_cache import make_cache, paged_cache_defs
+from repro_torch.serve.kv_cache import (cache_kinds, make_cache,
+                                        paged_cache_defs)
 from repro_torch.serve.prefill import bucket_len, prefill
 
 
@@ -217,6 +222,9 @@ class Engine:
         self.top_p = float(top_p)
         self.prefill_batch = prefill_batch or max_slots
         self.min_bucket = min_bucket
+        # padded buckets are only sound when every mixer is attention: a
+        # Mamba-2 state scan would absorb the pad tokens
+        self.pad_safe = all(bc.mixer == "attn" for bc in block_cfgs(cfg))
         if page_size <= 0:
             raise ValueError(f"page_size {page_size} must be positive")
         if max_len % page_size:
@@ -233,7 +241,9 @@ class Engine:
                 _build.load(name)
         dev = self.device
         self.cache = make_cache(paged_cache_defs(
-            cfg, num_pages=self.num_pages, page_size=page_size), dev)
+            cfg, num_pages=self.num_pages, page_size=page_size,
+            max_slots=max_slots), dev)
+        self.kinds = cache_kinds(cfg)
         self.page_table_dev = torch.tensor(self.alloc.table, device=dev)
         self._table_dirty = False
         self.pos_host = np.zeros(max_slots, np.int64)  # device-pos mirror
@@ -443,8 +453,9 @@ class Engine:
         self._last_admitted = len(take)
         groups: dict[int, list[Request]] = {}
         for req in take:
-            b = bucket_len(len(req.prompt), min_bucket=self.min_bucket,
-                           max_bucket=self.max_len)
+            b = (bucket_len(len(req.prompt), min_bucket=self.min_bucket,
+                            max_bucket=self.max_len)
+                 if self.pad_safe else len(req.prompt))
             groups.setdefault(b, []).append(req)
         ptoks = 0
         pdt = 0.0
@@ -460,8 +471,11 @@ class Engine:
     def _prefill_group(self, Sb: int, reqs: list[Request],
                        free: list[int]) -> float:
         """Prefill + admit one bucket group; returns the device seconds of
-        the prefill and the admit copy (synchronized)."""
-        P = self.prefill_batch
+        the prefill and the admit copy (synchronized). Padded buckets use
+        the fixed ``prefill_batch`` rows, exact-length groups the smallest
+        power-of-2 batch."""
+        P = (self.prefill_batch if self.pad_safe
+             else 1 << (len(reqs) - 1).bit_length())
         toks = np.zeros((P, Sb), np.int32)
         pl = np.ones(P, np.int32)
         slots = np.zeros(len(reqs), np.int64)
@@ -500,8 +514,9 @@ class Engine:
     def _admit(self, new_cache, first, pl_dev, reqs, slots, page_src):
         """Move a prefilled group into its slots: the page-aligned cache rows
         are copied into their freshly granted pool pages IN PLACE
-        (``index_copy_``), and the slot state vectors take the group's first
-        token, position and budget. ``page_src`` (num_pages,) is the flat
+        (``index_copy_``), dense leaves (Mamba-2 state) into the group's
+        slots, and the slot state vectors take the group's first token,
+        position and budget. ``page_src`` (num_pages,) is the flat
         (row · pages_per_row + page) source of each pool page, -1 where the
         group writes nothing."""
         dev = self.device
@@ -518,10 +533,16 @@ class Engine:
         dst_dev = torch.tensor(dst, device=dev)
         src_dev = torch.tensor(page_src[dst].astype(np.int64), device=dev)
         ps = self.page_size
-        for pools, rows in zip(self.cache["layers"], new_cache["layers"]):
-            for name, r in rows.items():       # "k", "v" or MLA's "ckv"
-                src = r.reshape((-1, ps) + tuple(r.shape[2:]))
-                pools[name].index_copy_(0, dst_dev, src.index_select(0, src_dev))
+        for kind, pools, rows in zip(self.kinds, self.cache["layers"],
+                                     new_cache["layers"]):
+            for name, r in rows.items():
+                if kind == "dense":            # per-slot Mamba-2 state
+                    pools[name].index_copy_(0, slot_dev,
+                                            r[:n].to(pools[name].dtype))
+                    continue
+                src = r.reshape((-1, ps) + tuple(r.shape[2:]))   # pool rows
+                pools[name].index_copy_(0, dst_dev,
+                                        src.index_select(0, src_dev))
 
     def _alloc_group_pages(self, Sb: int, reqs: list[Request],
                            slots: np.ndarray) -> np.ndarray:

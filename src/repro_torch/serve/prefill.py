@@ -1,5 +1,6 @@
 """Prefill: full forward pass that also builds the cache rows
-(``repro/serve/prefill.py``, full-attention GQA or MLA, dense or MoE FFN).
+(``repro/serve/prefill.py``, full-attention GQA or MLA with a dense or MoE
+FFN, or Mamba-2 mixers).
 
 Bucketed serving path: prompts are right-padded to a power-of-2 length
 bucket and prefilled batched with an explicit per-row ``prompt_len``.
@@ -7,7 +8,9 @@ Causality keeps real rows from attending pad keys, and the last-token
 logits are gathered at ``prompt_len - 1`` per row. With ``page_size`` the
 cache rows come out page-aligned, ``(B, ceil(S / page_size) · page_size,
 Hkv, dh)`` for GQA, ``(B, …, kv_lora + rope)`` for MLA, ready for the
-engine's admit scatter into its pools.
+engine's admit scatter into its pools. A Mamba-2 layer returns its decode
+state instead (``mamba2_mixer(return_state=True)``); its scan would absorb
+pad tokens, so the engine prefills such models in exact-length groups.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (attend, gqa_project, mla_latents,
                                           mla_queries)
 from repro_torch.models.layers import embed, logits_fn, mlp, rmsnorm
+from repro_torch.models.mamba import mamba2_mixer
 from repro_torch.models.moe import moe_block
 from repro_torch.models.transformer import BlockCfg, block_cfgs
 
@@ -87,6 +91,9 @@ def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
                   seq_len: int, max_len: int | None = None,
                   page_size: int | None = None):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    if bc.mixer == "mamba":
+        y, cache = mamba2_mixer(cfg, p["mamba"], x, return_state=True)
+        return h + y, cache                    # Mamba-2 blocks have no FFN
     if page_size:
         # paged engine: rows sized by the bucket, rounded up to whole pages
         Sc = -(-seq_len // page_size) * page_size
@@ -110,8 +117,8 @@ def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             max_len: int | None = None, prompt_len: torch.Tensor | None = None,
             page_size: int | None = None):
-    """tokens (B,S) → (last-token logits (B,V) f32, {"layers": [{"k","v"}
-    or {"ckv"}]}).
+    """tokens (B,S) → (last-token logits (B,V) f32, {"layers": [{"k","v"},
+    {"ckv"} or the Mamba-2 state {"conv_x", "conv_B", "conv_C", "ssm"}]}).
 
     ``prompt_len`` (B,) marks right-padded rows: logits are gathered at
     prompt_len-1 per row. ``page_size`` sizes the cache rows by the bucket

@@ -12,10 +12,14 @@ import torch
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.gemm import ops as gemm_ops
+from repro_torch.kernels.gemm import ref as gemm_ref
 from repro_torch.kernels.grouped_gemm import ops as gg_ops
 from repro_torch.kernels.grouped_gemm import ref as gg_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
+from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.params import init_params, tree_map
 from repro_torch.serve.engine import Engine, Request
 
@@ -192,7 +196,7 @@ def test_bf16_prefill_decode_on_card_match_host(dev):
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-236b",
-                                  "phi3.5-moe-42b-a6.6b"])
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-130m"])
 def test_engine_on_card_matches_host(dev, arch):
     """The paged engine on the card (every kernel of the model's path) gives
     the greedy streams of the same engine on the host (plain versions), in
@@ -358,3 +362,142 @@ def test_flash_kernel_mla_dims_match_plain(dev, T):
     assert got.shape == (B, H, T, 128)
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
                                atol=3e-2)
+
+
+# ------------------------------------------------------------ tiled GEMM
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() /
+                 want.float().abs().max())
+
+
+# f32 on CUDA cores sums in another order than cuBLAS; bf16 outputs round
+# once (tests/test_kernels.py::test_gemm_sweep holds bf16 to 2e-2)
+GEMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(256, 512, 384), (97, 136, 200),
+                                   (1, 64, 64), (300, 1024, 256)])
+def test_gemm_kernel_matches_plain(dev, dtype, M, K, N):
+    """Ragged M, N and K tile edges at the default block shape."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    a = torch.randn((M, K), generator=g, device=dev).to(dtype)
+    b = torch.randn((K, N), generator=g, device=dev).to(dtype)
+    n0 = gemm_ops.launches
+    got = gemm_ops.gemm(a, b)
+    assert gemm_ops.launches == n0 + 1 and got.dtype == dtype
+    assert _rel(got, gemm_ref.gemm_ref(a, b)) < GEMM_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", sorted(gemm_ops.SHAPES))
+def test_gemm_kernel_every_block_shape(dev, dtype, block):
+    """Every compiled (bm, bn, bk) — the bn sweep of Table 2 included —
+    on a row chunk A[b:e] of a larger A (a view, not a copy), with its
+    launch's shared memory equal to the law."""
+    bm, bn, bk = block
+    g = torch.Generator(device=dev).manual_seed(bn + bk)
+    A = torch.randn((300, 256), generator=g, device=dev).to(dtype)
+    b = torch.randn((256, 264), generator=g, device=dev).to(dtype)
+    a = A[40:237]
+    got = gemm_ops.gemm(a, b, bm=bm, bn=bn, bk=bk)
+    assert _rel(got, gemm_ref.gemm_ref(a, b)) < GEMM_TOL[dtype]
+    lib = gemm_ops._lib()
+    size = a.element_size()
+    assert lib.gemm_smem_bytes(int(dtype == torch.bfloat16), bm, bn, bk) == \
+        gemm_ops.smem_bytes(bm, bn, bk, size)
+
+
+def test_gemm_kernel_rejects_bad_inputs(dev):
+    a = torch.randn((64, 64), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        gemm_ops.gemm(a, a, bm=256, bn=256, bk=512)   # the JAX defaults
+    with pytest.raises(ValueError, match="not compiled"):
+        gemm_ops.gemm(a, a, bm=32, bn=32, bk=32)
+    h = a.to(torch.bfloat16)
+    with pytest.raises(ValueError):                    # N not a multiple of 8
+        gemm_ops.gemm(h, torch.randn((64, 12), device=dev,
+                                     dtype=torch.bfloat16))
+    with pytest.raises(ValueError):                    # b not contiguous
+        gemm_ops.gemm(a, a.t())
+
+
+def test_hetero_gemm_driver_on_card(dev):
+    """The paper's experiment at a small size on the card: every config's
+    C equals the plain product, and the accelerator tier launched the
+    kernel."""
+    from repro_torch.examples import hetero_gemm
+    n0 = gemm_ops.launches
+    rows = hetero_gemm.fig5(256, 2, (16, 64), device=dev,
+                            printer=lambda s: None)
+    assert all(r.ok for r in rows)
+    assert gemm_ops.launches > n0
+
+
+# --------------------------------------------------------- SSD intra-chunk
+def _ssd_case(dev, G, H, Q, P, N, seed=0, steep=False):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((G, Q, H, P), generator=g, device=dev)
+    if steep:      # exp(cs[t] - cs[s]) overflows above the diagonal
+        cs = -100.0 * torch.arange(Q, device=dev, dtype=torch.float32)
+        cs = cs[None, :, None].expand(G, Q, H).contiguous()
+    else:
+        cs = torch.cumsum(-torch.nn.functional.softplus(torch.randn(
+            (G, Q, H), generator=g, device=dev)), dim=1)
+    B = torch.randn((G, Q, N), generator=g, device=dev)
+    C = torch.randn((G, Q, N), generator=g, device=dev)
+    # ssd_scan's views: heads second, B and C with stride 0 over heads
+    return (x.permute(0, 2, 1, 3), cs.permute(0, 2, 1),
+            B[:, None].expand(-1, H, -1, -1), C[:, None].expand(-1, H, -1, -1))
+
+
+@pytest.mark.parametrize("Q", [32, 97, 256])
+@pytest.mark.parametrize("H,P,N", [(3, 16, 32), (2, 64, 128), (1, 72, 40)])
+def test_ssd_kernel_matches_plain(dev, Q, H, P, N):
+    """Q of a full chunk, an exact-length ragged chunk and 32; P and N that
+    fill, split and leave ragged 64-wide tiles; stride-0 B and C."""
+    x, cs, B, C = _ssd_case(dev, 4, H, Q, P, N, seed=Q + P)
+    n0 = ssd_ops.launches
+    y, st = ssd_ops.intra_chunk(x, cs, B, C)
+    assert ssd_ops.launches == n0 + 1
+    assert y.shape == (4, H, Q, P) and st.shape == (4, H, N, P)
+    yr, str_ = ssd_ref.ssd_intra_chunk_ref(x, cs, B, C)
+    assert _rel(y, yr) < TOL[torch.float32]
+    assert _rel(st, str_) < TOL[torch.float32]
+
+
+def test_ssd_kernel_overflow_above_diagonal(dev):
+    """A steep cs overflows exp above the diagonal: the kernel selects, so
+    y stays finite and equal to the plain version."""
+    x, cs, B, C = _ssd_case(dev, 2, 2, 64, 16, 32, steep=True)
+    y, st = ssd_ops.intra_chunk(x, cs, B, C)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    yr, str_ = ssd_ref.ssd_intra_chunk_ref(x, cs, B, C)
+    assert _rel(y, yr) < TOL[torch.float32]
+    assert _rel(st, str_) < TOL[torch.float32]
+
+
+def test_ssd_kernel_rejects_bad_inputs(dev):
+    x, cs, B, C = _ssd_case(dev, 2, 2, 32, 16, 32)
+    with pytest.raises(ValueError):
+        ssd_ops.intra_chunk(x.to(torch.bfloat16), cs, B, C)
+    with pytest.raises(ValueError):
+        ssd_ops.intra_chunk(x, cs[..., :16], B, C)
+    with pytest.raises(ValueError):
+        ssd_ops.intra_chunk(x.transpose(2, 3), cs, B, C)
+
+
+def test_ssd_scan_on_card_matches_host(dev):
+    """The chunked scan through the kernel on the card against the same
+    scan through the plain version on the host (f32)."""
+    from repro_torch.models.mamba import ssd_scan
+    g = torch.Generator().manual_seed(0)
+    xh = torch.randn((2, 300, 3, 16), generator=g)
+    dta = -torch.nn.functional.softplus(torch.randn((2, 300, 3), generator=g))
+    Bm, Cm = torch.randn((2, 2, 300, 32), generator=g)
+    y, h = ssd_scan(xh, dta, Bm, Cm, chunk=128)
+    n0 = ssd_ops.launches
+    yd, hd = ssd_scan(*(t.to(dev) for t in (xh, dta, Bm, Cm)), chunk=128)
+    assert ssd_ops.launches == n0 + 1
+    assert _rel(yd.cpu(), y) < TOL[torch.float32]
+    assert _rel(hd.cpu(), h) < TOL[torch.float32]
