@@ -8,8 +8,9 @@
    process per source, all started together).
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (paged GQA and MLA decode, flash prefill at GQA and MLA head
-   dims, the grouped expert GEMM in bf16 and f32, the tiled GEMM at 4096²
-   in f32 and bf16 with the Table 2 sweep of bn, the SSD intra-chunk at
+   dims, the grouped expert GEMM in bf16 and f32, the tiled GEMM on the hbb
+   path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16
+   with the Table 2 sweep of bn, the SSD intra-chunk at
    mamba2-130m's shapes), and times kernel, plain version and the PyTorch
    call that computes the same function, where there is one, with CUDA
    events.
@@ -354,68 +355,94 @@ def gg_phase(dev) -> dict:
 
 # -------------------------------------------------------------- tiled GEMM
 def gemm_phase(dev) -> dict:
-    """The paper's GEMM at the scaling study's 4096² in f32 (the contract's
-    type, CUDA cores) and bf16 (tensor cores) at the default block shape,
-    then Table 2 on the card: the bn ("buffered columns") sweep at bm = 64,
-    bk = 32 with each shape's shared memory. f32 within 1e-5 and bf16 within
-    2e-2 of the largest value, against the plain version."""
+    """The paper's GEMM first at the shapes the hbb path gives it: chunks
+    A[:S_f] (a view) of a 1024² f32 A times a 1024² B at the default block
+    shape, S_f over FPGA_CHUNK_SWEEP; the line's numbers are those of
+    S_f = 256. Then the scaling study's 4096³ in f32 (the contract's type,
+    CUDA cores) and bf16 (tensor cores) at the default block shape, with
+    Table 2 on the card: the bn ("buffered columns") sweep at bm = 64,
+    bk = 32 with each shape's shared memory. f32 within 1e-5 and bf16
+    within 2e-2 of the largest value, against the plain version."""
+    from repro_torch.configs.gemm_paper import FPGA_CHUNK_SWEEP, GEMM_N_MAIN
     from repro_torch.kernels.gemm import ops, ref
-    n = 4096
-    g = torch.Generator(device=dev).manual_seed(0)
-    a32 = torch.randn((n, n), generator=g, device=dev)
-    b32 = torch.randn((n, n), generator=g, device=dev)
     tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    n_ops = 2 * n ** 3
-    res = {}
-    for dt in (torch.float32, torch.bfloat16):
-        a, b = a32.to(dt), b32.to(dt)
+    blk = (ops.BM, ops.BN, ops.BK)
+
+    def measure(a, b, dt, label, iters):
         want = ref.gemm_ref(a, b)
         out = ops.gemm(a, b)
         e = float((out.float() - want.float()).abs().max()
                   / want.float().abs().max())
-        blk = (ops.BM, ops.BN, ops.BK)
-        check(e <= tols[dt], f"gemm {n}² {dt} block {blk}: relative max "
+        check(e <= tols[dt], f"gemm {label} {dt} block {blk}: relative max "
               f"error {e:.3g} (tol {tols[dt]})")
-        n_bytes = 3 * n * n * a.element_size()
-        b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
-        ms = time_ms(lambda: ops.gemm(a, b), 10)
-        plain = time_ms(lambda: ref.gemm_ref(a, b), 10)
-        lib = time_ms(lambda: torch.matmul(a, b), 10)
-        print(f"gemm {n}³ {dt}: kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f} "
-              f"TFLOP/s), plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by})")
+        (M, K), N = a.shape, b.shape[1]
+        n_ops = 2 * M * N * K
+        b_ms, b_by = bound_ms((M * K + K * N + M * N) * a.element_size(),
+                              n_ops, dt)
+        ms = time_ms(lambda: ops.gemm(a, b), iters)
+        plain = time_ms(lambda: ref.gemm_ref(a, b), iters)
+        lib = time_ms(lambda: torch.matmul(a, b), iters)
+        print(f"gemm {label} {dt}: kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f}"
+              f" TFLOP/s), plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}), kernel/bound "
+              f"{ms / b_ms:.1f}x")
+        return want, dict(max_abs_err=e, ms=ms, plain_ms=plain,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+
+    n = GEMM_N_MAIN
+    g = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((n, n), generator=g, device=dev)
+    B = torch.randn((n, n), generator=g, device=dev)
+    chunks = []
+    for sf in FPGA_CHUNK_SWEEP:
+        _, r = measure(A[:sf], B, torch.float32, f"chunk S_f={sf}x{n}x{n}",
+                       50)
+        chunks.append({"S_f": sf, **r})
+    main = chunks[-1]
+    del A, B
+
+    n = 4096
+    g = torch.Generator(device=dev).manual_seed(0)
+    a32 = torch.randn((n, n), generator=g, device=dev)
+    b32 = torch.randn((n, n), generator=g, device=dev)
+    n_ops = 2 * n ** 3
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        a, b = a32.to(dt), b32.to(dt)
+        want, r = measure(a, b, dt, f"{n}³", 10)
         sweep = []
         for bn in (32, 64, 128, 256):
-            blk = dict(bm=64, bn=bn, bk=32)
-            es = float((ops.gemm(a, b, **blk).float() - want.float()).abs()
+            blk_bn = dict(bm=64, bn=bn, bk=32)
+            es = float((ops.gemm(a, b, **blk_bn).float() - want.float()).abs()
                        .max() / want.float().abs().max())
             check(es <= tols[dt], f"gemm {n}² {dt} bn={bn}: relative max "
                   f"error {es:.3g} (tol {tols[dt]})")
-            t = time_ms(lambda: ops.gemm(a, b, **blk), 5)
+            t = time_ms(lambda: ops.gemm(a, b, **blk_bn), 5)
             smem = ops.smem_bytes(64, bn, 32, a.element_size())
             sweep.append({"bn": bn, "smem_bytes": smem, "ms": t})
             print(f"  Table 2 {dt} bm=64 bn={bn:3d} bk=32: shared memory "
                   f"{smem} B ({100 * smem / ops.SMEM_LIMIT:.1f} % of "
                   f"{ops.SMEM_LIMIT}), {t:.4f} ms, "
                   f"{n_ops / t / 1e9:.2f} TFLOP/s")
-        res[dt] = dict(max_abs_err=e, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                       bound_by=b_by, library_ms=lib, table2=sweep)
-        del a, b, want, out
+        res[str(dt).removeprefix("torch.")] = dict(r, table2=sweep)
+        del a, b, want
     del a32, b32
     torch.cuda.empty_cache()
-    f32, bf16 = res[torch.float32], res[torch.bfloat16]
     return {"name": "gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gemm.cu",
             "replaces": "src/repro/kernels/gemm/gemm.py:39",
             "tol": tols[torch.float32],
-            **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")},
-            "bf16": bf16,
-            "check": f"relative max error against gemm_ref at {n}²: f32 "
-                     "(tol 1e-5) and bf16 (tol 2e-2), at the default block "
-                     "and every bn of the Table 2 sweep; times (library: "
-                     "torch.matmul, allow_tf32 off) in f32 at the default "
-                     "block"}
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")},
+            "max_abs_err": max(c["max_abs_err"] for c in chunks),
+            "chunks": chunks, "n4096": res,
+            "check": "relative max error against gemm_ref: f32 (tol 1e-5) "
+                     "on the hbb path's chunks A[:S_f] of a 1024² A, S_f "
+                     "8..256, and at 4096² in f32 and bf16 (tol 2e-2) at "
+                     "the default block and every bn of the Table 2 sweep; "
+                     "ms, plain_ms, bound_ms and library_ms (torch.matmul, "
+                     "allow_tf32 off) are the path's S_f = 256 chunk, f32; "
+                     "chunks and n4096 hold the rest"}
 
 
 # ------------------------------------------------------------ SSD intra-chunk
@@ -480,7 +507,8 @@ def hbb_phase(dev, entries) -> None:
     — then offload-only
     against heterogeneous at 4096². The kernel's launch count is read from
     the 1024² sweep. Also the accelerator's per-chunk host overhead: its
-    mean service time in the offload-only runs against the kernel alone."""
+    mean service time in the offload-only runs against the kernel alone
+    (the gemm phase's time at the same chunk shape)."""
     import os
     from repro_torch.configs.gemm_paper import (FPGA_CHUNK_SWEEP,
                                                 GEMM_N_MAIN, GEMM_N_SCALING)
@@ -493,10 +521,9 @@ def hbb_phase(dev, entries) -> None:
     ops.launches = 0
     rows = hetero_gemm.fig5(GEMM_N_MAIN, ncc, FPGA_CHUNK_SWEEP, device=dev)
     n = ops.launches
-    for e in entries:
-        if e["name"] == "gemm":
-            e["launches"] = n
-            e["launches_by_path"] = {"hbb": n}
+    gemm = next(e for e in entries if e["name"] == "gemm")
+    gemm["launches"] = n
+    gemm["launches_by_path"] = {"hbb": n}
     check(n > 0, f"gemm launched on the hbb path ({n} times)")
     check(all(r.ok for r in rows), f"Fig. 5 at {GEMM_N_MAIN}²: every "
           "config's C equals the plain product (relative max error ≤ 1e-5)")
@@ -504,18 +531,17 @@ def hbb_phase(dev, entries) -> None:
     print(f"Fig. 5 at {GEMM_N_MAIN}²: offload-only best {t_off:.4f} s, "
           f"heterogeneous best {t_het:.4f} s → reduction {100 * red:.1f} % "
           "(paper §6: 25–50 %)")
-    A, B = hetero_gemm.make_operands(GEMM_N_MAIN, dev)
+    kernel_ms = {c["S_f"]: c["ms"] for c in gemm["chunks"]}
     for r in rows:
         if r.ncc:
             continue
         recs = [x for x in r.report.records if x.resource == "FC0"]
         service = sum(x.t_end - x.t_start for x in recs) / len(recs)
-        k = time_ms(lambda: ops.gemm(A[:r.chunk], B), 20) / 1e3
+        k = kernel_ms[r.chunk] / 1e3
         print(f"  S_f={r.chunk:4d}: accelerator chunk service "
               f"{service * 1e3:.4f} ms, kernel alone {k * 1e3:.4f} ms → host "
               f"overhead {(service - k) * 1e3:.4f} ms per chunk "
               f"({len(recs)} chunks)")
-    del A, B
     rows = hetero_gemm.fig5(GEMM_N_SCALING, ncc, FPGA_CHUNK_SWEEP,
                             device=dev, configs=[(0, 1), (ncc, 1)])
     check(all(r.ok for r in rows), f"Fig. 5 at {GEMM_N_SCALING}²: every "
@@ -828,7 +854,7 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check")
     print(json.dumps({"kernels": [
-        {k: e[k] for k in keys + tuple(x for x in ("mla", "bf16") if x in e)}
+        {k: e[k] for k in keys + tuple(x for x in ("mla", "chunks", "n4096") if x in e)}
         for e in entries]}))
     print(smi)
     print(f"total {time.perf_counter() - t0:.1f} s")

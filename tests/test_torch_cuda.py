@@ -422,6 +422,21 @@ def test_gemm_kernel_rejects_bad_inputs(dev):
         gemm_ops.gemm(a, a.t())
 
 
+@pytest.mark.parametrize("split", [0, 97, 256])
+def test_matmul_row_split_on_card(dev, split):
+    """Rows [0, split) through the kernel on the card, the rest on the
+    host: the result lies on the card, equals the plain product, and the
+    kernel launched exactly when the accelerator had rows."""
+    g = torch.Generator(device=dev).manual_seed(split)
+    a = torch.randn((256, 128), generator=g, device=dev)
+    b = torch.randn((128, 192), generator=g, device=dev)
+    n0 = gemm_ops.launches
+    got = gemm_ops.matmul_row_split(a, b, split)
+    assert got.device == a.device and got.shape == (256, 192)
+    assert gemm_ops.launches == n0 + (1 if split else 0)
+    assert _rel(got, gemm_ref.gemm_ref(a, b)) < GEMM_TOL[torch.float32]
+
+
 def test_hetero_gemm_driver_on_card(dev):
     """The paper's experiment at a small size on the card: every config's
     C equals the plain product, and the accelerator tier launched the
