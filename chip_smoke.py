@@ -30,13 +30,26 @@
    depth cut to 2 layers. And for mamba2-130m at its published width and
    depth (exact-length prefill through the SSD kernel, per-slot state),
    with the f32 check at full depth.
-6. Prints one JSON line {"kernels": [...]}, then as the last line
+6. Training (the flash backward and the forward that saves lse): both
+   kernels against their plain versions at the training shape (B=4,
+   T=2048, 32 heads over 8, dh=128, causal, bf16; also f32 and window +
+   softcap), timed beside the backward of ``scaled_dot_product_attention``;
+   then mistral-nemo-12b at its published width, depth cut to 8 layers,
+   trained 5 steps (batch 4 x 2048 of synthetic data through the prefetch
+   loader, bf16 params, f32 moments), with per-step loss, grad norm,
+   seconds and tokens/s, peak memory, model FLOP/s against the bf16 peak,
+   one profiled step; an f32 gradient check at full width (depth 2) of the
+   kernels against autograd through the plain versions; and the training
+   launcher at smoke size in a subprocess.
+7. Prints one JSON line {"kernels": [...]}, then as the last line
    {"ok": true, "device": {...}}. Any failed check exits non-zero without it.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -219,6 +232,123 @@ def flash_phase(dev) -> dict:
                      "dh=128: T=1024/2048 causal, window 256 + softcap 30, "
                      "ragged T=1000; B=8 H=128 dqk=192 dv=128 T=1024 causal; "
                      "times at B=8 H=32 T=1024 causal (mla: the MLA shape)"}
+
+
+# ------------------------------------------------ flash backward (training)
+def _causal_pairs(T: int, window: int) -> int:
+    rows = np.arange(T)
+    lo = np.maximum(0, rows - window + 1) if window else np.zeros(T)
+    return int((rows - lo + 1).sum())
+
+
+def flash_bwd_phase(dev) -> list[dict]:
+    """The training path's attention shape: B=4, T=2048, H=32 over Hkv=8,
+    dh=128, causal, bf16, q/k/v/do as head-transposed views of (B, T, heads,
+    d) as ``attend`` passes them; also f32 (CUDA cores) and window 256 +
+    softcap 30. The forward with lse against ``flash_attention_fwd_lse_ref``
+    (lse within 1e-4; o bit-equal to the serving forward), the backward
+    against ``flash_attention_bwd_ref`` on the kernel's own o and lse (each
+    gradient within 3e-2 of its largest value in bf16, 1e-4 in f32). Times
+    of the bf16 causal case: the kernels, the plain versions, and the
+    library: ``scaled_dot_product_attention`` (enable_gqa) with inputs that
+    want a gradient (its forward keeps lse), and its backward through
+    ``torch.autograd.grad`` on a graph made outside the timed region."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, T, H, Hk, dh = 4, 2048, 32, 8, 128
+    scale = dh ** -0.5
+    err_f, err_b, main = 0.0, 0.0, None
+    for dt, window, softcap in ((torch.bfloat16, 0, 0.0),
+                                (torch.float32, 0, 0.0),
+                                (torch.bfloat16, 256, 30.0)):
+        g = torch.Generator(device=dev).manual_seed(7 + window)
+        q, do = (torch.randn((B, T, H, dh), generator=g, device=dev).to(dt)
+                 for _ in range(2))
+        k, v = (torch.randn((B, T, Hk, dh), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        qv, kv, vv, dov = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
+        kw = dict(scale=scale, causal=True, window=window, softcap=softcap)
+        o, lse = ops.attend_fwd_lse(qv, kv, vv, **kw)
+        same = torch.equal(o, ops.attend(qv, kv, vv, **kw))
+        _, lse_r = ref.flash_attention_fwd_lse_ref(qv, kv, vv, **kw)
+        e_l = float((lse - lse_r).abs().max())
+        err_f = max(err_f, e_l)
+        label = (f"B={B} T={T} H={H} Hkv={Hk} dh={dh} {dt} window={window} "
+                 f"softcap={softcap}")
+        check(same and e_l <= 1e-4, f"flash fwd lse {label}: o equals the "
+              f"serving forward {same}, max |lse - ref| {e_l:.3g} (tol 1e-4)")
+        del lse_r
+        got = ops.attend_bwd(qv, kv, vv, o, lse, dov, **kw)
+        want = ref.flash_attention_bwd_ref(qv, kv, vv, o, lse, dov, **kw)
+        tol = BF16_TOL if dt == torch.bfloat16 else F32_REL_TOL
+        errs = [float((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()) for a, b in zip(got, want)]
+        err_b = max(err_b, max(errs))
+        check(max(errs) <= tol, f"flash bwd {label}: dq, dk, dv relative "
+              f"max error {[f'{e:.3g}' for e in errs]} (tol {tol})")
+        del got, want
+        torch.cuda.empty_cache()
+        if main is not None:
+            continue
+        pairs = _causal_pairs(T, window) * B * H
+        e = 2                                      # bf16 bytes
+        b_bytes = (e * B * T * (3 * H * dh + 2 * Hk * dh) + 4 * B * H * T
+                   + e * B * T * (H * dh + 2 * Hk * dh))
+        f_bytes = e * B * T * (2 * H * dh + 2 * Hk * dh) + 4 * B * H * T
+        bb = bound_ms(b_bytes, 10 * dh * pairs, dt)
+        fb = bound_ms(f_bytes, 4 * dh * pairs, dt)
+        ms_b = time_ms(lambda: ops.attend_bwd(qv, kv, vv, o, lse, dov, **kw),
+                       10)
+        plain_b = time_ms(lambda: ref.flash_attention_bwd_ref(
+            qv, kv, vv, o, lse, dov, **kw), 2, 1)
+        ms_f = time_ms(lambda: ops.attend_fwd_lse(qv, kv, vv, **kw), 10)
+        plain_f = time_ms(lambda: ref.flash_attention_fwd_lse_ref(
+            qv, kv, vv, **kw), 2, 1)
+        qc, kc, vc = (x.contiguous().requires_grad_() for x in (qv, kv, vv))
+        sdpa = dict(is_causal=True, scale=scale, enable_gqa=True)
+        lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, **sdpa), 10)
+        out = F.scaled_dot_product_attention(qc, kc, vc, **sdpa)
+        doc = dov.contiguous()
+        lib_b = time_ms(lambda: torch.autograd.grad(
+            out, (qc, kc, vc), doc, retain_graph=True), 10)
+        del out, qc, kc, vc, doc
+        for what, ms, plain, (b_ms, b_by), lib, flops in (
+                ("bwd", ms_b, plain_b, bb, lib_b, 10 * dh * pairs),
+                ("fwd lse", ms_f, plain_f, fb, lib_f, 4 * dh * pairs)):
+            print(f"flash {what} {label}: kernel {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+                  f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"kernel/bound {ms / b_ms:.1f}x, kernel/sdpa "
+                  f"{ms / lib:.1f}x")
+        main = ((ms_b, plain_b, *bb, lib_b), (ms_f, plain_f, *fb, lib_f))
+        del q, k, v, do, qv, kv, vv, dov, o, lse
+        torch.cuda.empty_cache()
+    shape = (f"B={B} T={T} H={H} Hkv={Hk} dh={dh} causal bf16, q/k/v/do "
+             "head-transposed views")
+    out = []
+    for name, replaces, (ms, plain, b_ms, b_by, lib), err, tol, chk in (
+            ("flash_attention_bwd", "flash_attention_bwd.py:138", main[0],
+             err_b, BF16_TOL,
+             "dq, dk, dv against flash_attention_bwd_ref on the kernel's o "
+             "and lse, relative to each largest value: bf16 (tol 3e-2) "
+             "causal and window 256 + softcap 30, f32 (tol 1e-4) causal; "
+             "library: the backward of scaled_dot_product_attention "
+             "(enable_gqa) through torch.autograd.grad"),
+            ("flash_attention_fwd_lse", "flash_attention_bwd.py:199",
+             main[1], err_f, 1e-4,
+             "lse against flash_attention_fwd_lse_ref (tol 1e-4), o bit-equal "
+             "to the serving forward, the same three cases; library: "
+             "scaled_dot_product_attention (enable_gqa) on inputs that want "
+             "a gradient")):
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/" + (
+                        "flash_attention_bwd.cu" if name.endswith("bwd")
+                        else "flash_attention.cu"),
+                    "replaces": "src/repro/kernels/flash_attention/" + replaces,
+                    "max_abs_err": err, "tol": tol, "ms": ms,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib, "check": f"{chk}; times at {shape}"})
+    return out
 
 
 # ------------------------------------------------------- paged MLA decode
@@ -562,6 +692,8 @@ def _counters() -> dict:
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {"paged_attention_gqa": (paged_ops, "launches"),
             "flash_attention_fwd": (flash_ops, "launches"),
+            "flash_attention_bwd": (flash_ops, "bwd_launches"),
+            "flash_attention_fwd_lse": (flash_ops, "lse_launches"),
             "paged_attention_mla": (paged_ops, "mla_launches"),
             "grouped_gemm": (gg_ops, "launches"),
             "gemm": (gemm_ops, "launches"),
@@ -741,11 +873,36 @@ def mamba_phase(dev, entries) -> None:
     torch.cuda.empty_cache()
 
 
+def device_time(prof):
+    """Device kernels of a profile: (busy µs as the union of their
+    intervals, kernel count, {name: [µs, count]})."""
+    from torch.autograd import DeviceType
+    # device activity only; "Command Buffer Full" marks a full launch queue
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and "Command Buffer Full" not in e.name]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        acc = by_name.setdefault(e.name, [0.0, 0])
+        acc[0] += e.time_range.end - e.time_range.start
+        acc[1] += 1
+    return busy, len(kernels), by_name
+
+
+def print_top(by_name, n: int = 12) -> None:
+    for name, (us, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :n]:
+        print(f"  {us / 1e3:9.3f} ms {k:6d}x  {name[:90]}")
+
+
 def profile_phase(eng, cfg) -> None:
     """One decode quantum of 8 full slots at ~1k context under
     torch.profiler (admission done before): device busy share of the wall
     time and the kernels by device time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(1)
@@ -762,27 +919,13 @@ def profile_phase(eng, cfg) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     eng.drain()
-    # device activity only; "Command Buffer Full" marks a full launch queue
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and "Command Buffer Full" not in e.name]
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in kernels):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
-    by_name: dict[str, list] = {}
-    for e in kernels:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.end - e.time_range.start
-        acc[1] += 1
+    busy, n, by_name = device_time(prof)
     print(f"profile: one decode quantum ({rep.decoded} tokens, "
           f"{eng.decode_quantum} steps, 8 slots at ~1k context, profiler "
           f"on): wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-          f"({busy / 1e4 / wall:.1f} %), {len(kernels)} kernels "
-          f"({len(kernels) / eng.decode_quantum:.0f} per step)")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
-            :12]:
-        print(f"  {us / 1e3:9.3f} ms {n:6d}x  {name[:90]}")
+          f"({busy / 1e4 / wall:.1f} %), {n} kernels "
+          f"({n / eng.decode_quantum:.0f} per step)")
+    print_top(by_name)
 
 
 def prefill_decode_rel(cfg, params, dev) -> float:
@@ -820,6 +963,164 @@ def prefill_decode_rel(cfg, params, dev) -> float:
     return float((got - ref).abs().max() / ref.abs().max())
 
 
+# ------------------------------------------------------------ training
+def plain_attend(q, k, v, *, scale, causal=True, window=0, softcap=0.0):
+    """``models.attention.attend`` through the plain forward: autograd then
+    differentiates the plain version (the f32 gradient check's reference)."""
+    from repro_torch.kernels.flash_attention import ref
+    B, Tq, Hkv, G, dh = q.shape
+    out = ref.flash_attention_ref(
+        q.reshape(B, Tq, Hkv * G, dh).permute(0, 2, 1, 3),
+        k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), scale=scale,
+        causal=causal, window=window, softcap=softcap)
+    return out.permute(0, 2, 1, 3).reshape(B, Tq, Hkv, G, v.shape[-1])
+
+
+def train_phase(dev, entries) -> None:
+    """mistral-nemo-12b at its published width (d 5120, 32 heads over 8 of
+    128, FFN 14336, V 131072), depth cut 40 → 8 layers (3.52 B params: bf16
+    params and grads, f32 m and v, 42 GB), seeded random weights made on
+    the card. 5 steps of ``make_train_step`` (AdamW lr 2.93e-5, warmup 2,
+    cosine to step 5) on batch 4 x 2048 of ``SyntheticLM(V, 2048, seed=0)``
+    through ``PrefetchLoader``; counts read around those 5 steps. Then one
+    profiled step, and the f32 gradient check at full width, depth 2,
+    batch 1 x 512."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.data.loader import PrefetchLoader
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import attention
+    from repro_torch.models.model import loss_fn
+    from repro_torch.params import init_params, n_params, tree_leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=8)
+    B, S, steps = 4, 2048, 5
+    # Adam's first updates move every weight by ~lr, a d-wide product's
+    # output by ~lr·d: lr 1e-3 (the smoke size's) diverges at d >= 2048 in
+    # the JAX package and the port alike (tools/width_lr_probe.py), so the
+    # full width takes lr·d = 0.15, which learns at d = 3072
+    ocfg = OptConfig(lr=0.15 / cfg.d_model, warmup_steps=2,
+                     decay_steps=steps)
+    t0 = time.perf_counter()
+    state = init_state(cfg, seed=0, ocfg=ocfg, device=dev)
+    torch.cuda.synchronize()
+    P = n_params(cfg)
+    print(f"train {cfg.name}, depth cut to {cfg.n_layers} layers: {P / 1e9:.3f}"
+          f" B params and f32 moments made on the card in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    loader = PrefetchLoader(SyntheticLM(cfg.vocab, S, seed=0).iterator(B),
+                            device=dev)
+    step_fn = make_train_step(cfg, ocfg)
+    # model FLOPs: 6 per parameter of every matrix product (the embedding
+    # table is a lookup) and token, and 12·dh per live (query, key) pair
+    # and head (attention fwd + bwd); the layer recompute is not counted
+    p_mm = P - cfg.vocab * cfg.d_model - (2 * cfg.n_layers + 1) * cfg.d_model
+    flops = (6 * p_mm * B * S
+             + 12 * cfg.head_dim * _causal_pairs(S, 0) * B * cfg.n_heads
+             * cfg.n_layers)
+    counters = _counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    try:
+        for i in range(steps):
+            batch = next(loader)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+            losses.append(loss)
+            times.append(dt)
+            print(f"  step {i + 1}: loss {loss:.4f}, grad norm {gn:.4f}, lr "
+                  f"{m['lr']:.2e}, {dt:.3f} s, {B * S / dt:.0f} tokens/s, "
+                  f"{flops / dt / 1e12:.1f} TFLOP/s (model FLOPs), "
+                  f"{100 * flops / dt / PEAK_OPS_PER_S[torch.bfloat16]:.1f} "
+                  "% of 989 TFLOP/s")
+        launches = {n: getattr(mod, attr)
+                    for n, (mod, attr) in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steady = sum(times[1:]) / (steps - 1)
+        print(f"train: peak memory {peak:.2f} GiB; steps 2-{steps} mean "
+              f"{steady:.3f} s, {B * S / steady:.0f} tokens/s, model FLOP/s "
+              f"{100 * flops / steady / PEAK_OPS_PER_S[torch.bfloat16]:.1f} "
+              f"% of the bf16 peak; launches {launches}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            batch = next(loader)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+    finally:
+        loader.close()
+    busy, n, by_name = device_time(prof)
+    print(f"profile: one train step (profiler on): wall {wall:.3f} s, device "
+          f"busy {busy / 1e6:.3f} s ({busy / 1e4 / wall:.1f} %), {n} kernels")
+    print_top(by_name)
+    first = math.log(cfg.vocab) + 0.02 ** 2 * cfg.d_model / 2
+    check(all(math.isfinite(x) for x in losses), f"train: every loss is "
+          f"finite {[round(x, 4) for x in losses]}")
+    check(abs(losses[0] - first) < 0.5, f"train: first loss {losses[0]:.4f} "
+          f"within 0.5 of ln V + 0.02²·d/2 = {first:.4f} (random logits of "
+          "variance 0.02²·d)")
+    check(sum(losses[-2:]) / 2 < losses[0], "train: the mean of the last two "
+          f"losses {sum(losses[-2:]) / 2:.4f} is below the first")
+    for e in entries:
+        k = launches[e["name"]]
+        e.setdefault("launches_by_path", {})["train"] = k
+        e["launches"] = e.get("launches", 0) + k
+        if e["name"] in ("flash_attention_fwd_lse", "flash_attention_bwd"):
+            check(k > 0, f"{e['name']} launched on the train path ({k} "
+                  "times)")
+    del state, m, batch, prof
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
+    params = init_params(cfg32, seed=0, device=dev)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    g = torch.Generator(device=dev).manual_seed(0)
+    toks = torch.randint(0, cfg32.vocab, (1, 513), generator=g, device=dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "mask": torch.ones((1, 512), device=dev)}
+    grads = torch.autograd.grad(loss_fn(cfg32, params, batch)[0], leaves)
+    kernel_attend = attention.attend
+    attention.attend = plain_attend
+    try:
+        want = torch.autograd.grad(loss_fn(cfg32, params, batch)[0], leaves)
+    finally:
+        attention.attend = kernel_attend
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(grads, want))
+    check(rel < 1e-3, f"train f32 at full width, depth 2, batch 1 x 512: "
+          f"every gradient leaf through the kernels within {rel:.3g} of its "
+          "largest value of autograd through the plain versions (tol 1e-3)")
+    del params, grads, want
+    torch.cuda.empty_cache()
+
+
+def launcher_phase() -> None:
+    """The training launcher at smoke size, in its own process."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "mistral-nemo-12b", "--steps", "3"]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    print(run.stdout[-2000:] + run.stderr[-2000:])
+    check(run.returncode == 0 and "done: 3 steps" in run.stdout,
+          f"launcher {' '.join(cmd[1:])} exits {run.returncode} in "
+          f"{time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -843,13 +1144,15 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-    entries = [paged_phase(dev), flash_phase(dev), mla_phase(dev),
-               gg_phase(dev), gemm_phase(dev), ssd_phase(dev)]
+    entries = [paged_phase(dev), flash_phase(dev), *flash_bwd_phase(dev),
+               mla_phase(dev), gg_phase(dev), gemm_phase(dev), ssd_phase(dev)]
     torch.cuda.empty_cache()
     hbb_phase(dev, entries)
     serve_phase(dev, entries)
     deepseek_phase(dev, entries)
     mamba_phase(dev, entries)
+    train_phase(dev, entries)
+    launcher_phase()
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check")

@@ -20,8 +20,8 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-NAMES = ("flash_attention", "gemm", "grouped_gemm", "paged_attention",
-         "ssd")
+NAMES = ("flash_attention", "flash_attention_bwd", "gemm", "grouped_gemm",
+         "paged_attention", "ssd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -37,6 +37,14 @@
 // Both run the query tiles in reverse so the longest causal rows start
 // first, and visit only the key tiles between the first key the window
 // allows and the last key causality allows.
+//
+// Training also asks for lse (B, H, Tq) f32, the residual of the backward
+// (flash_attention_bwd.cu). It replaces repro/kernels/flash_attention/
+// flash_attention_bwd.py::flash_attention_fwd_lse, which gets lse from a
+// second O(T^2) pass; here each row writes m + log(max(l, 1e-30)) from its
+// own running (m, l), with m taken as 0 for a row with no live key (as
+// repro/models/attention.py::_attend_fwd). Serving passes a null lse and
+// launches what it launched before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,7 +80,8 @@ struct Strides {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, Strides qs,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, Strides qs,
                  Strides ks, Strides vs, Strides os, int H, int group, int Tq,
                  int Tk, int dh, int dv, float scale, int causal, int window,
                  float softcap) {
@@ -216,6 +225,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (col < dv) ob[row * os.t + col] = from_f<T>(acc[r][c] * inv);
     }
   }
+  if (lse != nullptr && tid < BQ && q0 + tid < Tq) {
+    const float m = m_s[tid];
+    lse[(long long)blockIdx.y * Tq + q0 + tid] =
+        (m <= NEG / 2 ? 0.f : m) + logf(fmaxf(l_s[tid], 1e-30f));
+  }
 }
 
 // ------------------------------------------------- tensor-core bf16 path
@@ -243,9 +257,10 @@ __global__ void __launch_bounds__(MTHREADS)
 flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v,
-              __nv_bfloat16* __restrict__ o, Strides qs, Strides ks,
-              Strides vs, Strides os, int H, int group, int Tq, int Tk,
-              float scale, int causal, int window, float softcap) {
+              __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+              Strides qs, Strides ks, Strides vs, Strides os, int H,
+              int group, int Tq, int Tk, float scale, int causal, int window,
+              float softcap) {
   constexpr int KP = DH + 8;      // padded K row (bf16)
   constexpr int VP = MK + 8;      // padded V^T row (bf16)
   __shared__ __align__(16) __nv_bfloat16 Ks[MK][KP];
@@ -389,20 +404,26 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(oacc[j][2 * rr] * inv,
                                 oacc[j][2 * rr + 1] * inv);
     }
+    if (lse != nullptr && tg == 0)   // the quad agrees on (m, l) of its row
+      lse[(long long)blockIdx.y * Tq + row] =
+          (mrow[rr] <= NEG / 2 ? 0.f : mrow[rr]) +
+          logf(fmaxf(lrow[rr], 1e-30f));
   }
 }
 
 template <int DH, int DV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       Strides qs, Strides ks, Strides vs, Strides os, int B,
-                       int H, int Hk, int Tq, int Tk, float scale, int causal,
-                       int window, float softcap, cudaStream_t stream) {
+                       float* lse, Strides qs, Strides ks, Strides vs,
+                       Strides os, int B, int H, int Hk, int Tq, int Tk,
+                       float scale, int causal, int window, float softcap,
+                       cudaStream_t stream) {
   dim3 grid((Tq + MQ - 1) / MQ, B * H);
   flash_fwd_mma<DH, DV><<<grid, MTHREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      qs, ks, vs, os, H, H / Hk, Tq, Tk, scale, causal, window, softcap);
+      lse, qs, ks, vs, os, H, H / Hk, Tq, Tk, scale, causal, window,
+      softcap);
   return cudaGetLastError();
 }
 
@@ -413,9 +434,9 @@ bool mma_ok(const void* p, Strides s) {
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   Strides qs, Strides ks, Strides vs, Strides os, int B,
-                   int H, int Hk, int Tq, int Tk, int dh, int dv, float scale,
-                   int causal, int window, float softcap,
+                   float* lse, Strides qs, Strides ks, Strides vs, Strides os,
+                   int B, int H, int Hk, int Tq, int Tk, int dh, int dv,
+                   float scale, int causal, int window, float softcap,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)(BQ + BK) * (dh + 1) + (size_t)BK * dv + BQ * SP + 3 * BQ);
@@ -426,7 +447,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), qs, ks, vs, os, H,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, qs, ks, vs, os, H,
       H / Hk, Tq, Tk, dh, dv, scale, causal, window, softcap);
   return cudaGetLastError();
 }
@@ -436,11 +457,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). Strides are in
-// elements, the last dim of every tensor is contiguous. Returns the CUDA
-// error of the launch (0 = success).
+// elements, the last dim of every tensor is contiguous. lse, when not null,
+// is a contiguous (B, H, Tq) float32 output. Returns the CUDA error of the
+// launch (0 = success).
 int flash_attention_fwd(int device, int dtype, const void* q, const void* k,
-                        const void* v, void* o, long long qsb, long long qsh,
-                        long long qst, long long ksb, long long ksh,
+                        const void* v, void* o, void* lse_out, long long qsb,
+                        long long qsh, long long qst, long long ksb,
+                        long long ksh,
                         long long kst, long long vsb, long long vsh,
                         long long vst, long long osb, long long osh,
                         long long ost, int B, int H, int Hk, int Tq, int Tk,
@@ -454,9 +477,10 @@ int flash_attention_fwd(int device, int dtype, const void* q, const void* k,
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst},
       os{osb, osh, ost};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0)
-    err = launch<float>(q, k, v, o, qs, ks, vs, os, B, H, Hk, Tq, Tk, dh, dv,
-                        scale, causal, window, softcap, st);
+    err = launch<float>(q, k, v, o, lse, qs, ks, vs, os, B, H, Hk, Tq, Tk,
+                        dh, dv, scale, causal, window, softcap, st);
   else if (dtype == 1 && mma_ok(q, qs) && mma_ok(k, ks) && mma_ok(v, vs) &&
            mma_ok(o, os) &&
            ((dh == dv && (dh == 16 || dh == 32 || dh == 64 || dh == 128)) ||
@@ -466,11 +490,12 @@ int flash_attention_fwd(int device, int dtype, const void* q, const void* k,
             : dh == 64    ? launch_mma<64, 64>
             : dh == 128   ? launch_mma<128, 128>
                           : launch_mma<192, 128>;   // MLA: nope + rope, v
-    err = fn(q, k, v, o, qs, ks, vs, os, B, H, Hk, Tq, Tk, scale, causal,
-             window, softcap, st);
+    err = fn(q, k, v, o, lse, qs, ks, vs, os, B, H, Hk, Tq, Tk, scale,
+             causal, window, softcap, st);
   } else if (dtype == 1)
-    err = launch<__nv_bfloat16>(q, k, v, o, qs, ks, vs, os, B, H, Hk, Tq, Tk,
-                                dh, dv, scale, causal, window, softcap, st);
+    err = launch<__nv_bfloat16>(q, k, v, o, lse, qs, ks, vs, os, B, H, Hk,
+                                Tq, Tk, dh, dv, scale, causal, window,
+                                softcap, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -1,0 +1,762 @@
+// Backward flash attention on Hopper (sm_90a): causal and/or sliding window,
+// tanh softcap, GQA, ragged lengths.
+//
+// Replaces the TPU kernels repro/kernels/flash_attention/
+// flash_attention_bwd.py::flash_attention_bwd (_dq_kernel, _dkv_kernel).
+// Same math: p is recomputed per tile from the forward's lse,
+//
+//   delta = rowsum(do * o)
+//   p  = exp(s - lse) where the mask is live, else 0
+//   ds = p * (do v^T - delta)          (* (1 - t^2) with softcap, t = tanh)
+//   dq = scale * ds k,  dk = scale * ds^T q,  dv = p^T do
+//
+// and the same split into two passes so that every accumulator is local to
+// its block, with no atomics: a dq pass over (query tile, B * H) and a dk/dv
+// pass over (key tile, B * Hk). Differences the card asks for: K/V carry Hk
+// heads and query head h reads kv head h / (H / Hk); the dk/dv pass loops
+// over the G query heads of its kv head, so dk and dv come back with Hk
+// heads, summed over each group, and no GQA broadcast is materialized.
+// Every tensor is read and written through its strides (the caller passes
+// head-transposed views), a ragged Tq or Tk is masked here (no T % 256),
+// and tiles the mask kills are never visited. delta is a small first
+// kernel (one warp per row).
+//
+// What bounds it: the operations. 5 products of 2 * d flops per live
+// (query, key) pair and head (S = q k^T and dP = do v^T recomputed, then
+// dq, dk, dv): 10 * dh per pair with dh = dv; at B = 4, T = 2048 causal,
+// 32 heads, dh = 128 that is 0.35 ms at the 989 TFLOP/s bf16 rate.
+//
+// Two paths, one contract.
+//
+// bwd_*_mma (bf16, dh == dv in {64, 128}, 16-byte aligned rows: the
+// training path of mistral-nemo-12b): the tensor cores through mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows. The dq pass
+// keeps a warp's Q and dO fragments and its dq accumulator in registers
+// and walks 32-key tiles (K row-major for S, K transposed for dS K, V
+// row-major for dP). The dk/dv pass keeps K and V tiles of 64 keys in
+// shared memory, its dk and dv accumulators in registers, and walks 32-row
+// query tiles of each head of the group (Q and dO both row-major and
+// transposed). p and ds are rounded to bf16 before they enter the second
+// products, as the forward rounds p before P V; every sum stays f32.
+// Rows are padded by 8 bf16 so a warp's fragment loads hit 32 banks.
+// Not yet used: wgmma, TMA, pipelined tiles, ldmatrix.
+//
+// bwd_*_kernel (f32, and bf16 at any other head dims: dh, dv <= 256): CUDA
+// cores in f32, 32 x 32 tiles, every operand and accumulator in shared
+// memory, 256 threads.
+//
+// Masked scores are never exponentiated (exp above the causal diagonal
+// would overflow), and a row with no live key has p = 0 everywhere.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma.cuh"
+
+namespace {
+
+constexpr int MAXD = 256;      // head dim limit of the f32 path
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+struct Strides {
+  long long b, h, t;
+};
+
+struct Mask {
+  int Tq, Tk, causal, window;
+  __device__ __forceinline__ bool live(int row, int key) const {
+    return row < Tq && key < Tk && (!causal || key <= row) &&
+           (!window || key > row - window);
+  }
+  // key range [lo, hi] that the query rows [r0, r1] can see
+  __device__ __forceinline__ int key_lo(int r0) const {
+    return window ? max(0, r0 - window + 1) : 0;
+  }
+  __device__ __forceinline__ int key_hi(int r1) const {
+    return causal ? min(Tk - 1, r1) : Tk - 1;
+  }
+  // query range [lo, hi] that sees some key of [k0, k1]
+  __device__ __forceinline__ int row_lo(int k0) const {
+    return causal ? k0 : 0;
+  }
+  __device__ __forceinline__ int row_hi(int k1) const {
+    return window ? min(Tq - 1, k1 + window - 1) : Tq - 1;
+  }
+};
+
+// p and ds of one score from s_pre = q.k (unscaled), the row's lse and
+// delta, and dp = do.v.
+__device__ __forceinline__ void p_ds(float s_pre, float dp, float lse,
+                                     float delta, bool ok, float scale,
+                                     float softcap, float* p, float* ds) {
+  if (!ok) {
+    *p = 0.f;
+    *ds = 0.f;
+    return;
+  }
+  float x = s_pre * scale, dt = 1.f;
+  if (softcap > 0.f) {
+    const float t = tanhf(x / softcap);
+    x = t * softcap;
+    dt = 1.f - t * t;
+  }
+  const float pv = expf(x - lse);
+  *p = pv;
+  *ds = pv * (dp - delta) * dt;
+}
+
+// ---------------------------------------------------------------- delta
+template <typename T>
+__global__ void __launch_bounds__(256)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+             float* __restrict__ delta, Strides os, Strides dos, int H,
+             int Tq, int dv, long long rows) {
+  const long long r = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const int t = (int)(r % Tq);
+  const long long bh = r / Tq;
+  const int b = (int)(bh / H), h = (int)(bh % H);
+  const T* orow = o + b * os.b + h * os.h + t * os.t;
+  const T* drow = dout + b * dos.b + h * dos.h + t * dos.t;
+  float acc = 0.f;
+  for (int d = lane; d < dv; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[r] = acc;
+}
+
+// ------------------------------------------------------ f32 CUDA-core path
+constexpr int FT = 32;          // query and key tile
+constexpr int FTHREADS = 256;
+constexpr int FSP = FT + 1;     // padded score row
+
+template <typename T>
+__global__ void __launch_bounds__(FTHREADS)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, Strides qs, Strides ks, Strides vs,
+              Strides dos, Strides dqs, int H, int group, Mask mk, int dh,
+              int dv, float scale, float softcap) {
+  extern __shared__ float smem[];
+  const int dhp = dh + 1, dvp = dv + 1;
+  float* Qs = smem;                   // FT x dhp
+  float* Ds = Qs + FT * dhp;          // FT x dvp  (dO)
+  float* Ks = Ds + FT * dvp;          // FT x dhp
+  float* Vs = Ks + FT * dhp;          // FT x dvp
+  float* Ss = Vs + FT * dvp;          // FT x FSP  (ds)
+  float* acc = Ss + FT * FSP;         // FT x dh
+  float* lse_s = acc + FT * dh;       // FT
+  float* dl_s = lse_s + FT;           // FT
+
+  const int tid = threadIdx.x;
+  const int qi = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / group;
+  const int q0 = qi * FT, Tq = mk.Tq, Tk = mk.Tk;
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* db = dout + b * dos.b + h * dos.h;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* lb = lse + (long long)blockIdx.y * Tq;
+  const float* dlb = delta + (long long)blockIdx.y * Tq;
+
+  for (int i = tid; i < FT * dh; i += FTHREADS) {
+    const int r = i / dh, d = i % dh, row = q0 + r;
+    Qs[r * dhp + d] = row < Tq ? to_f(qb[row * qs.t + d]) : 0.f;
+    acc[i] = 0.f;
+  }
+  for (int i = tid; i < FT * dv; i += FTHREADS) {
+    const int r = i / dv, d = i % dv, row = q0 + r;
+    Ds[r * dvp + d] = row < Tq ? to_f(db[row * dos.t + d]) : 0.f;
+  }
+  if (tid < FT) {
+    const int row = q0 + tid;
+    lse_s[tid] = row < Tq ? lb[row] : 0.f;
+    dl_s[tid] = row < Tq ? dlb[row] : 0.f;
+  }
+
+  const int q1 = min(q0 + FT, Tq) - 1;
+  const int k_hi = mk.key_hi(q1);
+  for (int k0 = (mk.key_lo(q0) / FT) * FT; k0 <= k_hi; k0 += FT) {
+    __syncthreads();                     // previous tile consumed
+    for (int i = tid; i < FT * dh; i += FTHREADS) {
+      const int r = i / dh, d = i % dh, key = k0 + r;
+      Ks[r * dhp + d] = key < Tk ? to_f(kb[key * ks.t + d]) : 0.f;
+    }
+    for (int i = tid; i < FT * dv; i += FTHREADS) {
+      const int r = i / dv, d = i % dv, key = k0 + r;
+      Vs[r * dvp + d] = key < Tk ? to_f(vb[key * vs.t + d]) : 0.f;
+    }
+    __syncthreads();
+    for (int i = tid; i < FT * FT; i += FTHREADS) {
+      const int r = i / FT, c = i % FT;   // a warp shares its query row
+      float s = 0.f, dp = 0.f;
+      for (int d = 0; d < dh; ++d) s += Qs[r * dhp + d] * Ks[c * dhp + d];
+      for (int d = 0; d < dv; ++d) dp += Ds[r * dvp + d] * Vs[c * dvp + d];
+      float p, ds;
+      p_ds(s, dp, lse_s[r], dl_s[r], mk.live(q0 + r, k0 + c), scale,
+           softcap, &p, &ds);
+      Ss[r * FSP + c] = ds;
+    }
+    __syncthreads();
+    for (int i = tid; i < FT * dh; i += FTHREADS) {
+      const int r = i / dh, d = i % dh;
+      float a = 0.f;
+      for (int c = 0; c < FT; ++c) a += Ss[r * FSP + c] * Ks[c * dhp + d];
+      acc[i] += a;
+    }
+  }
+  __syncthreads();
+  T* out = dq + b * dqs.b + h * dqs.h;
+  for (int i = tid; i < FT * dh; i += FTHREADS) {
+    const int r = i / dh, d = i % dh, row = q0 + r;
+    if (row < Tq) out[row * dqs.t + d] = from_f<T>(acc[i] * scale);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FTHREADS)
+bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dk,
+               T* __restrict__ dv_out, Strides qs, Strides ks, Strides vs,
+               Strides dos, Strides dks, Strides dvs, int H, int Hk,
+               int group, Mask mk, int dh, int dv, float scale,
+               float softcap) {
+  extern __shared__ float smem[];
+  const int dhp = dh + 1, dvp = dv + 1;
+  float* Ks = smem;                   // FT x dhp
+  float* Vs = Ks + FT * dhp;          // FT x dvp
+  float* Qs = Vs + FT * dvp;          // FT x dhp
+  float* Ds = Qs + FT * dhp;          // FT x dvp  (dO)
+  float* Ps = Ds + FT * dvp;          // FT x FSP  (row = query, col = key)
+  float* Gs = Ps + FT * FSP;          // FT x FSP  (ds)
+  float* dk_acc = Gs + FT * FSP;      // FT x dh
+  float* dv_acc = dk_acc + FT * dh;   // FT x dv
+  float* lse_s = dv_acc + FT * dv;    // FT
+  float* dl_s = lse_s + FT;           // FT
+
+  const int tid = threadIdx.x;
+  const int kj = blockIdx.x;
+  const int b = blockIdx.y / Hk, hk = blockIdx.y % Hk;
+  const int k0 = kj * FT, Tq = mk.Tq, Tk = mk.Tk;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+
+  for (int i = tid; i < FT * dh; i += FTHREADS) {
+    const int r = i / dh, d = i % dh, key = k0 + r;
+    Ks[r * dhp + d] = key < Tk ? to_f(kb[key * ks.t + d]) : 0.f;
+    dk_acc[i] = 0.f;
+  }
+  for (int i = tid; i < FT * dv; i += FTHREADS) {
+    const int r = i / dv, d = i % dv, key = k0 + r;
+    Vs[r * dvp + d] = key < Tk ? to_f(vb[key * vs.t + d]) : 0.f;
+    dv_acc[i] = 0.f;
+  }
+
+  const int k1 = min(k0 + FT, Tk) - 1;
+  const int r_hi = mk.row_hi(k1);
+  for (int h = hk * group; h < (hk + 1) * group; ++h) {
+    const T* qb = q + b * qs.b + h * qs.h;
+    const T* db = dout + b * dos.b + h * dos.h;
+    const float* lb = lse + ((long long)b * H + h) * Tq;
+    const float* dlb = delta + ((long long)b * H + h) * Tq;
+    for (int q0 = (mk.row_lo(k0) / FT) * FT; q0 <= r_hi; q0 += FT) {
+      __syncthreads();                   // previous tile consumed
+      for (int i = tid; i < FT * dh; i += FTHREADS) {
+        const int r = i / dh, d = i % dh, row = q0 + r;
+        Qs[r * dhp + d] = row < Tq ? to_f(qb[row * qs.t + d]) : 0.f;
+      }
+      for (int i = tid; i < FT * dv; i += FTHREADS) {
+        const int r = i / dv, d = i % dv, row = q0 + r;
+        Ds[r * dvp + d] = row < Tq ? to_f(db[row * dos.t + d]) : 0.f;
+      }
+      if (tid < FT) {
+        const int row = q0 + tid;
+        lse_s[tid] = row < Tq ? lb[row] : 0.f;
+        dl_s[tid] = row < Tq ? dlb[row] : 0.f;
+      }
+      __syncthreads();
+      for (int i = tid; i < FT * FT; i += FTHREADS) {
+        const int r = i / FT, c = i % FT;
+        float s = 0.f, dp = 0.f;
+        for (int d = 0; d < dh; ++d) s += Qs[r * dhp + d] * Ks[c * dhp + d];
+        for (int d = 0; d < dv; ++d)
+          dp += Ds[r * dvp + d] * Vs[c * dvp + d];
+        float p, ds;
+        p_ds(s, dp, lse_s[r], dl_s[r], mk.live(q0 + r, k0 + c), scale,
+             softcap, &p, &ds);
+        Ps[r * FSP + c] = p;
+        Gs[r * FSP + c] = ds;
+      }
+      __syncthreads();
+      for (int i = tid; i < FT * dv; i += FTHREADS) {
+        const int c = i / dv, d = i % dv;
+        float a = 0.f;
+        for (int r = 0; r < FT; ++r) a += Ps[r * FSP + c] * Ds[r * dvp + d];
+        dv_acc[i] += a;
+      }
+      for (int i = tid; i < FT * dh; i += FTHREADS) {
+        const int c = i / dh, d = i % dh;
+        float a = 0.f;
+        for (int r = 0; r < FT; ++r) a += Gs[r * FSP + c] * Qs[r * dhp + d];
+        dk_acc[i] += a;
+      }
+    }
+  }
+  __syncthreads();
+  T* dkb = dk + b * dks.b + hk * dks.h;
+  T* dvb = dv_out + b * dvs.b + hk * dvs.h;
+  for (int i = tid; i < FT * dh; i += FTHREADS) {
+    const int c = i / dh, d = i % dh, key = k0 + c;
+    if (key < Tk) dkb[key * dks.t + d] = from_f<T>(dk_acc[i] * scale);
+  }
+  for (int i = tid; i < FT * dv; i += FTHREADS) {
+    const int c = i / dv, d = i % dv, key = k0 + c;
+    if (key < Tk) dvb[key * dvs.t + d] = from_f<T>(dv_acc[i]);
+  }
+}
+
+// ------------------------------------------------- tensor-core bf16 path
+constexpr int MTHREADS = 128;   // 4 warps of 16 rows
+constexpr int MQ = 64;          // dq pass: query rows per block
+constexpr int MKT = 32;         // dq pass: keys per tile
+constexpr int MKV = 64;         // dk/dv pass: keys per block
+constexpr int MQT = 32;         // dk/dv pass: query rows per tile
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Rows [r0, r0 + n) of a (rows, D) tensor into a row-major tile (pitch P)
+// and, when Tt is not null, its transpose (D rows of pitch PT); rows at or
+// past `limit` are zero.
+template <int D, int P, int PT>
+__device__ __forceinline__ void load_tile(const bf16* src, long long st,
+                                          int r0, int n, int limit, bf16* Tr,
+                                          bf16* Tt, int tid) {
+  for (int i = tid; i < n * D / 8; i += MTHREADS) {
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8, row = r0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row < limit)
+      val = *reinterpret_cast<const uint4*>(src + row * st + c);
+    *reinterpret_cast<uint4*>(Tr + r * P + c) = val;
+    if (Tt != nullptr) {
+      const bf16* e = reinterpret_cast<const bf16*>(&val);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Tt[(c + j) * PT + r] = e[j];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MTHREADS)
+bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           bf16* __restrict__ dq, Strides qs, Strides ks, Strides vs,
+           Strides dos, Strides dqs, int H, int group, Mask mk, float scale,
+           float softcap) {
+  constexpr int P = D + 8, PT = MKT + 8;
+  __shared__ __align__(16) bf16 Ks[MKT * P];     // (key, d)
+  __shared__ __align__(16) bf16 Vs[MKT * P];     // (key, d)
+  __shared__ __align__(16) bf16 Kt[D * PT];      // (d, key)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tg = lane & 3;
+  const int qi = gridDim.x - 1 - blockIdx.x;
+  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / group;
+  const int q0 = qi * MQ, Tq = mk.Tq, Tk = mk.Tk;
+  const int rows[2] = {q0 + warp * 16 + gq, q0 + warp * 16 + gq + 8};
+  const bf16* qb = q + b * qs.b + h * qs.h;
+  const bf16* db = dout + b * dos.b + h * dos.h;
+  const bf16* kb = k + b * ks.b + hk * ks.h;
+  const bf16* vb = v + b * vs.b + hk * vs.h;
+
+  uint32_t qf[D / 16][4], df[D / 16][4];         // A fragments of Q and dO
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = rows[r & 1], col = kk * 16 + tg * 2 + (r >> 1) * 8;
+      qf[kk][r] = row < Tq ? ld32(qb + row * qs.t + col) : 0u;
+      df[kk][r] = row < Tq ? ld32(db + row * dos.t + col) : 0u;
+    }
+  }
+  float lr[2], dl[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long at = (long long)blockIdx.y * Tq + rows[rr];
+    lr[rr] = rows[rr] < Tq ? lse[at] : 0.f;
+    dl[rr] = rows[rr] < Tq ? delta[at] : 0.f;
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] =
+      acc[j][3] = 0.f;
+
+  const int q1 = min(q0 + MQ, Tq) - 1;
+  const int k_hi = mk.key_hi(q1);
+  for (int k0 = (mk.key_lo(q0) / MKT) * MKT; k0 <= k_hi; k0 += MKT) {
+    __syncthreads();                             // previous tile consumed
+    load_tile<D, P, PT>(kb, ks.t, k0, MKT, Tk, Ks, Kt, tid);
+    load_tile<D, P, PT>(vb, vs.t, k0, MKT, Tk, Vs, nullptr, tid);
+    __syncthreads();
+
+    float s[MKT / 8][4], dp[MKT / 8][4];
+#pragma unroll
+    for (int j = 0; j < MKT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < MKT / 8; ++j) {
+        const bf16* kr = Ks + (j * 8 + gq) * P + kk * 16 + tg * 2;
+        mma_bf16(s[j], qf[kk], ld32(kr), ld32(kr + 8));
+        const bf16* vr = Vs + (j * 8 + gq) * P + kk * 16 + tg * 2;
+        mma_bf16(dp[j], df[kk], ld32(vr), ld32(vr + 8));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < MKT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = e >> 1, key = k0 + j * 8 + tg * 2 + (e & 1);
+        float p, ds;
+        p_ds(s[j][e], dp[j][e], lr[rr], dl[rr], mk.live(rows[rr], key),
+             scale, softcap, &p, &ds);
+        s[j][e] = ds;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < MKT / 16; ++kk) {      // dS (C layout) as A
+      const uint32_t a[4] = {pack_f(s[2 * kk][0], s[2 * kk][1]),
+                             pack_f(s[2 * kk][2], s[2 * kk][3]),
+                             pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const bf16* kr = Kt + (j * 8 + gq) * PT + kk * 16 + tg * 2;
+        mma_bf16(acc[j], a, ld32(kr), ld32(kr + 8));
+      }
+    }
+  }
+
+  bf16* out = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = rows[rr];
+    if (row >= Tq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + row * dqs.t + j * 8 + tg * 2) =
+          __floats2bfloat162_rn(acc[j][2 * rr] * scale,
+                                acc[j][2 * rr + 1] * scale);
+  }
+}
+
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(bf16) * ((size_t)2 * MKV * (D + 8) + 2 * MQT * (D + 8) +
+                         2 * D * (MQT + 8)) +
+         sizeof(float) * 2 * MQT;
+}
+
+template <int D>
+__global__ void __launch_bounds__(MTHREADS)
+bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dk, bf16* __restrict__ dv_out, Strides qs,
+            Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
+            int H, int Hk, int group, Mask mk, float scale, float softcap) {
+  constexpr int P = D + 8, PT = MQT + 8;
+  extern __shared__ __align__(16) unsigned char raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(raw);       // (key, d)   MKV x P
+  bf16* Vs = Ks + MKV * P;                       // (key, d)   MKV x P
+  bf16* Qs = Vs + MKV * P;                       // (query, d) MQT x P
+  bf16* Ds = Qs + MQT * P;                       // (query, d) MQT x P  dO
+  bf16* Qt = Ds + MQT * P;                       // (d, query) D x PT
+  bf16* Dt = Qt + D * PT;                        // (d, query) D x PT   dO
+  float* lse_s = reinterpret_cast<float*>(Dt + D * PT);
+  float* dl_s = lse_s + MQT;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tg = lane & 3;
+  const int b = blockIdx.y / Hk, hk = blockIdx.y % Hk;
+  const int k0 = blockIdx.x * MKV, Tq = mk.Tq, Tk = mk.Tk;
+  const int keys[2] = {k0 + warp * 16 + gq, k0 + warp * 16 + gq + 8};
+  const int kw = warp * 16;                      // the warp's first tile row
+
+  load_tile<D, P, P>(k + b * ks.b + hk * ks.h, ks.t, k0, MKV, Tk, Ks,
+                     nullptr, tid);
+  load_tile<D, P, P>(v + b * vs.b + hk * vs.h, vs.t, k0, MKV, Tk, Vs,
+                     nullptr, tid);
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  const int k1 = min(k0 + MKV, Tk) - 1;
+  const int r_hi = mk.row_hi(k1);
+  for (int h = hk * group; h < (hk + 1) * group; ++h) {
+    const bf16* qb = q + b * qs.b + h * qs.h;
+    const bf16* db = dout + b * dos.b + h * dos.h;
+    const long long lb = ((long long)b * H + h) * Tq;
+    for (int q0 = (mk.row_lo(k0) / MQT) * MQT; q0 <= r_hi; q0 += MQT) {
+      __syncthreads();                           // previous tile consumed
+      load_tile<D, P, PT>(qb, qs.t, q0, MQT, Tq, Qs, Qt, tid);
+      load_tile<D, P, PT>(db, dos.t, q0, MQT, Tq, Ds, Dt, tid);
+      if (tid < MQT) {
+        const int row = q0 + tid;
+        lse_s[tid] = row < Tq ? lse[lb + row] : 0.f;
+        dl_s[tid] = row < Tq ? delta[lb + row] : 0.f;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T: rows are the warp's keys
+      float st[MQT / 8][4], dpt[MQT / 8][4];
+#pragma unroll
+      for (int j = 0; j < MQT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t ak[4], av[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int off = (kw + gq + (r & 1) * 8) * P + kk * 16 + tg * 2 +
+                          (r >> 1) * 8;
+          ak[r] = ld32(Ks + off);
+          av[r] = ld32(Vs + off);
+        }
+#pragma unroll
+        for (int j = 0; j < MQT / 8; ++j) {
+          const bf16* qr = Qs + (j * 8 + gq) * P + kk * 16 + tg * 2;
+          mma_bf16(st[j], ak, ld32(qr), ld32(qr + 8));
+          const bf16* dr = Ds + (j * 8 + gq) * P + kk * 16 + tg * 2;
+          mma_bf16(dpt[j], av, ld32(dr), ld32(dr + 8));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < MQT / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + tg * 2 + (e & 1);   // query within the tile
+          float p, ds;
+          p_ds(st[j][e], dpt[j][e], lse_s[c], dl_s[c],
+               mk.live(q0 + c, keys[e >> 1]), scale, softcap, &p, &ds);
+          st[j][e] = p;
+          dpt[j][e] = ds;
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q, both with the queries as depth
+#pragma unroll
+      for (int kk = 0; kk < MQT / 16; ++kk) {
+        const uint32_t ap[4] = {pack_f(st[2 * kk][0], st[2 * kk][1]),
+                                pack_f(st[2 * kk][2], st[2 * kk][3]),
+                                pack_f(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                                pack_f(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+        const uint32_t ad[4] = {
+            pack_f(dpt[2 * kk][0], dpt[2 * kk][1]),
+            pack_f(dpt[2 * kk][2], dpt[2 * kk][3]),
+            pack_f(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+            pack_f(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          const bf16* dr = Dt + (j * 8 + gq) * PT + kk * 16 + tg * 2;
+          mma_bf16(dva[j], ap, ld32(dr), ld32(dr + 8));
+          const bf16* qr = Qt + (j * 8 + gq) * PT + kk * 16 + tg * 2;
+          mma_bf16(dka[j], ad, ld32(qr), ld32(qr + 8));
+        }
+      }
+    }
+  }
+
+  bf16* dkb = dk + b * dks.b + hk * dks.h;
+  bf16* dvb = dv_out + b * dvs.b + hk * dvs.h;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = keys[rr];
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + key * dks.t + j * 8 + tg * 2) =
+          __floats2bfloat162_rn(dka[j][2 * rr] * scale,
+                                dka[j][2 * rr + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvb + key * dvs.t + j * 8 + tg * 2) =
+          __floats2bfloat162_rn(dva[j][2 * rr], dva[j][2 * rr + 1]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+  int B, H, Hk, dh, dv_dim;
+  Mask mk;
+  float scale, softcap;
+};
+
+template <typename T>
+cudaError_t launch_delta(const Args& a, cudaStream_t st) {
+  const long long rows = (long long)a.B * a.H * a.mk.Tq;
+  delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta,
+      a.os, a.dos, a.H, a.mk.Tq, a.dv_dim, rows);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_mma(const Args& a, cudaStream_t st) {
+  cudaError_t err = launch_delta<bf16>(a, st);
+  if (err != cudaSuccess) return err;
+  const int G = a.H / a.Hk;
+  const bf16 *q = static_cast<const bf16*>(a.q),
+             *k = static_cast<const bf16*>(a.k),
+             *v = static_cast<const bf16*>(a.v),
+             *d = static_cast<const bf16*>(a.dout);
+  bwd_dq_mma<D><<<dim3((a.mk.Tq + MQ - 1) / MQ, a.B * a.H), MTHREADS, 0,
+                  st>>>(q, k, v, d, a.lse, a.delta,
+                        static_cast<bf16*>(a.dq), a.qs, a.ks, a.vs, a.dos,
+                        a.dqs, a.H, G, a.mk, a.scale, a.softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = dkv_smem<D>();
+  err = cudaFuncSetAttribute(bwd_dkv_mma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  bwd_dkv_mma<D><<<dim3((a.mk.Tk + MKV - 1) / MKV, a.B * a.Hk), MTHREADS,
+                   smem, st>>>(q, k, v, d, a.lse, a.delta,
+                               static_cast<bf16*>(a.dk),
+                               static_cast<bf16*>(a.dv), a.qs, a.ks, a.vs,
+                               a.dos, a.dks, a.dvs, a.H, a.Hk, G, a.mk,
+                               a.scale, a.softcap);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_f32(const Args& a, cudaStream_t st) {
+  cudaError_t err = launch_delta<T>(a, st);
+  if (err != cudaSuccess) return err;
+  const int dh = a.dh, dv = a.dv_dim, G = a.H / a.Hk;
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+          *v = static_cast<const T*>(a.v),
+          *d = static_cast<const T*>(a.dout);
+  const size_t dq_smem = sizeof(float) *
+      ((size_t)2 * FT * (dh + 1) + (size_t)2 * FT * (dv + 1) + FT * FSP +
+       (size_t)FT * dh + 2 * FT);
+  err = cudaFuncSetAttribute(bwd_dq_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dq_smem);
+  if (err != cudaSuccess) return err;
+  bwd_dq_kernel<T><<<dim3((a.mk.Tq + FT - 1) / FT, a.B * a.H), FTHREADS,
+                     dq_smem, st>>>(q, k, v, d, a.lse, a.delta,
+                                    static_cast<T*>(a.dq), a.qs, a.ks, a.vs,
+                                    a.dos, a.dqs, a.H, G, a.mk, dh, dv,
+                                    a.scale, a.softcap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t dkv_smem_f = sizeof(float) *
+      ((size_t)2 * FT * (dh + 1) + (size_t)2 * FT * (dv + 1) +
+       2 * FT * FSP + (size_t)FT * (dh + dv) + 2 * FT);
+  err = cudaFuncSetAttribute(bwd_dkv_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dkv_smem_f);
+  if (err != cudaSuccess) return err;
+  bwd_dkv_kernel<T><<<dim3((a.mk.Tk + FT - 1) / FT, a.B * a.Hk), FTHREADS,
+                      dkv_smem_f, st>>>(q, k, v, d, a.lse, a.delta,
+                                        static_cast<T*>(a.dk),
+                                        static_cast<T*>(a.dv), a.qs, a.ks,
+                                        a.vs, a.dos, a.dks, a.dvs, a.H, a.Hk,
+                                        G, a.mk, dh, dv, a.scale, a.softcap);
+  return cudaGetLastError();
+}
+
+bool mma_ok(const void* p, Strides s) {
+  return (uintptr_t)p % 16 == 0 && s.b % 8 == 0 && s.h % 8 == 0 &&
+         s.t % 8 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do and the three grads).
+// lse (the forward's) and delta (scratch) are contiguous (B, H, Tq)
+// float32. Strides are in elements; the last dim of every tensor is
+// contiguous. Three launches: delta, the dq pass, the dk/dv pass. Returns
+// the CUDA error of the first launch that failed (0 = success).
+int flash_attention_bwd(
+    int device, int dtype, const void* q, const void* k, const void* v,
+    const void* o, const void* dout, const void* lse, void* delta, void* dq,
+    void* dk, void* dv, long long qsb, long long qsh, long long qst,
+    long long ksb, long long ksh, long long kst, long long vsb, long long vsh,
+    long long vst, long long osb, long long osh, long long ost, long long dosb,
+    long long dosh, long long dost, long long dqsb, long long dqsh,
+    long long dqst, long long dksb, long long dksh, long long dkst,
+    long long dvsb, long long dvsh, long long dvst, int B, int H, int Hk,
+    int Tq, int Tk, int dh, int dv_dim, float scale, int causal, int window,
+    float softcap, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (dh < 1 || dh > MAXD || dv_dim < 1 || dv_dim > MAXD || Hk < 1 ||
+      H % Hk || Tq < 1 || Tk < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, o, dout, static_cast<const float*>(lse),
+         static_cast<float*>(delta), dq, dk, dv,
+         {qsb, qsh, qst}, {ksb, ksh, kst}, {vsb, vsh, vst}, {osb, osh, ost},
+         {dosb, dosh, dost}, {dqsb, dqsh, dqst}, {dksb, dksh, dkst},
+         {dvsb, dvsh, dvst}, B, H, Hk, dh, dv_dim,
+         Mask{Tq, Tk, causal, window}, scale, softcap};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool tc = dtype == 1 && dh == dv_dim && (dh == 64 || dh == 128) &&
+                  mma_ok(q, a.qs) && mma_ok(k, a.ks) && mma_ok(v, a.vs) &&
+                  mma_ok(dout, a.dos) && mma_ok(dq, a.dqs) &&
+                  mma_ok(dk, a.dks) && mma_ok(dv, a.dvs);
+  if (tc)
+    err = dh == 64 ? launch_mma<64>(a, st) : launch_mma<128>(a, st);
+  else if (dtype == 0)
+    err = launch_f32<float>(a, st);
+  else if (dtype == 1)
+    err = launch_f32<bf16>(a, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,9 +1,12 @@
-"""Public flash-attention forward op.
+"""Public flash-attention ops: the forward (serving), the forward that also
+returns lse, and the backward (training).
 
-On a CUDA tensor it launches the hand-written kernel
-(``kernels/csrc/flash_attention.cu``) or raises; the plain version in
-``ref.py`` runs only for tensors on the CPU. ``launches`` counts kernel
-launches.
+On CUDA tensors they launch the hand-written kernels
+(``kernels/csrc/flash_attention.cu``, ``flash_attention_bwd.cu``) or raise;
+the plain versions in ``ref.py`` run only for tensors on the CPU. Each op
+counts the calls that launched its kernels: ``launches`` (forward),
+``lse_launches`` (forward with lse), ``bwd_launches`` (backward: delta, dq
+pass and dk/dv pass).
 """
 from __future__ import annotations
 
@@ -15,24 +18,36 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ref
 
 launches = 0
+lse_launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DQK = 256           # q/k head dim (MLA prefill: nope 128 + rope 64)
 _MAX_DV = 128
+_MAX_BWD = 256           # backward: q/k and v head dims
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
-_ARGTYPES = [_I, _I, _P, _P, _P, _P] + [_LL] * 12 + [_I] * 7 + \
+_FWD_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P] + [_LL] * 12 + [_I] * 7 + \
+    [_F, _I, _I, _F, _P]
+_BWD_ARGTYPES = [_I, _I] + [_P] * 10 + [_LL] * 24 + [_I] * 7 + \
     [_F, _I, _I, _F, _P]
 
 
-def _lib() -> ctypes.CDLL:
+def _fwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
-    lib.flash_attention_fwd.argtypes = _ARGTYPES
+    lib.flash_attention_fwd.argtypes = _FWD_ARGTYPES
     lib.flash_attention_fwd.restype = ctypes.c_int
     return lib
 
 
-def _check(q, k, v) -> None:
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    lib.flash_attention_bwd.argtypes = _BWD_ARGTYPES
+    lib.flash_attention_bwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v, max_dqk=_MAX_DQK, max_dv=_MAX_DV) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention wants 4-D q (B,H,Tq,dh), "
                          "k (B,Hk,Tk,dh), v (B,Hk,Tk,dv)")
@@ -46,13 +61,47 @@ def _check(q, k, v) -> None:
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise ValueError(f"q, k, v must share one dtype of {list(_DTYPES)}; "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if dh > _MAX_DQK or v.shape[3] > _MAX_DV:
-        raise ValueError(f"q/k head dims above {_MAX_DQK} and v head dims "
-                         f"above {_MAX_DV} are not supported")
+    if dh > max_dqk or v.shape[3] > max_dv:
+        raise ValueError(f"q/k head dims above {max_dqk} and v head dims "
+                         f"above {max_dv} are not supported")
     if any(t.stride(3) != 1 for t in (q, k, v)):
         raise ValueError("the last dim of q, k and v must be contiguous")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must lie on one device")
+
+
+def _empty_like_order(x, shape):
+    """An uninitialised (B, H, T, d) tensor in x's memory order: (B, T, H, d)
+    memory for a head-transposed x, else contiguous."""
+    B, H, T, d = shape
+    if x.stride(1) < x.stride(2):
+        return x.new_empty((B, T, H, d)).permute(0, 2, 1, 3)
+    return x.new_empty((B, H, T, d))
+
+
+def _on_card(q) -> bool:
+    if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return True
+
+
+def _fwd(q, k, v, lse, scale, causal, window, softcap):
+    B, H, Tq, _ = q.shape
+    out = _empty_like_order(q, (B, H, Tq, v.shape[3]))
+    lib = _fwd_lib()
+    err = lib.flash_attention_fwd(
+        q.device.index or 0, _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k),
+        _build.ptr(v), _build.ptr(out),
+        None if lse is None else _build.ptr(lse),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        B, H, k.shape[1], Tq, k.shape[2], q.shape[3], v.shape[3],
+        float(scale), int(bool(causal)), int(window), float(softcap),
+        _build.stream(q.device))
+    _build.check(lib, err, "flash_attention_fwd")
+    return out
 
 
 def attend(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
@@ -61,26 +110,68 @@ def attend(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
     dtype. Inputs may be strided views; the output of the kernel has the
     memory order of q (a head-transposed q gives a head-transposed out)."""
     global launches
-    if q.device.type == "cpu":
+    if not _on_card(q):
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                        window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not "
-                         f"{q.device}")
     _check(q, k, v)
-    B, H, Tq, dh = q.shape
-    Hk, Tk, dv = k.shape[1], k.shape[2], v.shape[3]
-    if q.stride(1) < q.stride(2):       # (B, T, H, d) memory order
-        out = q.new_empty((B, Tq, H, dv)).permute(0, 2, 1, 3)
-    else:
-        out = q.new_empty((B, H, Tq, dv))
-    lib = _lib()
-    err = lib.flash_attention_fwd(
-        q.device.index or 0, _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k),
-        _build.ptr(v), _build.ptr(out),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        B, H, Hk, Tq, Tk, dh, dv, float(scale), int(bool(causal)),
-        int(window), float(softcap), _build.stream(q.device))
-    _build.check(lib, err, "flash_attention_fwd")
+    out = _fwd(q, k, v, None, scale, causal, window, softcap)
     launches += 1
     return out
+
+
+def attend_fwd_lse(q, k, v, *, scale: float, causal: bool = True,
+                   window: int = 0, softcap: float = 0.0):
+    """As :func:`attend`, and also lse (B,H,Tq) f32: the residual of
+    :func:`attend_bwd` (0 + log 1e-30 for a row with no live key)."""
+    global lse_launches
+    if not _on_card(q):
+        return ref.flash_attention_fwd_lse_ref(
+            q, k, v, scale=scale, causal=causal, window=window,
+            softcap=softcap)
+    _check(q, k, v)
+    B, H, Tq, _ = q.shape
+    lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    out = _fwd(q, k, v, lse, scale, causal, window, softcap)
+    lse_launches += 1
+    return out, lse
+
+
+def attend_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = True,
+               window: int = 0, softcap: float = 0.0):
+    """Gradients of :func:`attend` given its output ``o``, ``lse`` from
+    :func:`attend_fwd_lse` and the output's cotangent ``do`` (B,H,Tq,dv).
+    → (dq, dk, dv) shaped and typed as q, k, v (dk and dv with Hk heads,
+    summed over each group), each in the memory order of its input."""
+    global bwd_launches
+    if not _on_card(q):
+        return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
+                                           causal=causal, window=window,
+                                           softcap=softcap)
+    _check(q, k, v, _MAX_BWD, _MAX_BWD)
+    B, H, Tq, dh = q.shape
+    dv_dim = v.shape[3]
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != (B, H, Tq, dv_dim) or t.dtype != q.dtype or \
+                t.device != q.device or t.stride(3) != 1:
+            raise ValueError(f"{name} must be ({B}, {H}, {Tq}, {dv_dim}) "
+                             f"{q.dtype} on {q.device} with a contiguous "
+                             f"last dim; got {tuple(t.shape)} {t.dtype}")
+    if lse.shape != (B, H, Tq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be a contiguous ({B}, {H}, {Tq}) float32 "
+                         f"tensor on {q.device}")
+    dq = _empty_like_order(q, q.shape)
+    dk = _empty_like_order(k, k.shape)
+    dv = _empty_like_order(v, v.shape)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    err = lib.flash_attention_bwd(
+        q.device.index or 0, _DTYPES[q.dtype],
+        *(_build.ptr(t) for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+        *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
+        B, H, k.shape[1], Tq, k.shape[2], dh, dv_dim, float(scale),
+        int(bool(causal)), int(window), float(softcap),
+        _build.stream(q.device))
+    _build.check(lib, err, "flash_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv

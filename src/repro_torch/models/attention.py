@@ -1,11 +1,14 @@
-"""GQA and MLA projections and prefill attention
+"""GQA and MLA projections, prefill attention and the GQA training block
 (``repro/models/attention.py``).
 
 ``attend`` keeps the contract of the JAX ``attend_chunked`` (causal,
 sliding window, softcap; q (B,Tq,Hkv,G,dh), k (B,Tk,Hkv,dh), v
-(B,Tk,Hkv,dv)) and runs the hand-written flash kernel
-(``kernels/flash_attention``) on the card. The kernel takes strided views,
-so neither the head transpose nor the GQA broadcast is materialized.
+(B,Tk,Hkv,dv)) and runs the hand-written flash kernels
+(``kernels/flash_attention``) on the card. The kernels take strided views,
+so neither the head transpose nor the GQA broadcast is materialized. When a
+gradient is wanted, :class:`FlashAttention` (the custom VJP
+``_attend_fwd``/``_attend_bwd``) saves the forward's lse and runs the
+backward kernel.
 """
 from __future__ import annotations
 
@@ -30,15 +33,55 @@ def gqa_project(cfg: ModelConfig, p, x: torch.Tensor, positions):
     return q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim), k, v
 
 
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward: the forward keeps (q, k, v,
+    o, lse), the backward recomputes p from lse (``_attend_fwd`` /
+    ``_attend_bwd``). Tensors are (B, H|Hk, T, d) views."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window, softcap):
+        kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
+        o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_ops.attend_bwd(q, k, v, o, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
 def attend(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
            softcap: float = 0.0):
-    """q (B,Tq,Hkv,G,dh), k (B,Tk,Hkv,dh), v (B,Tk,Hkv,dv) → (B,Tq,Hkv,G,dv)."""
+    """q (B,Tq,Hkv,G,dh), k (B,Tk,Hkv,dh), v (B,Tk,Hkv,dv) → (B,Tq,Hkv,G,dv).
+    Runs :class:`FlashAttention` when an input wants a gradient, else the
+    forward alone (serving launches no lse)."""
     B, Tq, Hkv, G, dh = q.shape
     qh = q.reshape(B, Tq, Hkv * G, dh).permute(0, 2, 1, 3)   # views
-    out = flash_ops.attend(qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
-                           scale=scale, causal=causal, window=window,
-                           softcap=softcap)
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = FlashAttention.apply(qh, kh, vh, scale, causal, window,
+                                   softcap)
+    else:
+        out = flash_ops.attend(qh, kh, vh, scale=scale, causal=causal,
+                               window=window, softcap=softcap)
     return out.permute(0, 2, 1, 3).reshape(B, Tq, Hkv, G, v.shape[-1])
+
+
+def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
+                  positions) -> torch.Tensor:
+    """The training GQA block with no cache: project, causal attention,
+    out-project. x (B,S,D) → (B,S,D)."""
+    B, S, D = x.shape
+    q, k, v = gqa_project(cfg, p, x, positions)
+    out = attend(q, k, v, scale=cfg.head_dim ** -0.5, causal=True,
+                 window=window, softcap=cfg.attn_softcap)
+    return out.reshape(B, S, -1) @ p["wo"].reshape(-1, D)
 
 
 # --------------------------------------------------------------- MLA block

@@ -1,9 +1,11 @@
 """Shared layer primitives (``repro/models/layers.py``): norm, rope, gated
-MLP, embedding and the f32 logits, on one device."""
+MLP, embedding, the f32 logits and the chunked cross-entropy, on one
+device."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -73,6 +75,23 @@ def _softcap(x, cap):
     return torch.tanh(x / cap) * cap if cap else x
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm(h, w, out_dtype=float32)`` on the card, which has no
+    derivative of its own. The backward rounds the f32 cotangent to the
+    operands' dtype and takes the two products in it (f32 sums)."""
+
+    @staticmethod
+    def forward(ctx, h2, w):
+        ctx.save_for_backward(h2, w)
+        return torch.mm(h2, w, out_dtype=F32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h2, w = ctx.saved_tensors
+        g = g.to(h2.dtype)
+        return g @ w.T, h2.T @ g
+
+
 def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(…, D) @ (D, V) with f32 products and sums, f32 out, without an f32
     copy of ``w``: on the card ``torch.mm(..., out_dtype=float32)``
@@ -82,7 +101,7 @@ def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if h.dtype == F32 and w.dtype == F32:
         out = h2 @ w
     elif h.is_cuda:
-        out = torch.mm(h2, w, out_dtype=F32)
+        out = _MatmulF32.apply(h2, w)
     else:
         out = h2.to(F32) @ w.to(F32)
     return out.reshape(*lead, w.shape[-1])
@@ -93,3 +112,31 @@ def logits_fn(cfg: ModelConfig, embed_p, unembed_p,
     """h (…, D) → logits (…, V) fp32."""
     w = embed_p["table"].T if cfg.tie_embeddings else unembed_p["w"]
     return _softcap(matmul_f32(h, w.to(h.dtype)), cfg.final_softcap)
+
+
+def chunked_ce_loss(cfg: ModelConfig, embed_p, unembed_p, h: torch.Tensor,
+                    targets: torch.Tensor, mask: torch.Tensor,
+                    chunk: int = 512):
+    """Cross-entropy without materialising (B, S, V): sequence chunks of
+    ``chunk``, each under activation checkpointing, f32 logits, the label
+    logit gathered. h (B,S,D), targets (B,S) int, mask (B,S) f32 →
+    (sum_loss, sum_count) f32 scalars."""
+
+    def chunk_loss(hc, tc, mc):
+        logits = logits_fn(cfg, embed_p, unembed_p, hc)      # (B,c,V) f32
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = logits.gather(-1, tc[..., None].long())[..., 0]
+        return torch.sum((lse - lab) * mc), torch.sum(mc)
+
+    S = h.shape[1]
+    sum_l = h.new_zeros((), dtype=F32)
+    sum_c = h.new_zeros((), dtype=F32)
+    for s0 in range(0, S, min(chunk, S)):
+        sl = slice(s0, s0 + chunk)
+        args = (h[:, sl], targets[:, sl], mask[:, sl])
+        if torch.is_grad_enabled():
+            l, c = checkpoint(chunk_loss, *args, use_reentrant=False)
+        else:
+            l, c = chunk_loss(*args)
+        sum_l, sum_c = sum_l + l, sum_c + c
+    return sum_l, sum_c

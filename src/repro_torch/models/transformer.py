@@ -1,15 +1,23 @@
-"""Per-layer block schedule (``repro/models/transformer.py``).
+"""Per-layer block schedule and the training stack
+(``repro/models/transformer.py``).
 
 The JAX stack compresses the layer list into repeating :class:`Segment`s
 and scans over stacked parameters. The port runs layers in a Python loop
 over an unstacked list; ``layer_schedule`` stays so that a JAX parameter
-tree can be unstacked in layer order (``params.params_from_numpy``).
+tree can be unstacked in layer order (``params.params_from_numpy``). The
+training stack (``block_apply`` … ``lm_loss``) checkpoints every layer, as
+the JAX scan body's ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.attention import gqa_attention
+from repro_torch.models.layers import chunked_ce_loss, embed, mlp, rmsnorm
 
 
 @dataclass(frozen=True)
@@ -66,10 +74,10 @@ def layer_schedule(cfg: ModelConfig) -> tuple[Segment, ...]:
     return tuple(segs)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port serves decoders whose every layer is full attention (GQA
-    or MLA) with a dense or MoE gated FFN, or a Mamba-2 (SSD) mixer with no
-    FFN."""
+def check_params(cfg: ModelConfig) -> None:
+    """The families whose parameters the port lays out: decoders whose
+    every layer is attention (GQA or MLA) with a dense or MoE gated FFN, or
+    a Mamba-2 (SSD) mixer with no FFN."""
     if cfg.enc_dec or cfg.frontend != "none" or cfg.use_post_norm:
         raise NotImplementedError(
             f"{cfg.name}: enc-dec, front-end and post-norm models are not "
@@ -87,13 +95,83 @@ def check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name} layer {i} is {bc}; Mamba-2 blocks with an FFN "
                 "are not ported")
-        if bc.mixer == "attn" and (bc.window or bc.ffn == "none"):
+        if bc.mixer == "attn" and bc.ffn == "none":
             raise NotImplementedError(
-                f"{cfg.name} layer {i} is {bc}; the port serves "
-                "full-attention layers with an FFN only (no sliding "
-                "windows)")
+                f"{cfg.name} layer {i} is {bc}; attention layers without "
+                "an FFN are not ported")
     if any(bc.ffn != "none" for bc in block_cfgs(cfg)) and \
             cfg.act not in ("swiglu", "geglu"):
         raise NotImplementedError(
             f"{cfg.name}: activation {cfg.act!r} is not ported (gated "
             "swiglu/geglu only)")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves the families of :func:`check_params` with full
+    attention only (no sliding-window cache yet)."""
+    check_params(cfg)
+    for i, bc in enumerate(block_cfgs(cfg)):
+        if bc.mixer == "attn" and bc.window:
+            raise NotImplementedError(
+                f"{cfg.name} layer {i} is {bc}; the port serves "
+                "full-attention layers with an FFN only (no sliding "
+                "windows)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """The port trains decoders whose every layer is GQA attention (full or
+    sliding window: training keeps no cache) with a dense gated FFN."""
+    check_params(cfg)
+    if cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: SSM training is not ported")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA training is not ported (its JAX oracle is "
+            "red)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE training waits for a backward of the grouped "
+            "GEMM kernel")
+
+
+# ---------------------------------------------------------------- training
+def block_apply(cfg: ModelConfig, bc: BlockCfg, p, h: torch.Tensor,
+                positions) -> torch.Tensor:
+    """One pre-norm GQA + dense-FFN block: h (B,S,D) → h'."""
+    x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    h = h + gqa_attention(cfg, p["attn"], x, window=bc.window,
+                          positions=positions)
+    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    return h + mlp(cfg, p["mlp"], x)
+
+
+def apply_stack(cfg: ModelConfig, layers, h: torch.Tensor,
+                positions) -> torch.Tensor:
+    """Every layer in order, each under activation checkpointing when a
+    gradient is wanted (only the layer inputs stay alive)."""
+    for bc, p in zip(block_cfgs(cfg), layers):
+        if torch.is_grad_enabled():
+            h = checkpoint(block_apply, cfg, bc, p, h, positions,
+                           use_reentrant=False)
+        else:
+            h = block_apply(cfg, bc, p, h, positions)
+    return h
+
+
+def lm_hidden(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B,S) → final hidden states (B,S,D)."""
+    h = embed(cfg, params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h = apply_stack(cfg, params["layers"], h, positions)
+    return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+
+
+def lm_loss(cfg: ModelConfig, params, batch):
+    """batch: tokens/targets (B,S) int, mask (B,S) f32 → (loss, metrics)
+    with ``ce``, ``tokens`` and ``loss`` (0-d f32 tensors)."""
+    h = lm_hidden(cfg, params, batch["tokens"])
+    sum_l, sum_c = chunked_ce_loss(cfg, params["embed"], params["unembed"],
+                                   h, batch["targets"], batch["mask"])
+    ce = sum_l / torch.clamp(sum_c, min=1.0)
+    return ce, {"ce": ce, "tokens": sum_c, "loss": ce}

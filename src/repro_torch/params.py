@@ -20,7 +20,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import (block_cfgs, check_supported,
+from repro_torch.models.transformer import (block_cfgs, check_params,
                                             layer_schedule)
 
 F32 = torch.float32
@@ -34,17 +34,24 @@ class ParamSpec:
     scale: float = 0.02
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """``fn`` over the leaves of ``tree`` (nested dicts and lists), with the
+    matching leaves of the trees in ``rest`` as further arguments. A node
+    for which ``is_leaf`` is true is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, *vs, is_leaf=is_leaf)
+                for vs in zip(tree, *rest)]
+    return fn(tree, *rest)
 
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, is_leaf=None) -> list:
     out = []
-    tree_map(out.append, tree)
+    tree_map(out.append, tree, is_leaf=is_leaf)
     return out
 
 
@@ -56,7 +63,7 @@ def param_specs(cfg: ModelConfig):
     (``layers.py::mlp_defs``) or the MoE tree (``moe.py::moe_defs``), or a
     Mamba-2 mixer (``mamba.py::mamba2_defs``: A_log, D_skip and dt_bias in
     f32, zeros for A_log, dt_bias and the conv biases, ones for D_skip)."""
-    check_supported(cfg)
+    check_params(cfg)
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pdt = cfg.pdtype
     out_scale = 0.02 / max(1.0, (2 * max(cfg.n_layers, 1)) ** 0.5)

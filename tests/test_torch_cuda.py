@@ -20,7 +20,7 @@ from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
-from repro_torch.params import init_params, tree_map
+from repro_torch.params import init_params, tree_leaves, tree_map
 from repro_torch.serve.engine import Engine, Request
 
 pytestmark = pytest.mark.cuda
@@ -516,3 +516,189 @@ def test_ssd_scan_on_card_matches_host(dev):
     assert ssd_ops.launches == n0 + 1
     assert _rel(yd.cpu(), y) < TOL[torch.float32]
     assert _rel(hd.cpu(), h) < TOL[torch.float32]
+
+
+# ------------------------------------------- flash backward and forward lse
+def _bwd_case(dev, dtype, B, H, Hk, Tq, dh, dv, Tk=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Tk = Tq if Tk is None else Tk
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (t(B, H, Tq, dh), t(B, Hk, Tk, dh), t(B, Hk, Tk, dv),
+            t(B, H, Tq, dv))
+
+
+MASKS = [(True, 0, 0.0), (True, 64, 0.0), (False, 0, 0.0), (True, 0, 30.0),
+         (True, 32, 50.0), (False, 48, 0.0)]
+BWD_SHAPES = [(128, 4, 2, 64, 64), (100, 8, 2, 128, 128), (37, 4, 1, 16, 16),
+              (50, 2, 2, 32, 16), (200, 6, 3, 128, 128), (70, 4, 4, 24, 40)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,softcap", MASKS)
+@pytest.mark.parametrize("T,H,Hk,dh,dv", BWD_SHAPES)
+def test_flash_fwd_lse_matches_plain(dev, dtype, causal, window, softcap, T,
+                                     H, Hk, dh, dv):
+    """lse against the plain version (f32 both: the same products, other
+    sum order); o equals the serving forward's bit for bit."""
+    q, k, v, _ = _bwd_case(dev, dtype, 2, H, Hk, T, dh, dv)
+    kw = dict(scale=dh ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    n0, l0 = flash_ops.launches, flash_ops.lse_launches
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+    assert (flash_ops.launches, flash_ops.lse_launches) == (n0, l0 + 1)
+    assert lse.dtype == torch.float32 and lse.shape == (2, H, T)
+    torch.testing.assert_close(o, flash_ops.attend(q, k, v, **kw), rtol=0,
+                               atol=0)
+    _, want = flash_ref.flash_attention_fwd_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,softcap", MASKS)
+@pytest.mark.parametrize("T,H,Hk,dh,dv", BWD_SHAPES)
+def test_flash_bwd_kernel_matches_plain(dev, dtype, causal, window, softcap,
+                                        T, H, Hk, dh, dv):
+    """dq, dk, dv against the plain recompute formula on the same o and lse:
+    within 1e-4 (f32) or 3e-2 (bf16: p and ds enter the second products
+    rounded to bf16; tests/test_kernels.py's bf16 tolerance) of each
+    gradient's largest value. dh = dv = 64, 128 in bf16 take the tensor
+    cores; the other shapes and f32 the CUDA cores."""
+    q, k, v, do = _bwd_case(dev, dtype, 2, H, Hk, T, dh, dv, seed=1)
+    kw = dict(scale=dh ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    o, lse = flash_ref.flash_attention_fwd_lse_ref(q, k, v, **kw)
+    n0 = flash_ops.bwd_launches
+    got = flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    assert flash_ops.bwd_launches == n0 + 1
+    want = flash_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, gt, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert gt.shape == x.shape and gt.dtype == x.dtype, name
+        assert _rel(gt, w) < TOL[dtype], (name, _rel(gt, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_rows_without_live_keys(dev, dtype):
+    """Causal + window with Tq > Tk + window: rows past Tk + window - 1 see
+    no key. Their lse is log(1e-30), their o and dq are 0."""
+    q, k, v, do = _bwd_case(dev, dtype, 1, 4, 2, 100, 64, 64, Tk=20)
+    kw = dict(scale=0.125, causal=True, window=16, softcap=0.0)
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+    dead = slice(35, 100)
+    assert torch.all(o[:, :, dead] == 0)
+    torch.testing.assert_close(lse[:, :, dead],
+                               torch.full_like(lse[:, :, dead],
+                                               float(np.log(1e-30))))
+    dq, dk, dv = flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    assert torch.all(dq[:, :, dead] == 0)
+    want = flash_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for g_, w in zip((dq, dk, dv), want):
+        assert _rel(g_, w) < TOL[dtype]
+
+
+def test_flash_bwd_strided_views(dev):
+    """Head-transposed views (the training block's layout) give the grads
+    of contiguous inputs, each in its input's memory order."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, T, H, Hk, dh = 2, 130, 8, 2, 128
+    dt = torch.bfloat16
+    q, do = (torch.randn((B, T, H, dh), generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, Hk, dh), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    views = [x.permute(0, 2, 1, 3) for x in (q, k, v, do)]
+    o, lse = flash_ops.attend_fwd_lse(*views[:3], scale=0.1)
+    got = flash_ops.attend_bwd(*views[:3], o, lse, views[3], scale=0.1)
+    want = flash_ops.attend_bwd(*(x.contiguous() for x in views[:3]),
+                                o.contiguous(), lse, views[3].contiguous(),
+                                scale=0.1)
+    for a, b in zip(got, want):
+        assert a.permute(0, 2, 1, 3).is_contiguous()
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_flash_bwd_rejects_bad_inputs(dev):
+    q, k, v, do = _bwd_case(dev, torch.float32, 1, 2, 2, 16, 32, 32)
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, scale=0.2)
+    with pytest.raises(ValueError):
+        flash_ops.attend_bwd(q, k, v, o, lse.double(), do, scale=0.2)
+    with pytest.raises(ValueError):
+        flash_ops.attend_bwd(q, k, v, o, lse, do[:, :, :8], scale=0.2)
+    with pytest.raises(ValueError):
+        flash_ops.attend_bwd(q, k, v, o.to(torch.bfloat16), lse, do,
+                             scale=0.2)
+    big = torch.randn((1, 2, 16, 320), device=dev)
+    with pytest.raises(ValueError):
+        flash_ops.attend_bwd(big, big, big, big, lse, big, scale=0.2)
+
+
+# ------------------------------------------------------------- training
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attend_autograd_on_card_matches_plain_autograd(dev, dtype):
+    """``attend`` under autograd (FlashAttention: the lse forward and the
+    backward kernel; the tensor-core path in bf16 at dh = 128) against
+    autograd through the plain forward on the card."""
+    from repro_torch.models.attention import attend
+    g = torch.Generator(device=dev).manual_seed(3)
+    B, T, Hkv, G, dh = 2, 300, 2, 4, 128
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    q, k, v = t(B, T, Hkv, G, dh), t(B, T, Hkv, dh), t(B, T, Hkv, dh)
+    do = t(B, T, Hkv, G, dh)
+    kw = dict(scale=dh ** -0.5, causal=True, window=100, softcap=30.0)
+    got = torch.autograd.grad(attend(*(x.requires_grad_() for x in
+                                        (q, k, v)), **kw), (q, k, v), do)
+
+    def plain(q, k, v):
+        out = flash_ref.flash_attention_ref(
+            q.reshape(B, T, Hkv * G, dh).permute(0, 2, 1, 3),
+            k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), **kw)
+        return out.permute(0, 2, 1, 3).reshape(B, T, Hkv, G, dh)
+
+    want = torch.autograd.grad(plain(q, k, v), (q, k, v), do)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and _rel(a, b) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_on_card_matches_host(dev, dtype):
+    """One smoke-config train step on the card (the lse forward twice per
+    layer: the step and its remat recompute; the backward once) against the
+    same step on the host (plain versions). f32: loss to 1e-5 relative,
+    params to 2.5·lr at most and 1e-6 in the median; bf16: the loss to the
+    bf16 logits tolerance."""
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import make_state, make_train_step
+    cfg = dataclasses.replace(smoke_config(get_config("mistral-nemo-12b")),
+                              param_dtype=dtype)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
+                                                          (4, 65)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
+             "mask": torch.ones((4, 64))}
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0)
+    out = {}
+    for device in ("cpu", dev):
+        state = make_state(tree_map(lambda x: x.to(device, copy=True), params),
+                           ocfg)
+        n = (flash_ops.lse_launches, flash_ops.bwd_launches)
+        state, m = make_train_step(cfg, ocfg)(
+            state, {k: x.to(device) for k, x in batch.items()})
+        launched = (flash_ops.lse_launches - n[0],
+                    flash_ops.bwd_launches - n[1])
+        out[str(device)] = (float(m["loss"]), tree_leaves(state["params"]),
+                            launched)
+    (l_h, p_h, n_h), (l_d, p_d, n_d) = out["cpu"], out[str(dev)]
+    assert n_h == (0, 0) and n_d == (2 * cfg.n_layers, cfg.n_layers)
+    if dtype == "float32":
+        assert abs(l_d - l_h) <= 1e-5 * l_h
+        diff = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                          for a, b in zip(p_d, p_h)])
+        assert float(diff.max()) <= 2.5 * ocfg.lr
+        assert float(diff.median()) < 1e-6
+    else:
+        assert abs(l_d - l_h) <= 3e-2 * l_h

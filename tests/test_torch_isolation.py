@@ -37,7 +37,8 @@ def test_no_jax_imports(path):
 
 
 def test_engine_import_pulls_in_no_jax():
-    code = ("import sys, repro_torch.serve.engine, repro_torch.params; "
+    code = ("import sys, repro_torch.serve.engine, repro_torch.params, "
+            "repro_torch.train.loop, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
