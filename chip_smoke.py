@@ -9,8 +9,8 @@
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (paged GQA and MLA decode, flash prefill at GQA and MLA head
    dims, the grouped expert GEMM in bf16 and f32, the tiled GEMM on the hbb
-   path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16
-   with the Table 2 sweep of bn, the SSD intra-chunk at
+   path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16 at
+   each shape's plan, with the Table 2 sweep of bn, the SSD intra-chunk at
    mamba2-130m's shapes), and times kernel, plain version and the PyTorch
    call that computes the same function, where there is one, with CUDA
    events.
@@ -90,6 +90,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernels_ms(fn) -> dict[str, list]:
+    """One call of ``fn`` under torch.profiler: {device kernel name: [ms,
+    launches]}."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {k: [us / 1e3, n] for k, (us, n) in device_time(prof)[2].items()}
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -257,6 +269,7 @@ def flash_bwd_phase(dev) -> list[dict]:
     B, T, H, Hk, dh = 4, 2048, 32, 8, 128
     scale = dh ** -0.5
     err_f, err_b, main = 0.0, 0.0, None
+    bwd_passes = {}
     for dt, window, softcap in ((torch.bfloat16, 0, 0.0),
                                 (torch.float32, 0, 0.0),
                                 (torch.bfloat16, 256, 30.0)):
@@ -298,6 +311,20 @@ def flash_bwd_phase(dev) -> list[dict]:
         fb = bound_ms(f_bytes, 4 * dh * pairs, dt)
         ms_b = time_ms(lambda: ops.attend_bwd(qv, kv, vv, o, lse, dov, **kw),
                        10)
+        again = ops.attend_bwd(qv, kv, vv, o, lse, dov, **kw)
+        same = all(torch.equal(x, y) for x, y in zip(
+            again, ops.attend_bwd(qv, kv, vv, o, lse, dov, **kw)))
+        check(same, f"flash bwd {label}: two calls bit-equal")
+        del again
+        passes = {}
+        for name, (ms, n) in kernels_ms(lambda: ops.attend_bwd(
+                qv, kv, vv, o, lse, dov, **kw)).items():
+            key = ("dq pass" if "bwd_dq" in name else "dk/dv pass"
+                   if "bwd_dkv" in name else "delta" if "delta" in name
+                   else name[:40])
+            passes[key] = ms
+        print(f"flash bwd {label}, one profiled call, device ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
         plain_b = time_ms(lambda: ref.flash_attention_bwd_ref(
             qv, kv, vv, o, lse, dov, **kw), 2, 1)
         ms_f = time_ms(lambda: ops.attend_fwd_lse(qv, kv, vv, **kw), 10)
@@ -321,6 +348,7 @@ def flash_bwd_phase(dev) -> list[dict]:
                   f"kernel/bound {ms / b_ms:.1f}x, kernel/sdpa "
                   f"{ms / lib:.1f}x")
         main = ((ms_b, plain_b, *bb, lib_b), (ms_f, plain_f, *fb, lib_f))
+        bwd_passes = passes
         del q, k, v, do, qv, kv, vv, dov, o, lse
         torch.cuda.empty_cache()
     shape = (f"B={B} T={T} H={H} Hkv={Hk} dh={dh} causal bf16, q/k/v/do "
@@ -348,6 +376,7 @@ def flash_bwd_phase(dev) -> list[dict]:
                     "max_abs_err": err, "tol": tol, "ms": ms,
                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib, "check": f"{chk}; times at {shape}"})
+    out[0]["passes_ms"] = bwd_passes
     return out
 
 
@@ -486,38 +515,47 @@ def gg_phase(dev) -> dict:
 # -------------------------------------------------------------- tiled GEMM
 def gemm_phase(dev) -> dict:
     """The paper's GEMM first at the shapes the hbb path gives it: chunks
-    A[:S_f] (a view) of a 1024² f32 A times a 1024² B at the default block
-    shape, S_f over FPGA_CHUNK_SWEEP; the line's numbers are those of
-    S_f = 256. Then the scaling study's 4096³ in f32 (the contract's type,
-    CUDA cores) and bf16 (tensor cores) at the default block shape, with
-    Table 2 on the card: the bn ("buffered columns") sweep at bm = 64,
-    bk = 32 with each shape's shared memory. f32 within 1e-5 and bf16
-    within 2e-2 of the largest value, against the plain version."""
+    A[:S_f] (a view) of a 1024² f32 A times a 1024² B at each shape's plan
+    (``ops.plan``: tile and split of K), S_f over FPGA_CHUNK_SWEEP; the
+    line's numbers are those of S_f = 256. Then the scaling study's 4096³ in
+    f32 (the contract's type, CUDA cores) and bf16 (tensor cores) at their
+    plan, with Table 2 on the card: the bn ("buffered columns") sweep at
+    bm = 64, bk = 32 with each shape's shared memory, launched as given. f32
+    within 1e-5 and bf16 within 2e-2 of the largest value, against the plain
+    version; two calls at a plan bit-equal. Each planned shape's kernels
+    also by device time (one profiled call), apart from the call's host
+    cost that the CUDA-event time includes."""
     from repro_torch.configs.gemm_paper import FPGA_CHUNK_SWEEP, GEMM_N_MAIN
     from repro_torch.kernels.gemm import ops, ref
     tols = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    blk = (ops.BM, ops.BN, ops.BK)
 
     def measure(a, b, dt, label, iters):
         want = ref.gemm_ref(a, b)
         out = ops.gemm(a, b)
+        same = torch.equal(out, ops.gemm(a, b))
         e = float((out.float() - want.float()).abs().max()
                   / want.float().abs().max())
-        check(e <= tols[dt], f"gemm {label} {dt} block {blk}: relative max "
-              f"error {e:.3g} (tol {tols[dt]})")
         (M, K), N = a.shape, b.shape[1]
+        pl = ops.plan(M, N, K, dt)
+        check(e <= tols[dt] and same, f"gemm {label} {dt} plan (bm, bn, bk, "
+              f"splits) {pl}: relative max error {e:.3g} (tol {tols[dt]}), "
+              f"two calls bit-equal {same}")
         n_ops = 2 * M * N * K
         b_ms, b_by = bound_ms((M * K + K * N + M * N) * a.element_size(),
                               n_ops, dt)
         ms = time_ms(lambda: ops.gemm(a, b), iters)
         plain = time_ms(lambda: ref.gemm_ref(a, b), iters)
         lib = time_ms(lambda: torch.matmul(a, b), iters)
-        print(f"gemm {label} {dt}: kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f}"
-              f" TFLOP/s), plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}), kernel/bound "
-              f"{ms / b_ms:.1f}x")
+        dev_ms = sum(t for t, _ in kernels_ms(lambda: ops.gemm(a, b))
+                     .values())
+        print(f"gemm {label} {dt} plan {pl}: kernel {ms:.4f} ms "
+              f"({n_ops / ms / 1e9:.2f} TFLOP/s; device {dev_ms:.4f} ms), "
+              f"plain {plain:.4f} ms, torch.matmul {lib:.4f} ms, "
+              f"kernel/torch.matmul {ms / lib:.2f}x, bound {b_ms:.4f} ms "
+              f"({b_by}), kernel/bound {ms / b_ms:.1f}x")
         return want, dict(max_abs_err=e, ms=ms, plain_ms=plain,
-                          bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                          device_ms=dev_ms, plan=list(pl))
 
     n = GEMM_N_MAIN
     g = torch.Generator(device=dev).manual_seed(0)
@@ -526,7 +564,7 @@ def gemm_phase(dev) -> dict:
     chunks = []
     for sf in FPGA_CHUNK_SWEEP:
         _, r = measure(A[:sf], B, torch.float32, f"chunk S_f={sf}x{n}x{n}",
-                       50)
+                       200)
         chunks.append({"S_f": sf, **r})
     main = chunks[-1]
     del A, B
@@ -568,8 +606,9 @@ def gemm_phase(dev) -> dict:
             "chunks": chunks, "n4096": res,
             "check": "relative max error against gemm_ref: f32 (tol 1e-5) "
                      "on the hbb path's chunks A[:S_f] of a 1024² A, S_f "
-                     "8..256, and at 4096² in f32 and bf16 (tol 2e-2) at "
-                     "the default block and every bn of the Table 2 sweep; "
+                     "8..256, and at 4096² in f32 and bf16 (tol 2e-2), each "
+                     "at its plan (two calls bit-equal) and at every bn of "
+                     "the Table 2 sweep as given; "
                      "ms, plain_ms, bound_ms and library_ms (torch.matmul, "
                      "allow_tf32 off) are the path's S_f = 256 chunk, f32; "
                      "chunks and n4096 hold the rest"}
@@ -637,8 +676,8 @@ def hbb_phase(dev, entries) -> None:
     — then offload-only
     against heterogeneous at 4096². The kernel's launch count is read from
     the 1024² sweep. Also the accelerator's per-chunk host overhead: its
-    mean service time in the offload-only runs against the kernel alone
-    (the gemm phase's time at the same chunk shape)."""
+    mean service time in the offload-only runs against the kernel call
+    alone and its device time (the gemm phase's at the same chunk shape)."""
     import os
     from repro_torch.configs.gemm_paper import (FPGA_CHUNK_SWEEP,
                                                 GEMM_N_MAIN, GEMM_N_SCALING)
@@ -661,16 +700,18 @@ def hbb_phase(dev, entries) -> None:
     print(f"Fig. 5 at {GEMM_N_MAIN}²: offload-only best {t_off:.4f} s, "
           f"heterogeneous best {t_het:.4f} s → reduction {100 * red:.1f} % "
           "(paper §6: 25–50 %)")
-    kernel_ms = {c["S_f"]: c["ms"] for c in gemm["chunks"]}
+    kernel_ms = {c["S_f"]: (c["ms"], c["device_ms"]) for c in gemm["chunks"]}
     for r in rows:
         if r.ncc:
             continue
         recs = [x for x in r.report.records if x.resource == "FC0"]
-        service = sum(x.t_end - x.t_start for x in recs) / len(recs)
-        k = kernel_ms[r.chunk] / 1e3
-        print(f"  S_f={r.chunk:4d}: accelerator chunk service "
-              f"{service * 1e3:.4f} ms, kernel alone {k * 1e3:.4f} ms → host "
-              f"overhead {(service - k) * 1e3:.4f} ms per chunk "
+        service = sum(x.t_end - x.t_start for x in recs) / len(recs) * 1e3
+        k, d = kernel_ms[r.chunk]
+        pl = ops.plan(r.chunk, GEMM_N_MAIN, GEMM_N_MAIN, torch.float32)
+        print(f"  S_f={r.chunk:4d} plan {pl}: accelerator chunk service "
+              f"{service:.4f} ms, kernel call alone {k:.4f} ms (device "
+              f"{d:.4f} ms) → host overhead {service - k:.4f} ms per chunk "
+              f"beyond the call, {service - d:.4f} ms beyond the device "
               f"({len(recs)} chunks)")
     rows = hetero_gemm.fig5(GEMM_N_SCALING, ncc, FPGA_CHUNK_SWEEP,
                             device=dev, configs=[(0, 1), (ncc, 1)])
@@ -1157,7 +1198,8 @@ def main() -> int:
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check")
     print(json.dumps({"kernels": [
-        {k: e[k] for k in keys + tuple(x for x in ("mla", "chunks", "n4096") if x in e)}
+        {k: e[k] for k in keys + tuple(x for x in (
+            "passes_ms", "mla", "chunks", "n4096") if x in e)}
         for e in entries]}))
     print(smi)
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -41,20 +41,19 @@ REL_TOL = 1e-5
 
 class GemmBody(Body):
     """C[b:e] = A[b:e] @ B on two real device-class executors. ``out`` is
-    the host-side C both classes write (pinned when A lies on the card)."""
+    the host-side C both classes write (pinned when A lies on the card).
+    Each accelerator chunk runs the kernel at its own shape's plan
+    (``kernels/gemm/ops.py::plan``)."""
 
-    def __init__(self, A: torch.Tensor, B: torch.Tensor, out: torch.Tensor,
-                 block=(gemm_ops.BM, gemm_ops.BN, gemm_ops.BK)):
+    def __init__(self, A: torch.Tensor, B: torch.Tensor, out: torch.Tensor):
         self.A, self.B, self.out = A, B, out
-        self.bm, self.bn, self.bk = block
         self._A_host = A.cpu().numpy()
         self._B_host = B.cpu().numpy()
         self._out_host = out.numpy()
         self.operatorFPGA(0, 1)                   # build, load and warm
 
     def operatorFPGA(self, b, e):
-        blk = gemm_ops.gemm(self.A[b:e], self.B, bm=self.bm, bn=self.bn,
-                            bk=self.bk)
+        blk = gemm_ops.gemm(self.A[b:e], self.B)
         self.out[b:e].copy_(blk)                  # device → host, blocking
 
     def operatorCPU(self, b, e):

@@ -98,6 +98,11 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream(device) -> ctypes.c_void_p:
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (what
+    ``torch.cuda.current_stream(device).cuda_stream`` gives, without making
+    a Stream object: a launch's host cost counts on the small-chunk path)."""
     import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -30,16 +30,29 @@
 //
 // bwd_*_mma (bf16, dh == dv in {64, 128}, 16-byte aligned rows: the
 // training path of mistral-nemo-12b): the tensor cores through mma.sync
-// m16n8k16 (bf16 in, f32 accumulate), 4 warps of 16 rows. The dq pass
-// keeps a warp's Q and dO fragments and its dq accumulator in registers
-// and walks 32-key tiles (K row-major for S, K transposed for dS K, V
-// row-major for dP). The dk/dv pass keeps K and V tiles of 64 keys in
-// shared memory, its dk and dv accumulators in registers, and walks 32-row
-// query tiles of each head of the group (Q and dO both row-major and
-// transposed). p and ds are rounded to bf16 before they enter the second
-// products, as the forward rounds p before P V; every sum stays f32.
-// Rows are padded by 8 bf16 so a warp's fragment loads hit 32 banks.
-// Not yet used: wgmma, TMA, pipelined tiles, ldmatrix.
+// m16n8k16 (bf16 in, f32 accumulate). Every tile is stored once, row-major
+// (rows padded by 8 bf16, so the 8 row addresses of an ldmatrix phase hit
+// 32 banks), and every fragment comes from it by ldmatrix: the operands
+// that the products read transposed (K^T for dS K; Q^T and dO^T for P^T dO
+// and dS^T Q) by its .trans form. Streamed tiles arrive by 16-byte
+// cp.async in a ring of two stages with one barrier per tile: the next
+// tile is in flight while the current one's products run.
+// - dq pass: 4 warps of 16 query rows (64 per block). Q and dO stay in
+//   shared memory and are re-read by ldmatrix, not held in registers, so
+//   three blocks fit an SM (launch bounds cap registers at 168; 69.6 KiB of
+//   shared memory at dh 128). K and V stream in tiles of 32 keys.
+// - dk/dv pass: 8 warps of 16 keys (128 per block), so each Q/dO tile
+//   serves 128 keys; dk and dv (128 f32 registers at dh 128) stay in
+//   registers, K and V in shared memory. Q/dO tiles of 128 rows with their
+//   lse and delta stream through the ring, over every query head of the
+//   group, and are taken 32 rows at a time to bound S^T and dP^T's
+//   registers. 206 KiB of shared memory: one block of 8 warps per SM.
+// - Blocks start with the heaviest causal tiles; a warp skips a piece of a
+//   tile that its mask kills whole.
+// p and ds are rounded to bf16 before they enter the second products, as
+// the forward rounds p before P V (so p takes the hardware exp, __expf);
+// every sum stays f32.
+// Not yet used: wgmma, TMA.
 //
 // bwd_*_kernel (f32, and bf16 at any other head dims: dh, dv <= 256): CUDA
 // cores in f32, 32 x 32 tiles, every operand and accumulator in shared
@@ -98,7 +111,9 @@ struct Mask {
 };
 
 // p and ds of one score from s_pre = q.k (unscaled), the row's lse and
-// delta, and dp = do.v.
+// delta, and dp = do.v. FAST takes the hardware exp (the tensor-core path,
+// whose p and ds enter the next products rounded to bf16).
+template <bool FAST = false>
 __device__ __forceinline__ void p_ds(float s_pre, float dp, float lse,
                                      float delta, bool ok, float scale,
                                      float softcap, float* p, float* ds) {
@@ -113,7 +128,7 @@ __device__ __forceinline__ void p_ds(float s_pre, float dp, float lse,
     x = t * softcap;
     dt = 1.f - t * t;
   }
-  const float pv = expf(x - lse);
+  const float pv = FAST ? __expf(x - lse) : expf(x - lse);
   *p = pv;
   *ds = pv * (dp - delta) * dt;
 }
@@ -334,11 +349,14 @@ bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ------------------------------------------------- tensor-core bf16 path
-constexpr int MTHREADS = 128;   // 4 warps of 16 rows
-constexpr int MQ = 64;          // dq pass: query rows per block
-constexpr int MKT = 32;         // dq pass: keys per tile
-constexpr int MKV = 64;         // dk/dv pass: keys per block
-constexpr int MQT = 32;         // dk/dv pass: query rows per tile
+constexpr int DQ_WARPS = 4;               // dq pass: warps of 16 query rows
+constexpr int DQ_ROWS = 16 * DQ_WARPS;    // query rows per block
+constexpr int DQ_KT = 32;                 // keys per K/V tile
+constexpr int KV_WARPS = 8;               // dk/dv pass: warps of 16 keys
+constexpr int KV_KEYS = 16 * KV_WARPS;    // keys per block
+constexpr int KV_QT = 128;                // query rows per Q/dO tile
+constexpr int KV_QS = 32;                 // query rows per product step
+constexpr int RING = 2;                   // cp.async stages of each ring
 
 typedef __nv_bfloat16 bf16;
 
@@ -347,69 +365,101 @@ __device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// true when no (row, key) of [r0, r1] x [c0, c1] is live: a warp skips
+// such a piece of a tile (p and ds would be 0 there)
+__device__ __forceinline__ bool dead(const Mask& mk, int r0, int r1, int c0,
+                                     int c1) {
+  return r0 >= mk.Tq || c0 >= mk.Tk || (mk.causal && r1 < c0) ||
+         (mk.window && r0 - mk.window + 1 > c1);
 }
 
-// Rows [r0, r0 + n) of a (rows, D) tensor into a row-major tile (pitch P)
-// and, when Tt is not null, its transpose (D rows of pitch PT); rows at or
-// past `limit` are zero.
-template <int D, int P, int PT>
-__device__ __forceinline__ void load_tile(const bf16* src, long long st,
-                                          int r0, int n, int limit, bf16* Tr,
-                                          bf16* Tt, int tid) {
-  for (int i = tid; i < n * D / 8; i += MTHREADS) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8, row = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < limit)
-      val = *reinterpret_cast<const uint4*>(src + row * st + c);
-    *reinterpret_cast<uint4*>(Tr + r * P + c) = val;
-    if (Tt != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&val);
+// Rows [r0, r0 + N) of a (rows, D) bf16 tensor with row stride st into a
+// row-major tile of pitch D + 8 by 16-byte cp.async, NT threads; rows at
+// or past `limit` are zero-filled.
+template <int D, int N, int NT>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
+                                          long long st, int r0, int limit,
+                                          int tid) {
+  constexpr int VPR = D / 8;                     // 16-byte vectors per row
+  static_assert(N * VPR % NT == 0, "tile copy");
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Tt[(c + j) * PT + r] = e[j];
-    }
+  for (int it = 0; it < N * VPR / NT; ++it) {
+    const int i = tid + it * NT, r = i / VPR, c = (i % VPR) * 8;
+    const int row = r0 + r;
+    const bool ok = row < limit;
+    cp_async16(dst + r * (D + 8) + c, ok ? src + row * st + c : src, ok);
+  }
+}
+
+// src[r0, r0 + N) (f32) into dst by 4-byte cp.async; zero at or past limit
+template <int N, int NT>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int r0, int limit, int tid) {
+  for (int i = tid; i < N; i += NT) {
+    const bool ok = r0 + i < limit;
+    cp_async4(dst + i, ok ? src + r0 + i : src, ok);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(MTHREADS)
+constexpr size_t dq_smem() {
+  return sizeof(bf16) * (size_t)(D + 8) * (2 * DQ_ROWS + RING * 2 * DQ_KT);
+}
+
+template <int D>
+constexpr size_t dkv_smem() {
+  return sizeof(bf16) * (size_t)(D + 8) * (2 * KV_KEYS + RING * 2 * KV_QT) +
+         sizeof(float) * RING * 2 * KV_QT;
+}
+
+// dq pass: one block per (query tile of DQ_ROWS, b * H + h), the heaviest
+// causal tiles first (blockIdx.y counts down from the last tile). Q and dO
+// sit in shared memory for the block's life and are re-read through
+// ldmatrix (no fragments held: fewer registers, more blocks per SM); K and
+// V tiles of DQ_KT keys stream through a ring of RING stages.
+template <int D>
+__global__ void __launch_bounds__(32 * DQ_WARPS, 3)
 bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            bf16* __restrict__ dq, Strides qs, Strides ks, Strides vs,
            Strides dos, Strides dqs, int H, int group, Mask mk, float scale,
            float softcap) {
-  constexpr int P = D + 8, PT = MKT + 8;
-  __shared__ __align__(16) bf16 Ks[MKT * P];     // (key, d)
-  __shared__ __align__(16) bf16 Vs[MKT * P];     // (key, d)
-  __shared__ __align__(16) bf16 Kt[D * PT];      // (d, key)
+  constexpr int P = D + 8, NT = 32 * DQ_WARPS;
+  extern __shared__ __align__(16) unsigned char raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(raw);       // (query, d) DQ_ROWS x P
+  bf16* Ds = Qs + DQ_ROWS * P;                   // (query, d) dO
+  bf16* ring = Ds + DQ_ROWS * P;                 // RING x {K, V} (key, d)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tg = lane & 3;
-  const int qi = gridDim.x - 1 - blockIdx.x;
-  const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / group;
-  const int q0 = qi * MQ, Tq = mk.Tq, Tk = mk.Tk;
-  const int rows[2] = {q0 + warp * 16 + gq, q0 + warp * 16 + gq + 8};
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* db = dout + b * dos.b + h * dos.h;
+  const int qi = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / group;
+  const int q0 = qi * DQ_ROWS, Tq = mk.Tq, Tk = mk.Tk;
+  const int w0 = q0 + warp * 16;                 // the warp's first row
+  const int rows[2] = {w0 + gq, w0 + gq + 8};
   const bf16* kb = k + b * ks.b + hk * ks.h;
   const bf16* vb = v + b * vs.b + hk * vs.h;
 
-  uint32_t qf[D / 16][4], df[D / 16][4];         // A fragments of Q and dO
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = rows[r & 1], col = kk * 16 + tg * 2 + (r >> 1) * 8;
-      qf[kk][r] = row < Tq ? ld32(qb + row * qs.t + col) : 0u;
-      df[kk][r] = row < Tq ? ld32(db + row * dos.t + col) : 0u;
-    }
-  }
+  const int q1 = min(q0 + DQ_ROWS, Tq) - 1;
+  const int k_lo = (mk.key_lo(q0) / DQ_KT) * DQ_KT, k_hi = mk.key_hi(q1);
+  const int n_tiles = k_hi >= k_lo ? (k_hi - k_lo) / DQ_KT + 1 : 0;
+  auto load_kv = [&](int t) {
+    bf16* Kt = ring + (t % RING) * 2 * DQ_KT * P;
+    copy_tile<D, DQ_KT, NT>(Kt, kb, ks.t, k_lo + t * DQ_KT, Tk, tid);
+    copy_tile<D, DQ_KT, NT>(Kt + DQ_KT * P, vb, vs.t, k_lo + t * DQ_KT, Tk,
+                            tid);
+  };
+  copy_tile<D, DQ_ROWS, NT>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, Tq, tid);
+  copy_tile<D, DQ_ROWS, NT>(Ds, dout + b * dos.b + h * dos.h, dos.t, q0, Tq,
+                            tid);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+
   float lr[2], dl[2];
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    const long long at = (long long)blockIdx.y * Tq + rows[rr];
+    const long long at = (long long)blockIdx.x * Tq + rows[rr];
     lr[rr] = rows[rr] < Tq ? lse[at] : 0.f;
     dl[rr] = rows[rr] < Tq ? delta[at] : 0.f;
   }
@@ -418,53 +468,71 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] =
       acc[j][3] = 0.f;
 
-  const int q1 = min(q0 + MQ, Tq) - 1;
-  const int k_hi = mk.key_hi(q1);
-  for (int k0 = (mk.key_lo(q0) / MKT) * MKT; k0 <= k_hi; k0 += MKT) {
-    __syncthreads();                             // previous tile consumed
-    load_tile<D, P, PT>(kb, ks.t, k0, MKT, Tk, Ks, Kt, tid);
-    load_tile<D, P, PT>(vb, vs.t, k0, MKT, Tk, Vs, nullptr, tid);
-    __syncthreads();
+  // lane offsets of the ldmatrix patterns (mma.cuh)
+  const int a_row = lane & 15, a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();                          // tile t landed (this thread)
+    __syncthreads();                             // (all); t - 1's stage free
+    if (t + 1 < n_tiles) load_kv(t + 1);         // in flight during tile t
+    cp_async_commit();
+    const int k0 = k_lo + t * DQ_KT;
+    if (dead(mk, w0, w0 + 15, k0, k0 + DQ_KT - 1)) continue;
+    const bf16* Kt = ring + (t % RING) * 2 * DQ_KT * P;
+    const bf16* Vt = Kt + DQ_KT * P;
 
-    float s[MKT / 8][4], dp[MKT / 8][4];
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows
+    float s[DQ_KT / 8][4], dp[DQ_KT / 8][4];
 #pragma unroll
-    for (int j = 0; j < MKT / 8; ++j)
+    for (int j = 0; j < DQ_KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ad[4];
+      const int ao = (warp * 16 + a_row) * P + kk * 16 + a_col;
+      ldsm_x4(aq, Qs + ao);
+      ldsm_x4(ad, Ds + ao);
 #pragma unroll
-      for (int j = 0; j < MKT / 8; ++j) {
-        const bf16* kr = Ks + (j * 8 + gq) * P + kk * 16 + tg * 2;
-        mma_bf16(s[j], qf[kk], ld32(kr), ld32(kr + 8));
-        const bf16* vr = Vs + (j * 8 + gq) * P + kk * 16 + tg * 2;
-        mma_bf16(dp[j], df[kk], ld32(vr), ld32(vr + 8));
+      for (int jp = 0; jp < DQ_KT / 16; ++jp) {
+        uint32_t bk[4], bv[4];
+        const int bo = (jp * 16 + b_row) * P + kk * 16 + b_col;
+        ldsm_x4(bk, Kt + bo);
+        ldsm_x4(bv, Vt + bo);
+        mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * jp], ad, bv[0], bv[1]);
+        mma_bf16(dp[2 * jp + 1], ad, bv[2], bv[3]);
       }
     }
 #pragma unroll
-    for (int j = 0; j < MKT / 8; ++j) {
+    for (int j = 0; j < DQ_KT / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int rr = e >> 1, key = k0 + j * 8 + tg * 2 + (e & 1);
         float p, ds;
-        p_ds(s[j][e], dp[j][e], lr[rr], dl[rr], mk.live(rows[rr], key),
-             scale, softcap, &p, &ds);
+        p_ds<true>(s[j][e], dp[j][e], lr[rr], dl[rr], mk.live(rows[rr], key),
+                   scale, softcap, &p, &ds);
         s[j][e] = ds;
       }
     }
+    // dq += dS K: dS (C layout) as A, K^T fragments by ldmatrix.trans
 #pragma unroll
-    for (int kk = 0; kk < MKT / 16; ++kk) {      // dS (C layout) as A
+    for (int kk = 0; kk < DQ_KT / 16; ++kk) {
       const uint32_t a[4] = {pack_f(s[2 * kk][0], s[2 * kk][1]),
                              pack_f(s[2 * kk][2], s[2 * kk][3]),
                              pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const bf16* kr = Kt + (j * 8 + gq) * PT + kk * 16 + tg * 2;
-        mma_bf16(acc[j], a, ld32(kr), ld32(kr + 8));
+      for (int jp = 0; jp < D / 16; ++jp) {
+        uint32_t bt[4];
+        ldsm_x4_t(bt, Kt + (kk * 16 + a_row) * P + jp * 16 + a_col);
+        mma_bf16(acc[2 * jp], a, bt[0], bt[1]);
+        mma_bf16(acc[2 * jp + 1], a, bt[2], bt[3]);
       }
     }
   }
+  cp_async_wait<0>();
 
   bf16* out = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
@@ -479,43 +547,52 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// dk/dv pass: one block per (key tile of KV_KEYS, b * Hk + hk), the key
+// tiles with the most causal queries first (blockIdx.y counts up). K and V
+// sit in shared memory for the block's life; Q and dO tiles of KV_QT rows,
+// with their lse and delta, of every query head of the group stream
+// through a ring of RING stages, each taken in steps of KV_QS rows.
 template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(bf16) * ((size_t)2 * MKV * (D + 8) + 2 * MQT * (D + 8) +
-                         2 * D * (MQT + 8)) +
-         sizeof(float) * 2 * MQT;
-}
-
-template <int D>
-__global__ void __launch_bounds__(MTHREADS)
+__global__ void __launch_bounds__(32 * KV_WARPS, 1)
 bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dout,
             const float* __restrict__ lse, const float* __restrict__ delta,
             bf16* __restrict__ dk, bf16* __restrict__ dv_out, Strides qs,
             Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
             int H, int Hk, int group, Mask mk, float scale, float softcap) {
-  constexpr int P = D + 8, PT = MQT + 8;
+  constexpr int P = D + 8, NT = 32 * KV_WARPS;
   extern __shared__ __align__(16) unsigned char raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(raw);       // (key, d)   MKV x P
-  bf16* Vs = Ks + MKV * P;                       // (key, d)   MKV x P
-  bf16* Qs = Vs + MKV * P;                       // (query, d) MQT x P
-  bf16* Ds = Qs + MQT * P;                       // (query, d) MQT x P  dO
-  bf16* Qt = Ds + MQT * P;                       // (d, query) D x PT
-  bf16* Dt = Qt + D * PT;                        // (d, query) D x PT   dO
-  float* lse_s = reinterpret_cast<float*>(Dt + D * PT);
-  float* dl_s = lse_s + MQT;
+  bf16* Ks = reinterpret_cast<bf16*>(raw);       // (key, d)   KV_KEYS x P
+  bf16* Vs = Ks + KV_KEYS * P;                   // (key, d)   KV_KEYS x P
+  bf16* ring = Vs + KV_KEYS * P;                 // RING x {Q, dO} (query, d)
+  float* rowf = reinterpret_cast<float*>(ring + RING * 2 * KV_QT * P);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tg = lane & 3;
-  const int b = blockIdx.y / Hk, hk = blockIdx.y % Hk;
-  const int k0 = blockIdx.x * MKV, Tq = mk.Tq, Tk = mk.Tk;
-  const int keys[2] = {k0 + warp * 16 + gq, k0 + warp * 16 + gq + 8};
+  const int b = blockIdx.x / Hk, hk = blockIdx.x % Hk;
+  const int k0 = blockIdx.y * KV_KEYS, Tq = mk.Tq, Tk = mk.Tk;
   const int kw = warp * 16;                      // the warp's first tile row
+  const int keys[2] = {k0 + kw + gq, k0 + kw + gq + 8};
 
-  load_tile<D, P, P>(k + b * ks.b + hk * ks.h, ks.t, k0, MKV, Tk, Ks,
-                     nullptr, tid);
-  load_tile<D, P, P>(v + b * vs.b + hk * vs.h, vs.t, k0, MKV, Tk, Vs,
-                     nullptr, tid);
+  const int k1 = min(k0 + KV_KEYS, Tk) - 1;
+  const int q_lo = (mk.row_lo(k0) / KV_QT) * KV_QT, r_hi = mk.row_hi(k1);
+  const int n_qt = r_hi >= q_lo ? (r_hi - q_lo) / KV_QT + 1 : 0;
+  const int n_tiles = group * n_qt;              // (head, query tile) pairs
+  auto load_q = [&](int t) {
+    const int h = hk * group + t / n_qt, r0 = q_lo + (t % n_qt) * KV_QT;
+    bf16* Qt = ring + (t % RING) * 2 * KV_QT * P;
+    copy_tile<D, KV_QT, NT>(Qt, q + b * qs.b + h * qs.h, qs.t, r0, Tq, tid);
+    copy_tile<D, KV_QT, NT>(Qt + KV_QT * P, dout + b * dos.b + h * dos.h,
+                            dos.t, r0, Tq, tid);
+    float* lt = rowf + (t % RING) * 2 * KV_QT;
+    const long long lb = ((long long)b * H + h) * Tq;
+    copy_rows<KV_QT, NT>(lt, lse + lb, r0, Tq, tid);
+    copy_rows<KV_QT, NT>(lt + KV_QT, delta + lb, r0, Tq, tid);
+  };
+  copy_tile<D, KV_KEYS, NT>(Ks, k + b * ks.b + hk * ks.h, ks.t, k0, Tk, tid);
+  copy_tile<D, KV_KEYS, NT>(Vs, v + b * vs.b + hk * vs.h, vs.t, k0, Tk, tid);
+  if (n_tiles > 0) load_q(0);
+  cp_async_commit();
 
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
@@ -523,62 +600,62 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
 
-  const int k1 = min(k0 + MKV, Tk) - 1;
-  const int r_hi = mk.row_hi(k1);
-  for (int h = hk * group; h < (hk + 1) * group; ++h) {
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* db = dout + b * dos.b + h * dos.h;
-    const long long lb = ((long long)b * H + h) * Tq;
-    for (int q0 = (mk.row_lo(k0) / MQT) * MQT; q0 <= r_hi; q0 += MQT) {
-      __syncthreads();                           // previous tile consumed
-      load_tile<D, P, PT>(qb, qs.t, q0, MQT, Tq, Qs, Qt, tid);
-      load_tile<D, P, PT>(db, dos.t, q0, MQT, Tq, Ds, Dt, tid);
-      if (tid < MQT) {
-        const int row = q0 + tid;
-        lse_s[tid] = row < Tq ? lse[lb + row] : 0.f;
-        dl_s[tid] = row < Tq ? delta[lb + row] : 0.f;
-      }
-      __syncthreads();
-
+  const int a_row = lane & 15, a_col = 8 * (lane >> 4);
+  const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < n_tiles) load_q(t + 1);
+    cp_async_commit();
+    const int q0 = q_lo + (t % n_qt) * KV_QT;
+    const bf16* Qt = ring + (t % RING) * 2 * KV_QT * P;
+    const bf16* Dt = Qt + KV_QT * P;
+    const float* lt = rowf + (t % RING) * 2 * KV_QT;
+    const float* dlt = lt + KV_QT;
+#pragma unroll 1
+    for (int qs0 = 0; qs0 < KV_QT; qs0 += KV_QS) {
+      if (dead(mk, q0 + qs0, q0 + qs0 + KV_QS - 1, k0 + kw, k0 + kw + 15))
+        continue;
       // S^T = K Q^T and dP^T = V dO^T: rows are the warp's keys
-      float st[MQT / 8][4], dpt[MQT / 8][4];
+      float st[KV_QS / 8][4], dpt[KV_QS / 8][4];
 #pragma unroll
-      for (int j = 0; j < MQT / 8; ++j)
+      for (int j = 0; j < KV_QS / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         uint32_t ak[4], av[4];
+        const int ao = (kw + a_row) * P + kk * 16 + a_col;
+        ldsm_x4(ak, Ks + ao);
+        ldsm_x4(av, Vs + ao);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int off = (kw + gq + (r & 1) * 8) * P + kk * 16 + tg * 2 +
-                          (r >> 1) * 8;
-          ak[r] = ld32(Ks + off);
-          av[r] = ld32(Vs + off);
-        }
-#pragma unroll
-        for (int j = 0; j < MQT / 8; ++j) {
-          const bf16* qr = Qs + (j * 8 + gq) * P + kk * 16 + tg * 2;
-          mma_bf16(st[j], ak, ld32(qr), ld32(qr + 8));
-          const bf16* dr = Ds + (j * 8 + gq) * P + kk * 16 + tg * 2;
-          mma_bf16(dpt[j], av, ld32(dr), ld32(dr + 8));
+        for (int jp = 0; jp < KV_QS / 16; ++jp) {
+          uint32_t bq[4], bd[4];
+          const int bo = (qs0 + jp * 16 + b_row) * P + kk * 16 + b_col;
+          ldsm_x4(bq, Qt + bo);
+          ldsm_x4(bd, Dt + bo);
+          mma_bf16(st[2 * jp], ak, bq[0], bq[1]);
+          mma_bf16(st[2 * jp + 1], ak, bq[2], bq[3]);
+          mma_bf16(dpt[2 * jp], av, bd[0], bd[1]);
+          mma_bf16(dpt[2 * jp + 1], av, bd[2], bd[3]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < MQT / 8; ++j) {
+      for (int j = 0; j < KV_QS / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + tg * 2 + (e & 1);   // query within the tile
+          const int c = qs0 + j * 8 + tg * 2 + (e & 1);  // query in the tile
           float p, ds;
-          p_ds(st[j][e], dpt[j][e], lse_s[c], dl_s[c],
-               mk.live(q0 + c, keys[e >> 1]), scale, softcap, &p, &ds);
+          p_ds<true>(st[j][e], dpt[j][e], lt[c], dlt[c],
+                     mk.live(q0 + c, keys[e >> 1]), scale, softcap, &p, &ds);
           st[j][e] = p;
           dpt[j][e] = ds;
         }
       }
-      // dV += P^T dO and dK += dS^T Q, both with the queries as depth
+      // dV += P^T dO and dK += dS^T Q, the queries as depth: P^T and dS^T
+      // (C layout) as A, dO and Q fragments by ldmatrix.trans
 #pragma unroll
-      for (int kk = 0; kk < MQT / 16; ++kk) {
+      for (int kk = 0; kk < KV_QS / 16; ++kk) {
         const uint32_t ap[4] = {pack_f(st[2 * kk][0], st[2 * kk][1]),
                                 pack_f(st[2 * kk][2], st[2 * kk][3]),
                                 pack_f(st[2 * kk + 1][0], st[2 * kk + 1][1]),
@@ -589,15 +666,20 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             pack_f(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
             pack_f(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          const bf16* dr = Dt + (j * 8 + gq) * PT + kk * 16 + tg * 2;
-          mma_bf16(dva[j], ap, ld32(dr), ld32(dr + 8));
-          const bf16* qr = Qt + (j * 8 + gq) * PT + kk * 16 + tg * 2;
-          mma_bf16(dka[j], ad, ld32(qr), ld32(qr + 8));
+        for (int jp = 0; jp < D / 16; ++jp) {
+          uint32_t bd[4], bq[4];
+          const int to = (qs0 + kk * 16 + a_row) * P + jp * 16 + a_col;
+          ldsm_x4_t(bd, Dt + to);
+          ldsm_x4_t(bq, Qt + to);
+          mma_bf16(dva[2 * jp], ap, bd[0], bd[1]);
+          mma_bf16(dva[2 * jp + 1], ap, bd[2], bd[3]);
+          mma_bf16(dka[2 * jp], ad, bq[0], bq[1]);
+          mma_bf16(dka[2 * jp + 1], ad, bq[2], bq[3]);
         }
       }
     }
   }
+  cp_async_wait<0>();
 
   bf16* dkb = dk + b * dks.b + hk * dks.h;
   bf16* dvb = dv_out + b * dvs.b + hk * dvs.h;
@@ -645,23 +727,27 @@ cudaError_t launch_mma(const Args& a, cudaStream_t st) {
              *k = static_cast<const bf16*>(a.k),
              *v = static_cast<const bf16*>(a.v),
              *d = static_cast<const bf16*>(a.dout);
-  bwd_dq_mma<D><<<dim3((a.mk.Tq + MQ - 1) / MQ, a.B * a.H), MTHREADS, 0,
-                  st>>>(q, k, v, d, a.lse, a.delta,
-                        static_cast<bf16*>(a.dq), a.qs, a.ks, a.vs, a.dos,
-                        a.dqs, a.H, G, a.mk, a.scale, a.softcap);
+  constexpr size_t dq_sm = dq_smem<D>();
+  err = cudaFuncSetAttribute(bwd_dq_mma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dq_sm);
+  if (err != cudaSuccess) return err;
+  bwd_dq_mma<D><<<dim3(a.B * a.H, (a.mk.Tq + DQ_ROWS - 1) / DQ_ROWS),
+                  32 * DQ_WARPS, dq_sm, st>>>(
+      q, k, v, d, a.lse, a.delta, static_cast<bf16*>(a.dq), a.qs, a.ks, a.vs,
+      a.dos, a.dqs, a.H, G, a.mk, a.scale, a.softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = dkv_smem<D>();
+  constexpr size_t dkv_sm = dkv_smem<D>();
   err = cudaFuncSetAttribute(bwd_dkv_mma<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)dkv_sm);
   if (err != cudaSuccess) return err;
-  bwd_dkv_mma<D><<<dim3((a.mk.Tk + MKV - 1) / MKV, a.B * a.Hk), MTHREADS,
-                   smem, st>>>(q, k, v, d, a.lse, a.delta,
-                               static_cast<bf16*>(a.dk),
-                               static_cast<bf16*>(a.dv), a.qs, a.ks, a.vs,
-                               a.dos, a.dks, a.dvs, a.H, a.Hk, G, a.mk,
-                               a.scale, a.softcap);
+  bwd_dkv_mma<D><<<dim3(a.B * a.Hk, (a.mk.Tk + KV_KEYS - 1) / KV_KEYS),
+                   32 * KV_WARPS, dkv_sm, st>>>(
+      q, k, v, d, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.H,
+      a.Hk, G, a.mk, a.scale, a.softcap);
   return cudaGetLastError();
 }
 

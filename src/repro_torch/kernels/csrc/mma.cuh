@@ -1,6 +1,8 @@
-// Tensor-core helpers shared by the bf16 GEMM kernels (grouped_gemm.cu,
-// gemm.cu): one mma.sync m16n8k16 (bf16 in, f32 accumulate) and the packing
-// of two bf16 values into one 32-bit fragment register.
+// Tensor-core and copy helpers shared by the kernels (grouped_gemm.cu,
+// gemm.cu, flash_attention_bwd.cu): one mma.sync m16n8k16 (bf16 in, f32
+// accumulate), the packing of two bf16 values into one 32-bit fragment
+// register, ldmatrix fragment loads from shared memory, and cp.async copies
+// from device memory into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -20,4 +22,60 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
                                           __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: four 8 x 8 b16 matrices from shared memory. Lane l gives the
+// address of one 16-byte row: row l % 8 of matrix l / 8. Lane l receives,
+// of matrix i, in r[i]: (row l / 4, cols 2 (l % 4) + {0, 1}); with .trans,
+// (rows 2 (l % 4) + {0, 1}, col l / 4). For a 16 x 16 tile at p of a
+// row-major array with pitch P (elements) the lane addresses are
+//   A fragment, or B of a (k, n) array with .trans:
+//     p + (l % 16) * P + 8 * (l / 16)
+//     -> {a0, a1, a2, a3}; or b0, b1 of n 0-7 and b0, b1 of n 8-15
+//   B fragments of an (n, k) array, without .trans:
+//     p + (l % 8 + 8 * (l / 16)) * P + 8 * ((l / 8) % 2)
+//     -> b0, b1 of n 0-7 and b0, b1 of n 8-15
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// cp.async of 16 (or 4) bytes; when ok is false nothing is read and the
+// destination is zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }

@@ -2,15 +2,19 @@
 
 On CUDA tensors :func:`gemm` launches the hand-written kernel
 (``kernels/csrc/gemm.cu``) or raises; the plain version in ``ref.py`` runs
-only for tensors on the CPU. ``(bm, bn, bk)`` is a real launch shape, one
-of :data:`SHAPES`, and must fit the card's shared memory by
+only for tensors on the CPU. With no block shape, :func:`plan` picks the
+output tile and the split of K from the shape; a block shape given
+explicitly is launched as given, unsplit. ``(bm, bn, bk)`` is a real launch
+shape, one of :data:`SHAPES`, and must fit the card's shared memory by
 :func:`smem_bytes` on either device: a shape over the law raises, it is
 never clamped. ``a`` may be a row slice of a larger matrix (a view with a
-row stride); ``b`` is contiguous. ``launches`` counts kernel launches.
+row stride); ``b`` is contiguous. ``launches`` counts calls that launched
+the kernel (one per call, split or not).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,33 +25,104 @@ launches = 0
 
 # Shared memory one block may opt into on an H100 (227 KiB)
 SMEM_LIMIT = 232448
-# The block shapes csrc/gemm.cu compiles (its GEMM_SHAPES): the default
-# and the Table 2 sweep of bn ("buffered columns") at bm = 64, bk = 32
+# The block shapes csrc/gemm.cu compiles (its GEMM_SHAPES): the default,
+# the Table 2 sweep of bn ("buffered columns") at bm = 64, bk = 32, and
+# (32, 64, 32) for chunks of few rows
 SHAPES = frozenset([(64, bn, 32) for bn in (32, 64, 128, 256)]
-                   + [(128, 128, 32)])
-# Defaults by the law: 128 x 128 output tiles give 256 threads 64
-# accumulators each, and bk = 32 keeps the tiles at 18.5 KiB (bf16) or
-# 33 KiB (f32), so several blocks share an SM
+                   + [(128, 128, 32), (32, 64, 32)])
+# The default block, and the bf16 path's: 128 x 128 output tiles give 256
+# threads 64 accumulators each
 BM, BN, BK = 128, 128, 32
+# Stages of the f32 path's cp.async ring (gemm.cu's STAGES)
+F32_STAGES = 3
+
+# The plan (f32): output tiles from the largest down, each split over K
+# until the grid fills the card
+F32_TILES = ((128, 128, 32), (64, 128, 32), (64, 64, 32), (32, 64, 32))
+# Blocks that fill an H100: one on each of 128 of its 132 SMs (a
+# power-of-two split of a power-of-two grid lands on 128, not 132)
+MIN_BLOCKS = 128
+# The most splits a tile that can fill the card takes: the last block of a
+# tile sums its partials alone, and past 4 partials of a large tile that
+# sum costs more than the blocks gain (tools/gemm_plan_grid.py)
+MAX_SPLITS = 4
+# The least K one split walks: 4 steps of bk = 32, so the ring fills
+MIN_SPLIT_K = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+# Split-K arrival counters, one per output tile, of each (device, stream):
+# zero between calls (the last block of a tile to arrive wraps its counter
+# back to 0), so they are made once and grown; kernels on one stream run in
+# order, so that stream's calls share them
+_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def smem_bytes(bm: int, bn: int, bk: int, itemsize: int = 2) -> int:
     """Shared memory of one block (the capacity law, the counterpart of
-    ``vmem_bytes``): the A and B tiles of one K step, the accumulator in
-    registers. 16-bit tiles are stored row-major with 8 elements of padding
-    per row, 32-bit tiles K-major with 4."""
+    ``vmem_bytes``): the A and B tiles, the accumulator in registers.
+    16-bit tiles: one K step, row-major with 8 elements of padding per row.
+    32-bit tiles: a ring of ``F32_STAGES`` K steps, row-major with 4."""
     if itemsize == 2:
         return (bm * (bk + 8) + bk * (bn + 8)) * 2
-    return (bk * (bm + 4) + bk * (bn + 4)) * itemsize
+    return F32_STAGES * (bm * (bk + 4) + bk * (bn + 4)) * itemsize
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _splits(tiles: int, K: int, most: int) -> int:
+    """The fewest power-of-two splits, at most ``most`` and each walking at
+    least MIN_SPLIT_K of K, that bring ``tiles`` to MIN_BLOCKS blocks (the
+    most allowed if none does)."""
+    splits = 1
+    while tiles * splits < MIN_BLOCKS and 2 * splits <= most and \
+            K // (2 * splits) >= MIN_SPLIT_K:
+        splits *= 2
+    return splits
+
+
+@functools.lru_cache(maxsize=256)
+def plan(M: int, N: int, K: int, dtype: torch.dtype
+         ) -> tuple[int, int, int, int]:
+    """``(bm, bn, bk, splits)`` for ``gemm`` of an (M, K) by (K, N) product.
+    f32: the largest tile of :data:`F32_TILES` no taller than M whose grid
+    reaches :data:`MIN_BLOCKS` blocks with K split in at most
+    :data:`MAX_SPLITS` power-of-two slices of at least :data:`MIN_SPLIT_K`;
+    if none does, the smallest tile with K split as far as needed and
+    MIN_SPLIT_K allows (the grid stays short of MIN_BLOCKS only where K is
+    too short to split further). bf16: the default block, unsplit."""
+    if dtype != torch.float32:
+        return BM, BN, BK, 1
+    low = F32_TILES[-1]
+    for bm, bn, bk in F32_TILES:
+        if bm > max(M, low[0]):
+            continue
+        tiles = _cdiv(M, bm) * _cdiv(N, bn)
+        splits = _splits(tiles, K, MAX_SPLITS)
+        if tiles * splits >= MIN_BLOCKS:
+            return bm, bn, bk, splits
+    tiles = _cdiv(M, low[0]) * _cdiv(N, low[1])
+    return (*low, _splits(tiles, K, max(1, K // MIN_SPLIT_K)))
+
+
+def launch_shape(M: int, N: int, K: int, dtype: torch.dtype,
+                 bm: int | None = None, bn: int | None = None,
+                 bk: int | None = None) -> tuple[int, int, int, int]:
+    """The ``(bm, bn, bk, splits)`` that :func:`gemm` launches: the plan when
+    no block shape is given, else the given one (unset sizes from ``BM``,
+    ``BN``, ``BK``) unsplit."""
+    if bm is None and bn is None and bk is None:
+        return plan(M, N, K, dtype)
+    return bm or BM, bn or BN, bk or BK, 1
+
+
+@functools.lru_cache(maxsize=64)
 def _check_block_shape(bm: int, bn: int, bk: int, dtype: torch.dtype) -> None:
     if dtype not in _DTYPES:
         raise ValueError(f"GEMM runs in {list(_DTYPES)}, not {dtype}")
-    need = smem_bytes(bm, bn, bk, torch.empty((), dtype=dtype).element_size())
+    need = smem_bytes(bm, bn, bk, dtype.itemsize)
     if need > SMEM_LIMIT:
         raise ValueError(
             f"block shape (bm, bn, bk) = {(bm, bn, bk)} needs {need} bytes of "
@@ -58,9 +133,11 @@ def _check_block_shape(bm: int, bn: int, bk: int, dtype: torch.dtype) -> None:
                          f"{sorted(SHAPES)}")
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gemm")
-    lib.gemm.argtypes = [_I, _I, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _P]
+    lib.gemm.argtypes = [_I, _I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I,
+                         _I, _I, _P]
     lib.gemm.restype = ctypes.c_int
     lib.gemm_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.gemm_smem_bytes.restype = ctypes.c_int
@@ -87,29 +164,54 @@ def _check(a, b) -> None:
                              "16-byte aligned rows")
 
 
-def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int = BM, bn: int = BN,
-         bk: int = BK) -> torch.Tensor:
-    """a (M, K) @ b (K, N) → (M, N) in a's dtype, f32 sums, with (bm, bn)
-    output tiles and K steps of bk. Any M; f32 any N and K, bf16 N and K
-    multiples of 8."""
+def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
+         bn: int | None = None, bk: int | None = None) -> torch.Tensor:
+    """a (M, K) @ b (K, N) → (M, N) in a's dtype, f32 sums. With no block
+    shape, tile and split of K follow :func:`plan`; ``(bm, bn, bk)`` given
+    (unset ones default to ``BM``, ``BN``, ``BK``) is launched as given,
+    unsplit. Any M; f32 any N and K, bf16 N and K multiples of 8."""
     global launches
+    M, K = a.shape[0], a.shape[-1]
+    N = b.shape[-1]
+    bm, bn, bk, splits = launch_shape(M, N, K, a.dtype, bm, bn, bk)
     _check_block_shape(bm, bn, bk, a.dtype)
-    if a.device.type == "cpu":
-        return ref.gemm_ref(a, b)
-    if a.device.type != "cuda":
+    if not a.is_cuda:
+        if a.device.type == "cpu":
+            return ref.gemm_ref(a, b)
         raise ValueError(f"GEMM runs on cuda or cpu, not {a.device}")
     _check(a, b)
+    out = _launch(a, b, bm, bn, bk, splits)
+    if out.numel():
+        launches += 1
+    return out
+
+
+def _launch(a: torch.Tensor, b: torch.Tensor, bm: int, bn: int, bk: int,
+            splits: int) -> torch.Tensor:
+    """One launch of the kernel on a's card at tile ``(bm, bn, bk)`` with K
+    split ``splits`` ways, on operands :func:`gemm` has checked; none for
+    an empty output. Not counted: :func:`gemm` counts its own launches."""
     M, K = a.shape
     N = b.shape[1]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
+    dev = a.device.index or 0
+    stream = _build.stream(a.device)
+    ws = cnt = None
+    if splits > 1:
+        ws = torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
+        tiles = _cdiv(M, bm) * _cdiv(N, bn)
+        cnt = _counters.get((dev, stream))
+        if cnt is None or cnt.numel() < tiles:
+            cnt = torch.zeros(tiles, dtype=torch.int32, device=a.device)
+            _counters[(dev, stream)] = cnt
     lib = _lib()
-    err = lib.gemm(a.device.index or 0, _DTYPES[a.dtype], _build.ptr(a),
-                   _build.ptr(b), _build.ptr(out), a.stride(0), M, K, N, bm,
-                   bn, bk, _build.stream(a.device))
+    err = lib.gemm(dev, _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
+                   out.data_ptr(), ws if ws is None else ws.data_ptr(),
+                   cnt if cnt is None else cnt.data_ptr(), a.stride(0), M, K,
+                   N, bm, bn, bk, splits, stream)
     _build.check(lib, err, "gemm")
-    launches += 1
     return out
 
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs.gemm_paper import FPGA_CHUNK_SWEEP
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.gemm import ops as gemm_ops
@@ -422,6 +423,39 @@ def test_gemm_kernel_rejects_bad_inputs(dev):
         gemm_ops.gemm(a, a.t())
 
 
+@pytest.mark.parametrize("sf", FPGA_CHUNK_SWEEP)
+def test_gemm_plan_on_hbb_chunks(dev, sf):
+    """The hbb path's chunks A[:S_f] of a 1024² f32 A at their plan: within
+    1e-5 of the plain product, one launch per call, and two calls bit-equal
+    (the split partials are summed in split order, no atomics)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((1024, 1024), generator=g, device=dev)
+    b = torch.randn((1024, 1024), generator=g, device=dev)
+    a = A[:sf]
+    bm, bn, bk, splits = gemm_ops.plan(sf, 1024, 1024, torch.float32)
+    assert splits > 1
+    n0 = gemm_ops.launches
+    got = gemm_ops.gemm(a, b)
+    assert gemm_ops.launches == n0 + 1
+    assert _rel(got, gemm_ref.gemm_ref(a, b)) < GEMM_TOL[torch.float32]
+    assert torch.equal(got, gemm_ops.gemm(a, b))
+
+
+@pytest.mark.parametrize("M,K,N", [(97, 1000, 200), (1, 4096, 72),
+                                   (300, 1030, 257), (40, 777, 1024)])
+def test_gemm_plan_ragged(dev, M, K, N):
+    """Ragged M, N and K at their plan (split K with a short last slice,
+    the 4-byte copy path where K or N is not a multiple of 4): within 1e-5
+    of the plain product and bit-equal across calls."""
+    g = torch.Generator(device=dev).manual_seed(K)
+    a = torch.randn((M + 3, K), generator=g, device=dev)[3:]
+    b = torch.randn((K, N), generator=g, device=dev)
+    got = gemm_ops.gemm(a, b)
+    assert _rel(got, gemm_ref.gemm_ref(a, b)) < GEMM_TOL[torch.float32]
+    assert torch.equal(got, gemm_ops.gemm(a, b))
+    assert gemm_ops.plan(M, N, K, torch.float32)[3] > 1
+
+
 @pytest.mark.parametrize("split", [0, 97, 256])
 def test_matmul_row_split_on_card(dev, split):
     """Rows [0, split) through the kernel on the card, the rest on the
@@ -617,6 +651,29 @@ def test_flash_bwd_strided_views(dev):
     for a, b in zip(got, want):
         assert a.permute(0, 2, 1, 3).is_contiguous()
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_flash_bwd_training_shape(dev):
+    """The training path's shape (B=4, T=2048, 32 query heads over 8, dh
+    128, causal, bf16, head-transposed views): dq, dk, dv within 3e-2 of
+    the plain version's largest value, and two calls bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    B, T, H, Hk, dh = 4, 2048, 32, 8, 128
+    dt = torch.bfloat16
+    q, do = (torch.randn((B, T, H, dh), generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, Hk, dh), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    q, k, v, do = (x.permute(0, 2, 1, 3) for x in (q, k, v, do))
+    kw = dict(scale=dh ** -0.5, causal=True)
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+    got = flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    want = flash_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(gt, w) < TOL[dt], (name, _rel(gt, w))
 
 
 def test_flash_bwd_rejects_bad_inputs(dev):

@@ -100,15 +100,67 @@ def test_gemm_smem_law():
     assert vmem_bytes(256, 256, 512) < 16 * 2**20
     assert ops.smem_bytes(256, 256, 512, 2) > limit
     assert ops.smem_bytes(256, 256, 512, 4) > limit
-    # the law counts what the kernel allocates: padded tiles, no accumulator
+    # the law counts what the kernel allocates: padded tiles, no accumulator;
+    # f32 tiles row-major in a ring of three stages
     assert ops.smem_bytes(128, 128, 32, 2) == (128 * 40 + 32 * 136) * 2
-    assert ops.smem_bytes(128, 128, 32, 4) == (32 * 132 + 32 * 132) * 4
+    assert ops.smem_bytes(128, 128, 32, 4) == 3 * (128 * 36 + 32 * 132) * 4
     _, (a, b) = _operands(64, 64, 64, "float32")
     with pytest.raises(ValueError, match="shared memory"):
         ops.gemm(a, b, bm=256, bn=256, bk=512)
     with pytest.raises(ValueError, match="not compiled"):
         ops.gemm(a, b, bm=32, bn=32, bk=32)
     assert (ops.BM, ops.BN, ops.BK) in ops.SHAPES
+
+
+@pytest.mark.parametrize("M,N,K", [(sf, 1024, 1024)
+                                   for sf in gemm_paper.FPGA_CHUNK_SWEEP]
+                         + [(sf, 4096, 4096)
+                            for sf in gemm_paper.FPGA_CHUNK_SWEEP]
+                         + [(4096, 4096, 4096), (97, 200, 136), (1, 64, 64),
+                            (300, 257, 1030), (40, 1024, 777)])
+def test_gemm_plan(M, N, K):
+    """The plan as a pure function: every planned f32 shape is compiled and
+    fits the law; the grid has MIN_BLOCKS blocks or K is too short to split
+    once more and the tile is the smallest; every hbb chunk of the sweep
+    (1024² and the 4096² scaling run) fills the card; bf16 keeps the
+    default block, unsplit; an explicit block shape is never split."""
+    bm, bn, bk, splits = ops.plan(M, N, K, torch.float32)
+    assert (bm, bn, bk) in ops.SHAPES and (bm, bn, bk) in ops.F32_TILES
+    assert ops.smem_bytes(bm, bn, bk, 4) <= ops.SMEM_LIMIT
+    assert splits >= 1 and splits & (splits - 1) == 0
+    assert K // splits >= ops.MIN_SPLIT_K or splits == 1
+    blocks = -(-M // bm) * -(-N // bn) * splits
+    if blocks < ops.MIN_BLOCKS:       # why not: K too short to split more
+        assert K // (2 * splits) < ops.MIN_SPLIT_K
+        assert (bm, bn, bk) == ops.F32_TILES[-1]
+    if (bm, bn, bk) != ops.F32_TILES[-1]:
+        assert splits <= ops.MAX_SPLITS
+    if N >= 1024 and K >= 1024 and M in gemm_paper.FPGA_CHUNK_SWEEP:
+        assert blocks >= ops.MIN_BLOCKS
+    assert bm <= max(M, ops.F32_TILES[-1][0])
+    assert ops.plan(M, N, K, torch.bfloat16) == (ops.BM, ops.BN, ops.BK, 1)
+    # on the host the kernel's plain version runs, planned or explicit
+    _, (a, b) = _operands(min(M, 64), min(K, 96), min(N, 80), "float32",
+                          seed=M)
+    _close(ops.gemm(a, b), a.numpy() @ b.numpy(), TOL["float32"])
+
+
+@pytest.mark.parametrize("block", sorted(ops.SHAPES))
+def test_gemm_explicit_block_never_split(block):
+    """An explicit block shape is launched as given with one split, so the
+    Table 2 sweep measures what it names; no block shape follows the plan.
+    The plain version runs on the host either way."""
+    bm, bn, bk = block
+    for dtype in (torch.float32, torch.bfloat16):
+        assert ops.launch_shape(256, 1024, 1024, dtype, bm, bn, bk) == \
+            (bm, bn, bk, 1)
+        assert ops.launch_shape(256, 1024, 1024, dtype) == \
+            ops.plan(256, 1024, 1024, dtype)
+    assert ops.launch_shape(8, 1024, 1024, torch.float32, bn=bn) == \
+        (ops.BM, bn, ops.BK, 1)
+    _, (a, b) = _operands(40, 72, 48, "float32", seed=bn)
+    _close(ops.gemm(a, b, bm=bm, bn=bn, bk=bk), a.numpy() @ b.numpy(),
+           TOL["float32"])
 
 
 @pytest.mark.parametrize("split", [0, 48, 128])
