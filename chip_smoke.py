@@ -5,15 +5,20 @@
 
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the hand-written kernels from this checkout (nvcc, sm_90a, one
-   process per source, all started together).
+   process per source, all started together), and prints for each kernel
+   built on wgmma and TMA (the flash forward at its three head dims, the
+   grouped GEMM's prefill and decode paths) its HGMMA and UTMALDG
+   instructions in the SASS and its ptxas registers and spills; a count of
+   0 fails.
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (paged GQA and MLA decode, flash prefill at GQA and MLA head
    dims, the grouped expert GEMM in bf16 and f32, the tiled GEMM on the hbb
    path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16 at
    each shape's plan, with the Table 2 sweep of bn, the SSD intra-chunk at
-   mamba2-130m's shapes), and times kernel, plain version and the PyTorch
-   call that computes the same function, where there is one, with CUDA
-   events.
+   mamba2-130m's shapes; the flash forward and the bf16 grouped GEMM also
+   bit-equal over two calls), and times kernel, plain version and the
+   PyTorch call that computes the same function, where there is one, with
+   CUDA events.
    Then the paper's experiment (Fig. 5): HBB ``parallel_for`` over the
    rows of a 1024² f32 GEMM with the card's kernel as the accelerator
    class and host threads as the core class, every result checked against
@@ -111,6 +116,40 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
                                        else "operations")
 
 
+# --------------------------------------------- SASS of the wgmma kernels
+# The kernels redesigned for Hopper's warpgroup products and TMA, by the
+# kernel entry of the "kernels" line whose path runs them: (library, kernel
+# labels as _build.kernel_label gives them)
+WGMMA_KERNELS = {
+    "flash_attention_fwd": ("flash_attention", [
+        "flash_fwd_wgmma<64, 64>", "flash_fwd_wgmma<128, 128>",
+        "flash_fwd_wgmma<192, 128>"]),
+    "flash_attention_fwd_lse": ("flash_attention", [
+        "flash_fwd_wgmma<128, 128>"]),
+    "grouped_gemm": ("grouped_gemm", ["gg_prefill", "gg_decode"]),
+}
+
+
+def sass_phase() -> dict[str, dict]:
+    """Per redesigned kernel: its HGMMA (wgmma) and UTMALDG (TMA tile load)
+    instructions in the built SASS (``cuobjdump -sass``) and ptxas's
+    registers and spills. A count of 0 fails."""
+    from repro_torch.kernels import _build
+    out = {}
+    for entry, (lib, kernels) in WGMMA_KERNELS.items():
+        counts, regs = _build.sass_counts(lib), _build.ptxas_stats(lib)
+        out[entry] = {}
+        for k in kernels:
+            c, r = counts.get(k, {}), regs.get(k, {})
+            out[entry][k] = {**c, **r}
+            check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
+                  f"SASS of {k} ({lib}): {c.get('HGMMA', 0)} HGMMA, "
+                  f"{c.get('UTMALDG', 0)} UTMALDG; ptxas {r.get('registers')} "
+                  f"registers, {r.get('spill_stores')} B spill stores, "
+                  f"{r.get('spill_loads')} B spill loads")
+    return out
+
+
 # ------------------------------------------------------------ paged decode
 def paged_phase(dev) -> dict:
     from repro_torch.kernels.paged_attention import ops, ref
@@ -181,6 +220,7 @@ def flash_phase(dev) -> dict:
             (8, 32, 8, 128, 128, 2048, True, 0, 0.0),
             (8, 32, 8, 128, 128, 1024, True, 256, 30.0),
             (8, 32, 8, 128, 128, 1000, True, 0, 0.0),
+            (8, 32, 8, 64, 64, 1024, True, 0, 0.0),
             (8, 128, 128, 192, 128, 1024, True, 0, 0.0)):
         scale = dh ** -0.5
         g = torch.Generator(device=dev).manual_seed(T + window + dh)
@@ -195,12 +235,15 @@ def flash_phase(dev) -> dict:
         qv, kv, vv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
         kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
         out = ops.attend(qv, kv, vv, **kw)
+        same = torch.equal(out, ops.attend(qv, kv, vv, **kw))
         want = ref.flash_attention_ref(qv, kv, vv, **kw)
         e = float((out.float() - want.float()).abs().max())
         err = max(err, e)
-        check(e <= BF16_TOL, f"flash H={H} dh={dh} dv={dv} T={T} "
-              f"causal={causal} window={window} softcap={softcap}: max "
-              f"|out - ref| {e:.3g} (tol {BF16_TOL})")
+        route = ops.fwd_route(dt, dh, dv, True)
+        check(e <= BF16_TOL and same, f"flash ({route}) H={H} dh={dh} "
+              f"dv={dv} T={T} causal={causal} window={window} "
+              f"softcap={softcap}: max |out - ref| {e:.3g} (tol {BF16_TOL}), "
+              f"two calls bit-equal {same}")
         del want
         rows = np.arange(T)
         lo = np.maximum(0, rows - window + 1) if window else np.zeros(T)
@@ -242,7 +285,8 @@ def flash_phase(dev) -> dict:
             "mla": mla,
             "check": "out against flash_attention_ref, bf16, B=8 H=32 Hkv=8 "
                      "dh=128: T=1024/2048 causal, window 256 + softcap 30, "
-                     "ragged T=1000; B=8 H=128 dqk=192 dv=128 T=1024 causal; "
+                     "ragged T=1000; dh=64 T=1024 causal; B=8 H=128 dqk=192 "
+                     "dv=128 T=1024 causal; two calls bit-equal at each; "
                      "times at B=8 H=32 T=1024 causal (mla: the MLA shape)"}
 
 
@@ -451,7 +495,7 @@ def gg_phase(dev) -> dict:
     largest value, against the plain version."""
     from repro_torch.kernels.grouped_gemm import ops, ref
     E, D, Fe = 160, 5120, 1536
-    err, main = 0.0, None
+    err, main, decode = 0.0, None, None
     for name, M, K, N, bcast in (("prefill up", 384, D, Fe, False),
                                  ("prefill down", 384, Fe, D, False),
                                  ("decode up", 8, D, Fe, True),
@@ -473,12 +517,14 @@ def gg_phase(dev) -> dict:
             if bcast:
                 a = x.to(dt).unsqueeze(0).expand(E, M, K)
             out = ops.grouped_gemm(a, w)
+            same = torch.equal(out, ops.grouped_gemm(a, w))
             want = ref.grouped_gemm_ref(a, w)
             e = float((out.float() - want.float()).abs().max()
                       / want.float().abs().max())
-            check(e <= tol, f"grouped GEMM {name} ({E}, {M}, {K}) x ({E}, "
-                  f"{K}, {N}) {'stride-0 a ' if bcast else ''}{dt}: "
-                  f"relative max error {e:.3g} (tol {tol})")
+            check(e <= tol and same, f"grouped GEMM ({ops.route(dt, M)}) "
+                  f"{name} ({E}, {M}, {K}) x ({E}, {K}, {N}) "
+                  f"{'stride-0 a ' if bcast else ''}{dt}: relative max error "
+                  f"{e:.3g} (tol {tol}), two calls bit-equal {same}")
             if dt == torch.bfloat16:
                 err = max(err, e)
                 res = dict(a=a, w=w)
@@ -497,6 +543,11 @@ def gg_phase(dev) -> dict:
               f"TFLOP/s, {n_bytes / ms / 1e6:.1f} GB/s")
         if main is None:
             main = (ms, plain, b_ms, b_by, lib)
+        if name == "decode up":
+            decode = {"shape": f"({E}, {M}, {K}) x ({E}, {K}, {N}), a with "
+                               "expert stride 0",
+                      "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                      "bound_by": b_by, "library_ms": lib}
         del a32, w32, a, w, res
         torch.cuda.empty_cache()
     ms, plain, b_ms, b_by, lib = main
@@ -505,11 +556,13 @@ def gg_phase(dev) -> dict:
             "replaces": "src/repro/kernels/grouped_gemm/grouped_gemm.py:34",
             "max_abs_err": err, "tol": BF16_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "decode": decode,
             "check": "relative max error against grouped_gemm_ref, bf16 "
-                     "(tol 3e-2) and f32 (tol 1e-4): (160,384,5120)x"
-                     "(160,5120,1536), (160,384,1536)x(160,1536,5120), "
-                     "decode M=8 with stride-0 a, ragged M=100; times "
-                     "(library: torch.bmm) at the first shape"}
+                     "(tol 3e-2; two calls bit-equal) and f32 (tol 1e-4): "
+                     "(160,384,5120)x(160,5120,1536), (160,384,1536)x"
+                     "(160,1536,5120), decode M=8 with stride-0 a, ragged "
+                     "M=100; times (library: torch.bmm) at the first shape "
+                     "(decode: decode up)"}
 
 
 # -------------------------------------------------------------- tiled GEMM
@@ -1030,6 +1083,7 @@ def train_phase(dev, entries) -> None:
     from repro_torch.configs import get_config
     from repro_torch.data.loader import PrefetchLoader
     from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.kernels import _build
     from repro_torch.models import attention
     from repro_torch.models.model import loss_fn
     from repro_torch.params import init_params, n_params, tree_leaves
@@ -1106,6 +1160,10 @@ def train_phase(dev, entries) -> None:
     print(f"profile: one train step (profiler on): wall {wall:.3f} s, device "
           f"busy {busy / 1e6:.3f} s ({busy / 1e4 / wall:.1f} %), {n} kernels")
     print_top(by_name)
+    print("  attention kernels of the step: " + ", ".join(
+        f"{_build.kernel_label(name)} {us / 1e3:.3f} ms ({k}x)"
+        for name, (us, k) in sorted(by_name.items())
+        if "flash_fwd" in name or "bwd_d" in name))
     first = math.log(cfg.vocab) + 0.02 ** 2 * cfg.d_model / 2
     check(all(math.isfinite(x) for x in losses), f"train: every loss is "
           f"finite {[round(x, 4) for x in losses]}")
@@ -1185,8 +1243,12 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
+    sass = sass_phase()
     entries = [paged_phase(dev), flash_phase(dev), *flash_bwd_phase(dev),
                mla_phase(dev), gg_phase(dev), gemm_phase(dev), ssd_phase(dev)]
+    for e in entries:
+        if e["name"] in sass:
+            e["sass"] = sass[e["name"]]
     torch.cuda.empty_cache()
     hbb_phase(dev, entries)
     serve_phase(dev, entries)
@@ -1199,7 +1261,8 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms", "check")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(x for x in (
-            "passes_ms", "mla", "chunks", "n4096") if x in e)}
+            "passes_ms", "mla", "decode", "chunks", "n4096", "sass")
+            if x in e)}
         for e in entries]}))
     print(smi)
     print(f"total {time.perf_counter() - t0:.1f} s")

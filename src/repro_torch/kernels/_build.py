@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,12 +29,11 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def _tool(name: str) -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    path = shutil.which("nvcc") or os.path.join(home, "bin", "nvcc")
+    path = shutil.which(name) or os.path.join(home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError(f"nvcc not found on PATH or under {home}/bin; "
-                           "the CUDA kernels cannot be built")
+        raise RuntimeError(f"{name} not found on PATH or under {home}/bin")
     return path
 
 
@@ -51,7 +51,7 @@ def build(names=NAMES) -> float:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return 0.0
-    nvcc = _nvcc()
+    nvcc = _tool("nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     try:
@@ -74,6 +74,83 @@ def build(names=NAMES) -> float:
                 proc.kill()
                 proc.wait()
     return time.perf_counter() - t0
+
+
+SASS_OPCODES = ("HGMMA", "UTMALDG")    # wgmma products, TMA tile loads
+
+
+def kernel_label(signature: str) -> str:
+    """A kernel's short name, ``flash_fwd_wgmma<128, 128>``, from its
+    demangled signature as ``cu++filt`` (``void <unnamed>::f<(int)128,
+    (int)128>(...)``) or the profiler (``void (anonymous namespace)::
+    f<128, 128>(...)``) gives it: no return type, namespace, casts of
+    template arguments or parameters."""
+    for anon in ("(anonymous namespace)::", "<unnamed>::"):
+        signature = signature.replace(anon, "")
+    signature = re.sub(r"\(\w[\w ]*\)(?=-?\d)", "", signature)
+    base, lt, args = signature.split("(")[0].partition("<")
+    return base.split()[-1].split("::")[-1] + lt + args
+
+
+def _labels(mangled) -> dict[str, str]:
+    """{mangled kernel name: its :func:`kernel_label`}, demangled by
+    ``cu++filt``."""
+    mangled = list(mangled)
+    if not mangled:
+        return {}
+    out = subprocess.run([_tool("cu++filt"), *mangled], capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    if len(out) != len(mangled):
+        raise RuntimeError(f"cu++filt gave {len(out)} names for "
+                           f"{len(mangled)}")
+    return {m: kernel_label(d) for m, d in zip(mangled, out)}
+
+
+def sass_counts(name: str) -> dict[str, dict[str, int]]:
+    """{kernel label: {opcode: count}} of :data:`SASS_OPCODES` in the built
+    library ``name``'s SASS (``cuobjdump -sass``), for every kernel it
+    holds."""
+    out = subprocess.run([_tool("cuobjdump"), "-sass",
+                          str(library_path(name))], capture_output=True,
+                         text=True, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1),
+                                    dict.fromkeys(SASS_OPCODES, 0))
+        elif cur is not None:
+            for op in SASS_OPCODES:
+                if re.search(rf"\b{op}\b", line):
+                    cur[op] += 1
+    labels = _labels(counts)
+    return {labels[k]: c for k, c in counts.items()}
+
+
+def ptxas_stats(name: str) -> dict[str, dict[str, int]]:
+    """{kernel label: {"registers", "spill_stores", "spill_loads"}} from
+    ``-Xptxas -v`` in the build log of the library ``name``."""
+    log = library_path(name).with_suffix(".log").read_text()
+    stats: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            cur = stats.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    labels = _labels(stats)
+    return {labels[k]: v for k, v in stats.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,29 +14,58 @@
 // pair; at 1k causal, 32 heads, dh = 128 that is 8.6 GFLOP per sequence and
 // layer, 8.7 us at the 989 TFLOP/s bf16 tensor-core rate.
 //
-// Two paths, one contract.
+// Three paths, one contract, chosen by flash_attention/ops.py::fwd_route.
 //
-// flash_fwd_mma (bf16, dh == dv in {16, 32, 64, 128} or MLA's dh = 192 (nope
-// 128 + rope 64) with dv = 128, 16-byte aligned rows; the main path of both
-// served models): the tensor cores through mma.sync m16n8k16 (bf16 in, f32
-// accumulate), as in FlashAttention-2. One block of 4 warps per (64-row
-// query tile, batch * head); each warp owns 16 query rows, keeps its Q
-// fragments, the scores of a 64-key tile, the output accumulator and the
-// running (m, l) of its rows in registers. K is staged in shared memory
-// row-major and V transposed, both padded so the fragment loads of a warp
-// hit 32 distinct banks. The probabilities go back into the tensor cores as
-// bf16 (the row sums l stay f32). Not yet used: wgmma, TMA, a pipelined
-// ring of K/V tiles, warp specialisation.
+// flash_fwd_wgmma (bf16, dh = dv in {64, 128} or MLA's dh = 192 (nope 128 +
+// rope 64) with dv = 128, 16-byte aligned rows; the main path of both served
+// models and of training): Hopper's warpgroup tensor-core products fed by
+// TMA, in the structure of FlashAttention-3. Persistent: one block of three
+// warpgroups per SM takes work tiles (128 query rows of one batch * head)
+// in the order of a walk that keeps a group of heads' K/V in L2 and runs
+// each group's heaviest tiles first, claiming the next tile from an atomic
+// counter as it frees up. A producer warpgroup (one thread issues TMA; its
+// registers go to the consumers by setmaxnreg) loads each tile's Q and
+// keeps a ring of 128-key K/V tiles in flight (3 stages at dh <= 128, 2 at
+// MLA's 192: fwd_stages), reading the caller's strided (d, T, heads, B)
+// views through 4-D tensor maps (MLA's V is the slice 256 bytes into each
+// (nope + v) row; TMA zero-fills the ragged T edge), with full and empty
+// mbarriers per stage and for Q, so the next tile's loads run under the
+// current tile's last products and its output stores. Each of two consumer
+// warpgroups owns 64 query rows: S = Q K^T by wgmma m64n128k16 from shared
+// memory (both K-major), the online softmax on the accumulators in f32
+// (scale * log2 e folded into the exponent's FFMA, one exp2 per score; the
+// mask and the softcap's tanh in separate instances of the pass, the mask
+// only on tiles that cut the causal or window band or the Tk edge; l summed
+// per thread and reduced once at the end), then O += P V by wgmma with P
+// rounded to bf16 in registers as the A operand and V read MN-major through
+// the descriptor's transpose bit: no transposed copy. The P V products stay
+// in flight while the next tile's S products are issued behind them. Key
+// tiles outside a warpgroup's band are not computed; a block visits only
+// the tiles its rows can see. Shared memory: FwdSmem (230,472 bytes at dh
+// 128, 214,072 at 192), one block per SM. Where it stands (PERF.md §6, on
+// an H100 at 700 W): 2.8x its operations bound at the serving shape, 2.2x
+// with lse at the training shape, 1.2-1.3x scaled_dot_product_attention.
+// What is left: no ping-pong between the two consumers and no second S
+// tile to overlap a warpgroup's softmax with its own products (232
+// registers a thread hold one), and the output leaves by 4-byte stores,
+// not TMA.
 //
-// flash_fwd_kernel (f32, and any other head dims: dh <= 256, dv <= 128):
-// CUDA cores in f32. One block of 256 threads per (64-row query tile,
-// batch * head) loops over 32-key tiles; each thread owns a 4 x 2 tile of
-// scores and a 4 x 8 slice of the output, with Q, K, V in shared memory
-// (rows padded to dh + 1 floats).
+// flash_fwd_mma (bf16, dh = dv in {16, 32}: test-sized models): mma.sync
+// m16n8k16 as in FlashAttention-2. One block of 4 warps per (64-row query
+// tile, batch * head); each warp owns 16 query rows, keeps its Q fragments,
+// the scores of a 64-key tile, the output accumulator and the running
+// (m, l) of its rows in registers; K row-major and V transposed in shared
+// memory, padded against bank conflicts.
 //
-// Both run the query tiles in reverse so the longest causal rows start
-// first, and visit only the key tiles between the first key the window
-// allows and the last key causality allows.
+// flash_fwd_kernel (f32, and any other head dims or unaligned rows: dh <=
+// 256, dv <= 128): CUDA cores in f32. One block of 256 threads per (64-row
+// query tile, batch * head) loops over 32-key tiles; each thread owns a
+// 4 x 2 tile of scores and a 4 x 8 slice of the output, with Q, K, V in
+// shared memory (rows padded to dh + 1 floats).
+//
+// All run the query tiles heaviest first and visit only the key tiles
+// between the first key the window allows and the last key causality
+// allows.
 //
 // Training also asks for lse (B, H, Tq) f32, the residual of the backward
 // (flash_attention_bwd.cu). It replaces repro/kernels/flash_attention/
@@ -49,6 +78,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -232,25 +266,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ------------------------------------------------- tensor-core bf16 path
+// ------------------------------------------- mma.sync bf16 path (dh 16, 32)
 constexpr int MQ = 64;        // query rows per block (16 per warp)
 constexpr int MK = 64;        // keys per tile
 constexpr int MTHREADS = 128;
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int DH, int DV>
 __global__ void __launch_bounds__(MTHREADS)
@@ -411,6 +430,369 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ------------------------------------------- wgmma + TMA bf16 path
+constexpr int WQ = 128;          // query rows per work tile: 2 warpgroups
+constexpr int WK = 128;          // keys per K/V tile
+constexpr int WCONSUMERS = 256;  // threads of the two consumer warpgroups
+constexpr int WTHREADS = WCONSUMERS + 128;  // + the producer warpgroup
+// Registers per thread after the split (setmaxnreg): 128 x 40 + 256 x 232
+// <= 65,536
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Shared memory of one block (flash_attention/ops.py::fwd_smem_bytes): Q
+// (WQ x dh), a ring of K (WK x dh) and V (WK x dv) tiles, the barriers (Q
+// full and empty, and full and empty per stage), the current work tile's
+// index (8 bytes), and the 1024-byte alignment. The ring has 3 stages where
+// they fit in the 227 KiB a block may use, else 2
+// (flash_attention/ops.py::fwd_stages).
+constexpr int fwd_bytes(int dh, int dv, int stages) {
+  return SMEM_ALIGN + WQ * dh * 2 + stages * WK * (dh + dv) * 2 +
+         8 * (3 + 2 * stages);
+}
+
+template <int DH, int DV>
+struct FwdSmem {
+  static constexpr int stages = fwd_bytes(DH, DV, 3) <= SMEM_LIMIT ? 3 : 2;
+  static constexpr int q = WQ * DH * 2;
+  static constexpr int k = WK * DH * 2;
+  static constexpr int stage = k + WK * DV * 2;
+  static constexpr int bytes = fwd_bytes(DH, DV, stages);
+};
+static_assert(FwdSmem<64, 64>::bytes == 115784, "fwd_smem_bytes(64, 64)");
+static_assert(FwdSmem<128, 128>::bytes == 230472,
+              "fwd_smem_bytes(128, 128)");
+static_assert(FwdSmem<192, 128>::bytes == 214072,
+              "fwd_smem_bytes(192, 128)");
+
+// A work tile: WQ query rows of one (batch, head) and the key tiles
+// [t0, t0 + nt) they can see. The walk takes the (batch, head)s in groups
+// of `gsize` (about two waves of work tiles: a group's K/V stay in L2
+// while its tiles run) and, within a group, the query tiles heaviest first
+// (the last causal rows see the most keys): every head of the group's last
+// tile, then of the one before. Blocks take the walk's tiles in order as
+// they free up (an atomic counter), so the light tiles fill the gaps.
+struct FwdTile {
+  int b, h, q0, t0, nt;
+};
+
+__device__ __forceinline__ FwdTile fwd_tile(int p, int B, int H, int Tq,
+                                            int Tk, int causal, int window,
+                                            int gsize) {
+  const int nq = (Tq + WQ - 1) / WQ;
+  const int g = p / (gsize * nq), rem = p - g * gsize * nq;
+  const int size = min(gsize, B * H - g * gsize);
+  const int bh = g * gsize + rem % size;
+  FwdTile f;
+  f.b = bh / H;
+  f.h = bh % H;
+  f.q0 = (nq - 1 - rem / size) * WQ;
+  const int q1 = min(f.q0 + WQ, Tq) - 1;
+  const int k_lo = window ? max(0, f.q0 - window + 1) : 0;
+  const int k_hi = causal ? min(Tk - 1, q1) : Tk - 1;
+  f.t0 = k_lo / WK;
+  f.nt = k_hi >= f.t0 * WK ? (k_hi - f.t0 * WK) / WK + 1 : 0;
+  return f;
+}
+
+// The keys a row may see: key < Tk, key <= row if causal, key > row -
+// window if windowed. key0: this thread's first key of the tile.
+struct Band {
+  int row0, row1, key0, Tk, causal, window;
+  __device__ __forceinline__ bool live(int row, int key) const {
+    return key < Tk && (!causal || key <= row) &&
+           (!window || key > row - window);
+  }
+};
+
+// A tile's scores (64 x N per warpgroup, the wgmma accumulator layout)
+// ready for the exponent, and their row maxima mx (rows lane / 4 and + 8 of
+// the warp's 16). CAP: softcap * tanh(scale * s / softcap) in log2 units
+// (sl2 = scale / softcap, cap2 = softcap * log2 e); else the raw scores
+// (the caller scales). MASK: keys outside the band become NEG.
+template <bool CAP, bool MASK, int N>
+__device__ __forceinline__ void tile_scores(float* sacc, float* mx,
+                                            float sl2, float cap2,
+                                            const Band& band) {
+  mx[0] = mx[1] = NEG;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float x = sacc[4 * j + i];
+      if (CAP) x = tanhf(x * sl2) * cap2;
+      if (MASK && !band.live(i < 2 ? band.row0 : band.row1,
+                             band.key0 + 8 * j + (i & 1)))
+        x = NEG;
+      sacc[4 * j + i] = x;
+      mx[i >> 1] = fmaxf(mx[i >> 1], x);
+    }
+  }
+}
+
+// Persistent: one block per SM. Its first work tile is blockIdx.x; the
+// producer claims each next one from `counter` (0 at launch) and loads its
+// Q and K/V while the consumers finish and write the current one. It
+// publishes the tile's index in shared memory (`tile`) before its arrival
+// on q_full; an index past the last tile ends the consumers' loop. Maps
+// over (d, T, heads, B) of q, k and v; o and lse are written from the
+// accumulators.
+template <int DH, int DV>
+__global__ void __launch_bounds__(WTHREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                Strides os, int B, int H, int group, int Tq, int Tk,
+                float scale, int causal, int window, float softcap,
+                int gsize, int* __restrict__ counter) {
+  using SM = FwdSmem<DH, DV>;
+  constexpr int S = SM::stages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* sm = smem_base(smem_raw);
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm);
+  uint8_t* ring = sm + SM::q;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(ring + S * SM::stage);
+  uint64_t* q_empty = q_full + 1;
+  uint64_t* full = q_full + 2;
+  uint64_t* empty = full + S;
+  volatile int* tile = reinterpret_cast<volatile int*>(empty + S);
+  const int n_work = B * H * ((Tq + WQ - 1) / WQ);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, WCONSUMERS);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], WCONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid >= WCONSUMERS) {       // the producer: one thread issues TMA
+    reg_dealloc<PRODUCER_REGS>();
+    if (tid == WCONSUMERS) {
+      int it = 0;                // K/V tiles so far
+      int p = blockIdx.x;        // the first wave by block, then claimed
+      for (int wi = 0;; ++wi) {
+        if (wi > 0) mbar_wait(q_empty, (wi - 1) & 1);
+        *tile = p;               // published by the arrival on q_full
+        if (p >= n_work) {
+          mbar_arrive(q_full);
+          break;
+        }
+        const FwdTile f = fwd_tile(p, B, H, Tq, Tk, causal, window, gsize);
+        const int hk = f.h / group;
+        mbar_expect_tx(q_full, SM::q);
+#pragma unroll
+        for (int c = 0; c < DH / 64; ++c)
+          tma_load(Qs + c * WQ * 64, &tq, q_full, c * 64, f.q0, f.h, f.b);
+        for (int t = 0; t < f.nt; ++t, ++it) {
+          const int s = it % S;
+          if (it >= S) mbar_wait(&empty[s], (it / S - 1) & 1);
+          __nv_bfloat16* Ks =
+              reinterpret_cast<__nv_bfloat16*>(ring + s * SM::stage);
+          __nv_bfloat16* Vs = Ks + SM::k / 2;
+          const int k0 = (f.t0 + t) * WK;
+          mbar_expect_tx(&full[s], SM::stage);
+#pragma unroll
+          for (int c = 0; c < DH / 64; ++c)
+            tma_load(Ks + c * WK * 64, &tk, &full[s], c * 64, k0, hk, f.b);
+#pragma unroll
+          for (int c = 0; c < DV / 64; ++c)
+            tma_load(Vs + c * WK * 64, &tv, &full[s], c * 64, k0, hk, f.b);
+        }
+        p = gridDim.x + atomicAdd(counter, 1);
+      }
+    }
+  } else {
+    // a consumer warpgroup: 64 query rows of each work tile, each warp 16
+    reg_alloc<CONSUMER_REGS>();
+    const int wg = warp >> 2, wl = warp & 3, gq = lane >> 2, tg = lane & 3;
+    const float sl2 = softcap > 0.f ? scale / softcap : scale * LOG2E;
+    const float cap2 = softcap * LOG2E;
+    float oacc[DV / 2], sacc[WK / 2];
+    uint32_t pa[WK / 16][4];
+    int it = 0;
+    for (int wi = 0;; ++wi) {
+      mbar_wait(q_full, wi & 1);
+      const int p = *tile;
+      if (p >= n_work) break;
+      const FwdTile f = fwd_tile(p, B, H, Tq, Tk, causal, window, gsize);
+      const int r0 = f.q0 + 64 * wg;
+      const int r1 = min(r0 + 63, Tq - 1);
+      const int rows[2] = {r0 + 16 * wl + gq, r0 + 16 * wl + gq + 8};
+      const int w_lo = window ? max(0, r0 - window + 1) : 0;
+      const int w_hi = causal ? min(Tk - 1, r1) : Tk - 1;
+#pragma unroll
+      for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.f;
+      float mrow[2] = {NEG, NEG}, lrow[2] = {0.f, 0.f};  // l: this thread's
+      int pending = -1;      // the stage whose P V products are in flight
+
+      for (int t = 0; t < f.nt; ++t, ++it) {
+        const int s = it % S;
+        const int k0 = (f.t0 + t) * WK;
+        const __nv_bfloat16* Ks =
+            reinterpret_cast<const __nv_bfloat16*>(ring + s * SM::stage);
+        const __nv_bfloat16* Vs = Ks + SM::k / 2;
+        mbar_wait(&full[s], (it / S) & 1);
+        if (!(r0 < Tq && k0 <= w_hi && k0 + WK - 1 >= w_lo)) {
+          if (pending >= 0) {                   // outside this band
+            wg_wait<0>();
+            reg_fence<DV / 2>(oacc);
+            reg_fence<WK / 4>(&pa[0][0]);
+            mbar_arrive(&empty[pending]);
+            pending = -1;
+          }
+          mbar_arrive(&empty[s]);
+          if (t == f.nt - 1) mbar_arrive(q_empty);
+          continue;
+        }
+        // S = Q K^T, both K-major, issued behind the previous tile's P V
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < DH / 16; ++kk) {
+          const int c = kk / 4, k4 = (kk % 4) * 16;
+          WgmmaSS<WK>::run<0, 0>(
+              sacc, sw128_desc(Qs + c * WQ * 64 + 64 * wg * 64 + k4, 16, 1024),
+              sw128_desc(Ks + c * WK * 64 + k4, 16, 1024), kk > 0);
+        }
+        wg_commit();
+        wg_wait<0>();
+        reg_fence<WK / 2>(sacc);
+        reg_fence<DV / 2>(oacc);
+        reg_fence<WK / 4>(&pa[0][0]);
+        if (pending >= 0) mbar_arrive(&empty[pending]);
+        if (t == f.nt - 1) mbar_arrive(q_empty);
+
+        // online softmax in log2 units; the mask only where the tile cuts an
+        // edge of the causal or window band or of Tk
+        const bool masked = k0 + WK > Tk || (causal && k0 + WK - 1 > r0) ||
+                            (window && k0 <= r1 - window);
+        float mx[2];
+        const Band band{rows[0], rows[1], k0 + 2 * tg, Tk, causal, window};
+        if (softcap > 0.f) {
+          if (masked)
+            tile_scores<true, true, WK>(sacc, mx, sl2, cap2, band);
+          else
+            tile_scores<true, false, WK>(sacc, mx, sl2, cap2, band);
+        } else if (masked) {
+          tile_scores<false, true, WK>(sacc, mx, sl2, cap2, band);
+        } else {
+          tile_scores<false, false, WK>(sacc, mx, sl2, cap2, band);
+        }
+        // without a softcap the scores stay raw: scale * log2 e enters the
+        // exponent's FFMA, and the maxima are scaled here
+        const float xs = softcap > 0.f ? 1.f : sl2;
+        float msafe[2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+          mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+          const float m_new =
+              fmaxf(mrow[rr], mx[rr] <= NEG / 2 ? NEG : mx[rr] * xs);
+          msafe[rr] = m_new <= NEG / 2 ? 0.f : m_new;
+          const float corr = exp2f(mrow[rr] - msafe[rr]);
+          mrow[rr] = m_new;
+          lrow[rr] *= corr;
+#pragma unroll
+          for (int j = 0; j < DV / 8; ++j) {
+            oacc[4 * j + 2 * rr] *= corr;
+            oacc[4 * j + 2 * rr + 1] *= corr;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < WK / 8; ++j) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = exp2f(fmaf(sacc[4 * j + i], xs, -msafe[i >> 1]));
+            sacc[4 * j + i] = p;
+            lrow[i >> 1] += p;
+          }
+        }
+        // P as the A operand from registers (the accumulator layout is
+        // mma.sync's A fragment layout), V MN-major: no transposed copy.
+        // Left in flight: the next tile's S products queue behind them.
+#pragma unroll
+        for (int kk = 0; kk < WK / 16; ++kk) {
+          pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+        }
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < WK / 16; ++kk)
+          WgmmaRS<DV>::template run<1>(
+              oacc, pa[kk], sw128_desc(Vs + kk * 16 * 64, WK * 128, 1024), 1);
+        wg_commit();
+        pending = s;
+      }
+      wg_wait<0>();
+      reg_fence<DV / 2>(oacc);
+      reg_fence<WK / 4>(&pa[0][0]);
+      if (pending >= 0) mbar_arrive(&empty[pending]);
+      if (f.nt == 0) mbar_arrive(q_empty);
+
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float l = lrow[rr];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int row = rows[rr];
+        if (row >= Tq) continue;
+        const float inv = 1.f / fmaxf(l, 1e-30f);
+        __nv_bfloat16* orow = o + f.b * os.b + f.h * os.h + row * os.t;
+#pragma unroll
+        for (int j = 0; j < DV / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tg) =
+              __floats2bfloat162_rn(oacc[4 * j + 2 * rr] * inv,
+                                    oacc[4 * j + 2 * rr + 1] * inv);
+        if (lse != nullptr && tg == 0)
+          lse[((long long)f.b * H + f.h) * Tq + row] =
+              (mrow[rr] <= NEG / 2 ? 0.f : mrow[rr] * LN2) +
+              logf(fmaxf(l, 1e-30f));
+      }
+    }
+  }
+}
+
+template <int DH, int DV>
+cudaError_t launch_wgmma(int device, int* counter, const void* q,
+                         const void* k, const void* v, void* o, float* lse,
+                         Strides qs, Strides ks, Strides vs, Strides os,
+                         int B, int H, int Hk, int Tq, int Tk, float scale,
+                         int causal, int window, float softcap,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  const int box_q[4] = {64, WQ, 1, 1}, box_kv[4] = {64, WK, 1, 1};
+  const long long dq[4] = {DH, Tq, H, B}, sq[3] = {qs.t, qs.h, qs.b};
+  const long long dk[4] = {DH, Tk, Hk, B}, sk[3] = {ks.t, ks.h, ks.b};
+  const long long dv[4] = {DV, Tk, Hk, B}, sv[3] = {vs.t, vs.h, vs.b};
+  cudaError_t err = make_map(&tq, q, 4, dq, sq, box_q);
+  if (err == cudaSuccess) err = make_map(&tk, k, 4, dk, sk, box_kv);
+  if (err == cudaSuccess) err = make_map(&tv, v, 4, dv, sv, box_kv);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = FwdSmem<DH, DV>::bytes;
+  err = cudaFuncSetAttribute(flash_fwd_wgmma<DH, DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int nq = (Tq + WQ - 1) / WQ;
+  const long long n_work = (long long)B * H * nq;
+  if (n_work + 2LL * sm_count(device) > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const int grid = (int)std::min<long long>(n_work, sm_count(device));
+  const int gsize = std::min(B * H, std::max(1, 2 * grid / nq));
+  flash_fwd_wgmma<DH, DV><<<grid, WTHREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, os, B, H, H / Hk, Tq,
+      Tk, scale, causal, window, softcap, gsize, counter);
+  return cudaGetLastError();
+}
+
 template <int DH, int DV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
                        float* lse, Strides qs, Strides ks, Strides vs,
@@ -427,7 +809,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-bool mma_ok(const void* p, Strides s) {
+bool aligned16(const void* p, Strides s) {
   return (uintptr_t)p % 16 == 0 && s.b % 8 == 0 && s.h % 8 == 0 &&
          s.t % 8 == 0;
 }
@@ -456,46 +838,56 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). Strides are in
-// elements, the last dim of every tensor is contiguous. lse, when not null,
-// is a contiguous (B, H, Tq) float32 output. Returns the CUDA error of the
-// launch (0 = success).
-int flash_attention_fwd(int device, int dtype, const void* q, const void* k,
-                        const void* v, void* o, void* lse_out, long long qsb,
-                        long long qsh, long long qst, long long ksb,
-                        long long ksh,
-                        long long kst, long long vsb, long long vsh,
-                        long long vst, long long osb, long long osh,
-                        long long ost, int B, int H, int Hk, int Tq, int Tk,
-                        int dh, int dv, float scale, int causal, int window,
-                        float softcap, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). route (the pure
+// function flash_attention/ops.py::fwd_route): 0 = CUDA cores, any dims;
+// 1 = mma.sync, bf16, dh = dv in {16, 32}; 2 = wgmma and TMA, bf16, (dh, dv)
+// in {(64, 64), (128, 128), (192, 128)}; routes 1 and 2 need 16-byte
+// aligned rows (every pointer and stride a multiple of 8 elements).
+// Strides are in elements, the last dim of every tensor is contiguous. lse,
+// when not null, is a contiguous (B, H, Tq) float32 output. counter: route
+// 2's work-tile claims, one int32 on the device set to 0 (unused by the
+// other routes). Returns the CUDA error of the launch (0 = success).
+int flash_attention_fwd(int device, int dtype, int route, const void* q,
+                        const void* k, const void* v, void* o, void* lse_out,
+                        void* counter, long long qsb, long long qsh,
+                        long long qst, long long ksb, long long ksh,
+                        long long kst,
+                        long long vsb, long long vsh, long long vst,
+                        long long osb, long long osh, long long ost, int B,
+                        int H, int Hk, int Tq, int Tk, int dh, int dv,
+                        float scale, int causal, int window, float softcap,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (dh < 1 || dh > MAXDQK || dv < 1 || dv > MAXDV || Hk < 1 || H % Hk ||
-      Tq < 1 || Tk < 1 || B < 1)
+      Tq < 1 || Tk < 1 || B < 1 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst},
       os{osb, osh, ost};
+  const bool aligned = aligned16(q, qs) && aligned16(k, ks) &&
+                       aligned16(v, vs) && aligned16(o, os);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse = static_cast<float*>(lse_out);
-  if (dtype == 0)
+  if (route == 0 && dtype == 0)
     err = launch<float>(q, k, v, o, lse, qs, ks, vs, os, B, H, Hk, Tq, Tk,
                         dh, dv, scale, causal, window, softcap, st);
-  else if (dtype == 1 && mma_ok(q, qs) && mma_ok(k, ks) && mma_ok(v, vs) &&
-           mma_ok(o, os) &&
-           ((dh == dv && (dh == 16 || dh == 32 || dh == 64 || dh == 128)) ||
-            (dh == 192 && dv == 128))) {
-    auto fn = dh == 16    ? launch_mma<16, 16>
-            : dh == 32    ? launch_mma<32, 32>
-            : dh == 64    ? launch_mma<64, 64>
-            : dh == 128   ? launch_mma<128, 128>
-                          : launch_mma<192, 128>;   // MLA: nope + rope, v
-    err = fn(q, k, v, o, lse, qs, ks, vs, os, B, H, Hk, Tq, Tk, scale,
-             causal, window, softcap, st);
-  } else if (dtype == 1)
+  else if (route == 0)
     err = launch<__nv_bfloat16>(q, k, v, o, lse, qs, ks, vs, os, B, H, Hk,
                                 Tq, Tk, dh, dv, scale, causal, window,
                                 softcap, st);
+  else if (route == 1 && dtype == 1 && aligned && dh == dv &&
+           (dh == 16 || dh == 32))
+    err = (dh == 16 ? launch_mma<16, 16> : launch_mma<32, 32>)(
+        q, k, v, o, lse, qs, ks, vs, os, B, H, Hk, Tq, Tk, scale, causal,
+        window, softcap, st);
+  else if (route == 2 && dtype == 1 && aligned && counter != nullptr &&
+           ((dh == dv && (dh == 64 || dh == 128)) ||
+            (dh == 192 && dv == 128)))
+    err = (dh == 64    ? launch_wgmma<64, 64>
+           : dh == 128 ? launch_wgmma<128, 128>
+                       : launch_wgmma<192, 128>)(   // MLA: nope + rope, v
+        device, static_cast<int*>(counter), q, k, v, o, lse, qs, ks, vs, os,
+        B, H, Hk, Tq, Tk, scale, causal, window, softcap, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -1,8 +1,9 @@
-// Tensor-core and copy helpers shared by the kernels (grouped_gemm.cu,
-// gemm.cu, flash_attention_bwd.cu): one mma.sync m16n8k16 (bf16 in, f32
-// accumulate), the packing of two bf16 values into one 32-bit fragment
-// register, ldmatrix fragment loads from shared memory, and cp.async copies
-// from device memory into shared memory.
+// Tensor-core and copy helpers shared by the kernels (flash_attention.cu,
+// flash_attention_bwd.cu, gemm.cu; hopper.cuh builds on them): one mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), the packing of two bf16 values (or of
+// two floats rounded to bf16) into one 32-bit fragment register, ldmatrix
+// fragment loads from shared memory, and cp.async copies from device memory
+// into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,6 +23,11 @@ __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo,
                                           __nv_bfloat16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

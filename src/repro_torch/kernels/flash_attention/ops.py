@@ -21,16 +21,62 @@ launches = 0
 lse_launches = 0
 bwd_launches = 0
 
+SMEM_LIMIT = 232448      # shared memory one block may opt into on an H100
+# The wgmma forward's tiles (csrc/flash_attention.cu): query rows per work
+# tile and keys per K/V tile; its ring has 3 stages where they fit, else 2
+WQ, WK = 128, 128
+_WGMMA_DIMS = frozenset([(64, 64), (128, 128), (192, 128)])
+_MMA_DIMS = frozenset([(16, 16), (32, 32)])
+_ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DQK = 256           # q/k head dim (MLA prefill: nope 128 + rope 64)
 _MAX_DV = 128
 _MAX_BWD = 256           # backward: q/k and v head dims
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
-_FWD_ARGTYPES = [_I, _I, _P, _P, _P, _P, _P] + [_LL] * 12 + [_I] * 7 + \
-    [_F, _I, _I, _F, _P]
+_FWD_ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P] + [_LL] * 12 + \
+    [_I] * 7 + [_F, _I, _I, _F, _P]
 _BWD_ARGTYPES = [_I, _I] + [_P] * 10 + [_LL] * 24 + [_I] * 7 + \
     [_F, _I, _I, _F, _P]
+
+
+def _smem(dh: int, dv: int, stages: int) -> int:
+    return 1024 + 2 * (WQ * dh + stages * WK * (dh + dv)) + \
+        8 * (3 + 2 * stages)
+
+
+def fwd_stages(dh: int, dv: int) -> int:
+    """K/V tiles in flight in the wgmma forward's ring: 3 where they fit in
+    the shared memory a block may use (dh <= 128), else 2 (MLA's 192)."""
+    return 3 if _smem(dh, dv, 3) <= SMEM_LIMIT else 2
+
+
+def fwd_smem_bytes(dh: int, dv: int) -> int:
+    """Shared memory of one block of the wgmma forward: Q (WQ x dh), a ring
+    of ``fwd_stages`` K (WK x dh) and V (WK x dv) tiles in bf16, full and
+    empty mbarriers for Q and for each stage, the work tile's index (8
+    bytes), and 1024 bytes to align the tiles to the 128-byte swizzle's
+    period (FwdSmem in csrc/flash_attention.cu)."""
+    return _smem(dh, dv, fwd_stages(dh, dv))
+
+
+def fwd_route(dtype: torch.dtype, dh: int, dv: int, aligned: bool) -> str:
+    """The forward's kernel for a call: "wgmma" (bf16, (dh, dv) of the
+    served and trained models: 64, 128 or MLA's (192, 128)), "mma" (bf16,
+    dh = dv in {16, 32}: test-sized models) or "f32" (CUDA cores: f32, any
+    other dims, or rows not 16-byte aligned). ``aligned``: every pointer
+    and stride of q, k, v is a multiple of 8 elements."""
+    if dtype != torch.bfloat16 or not aligned:
+        return "f32"
+    if (dh, dv) in _WGMMA_DIMS:
+        return "wgmma"
+    return "mma" if (dh, dv) in _MMA_DIMS else "f32"
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 and
+               all(s % 8 == 0 for s in t.stride()[:3]) for t in ts)
 
 
 def _fwd_lib() -> ctypes.CDLL:
@@ -91,11 +137,16 @@ def _on_card(q) -> bool:
 def _fwd(q, k, v, lse, scale, causal, window, softcap):
     B, H, Tq, _ = q.shape
     out = _empty_like_order(q, (B, H, Tq, v.shape[3]))
+    route = fwd_route(q.dtype, q.shape[3], v.shape[3], _aligned(q, k, v))
+    # the wgmma path's blocks claim work tiles from this counter
+    counter = torch.zeros(1, dtype=torch.int32, device=q.device) \
+        if route == "wgmma" else None
     lib = _fwd_lib()
     err = lib.flash_attention_fwd(
-        q.device.index or 0, _DTYPES[q.dtype], _build.ptr(q), _build.ptr(k),
-        _build.ptr(v), _build.ptr(out),
+        q.device.index or 0, _DTYPES[q.dtype], _ROUTES[route],
+        _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         None if lse is None else _build.ptr(lse),
+        None if counter is None else _build.ptr(counter),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         B, H, k.shape[1], Tq, k.shape[2], q.shape[3], v.shape[3],
         float(scale), int(bool(causal)), int(window), float(softcap),

@@ -17,9 +17,32 @@ from repro_torch.kernels.grouped_gemm import ref
 
 launches = 0
 
+SMEM_LIMIT = 232448      # shared memory one block may opt into on an H100
+# The bf16 paths' tiles (csrc/grouped_gemm.cu): rows x columns of out per
+# block, the K step and the stages of the TMA ring
+TILES = {"prefill": (128, 256, 64, 4), "decode": (16, 128, 64, 4)}
+DECODE_M = 16            # the decode path takes M up to its 16 token rows
+_ROUTES = {"f32": 0, "prefill": 1, "decode": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _I, _LL, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-_ARGTYPES = [_I, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]
+_ARGTYPES = [_I, _I, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P]
+
+
+def route(dtype: torch.dtype, M: int) -> str:
+    """The kernel for a call: "f32" (CUDA cores), or in bf16 "decode" (M <=
+    16: a deep ring of w tiles, out^T = w^T a^T) or "prefill" (M > 16)."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    return "decode" if M <= DECODE_M else "prefill"
+
+
+def smem_bytes(path: str) -> int:
+    """Shared memory of one block of a bf16 path: a ring of (BM x BK) a and
+    (BK x BN) w tiles in bf16, a full and an empty mbarrier per stage, and
+    1024 bytes to align the tiles to the 128-byte swizzle's period (GgSmem
+    in csrc/grouped_gemm.cu)."""
+    bm, bn, bk, stages = TILES[path]
+    return 1024 + stages * (2 * bk * (bm + bn) + 16)
 
 
 def _lib() -> ctypes.CDLL:
@@ -47,11 +70,11 @@ def _check(a, w) -> None:
         # a dim of size 1 is never used)
         E, M, K = a.shape
         N = w.shape[2]
-        if K % 8 or N % 8 or (E > 1 and a.stride(0) % 8) or \
+        if K == 0 or K % 8 or N % 8 or (E > 1 and a.stride(0) % 8) or \
                 (M > 1 and a.stride(1) % 8) or a.data_ptr() % 16 or \
                 w.data_ptr() % 16:
-            raise ValueError("bf16 grouped GEMM wants K and N multiples of 8 "
-                             "and 16-byte aligned rows")
+            raise ValueError("bf16 grouped GEMM wants K > 0, K and N "
+                             "multiples of 8 and 16-byte aligned rows")
 
 
 def grouped_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -69,7 +92,8 @@ def grouped_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return out
     lib = _lib()
     err = lib.grouped_gemm(
-        a.device.index or 0, _DTYPES[a.dtype], _build.ptr(a), _build.ptr(w),
+        a.device.index or 0, _DTYPES[a.dtype], _ROUTES[route(a.dtype, M)],
+        _build.ptr(a), _build.ptr(w),
         _build.ptr(out), a.stride(0), a.stride(1), E, M, K, N,
         _build.stream(a.device))
     _build.check(lib, err, "grouped_gemm")

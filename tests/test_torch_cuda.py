@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.configs.gemm_paper import FPGA_CHUNK_SWEEP
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention import ref as flash_ref
 from repro_torch.kernels.gemm import ops as gemm_ops
@@ -271,6 +272,53 @@ def test_grouped_gemm_rejects_bad_inputs(dev):
             (2, 16, 8), device=dev, dtype=torch.bfloat16).transpose(1, 2))
 
 
+@pytest.mark.parametrize("M", [65, 130, 384])
+@pytest.mark.parametrize("K", [136, 1536])
+@pytest.mark.parametrize("N", [40, 1536])
+def test_grouped_gemm_prefill_path(dev, M, K, N):
+    """The wgmma prefill path at ragged M (tiles of 128), K (steps of 64)
+    and N (tiles of 256): within 3e-2 of the largest value of the plain
+    version, two calls bit-equal."""
+    assert gg_ops.route(torch.bfloat16, M) == "prefill"
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    a = torch.randn((3, M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3, K, N), generator=g, device=dev)
+         * K ** -0.5).to(torch.bfloat16)
+    got = gg_ops.grouped_gemm(a, w)
+    assert torch.equal(got, gg_ops.grouped_gemm(a, w))
+    assert _rel(got, gg_ref.grouped_gemm_ref(a, w)) < 3e-2
+
+
+@pytest.mark.parametrize("M", [1, 13, 200])
+def test_grouped_gemm_one_expert(dev, M):
+    """E = 1 and, at M = 1, a row dim of extent 1 (dims of extent 1 in the
+    tensor maps) on both bf16 paths."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    a = torch.randn((1, M, 264), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((1, 264, 72), generator=g, device=dev)
+         * 264 ** -0.5).to(torch.bfloat16)
+    assert _rel(gg_ops.grouped_gemm(a, w), gg_ref.grouped_gemm_ref(a, w)) \
+        < 3e-2
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("K,N", [(136, 40), (1536, 1536), (5120, 1536)])
+def test_grouped_gemm_decode_path(dev, M, K, N):
+    """The decode path with decode's stride-0 a (tokens broadcast over the
+    experts): within 3e-2 of the plain version, two calls bit-equal, and
+    equal to the same product on a contiguous a."""
+    assert gg_ops.route(torch.bfloat16, M) == "decode"
+    g = torch.Generator(device=dev).manual_seed(M + K)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((6, K, N), generator=g, device=dev)
+         * K ** -0.5).to(torch.bfloat16)
+    a = x.unsqueeze(0).expand(6, M, K)
+    got = gg_ops.grouped_gemm(a, w)
+    assert torch.equal(got, gg_ops.grouped_gemm(a, w))
+    assert torch.equal(got, gg_ops.grouped_gemm(a.contiguous(), w))
+    assert _rel(got, gg_ref.grouped_gemm_ref(a, w)) < 3e-2
+
+
 # ------------------------------------------------------ paged MLA decode
 def _mla_case(dev, dtype, page_size, H=12, R=72, B=4, T=260, seed=0):
     rng = np.random.default_rng(seed)
@@ -363,6 +411,86 @@ def test_flash_kernel_mla_dims_match_plain(dev, T):
     assert got.shape == (B, H, T, 128)
     torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
                                atol=3e-2)
+
+
+# --------------------------------- flash forward on wgmma and TMA (bf16)
+def _fwd_views(dev, B, T, H, Hk, dh, dv, seed, mla=False):
+    """q, k, v in the layout prefill and training pass them: head-transposed
+    views of (B, T, heads, d) memory; MLA's v is the tail of the
+    up-projected (nope + v) rows, 256 bytes into each."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(h, d):
+        return torch.randn((B, T, h, d), generator=g, device=dev).to(
+            torch.bfloat16)
+
+    q, k = t(H, dh), t(Hk, dh)
+    v = t(Hk, 128 + dv)[..., 128:] if mla else t(Hk, dv)
+    return tuple(x.permute(0, 2, 1, 3) for x in (q, k, v))
+
+
+@pytest.mark.parametrize("T", [129, 640, 1000, 2048])
+@pytest.mark.parametrize("H,Hk,dh,dv,mla", [(8, 2, 64, 64, False),
+                                            (8, 2, 128, 128, False),
+                                            (4, 4, 192, 128, True)])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (True, 256, 0.0), (True, 0, 30.0), (False, 0, 0.0),
+    (True, 256, 30.0)])
+def test_flash_wgmma_matches_plain(dev, T, H, Hk, dh, dv, mla, causal,
+                                   window, softcap):
+    """The wgmma path: out within 3e-2 and lse within 1e-4 of the plain
+    versions, windows across 128-key tile edges, ragged T, two calls
+    bit-equal and the lse launch's o equal to the serving launch's."""
+    assert flash_ops.fwd_route(torch.bfloat16, dh, dv, True) == "wgmma"
+    q, k, v = _fwd_views(dev, 2, T, H, Hk, dh, dv, seed=T + dh, mla=mla)
+    kw = dict(scale=dh ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    n0 = flash_ops.launches
+    got = flash_ops.attend(q, k, v, **kw)
+    assert flash_ops.launches == n0 + 1
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    assert torch.equal(got, flash_ops.attend(q, k, v, **kw))
+    want = flash_ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+    assert torch.equal(o, got)
+    _, lse_r = flash_ref.flash_attention_fwd_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "head-transposed"])
+def test_flash_wgmma_single_batch_and_kv_head(dev, layout):
+    """B = 1 and one kv head (dims of extent 1 in the tensor maps), Tq
+    shorter than Tk, causal: against the plain version."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    dt = torch.bfloat16
+    if layout == "contiguous":
+        q = torch.randn((1, 4, 300, 128), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((1, 1, 420, 128), generator=g, device=dev).to(dt)
+                for _ in range(2))
+    else:
+        q = torch.randn((1, 300, 4, 128), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((1, 420, 1, 128), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        q, k, v = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    got = flash_ops.attend(q, k, v, scale=0.09, causal=True)
+    want = flash_ref.flash_attention_ref(q, k, v, scale=0.09, causal=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def test_redesigned_kernels_run_wgmma_and_tma(dev):
+    """The SASS of the wgmma flash forward (every instance) and of both
+    bf16 grouped-GEMM paths holds warpgroup products (HGMMA) and TMA tile
+    loads (UTMALDG)."""
+    _build.build(("flash_attention", "grouped_gemm"))
+    fa = _build.sass_counts("flash_attention")
+    gg = _build.sass_counts("grouped_gemm")
+    for counts in [fa[f"flash_fwd_wgmma<{dh}, {dv}>"]
+                   for dh, dv in ((64, 64), (128, 128), (192, 128))] + \
+            [gg["gg_prefill"], gg["gg_decode"]]:
+        assert counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, (fa, gg)
 
 
 # ------------------------------------------------------------ tiled GEMM
