@@ -6,10 +6,11 @@
 1. Requires a CUDA device; prints the card's name and power limit.
 2. Builds the hand-written kernels from this checkout (nvcc, sm_90a, one
    process per source, all started together), and prints for each kernel
-   built on wgmma and TMA (the flash forward at its three head dims, the
-   grouped GEMM's prefill and decode paths) its HGMMA and UTMALDG
-   instructions in the SASS and its ptxas registers and spills; a count of
-   0 fails.
+   built on the tensor cores and asynchronous copies (the flash forward at
+   its three head dims, the grouped GEMM's prefill and decode paths and
+   paged MLA decode: wgmma and TMA, HGMMA and UTMALDG; paged GQA decode:
+   mma.sync and cp.async, HMMA and LDGSTS) those instructions in the SASS
+   and its ptxas registers and spills; a count of 0 fails.
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (paged GQA and MLA decode, flash prefill at GQA and MLA head
    dims, the grouped expert GEMM in bf16 and f32, the tiled GEMM on the hbb
@@ -18,7 +19,9 @@
    mamba2-130m's shapes; the flash forward and the bf16 grouped GEMM also
    bit-equal over two calls), and times kernel, plain version and the
    PyTorch call that computes the same function, where there is one, with
-   CUDA events.
+   CUDA events; the paged decode kernels by their device time
+   (torch.profiler, one launch a call checked) beside the wrapper's event
+   time, with their route, splits and ptxas numbers.
    Then the paper's experiment (Fig. 5): HBB ``parallel_for`` over the
    rows of a 1024² f32 GEMM with the card's kernel as the accelerator
    class and host threads as the core class, every result checked against
@@ -97,16 +100,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernels_ms(fn) -> dict[str, list]:
-    """One call of ``fn`` under torch.profiler: {device kernel name: [ms,
-    launches]}."""
+def kernels_ms(fn, calls: int = 1) -> dict[str, list]:
+    """``calls`` calls of ``fn`` under torch.profiler: {device kernel name:
+    [ms, launches]}, both per call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-    return {k: [us / 1e3, n] for k, (us, n) in device_time(prof)[2].items()}
+    return {k: [us / 1e3 / calls, n / calls]
+            for k, (us, n) in device_time(prof)[2].items()}
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -116,22 +121,31 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
                                        else "operations")
 
 
-# --------------------------------------------- SASS of the wgmma kernels
-# The kernels redesigned for Hopper's warpgroup products and TMA, by the
-# kernel entry of the "kernels" line whose path runs them: (library, kernel
-# labels as _build.kernel_label gives them)
+# ------------------------------- SASS of the tensor-core kernels
+# The kernels redesigned for Hopper's tensor cores and asynchronous copies,
+# by the kernel entry of the "kernels" line whose path runs them: (library,
+# {kernel label as _build.kernel_label gives it: (its tensor-core opcode,
+# its asynchronous-copy opcode)}). wgmma + TMA: HGMMA, UTMALDG; mma.sync +
+# cp.async: HMMA, LDGSTS.
+WGMMA = ("HGMMA", "UTMALDG")
 WGMMA_KERNELS = {
-    "flash_attention_fwd": ("flash_attention", [
+    "flash_attention_fwd": ("flash_attention", dict.fromkeys([
         "flash_fwd_wgmma<64, 64>", "flash_fwd_wgmma<128, 128>",
-        "flash_fwd_wgmma<192, 128>"]),
-    "flash_attention_fwd_lse": ("flash_attention", [
-        "flash_fwd_wgmma<128, 128>"]),
-    "grouped_gemm": ("grouped_gemm", ["gg_prefill", "gg_decode"]),
+        "flash_fwd_wgmma<192, 128>"], WGMMA)),
+    "flash_attention_fwd_lse": ("flash_attention", {
+        "flash_fwd_wgmma<128, 128>": WGMMA}),
+    "grouped_gemm": ("grouped_gemm", dict.fromkeys(
+        ["gg_prefill", "gg_decode"], WGMMA)),
+    "paged_attention_gqa": ("paged_attention", dict.fromkeys([
+        f"paged_gqa_mma<{dh}, {cap}>" for dh in (64, 128) for cap in (0, 1)],
+        ("HMMA", "LDGSTS"))),
+    "paged_attention_mla": ("paged_attention", dict.fromkeys([
+        "paged_mla_wgmma<512>", "paged_mla_wgmma<576>"], WGMMA)),
 }
 
 
 def sass_phase() -> dict[str, dict]:
-    """Per redesigned kernel: its HGMMA (wgmma) and UTMALDG (TMA tile load)
+    """Per redesigned kernel: its tensor-core and asynchronous-copy
     instructions in the built SASS (``cuobjdump -sass``) and ptxas's
     registers and spills. A count of 0 fails."""
     from repro_torch.kernels import _build
@@ -139,15 +153,36 @@ def sass_phase() -> dict[str, dict]:
     for entry, (lib, kernels) in WGMMA_KERNELS.items():
         counts, regs = _build.sass_counts(lib), _build.ptxas_stats(lib)
         out[entry] = {}
-        for k in kernels:
+        for k, ops in kernels.items():
             c, r = counts.get(k, {}), regs.get(k, {})
             out[entry][k] = {**c, **r}
-            check(c.get("HGMMA", 0) > 0 and c.get("UTMALDG", 0) > 0,
-                  f"SASS of {k} ({lib}): {c.get('HGMMA', 0)} HGMMA, "
-                  f"{c.get('UTMALDG', 0)} UTMALDG; ptxas {r.get('registers')} "
-                  f"registers, {r.get('spill_stores')} B spill stores, "
+            check(all(c.get(op, 0) > 0 for op in ops),
+                  f"SASS of {k} ({lib}): " + ", ".join(
+                      f"{c.get(op, 0)} {op}" for op in ops) +
+                  f"; ptxas {r.get('registers')} registers, "
+                  f"{r.get('spill_stores')} B spill stores, "
                   f"{r.get('spill_loads')} B spill loads")
     return out
+
+
+def paged_call(fn, kernel: str, n_bytes: float, n_ops: float) -> dict:
+    """Device and event times of a paged decode call and its kernel's
+    ptxas numbers: device ms per call from torch.profiler (20 calls; one
+    launch of ``kernel`` each, nothing else on the card, checked), event ms
+    of the wrapper (50 calls back to back: the host's cost where it exceeds
+    the device's), GB/s and TFLOP/s on the device time."""
+    from repro_torch.kernels import _build
+    by_name = kernels_ms(fn, 20)
+    dev = sum(t for t, _ in by_name.values())
+    one = len(by_name) == 1 and all(n == 1 and kernel in name
+                                    for name, (_, n) in by_name.items())
+    check(one, f"{kernel}: one launch per call, nothing else on the card "
+          f"({ {k[:60]: n for k, (_, n) in by_name.items()} })")
+    label = _build.kernel_label(next(iter(by_name)))
+    regs = _build.ptxas_stats("paged_attention").get(label, {})
+    return {"kernel": label, "device_ms": dev,
+            "event_ms": time_ms(fn, 50, 5), "GB_s": n_bytes / dev / 1e6,
+            "TFLOP_s": n_ops / dev / 1e9, **regs}
 
 
 # ------------------------------------------------------------ paged decode
@@ -189,21 +224,33 @@ def paged_phase(dev) -> dict:
                + B * hkv * grp * (dh + 2) * 4)
     n_ops = 4 * keys * hkv * grp * dh
     b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
-    ms = time_ms(lambda: ops.paged_attend_gqa(
-        q, pk, pv, table, pos, 0, page_size=ps, scale=scale), 50, 5)
+    route = ops.gqa_route(dt, grp, dh)
+    splits, chunk = ops.split_plan(T, ps, ops.GQA_PLAN)
+    call = paged_call(lambda: ops.paged_attend_gqa(
+        q, pk, pv, table, pos, 0, page_size=ps, scale=scale),
+        "paged_gqa", n_bytes, n_ops)
+    ms = call["device_ms"]
     plain = time_ms(lambda: ref.paged_flash_decode_gqa_ref(
         q, pk, pv, table, pos, 0, page_size=ps, scale=scale), 10)
     print(f"paged decode B={B} Hkv={hkv} G={grp} dh={dh} ps={ps} "
-          f"pos={pos_h.tolist()}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), {n_bytes / ms / 1e6:.1f} GB/s")
+          f"pos={pos_h.tolist()}: route {route} ({call['kernel']}), "
+          f"{splits} splits of {chunk} keys: device {ms:.4f} ms "
+          f"({call['GB_s']:.1f} GB/s), event {call['event_ms']:.4f} ms a "
+          f"call, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"ptxas {call.get('registers')} registers, "
+          f"{call.get('spill_stores')} B spill stores, "
+          f"{call.get('spill_loads')} B spill loads")
     return {"name": "paged_attention_gqa", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/"
                         "paged_attention.py:161",
             "max_abs_err": err, "tol": 1e-3, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "paged": {"route": route, "splits": splits, "chunk": chunk,
+                      **call},
             "check": "o/l, m, l against paged_flash_decode_gqa_ref, bf16 "
-                     "pools, mixed pos up to 4095, softcap 0 and 30"}
+                     "pools, mixed pos up to 4095, softcap 0 and 30; ms is "
+                     "the device time"}
 
 
 # ------------------------------------------------------------ flash prefill
@@ -466,24 +513,33 @@ def mla_phase(dev) -> dict:
                + B * H * (lora + 2) * 4)
     n_ops = 2 * keys * H * (R + lora)
     b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
-    ms = time_ms(lambda: ops.paged_attend_mla(q, pool, table, pos, 0, **kw),
-                 50, 5)
+    route = ops.mla_route(dt, H, R, lora, ps)
+    splits, chunk = ops.split_plan(T, ps, ops.MLA_PLAN)
+    call = paged_call(lambda: ops.paged_attend_mla(
+        q, pool, table, pos, 0, **kw), "paged_mla", n_bytes, n_ops)
+    ms = call["device_ms"]
     plain = time_ms(lambda: ref.paged_flash_decode_mla_ref(
         q, pool, table, pos, 0, **kw), 10)
     print(f"paged MLA decode B={B} H={H} R={R} kv_lora={lora} ps={ps} "
-          f"pos={pos_h.tolist()}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}; on f32 CUDA cores "
-          f"{1e3 * n_ops / PEAK_OPS_PER_S[torch.float32]:.4f} ms), "
-          f"{n_ops / ms / 1e9:.2f} TFLOP/s")
+          f"pos={pos_h.tolist()}: route {route} ({call['kernel']}), "
+          f"{splits} splits of {chunk} keys: device {ms:.4f} ms "
+          f"({call['TFLOP_s']:.2f} TFLOP/s, {call['GB_s']:.1f} GB/s), event "
+          f"{call['event_ms']:.4f} ms a call, plain {plain:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; on f32 CUDA cores "
+          f"{1e3 * n_ops / PEAK_OPS_PER_S[torch.float32]:.4f} ms); ptxas "
+          f"{call.get('registers')} registers, {call.get('spill_stores')} B "
+          f"spill stores, {call.get('spill_loads')} B spill loads")
     return {"name": "paged_attention_mla", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/"
                         "paged_attention.py:213",
             "max_abs_err": err, "tol": 1e-3, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "paged": {"route": route, "splits": splits, "chunk": chunk,
+                      **call},
             "check": "o/l, m, l against paged_flash_decode_mla_ref, bf16 "
                      "pool, B=8 H=128 R=576 kv_lora=512 page 16, mixed pos "
-                     "up to 4095, base 0 and 8"}
+                     "up to 4095, base 0 and 8; ms is the device time"}
 
 
 # ------------------------------------------------------------ grouped GEMM
@@ -1019,6 +1075,11 @@ def profile_phase(eng, cfg) -> None:
           f"on): wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
           f"({busy / 1e4 / wall:.1f} %), {n} kernels "
           f"({n / eng.decode_quantum:.0f} per step)")
+    paged = [(us, k) for name, (us, k) in by_name.items()
+             if "paged_" in name or "mla_combine" in name]
+    if paged:
+        print(f"  paged decode kernels: {sum(us for us, _ in paged) / 1e3:.3f}"
+              f" ms device over {sum(k for _, k in paged)} launches")
     print_top(by_name)
 
 
@@ -1261,7 +1322,8 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms", "check")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(x for x in (
-            "passes_ms", "mla", "decode", "chunks", "n4096", "sass")
+            "passes_ms", "mla", "decode", "chunks", "n4096", "paged",
+            "sass")
             if x in e)}
         for e in entries]}))
     print(smi)

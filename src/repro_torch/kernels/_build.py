@@ -76,7 +76,8 @@ def build(names=NAMES) -> float:
     return time.perf_counter() - t0
 
 
-SASS_OPCODES = ("HGMMA", "UTMALDG")    # wgmma products, TMA tile loads
+# wgmma products, TMA tile loads, mma.sync products, cp.async copies
+SASS_OPCODES = ("HGMMA", "UTMALDG", "HMMA", "LDGSTS")
 
 
 def kernel_label(signature: str) -> str:
@@ -84,10 +85,13 @@ def kernel_label(signature: str) -> str:
     demangled signature as ``cu++filt`` (``void <unnamed>::f<(int)128,
     (int)128>(...)``) or the profiler (``void (anonymous namespace)::
     f<128, 128>(...)``) gives it: no return type, namespace, casts of
-    template arguments or parameters."""
+    template arguments or parameters; a bool argument as 0 or 1, as
+    ``cu++filt`` gives it."""
     for anon in ("(anonymous namespace)::", "<unnamed>::"):
         signature = signature.replace(anon, "")
     signature = re.sub(r"\(\w[\w ]*\)(?=-?\d)", "", signature)
+    signature = re.sub(r"(?<=[<, ])false(?=[,>])", "0", signature)
+    signature = re.sub(r"(?<=[<, ])true(?=[,>])", "1", signature)
     base, lt, args = signature.split("(")[0].partition("<")
     return base.split()[-1].split("::")[-1] + lt + args
 

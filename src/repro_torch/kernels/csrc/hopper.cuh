@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the kernels that feed the
-// tensor cores by TMA (flash_attention.cu, grouped_gemm.cu), written as PTX:
+// tensor cores by TMA or cp.async (flash_attention.cu, grouped_gemm.cu,
+// paged_attention.cu), written as PTX:
 //
 // - wgmma.mma_async m64nNk16, bf16 in, f32 accumulate, with A from shared
 //   memory (WgmmaSS) or from registers (WgmmaRS), either operand K-major or
 //   transposed (MN-major), and its fence, commit_group and wait_group;
+// - the proxy fence that lets wgmma read what cp.async wrote;
 // - setmaxnreg, which moves registers from a producer warpgroup to the
 //   consumers;
 // - shared-memory matrix descriptors of the 128-byte swizzle that TMA
@@ -55,6 +57,12 @@ __device__ __forceinline__ void wg_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Orders this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) before later async-proxy reads of it (wgmma, TMA stores).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Registers an asynchronous wgmma reads or writes: the compiler must not
 // move their uses across a wg_wait nor reuse them while it is pending.
 template <int N>
@@ -104,6 +112,32 @@ struct WgmmaSS<16> {
         "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void run(float* d, uint64_t da,
+                                             uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
   }
 };

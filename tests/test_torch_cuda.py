@@ -392,6 +392,184 @@ def test_paged_mla_kernel_empty_row_and_bad_inputs(dev):
                                    kv_lora=80, scale=0.1)
 
 
+# ------------------------------------ paged decode on the tensor cores
+# The main path's slots: a 4096-key slot over all 16 splits, an empty slot
+# (pos before the first position), keys ending exactly on a split edge (256,
+# 512 and 1024 keys: MLA's and GQA's chunks) and one key past one, one
+# page, and a long ragged slot
+MAIN_POS = [4095, -1, 255, 256, 15, 511, 2897, 1023]
+
+
+def _main_tables(dev, B=8, T=256, seed=0):
+    rng = np.random.default_rng(seed)
+    N = 1 + B * T
+    pt = torch.tensor(1 + rng.permutation(N - 1).reshape(B, T),
+                      dtype=torch.int32, device=dev)
+    pos = torch.tensor(MAIN_POS[:B], dtype=torch.int32, device=dev)
+    return N, pt, pos
+
+
+def _poison(pools, pt, pos, ps=16):
+    """NaN in the trash page and in every slot's rows past pos within its
+    last page (past pos for base 0 and ps / 2 alike): rows no result may
+    read."""
+    for pool in pools:
+        pool[0] = float("nan")
+        for b, p in enumerate(pos.tolist()):
+            if p >= 0:
+                pool[int(pt[b, p // ps]), p % ps + 1:] = float("nan")
+
+
+def _gqa_main(dev, grp=4, dh=128, hkv=8, B=8, seed=0):
+    N, pt, pos = _main_tables(dev, B, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn((B, hkv, grp, dh), generator=g, device=dev).to(bf)
+    pk, pv = (torch.randn((N, 16, hkv, dh), generator=g, device=dev).to(bf)
+              for _ in range(2))
+    _poison((pk, pv), pt, pos)
+    return q, pk, pv, pt, pos
+
+
+def _mla_main(dev, H=128, R=576, B=8, seed=0):
+    N, pt, pos = _main_tables(dev, B, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, R), generator=g, device=dev).to(torch.bfloat16)
+    pool = torch.randn((N, 16, R), generator=g, device=dev).to(
+        torch.bfloat16)
+    _poison((pool,), pt, pos)
+    return q, pool, pt, pos
+
+
+def _close_partials(got, want):
+    """The partials within the f32 checks: m, l and o to 1e-4, the same
+    rows live, and o/l to 1e-4 on live rows."""
+    o, m, l = got
+    wo, wm, wl = want
+    live = wl > 0
+    assert torch.equal(live, l > 0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(o[live] / l[live][..., None],
+                               wo[live] / wl[live][..., None], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("base", [0, 8])
+@pytest.mark.parametrize("grp,dh", [(4, 128), (8, 64), (1, 128)])
+def test_paged_gqa_mma_main_shape(dev, softcap, base, grp, dh):
+    """The tensor-core route at the main path's table (256 pages of 16, 8
+    splits) against the plain version: 4095 keys across every split, an
+    empty slot, keys ending on a split edge, base 0 and ps / 2, softcap 0
+    and 30; NaN in the trash page and past pos in each slot's last page
+    never reaches a result."""
+    q, pk, pv, pt, pos = _gqa_main(dev, grp, dh)
+    assert paged_ops.gqa_route(q.dtype, grp, dh) == "mma"
+    assert paged_ops.split_plan(pt.shape[1], 16, paged_ops.GQA_PLAN) == \
+        (8, 512)
+    kw = dict(page_size=16, scale=dh ** -0.5, softcap=softcap)
+    got = paged_ops.paged_attend_gqa(q, pk, pv, pt, pos, base, **kw)
+    want = paged_ref.paged_flash_decode_gqa_ref(
+        q, pk.nan_to_num(), pv.nan_to_num(), pt, pos, base, **kw)
+    _close_partials(got, want)
+    o, m, l = got
+    assert torch.all(m[1] == -1e30) and torch.all(l[1] == 0) and \
+        torch.all(o[1] == 0)
+
+
+@pytest.mark.parametrize("base", [0, 8])
+@pytest.mark.parametrize("H,R", [(128, 576), (16, 576), (96, 576),
+                                 (64, 512)])
+def test_paged_mla_wgmma_main_shape(dev, base, H, R):
+    """The wgmma route at the main path's table against the plain version:
+    deepseek-v2's 128 heads and head counts that leave part of a 64-head
+    block (16, 96), R 576 and 512; the same slots and NaN rows as for
+    GQA."""
+    q, pool, pt, pos = _mla_main(dev, H, R)
+    assert paged_ops.mla_route(q.dtype, H, R, 512, 16) == "wgmma"
+    kw = dict(page_size=16, kv_lora=512, scale=192 ** -0.5)
+    got = paged_ops.paged_attend_mla(q, pool, pt, pos, base, **kw)
+    want = paged_ref.paged_flash_decode_mla_ref(q, pool.nan_to_num(), pt,
+                                                pos, base, **kw)
+    _close_partials(got, want)
+    o, m, l = got
+    assert torch.all(m[1] == -1e30) and torch.all(l[1] == 0) and \
+        torch.all(o[1] == 0)
+
+
+def _paged_calls(dev):
+    q, pk, pv, pt, pos = _gqa_main(dev)
+    qm, pool, ptm, posm = _mla_main(dev)
+    gqa = (lambda p: paged_ops.paged_attend_gqa(
+        q, pk, pv, pt, p, 0, page_size=16, scale=0.088, softcap=30.0))
+    mla = (lambda p: paged_ops.paged_attend_mla(
+        qm, pool, ptm, p, 0, page_size=16, kv_lora=512, scale=0.072))
+    return {"gqa": (gqa, pos, "launches"), "mla": (mla, posm, "mla_launches")}
+
+
+@pytest.mark.parametrize("op", ["gqa", "mla"])
+def test_paged_tensor_core_one_launch_bit_equal(dev, op):
+    """One call: the launch count +1 and one kernel on the card (the merge
+    runs in the same launch); two calls bit-equal (the partials merge in
+    split order whichever block arrives last)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn, pos, counter = _paged_calls(dev)[op]
+    first = fn(pos)                              # counters made before
+    torch.cuda.synchronize()
+    n0 = getattr(paged_ops, counter)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = fn(pos)
+        torch.cuda.synchronize()
+    assert getattr(paged_ops, counter) == n0 + 1
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = "paged_gqa_mma" if op == "gqa" else "paged_mla_wgmma"
+    assert len(kernels) == 1 and want in kernels[0], kernels
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("op", ["gqa", "mla"])
+def test_paged_tensor_core_cuda_graph(dev, op):
+    """One call captured in a CUDA graph and replayed twice, with other
+    positions written into pos before the second replay: each replay equals
+    an eager call (the arrival counters are back at 0 after every
+    launch)."""
+    fn, pos, _ = _paged_calls(dev)[op]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):               # counters of this stream
+        fn(pos)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn(pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, fn(pos)))
+    pos.copy_(torch.tensor([100, 4095, 3000, -1, 511, 512, 16, 2048],
+                           dtype=torch.int32, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, fn(pos)))
+
+
+def test_paged_kernels_run_tensor_cores_and_async_copies(dev):
+    """The SASS of every tensor-core paged kernel holds tensor-core products
+    and asynchronous copies: mma.sync (HMMA) and cp.async (LDGSTS) for GQA,
+    wgmma (HGMMA) and TMA tile loads (UTMALDG) for MLA."""
+    _build.build(("paged_attention",))
+    counts = _build.sass_counts("paged_attention")
+    for dh in (64, 128):
+        for cap in (0, 1):
+            c = counts[f"paged_gqa_mma<{dh}, {cap}>"]
+            assert c["HMMA"] > 0 and c["LDGSTS"] > 0, c
+    for R in (512, 576):
+        c = counts[f"paged_mla_wgmma<{R}>"]
+        assert c["HGMMA"] > 0 and c["UTMALDG"] > 0, c
+
+
 # ------------------------------------------------ flash, MLA head dims
 @pytest.mark.parametrize("T", [1024, 333])
 def test_flash_kernel_mla_dims_match_plain(dev, T):

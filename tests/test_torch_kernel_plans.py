@@ -10,6 +10,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.grouped_gemm import ops as gg_ops
+from repro_torch.kernels.paged_attention import ops as paged_ops
 
 CSRC = Path(flash_ops.__file__).resolve().parents[1] / "csrc"
 LIMIT = 227 * 1024            # shared memory one block may use on an H100
@@ -156,8 +157,127 @@ def test_gg_tiles_match_source():
      "vectorized_elementwise_kernel<4, at::native::AbsFunctor<float>, "
      "std::array<char*, 2ul> >"),
     ("gemm_f32", "gemm_f32"),
+    # a bool template argument: the profiler's false, cu++filt's (bool)0
+    ("void (anonymous namespace)::paged_gqa_mma<128, false>(__nv_bfloat16 "
+     "const*, __nv_bfloat16 const*)", "paged_gqa_mma<128, 0>"),
+    ("void <unnamed>::paged_gqa_mma<(int)64, (bool)1>(__nv_bfloat16 const *)",
+     "paged_gqa_mma<64, 1>"),
 ])
 def test_kernel_label(signature, label):
     """One short name for the SASS, ptxas and profiler lines: the name and
     template arguments, without return type, namespace or parameters."""
     assert _build.kernel_label(signature) == label
+
+
+# ------------------------------------------------- paged decode routes
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_route_every_shape(dtype):
+    """Every (group, dh) the GQA wrapper accepts: the tensor-core kernel for
+    bf16 at dh 64 and 128 (the source's instances), the CUDA cores for the
+    rest; the served models' (G 4, dh 128) among the first."""
+    for grp in range(1, paged_ops._MAX_GROUP + 1):
+        for dh in range(8, paged_ops._MAX_DIM + 1, 8):
+            want = "mma" if dtype == torch.bfloat16 and dh in (64, 128) \
+                else "f32"
+            assert paged_ops.gqa_route(dtype, grp, dh) == want, (grp, dh)
+    assert paged_ops.gqa_route(torch.bfloat16, 4, 128) == "mma"
+    sized = {int(k.split("<")[1].split(">")[0]) for k in _asserted(
+        "paged_attention.cu", r"GqaSmem<\d+>::bytes")}
+    assert sized == set(paged_ops.GQA_DIMS)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mla_route_every_shape(dtype):
+    """Every (R, kv_lora) the MLA wrapper accepts, at head counts that fill
+    and that leave part of a 64-head block and at several page sizes: the
+    wgmma kernel for bf16 with kv_lora 512, R 512 or 576 (deepseek-v2: 512
+    + rope 64; the only R of whole 64-column blocks whose tiles fit a
+    block's shared memory) and pages of 8 to 64 rows (a TMA box per page,
+    whole pages to a 64-key tile); the CUDA cores for the rest."""
+    for H, ps in ((1, 16), (16, 8), (96, 64), (128, 16), (128, 4),
+                  (128, 12), (128, 128)):
+        for R in range(8, paged_ops._MLA_MAX_R + 1, 8):
+            for lora in sorted({8, 64, 256, 512, min(R, 512)}):
+                if lora > R:
+                    continue
+                want = "wgmma" if dtype == torch.bfloat16 and \
+                    lora == 512 and R in (512, 576) and \
+                    ps in (8, 16, 32, 64) else "f32"
+                assert paged_ops.mla_route(dtype, H, R, lora, ps) == want, \
+                    (H, ps, R, lora)
+    fits = [R for R in range(512, paged_ops._MLA_MAX_R + 1, 64)
+            if paged_ops.mla_smem_bytes(R) <= LIMIT]
+    assert tuple(fits) == paged_ops.MLA_R
+    sized = {int(k.split("<")[1].split(">")[0]) for k in _asserted(
+        "paged_attention.cu", r"MlaSmem<\d+>::bytes")}
+    assert sized == set(paged_ops.MLA_R)
+
+
+@pytest.mark.parametrize("kernel", ["gqa", "mla"])
+@pytest.mark.parametrize("ps", [1, 8, 16, 32])
+def test_split_plan_every_width(kernel, ps):
+    """Every table width up to 600 pages at each kernel's plan (keys a
+    block takes, most blocks a slot): the chunks cover the table, are whole
+    SPLIT_UNITs, as few as chunks of at most the plan's keys allow (longer
+    ones past the plan's most), and a full table leaves no split empty.
+    The main path's table (256 pages of 16) takes 8 splits of 512 keys in
+    both kernels; serving's ~1k-context table (128 pages) 4 of 512 (GQA)
+    and 8 of 256 (MLA)."""
+    plan = paged_ops.GQA_PLAN if kernel == "gqa" else paged_ops.MLA_PLAN
+    want, most = plan
+    assert want % paged_ops.SPLIT_UNIT == 0
+    for width in range(1, 601):
+        keys = width * ps
+        splits, chunk = paged_ops.split_plan(width, ps, plan)
+        assert splits * chunk >= keys and (splits - 1) * chunk < keys
+        assert chunk % paged_ops.SPLIT_UNIT == 0
+        assert 1 <= splits <= most
+        if -(-keys // want) <= most:                # fewest, evened out
+            assert splits == -(-keys // want) and chunk <= want
+        else:
+            assert chunk >= want
+    assert paged_ops.split_plan(256, 16, plan) == (8, 512)
+    assert paged_ops.split_plan(128, 16, plan) == \
+        ((4, 512) if kernel == "gqa" else (8, 256))
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_gqa_smem_law(dh):
+    """The GQA law equals the size paged_attention.cu asserts, fits two
+    blocks per SM (228 KiB, 1 KiB reserved each), and holds the warps'
+    partials that reuse it."""
+    n = paged_ops.gqa_smem_bytes(dh)
+    assert n == 4 * 3 * 2 * 16 * dh * 2
+    assert _asserted("paged_attention.cu", r"GqaSmem<\d+>::bytes")[
+        f"GqaSmem<{dh}>::bytes"] == n
+    assert 2 * (n + 1024) <= 228 * 1024
+    assert paged_ops.GQ_WARPS * paged_ops.GQ_N * (dh + 2) * 4 <= n
+
+
+@pytest.mark.parametrize("R", [512, 576])
+def test_mla_smem_law(R):
+    """The MLA law (Q and two key tiles of 64 rows, barriers, alignment)
+    equals the size paged_attention.cu asserts and fits one block, and the
+    staged partial of the merge fits over Q and the tiles."""
+    n = paged_ops.mla_smem_bytes(R)
+    assert n == 1024 + 3 * 64 * R * 2 + 32 <= LIMIT == paged_ops.SMEM_LIMIT
+    # the merge stages the block's partial (64 x 520 f32, m, l) and the
+    # cluster's m, l over Q and the ring
+    assert 64 * (512 + 8) * 4 + 2 * 64 * 4 * (1 + paged_ops.ML_CLUSTER) \
+        <= 3 * 64 * R * 2
+    assert _asserted("paged_attention.cu", r"MlaSmem<\d+>::bytes")[
+        f"MlaSmem<{R}>::bytes"] == n
+
+
+def test_paged_tiles_match_source():
+    src = "paged_attention.cu"
+    assert (paged_ops.GQ_WARPS, paged_ops.GQ_TILE, paged_ops.GQ_STAGES,
+            paged_ops.GQ_N) == tuple(_constexpr(src, n) for n in (
+                "GQ_WARPS", "GQ_TILE", "GQ_STAGES", "GQ_N"))
+    assert (paged_ops.ML_M, paged_ops.ML_KT, paged_ops.ML_STAGES,
+            paged_ops.ML_LORA, paged_ops.ML_CLUSTER) == tuple(
+                _constexpr(src, n) for n in ("ML_M", "ML_KT", "ML_STAGES",
+                                             "ML_LORA", "ML_CLUSTER"))
+    # a GQA split holds whole tiles of every warp, an MLA split whole tiles
+    assert paged_ops.SPLIT_UNIT % (paged_ops.GQ_WARPS * paged_ops.GQ_TILE) \
+        == 0 and paged_ops.SPLIT_UNIT % paged_ops.ML_KT == 0
