@@ -70,7 +70,8 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
-PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
+                  "tf32": 495e12}
 BF16_TOL = 3e-2          # as tests/test_kernels.py for bf16
 F32_REL_TOL = 1e-4       # grouped GEMM in f32, as tests/test_kernels.py
 FAILURES: list[str] = []
@@ -141,6 +142,7 @@ WGMMA_KERNELS = {
         ("HMMA", "LDGSTS"))),
     "paged_attention_mla": ("paged_attention", dict.fromkeys([
         "paged_mla_wgmma<512>", "paged_mla_wgmma<576>"], WGMMA)),
+    "ssd_intra_chunk": ("ssd", {"ssd_mma": ("HMMA", "LDGSTS")}),
 }
 
 
@@ -724,55 +726,112 @@ def gemm_phase(dev) -> dict:
 
 
 # ------------------------------------------------------------ SSD intra-chunk
+def ssd_case(dev, G: int, Q: int, P: int, N: int, H: int = 24):
+    """x, cs, B, C of G chunk rows in ssd_scan's layout (heads second, B and
+    C shared by the heads: stride 0), made on the card from seed Q + P."""
+    g = torch.Generator(device=dev).manual_seed(Q + P)
+    x = torch.randn((G, Q, H, P), generator=g, device=dev)
+    cs = torch.cumsum(-F.softplus(torch.randn((G, Q, H), generator=g,
+                                              device=dev)), dim=1)
+    Bm = torch.randn((G, Q, N), generator=g, device=dev)
+    Cm = torch.randn((G, Q, N), generator=g, device=dev)
+    return (x.permute(0, 2, 1, 3), cs.permute(0, 2, 1),
+            Bm[:, None].expand(-1, H, -1, -1),
+            Cm[:, None].expand(-1, H, -1, -1))
+
+
+# mamba2-130m's intra-chunk shapes (G chunk rows, Q, P, N): a 1827-2048
+# token prompt (8 rows of 256), the exact-length Q = 97, and P 72, N 40,
+# which only the CUDA-core route takes
+SSD_SHAPES = ((8, 256, 64, 128), (1, 97, 64, 128), (8, 256, 72, 40))
+
+
+def ssd_work(G: int, Q: int, P: int, N: int, H: int = 24) -> dict:
+    """What one call must move and compute: the bytes (x, y, st, B, C, cs,
+    each once), the f32 operations with the scores formed once per chunk
+    row and shared by the heads, and those of the per-head count the
+    CUDA-core kernel does."""
+    pairs = Q * (Q + 1) // 2
+    return {"bytes": 4 * (2 * G * Q * H * P + G * Q * H + 2 * G * Q * N
+                          + G * H * N * P),
+            "shared_ops": G * (2 * N * pairs + H * (2 * P * pairs
+                                                    + 2 * Q * N * P)),
+            "per_head_ops": G * H * (2 * (N + P) * pairs + 2 * Q * N * P)}
+
+
 def ssd_phase(dev) -> dict:
-    """mamba2-130m's intra-chunk shapes: one 2000-token prompt is 8 chunks
-    of Q = 256 (zero-padded to 2048), 24 heads of P = 64, N = 128 — G = 8
-    chunk rows × 24 heads — with B and C shared by the heads (stride 0) and
-    the operands in ssd_scan's layout; also an exact-length Q = 97.
-    Relative max error within 1e-4 of the plain version (f32, other sum
-    order and exp)."""
+    """The SSD intra-chunk at SSD_SHAPES, each on the route ssd_route gives
+    it (tensor cores for P 64, N 128; CUDA cores for P 72, N 40): relative
+    max error of y and st within 1e-4 of the plain version (f32, other sum
+    order and exp), two calls bit-equal, one launch a call. Times: device
+    ms (torch.profiler, 20 calls) beside the wrapper's event ms. The bound
+    is the larger of the bytes at 3.35 TB/s and the shared-score operations
+    as three TF32 tensor-core products each at 495 TFLOP/s."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.ssd import ops, ref
-    H, P, N = 24, 64, 128
-    err, main = 0.0, None
-    for Gb, Q in ((8, 256), (1, 97)):
-        g = torch.Generator(device=dev).manual_seed(Q)
-        x = torch.randn((Gb, Q, H, P), generator=g, device=dev)
-        cs = torch.cumsum(-F.softplus(torch.randn((Gb, Q, H), generator=g,
-                                                  device=dev)), dim=1)
-        Bm = torch.randn((Gb, Q, N), generator=g, device=dev)
-        Cm = torch.randn((Gb, Q, N), generator=g, device=dev)
-        args = (x.permute(0, 2, 1, 3), cs.permute(0, 2, 1),
-                Bm[:, None].expand(-1, H, -1, -1),
-                Cm[:, None].expand(-1, H, -1, -1))
+    regs = _build.ptxas_stats("ssd").get("ssd_mma", {})
+    check(regs.get("spill_stores") == 0 and regs.get("spill_loads") == 0,
+          f"ssd_mma: no spills (ptxas {regs})")
+    err, shapes = 0.0, []
+    for G, Q, P, N in SSD_SHAPES:
+        args = ssd_case(dev, G, Q, P, N)
+        route = ops.route_of(args[0], args[2], args[3])
+        check(route == ("mma" if P <= 64 else "f32"), f"ssd intra-chunk "
+              f"P={P} N={N} takes the {route} route")
         y, st = ops.intra_chunk(*args)
+        y2, st2 = ops.intra_chunk(*args)
+        same = torch.equal(y, y2) and torch.equal(st, st2)
         yr, str_ = ref.ssd_intra_chunk_ref(*args)
         e = max(float((y - yr).abs().max() / yr.abs().max()),
                 float((st - str_).abs().max() / str_.abs().max()))
         err = max(err, e)
-        check(e <= 1e-4, f"ssd intra-chunk G={Gb}x{H} Q={Q} P={P} N={N}: "
-              f"relative max error of y and st {e:.3g} (tol 1e-4)")
-        n_ops = Gb * H * (2 * (N + P) * Q * (Q + 1) // 2 + 2 * Q * N * P)
-        n_bytes = 4 * (2 * Gb * Q * H * P + Gb * Q * H + 2 * Gb * Q * N
-                       + Gb * H * N * P)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, torch.float32)
-        ms = time_ms(lambda: ops.intra_chunk(*args), 20)
+        check(e <= 1e-4 and same, f"ssd intra-chunk ({route}) G={G}x24 "
+              f"Q={Q} P={P} N={N}: relative max error of y and st {e:.3g} "
+              f"(tol 1e-4), two calls bit-equal {same}")
+        by_name = kernels_ms(lambda: ops.intra_chunk(*args), 20)
+        check(len(by_name) == 1 and all(n == 1 and "ssd_" in k for k, (
+            _, n) in by_name.items()), f"ssd intra-chunk G={G} Q={Q}: one "
+              "launch a call, nothing else on the card")
+        ms = sum(t for t, _ in by_name.values())
+        event = time_ms(lambda: ops.intra_chunk(*args), 20)
         plain = time_ms(lambda: ref.ssd_intra_chunk_ref(*args), 5)
-        print(f"ssd intra-chunk G={Gb}x{H} Q={Q} P={P} N={N}: kernel "
-              f"{ms:.4f} ms ({n_ops / ms / 1e9:.2f} TFLOP/s), plain "
-              f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        if main is None:
-            main = (ms, plain, b_ms, b_by)
-    ms, plain, b_ms, b_by = main
+        w = ssd_work(G, Q, P, N)
+        t_bytes = 1e3 * w["bytes"] / HBM_BYTES_PER_S
+        t_ops = 1e3 * 3 * w["shared_ops"] / PEAK_OPS_PER_S["tf32"]
+        per_head = 1e3 * w["per_head_ops"] / PEAK_OPS_PER_S[torch.float32]
+        b_ms = max(t_bytes, t_ops)
+        b_by = "bytes" if t_bytes >= t_ops else "operations"
+        plan = ops.plan_of(args[0], args[2], args[3]) if route == "mma" \
+            else None
+        print(f"ssd intra-chunk G={G}x24 Q={Q} P={P} N={N}: route {route}"
+              f"{f' plan {tuple(plan)}' if plan else ''}: device {ms:.4f} "
+              f"ms ({w['shared_ops'] / ms / 1e9:.1f} TFLOP/s of shared-"
+              f"score work), event {event:.4f} ms a call, plain {plain:.4f}"
+              f" ms; bound {b_ms:.4f} ms ({b_by}: bytes {t_bytes:.4f} ms "
+              f"for {w['bytes'] / 1e6:.2f} MB, shared-score operations "
+              f"{w['shared_ops'] / 1e9:.3f} GFLOP as 3xTF32 {t_ops:.4f} ms);"
+              f" the per-head f32 CUDA-core count "
+              f"{w['per_head_ops'] / 1e9:.3f} GFLOP would take "
+              f"{per_head:.4f} ms")
+        shapes.append({"G": G, "Q": Q, "P": P, "N": N, "route": route,
+                       "plan": plan, "device_ms": ms, "event_ms": event,
+                       "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                       "max_err": e, "bit_equal": same})
+    main = shapes[0]
     return {"name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/ssd.py:46",
-            "max_abs_err": err, "tol": 1e-4, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": err, "tol": 1e-4, "ms": main["device_ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "ssd": shapes,
             "check": "relative max error of y and st against "
-                     "ssd_intra_chunk_ref, f32, 24 heads P=64 N=128, "
-                     "stride-0 B/C: G=8 Q=256 (a 2000-token prefill) and "
-                     "G=1 Q=97; times at the first; library: none, no "
-                     "single PyTorch call computes it"}
+                     "ssd_intra_chunk_ref, f32, 24 heads, stride-0 B/C: "
+                     "tensor-core route (ssd_mma) at G=8 Q=256 P=64 N=128 "
+                     "and G=1 Q=97, CUDA-core route (ssd_intra) at G=8 "
+                     "Q=256 P=72 N=40; two calls bit-equal on both; ms is "
+                     "the first's device time; library: none, no single "
+                     "PyTorch call computes it"}
 
 
 # ----------------------------------------------------- the paper's Fig. 5
@@ -1011,7 +1070,13 @@ def mamba_phase(dev, entries) -> None:
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 2001, 12)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    before = dict(ssd_ops.route_launches)
     serve_twice(eng, cfg, lens, prompts, 32, ["ssd_intra_chunk"], entries)
+    routes = {r: n - before[r] for r, n in ssd_ops.route_launches.items()}
+    check(routes["f32"] == 0 and routes["mma"] > 0, f"{cfg.name}: every SSD "
+          f"launch of both runs on the tensor-core route ({routes})")
+    prefill_profile(cfg, params, prompts[int(np.argmax(lens))], dev)
     profile_phase(eng, cfg)
     del eng, params
     torch.cuda.empty_cache()
@@ -1081,6 +1146,45 @@ def profile_phase(eng, cfg) -> None:
         print(f"  paged decode kernels: {sum(us for us, _ in paged) / 1e3:.3f}"
               f" ms device over {sum(k for _, k in paged)} launches")
     print_top(by_name)
+
+
+def prefill_profile(cfg, params, prompt, dev) -> dict:
+    """One exact-length prefill group under torch.profiler: the engine's
+    call for a group of one prompt (prompt_len, page_size 16), after one
+    unprofiled run of it. Prints its wall time, the device busy share, the
+    SSD kernel's device ms and launches (one a Mamba-2 layer) and the
+    kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.serve.prefill import prefill
+    toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    pl = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+
+    def run():
+        return prefill(cfg, params, toks, prompt_len=pl, page_size=16)
+
+    run()
+    torch.cuda.synchronize()
+    n0 = ssd_ops.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = ssd_ops.launches - n0
+    busy, n, by_name = device_time(prof)
+    ssd_us = sum(us for name, (us, _) in by_name.items() if "ssd_" in name)
+    rows = -(-len(prompt) // cfg.ssm.chunk)
+    print(f"profile: one {cfg.name} prefill group (1 x {len(prompt)} tokens,"
+          f" {rows} chunk rows of {cfg.ssm.chunk}, {cfg.n_layers} layers, "
+          f"profiler on): wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.3f} ms ({busy / 1e4 / wall:.1f} %), {n} kernels; "
+          f"SSD kernel {ssd_us / 1e3:.3f} ms device over {launches} launches"
+          f" ({100 * ssd_us / busy:.1f} % of busy)")
+    print_top(by_name, 15)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "kernels": n,
+            "ssd_ms": ssd_us / 1e3, "ssd_launches": launches}
 
 
 def prefill_decode_rel(cfg, params, dev) -> float:
@@ -1323,7 +1427,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(x for x in (
             "passes_ms", "mla", "decode", "chunks", "n4096", "paged",
-            "sass")
+            "ssd", "sass")
             if x in e)}
         for e in entries]}))
     print(smi)

@@ -1,17 +1,27 @@
 """Public SSD intra-chunk op, the Mamba-2 prefill's quadratic part.
 
-On CUDA tensors it launches the hand-written kernel (``kernels/csrc/ssd.cu``)
+On CUDA tensors it launches a hand-written kernel (``kernels/csrc/ssd.cu``)
 or raises; the plain version in ``ref.py`` runs only for tensors on the
 CPU. Operands are f32 views with a contiguous last dim, read through their
 strides: ``ssd_scan`` passes its activations as they lie and B and C with
 stride 0 over heads. The kernel's outputs are views whose memory is the
 scan's layout — y ``(G, Q, H, P)``, the state ``(G, H, P, N)`` — so the
-scan neither copies nor transposes them. ``launches`` counts kernel
-launches.
+scan neither copies nor transposes them.
+
+Two kernels, one launch a call, chosen by :func:`ssd_route`, a pure function
+of the shape: "mma" (``ssd_mma``: f32 products as three TF32 tensor-core
+products, the scores computed once per chunk row for a group of heads when B
+and C are shared, sized by :func:`ssd_plan`) for P ≤ 64 and N ≤ 128,
+multiples of 8, on 16-byte aligned rows (mamba2: P 64, N 128), and "f32"
+(``ssd_intra``: the CUDA cores) for everything else. ``launches`` counts
+calls that launched a kernel, ``route_launches`` the same by route.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import heapq
+from typing import NamedTuple
 
 import torch
 
@@ -19,9 +29,84 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd import ref
 
 launches = 0
+route_launches = {"mma": 0, "f32": 0}
+
+# ssd_mma (csrc/ssd.cu): rows t of a y block and keys of a key tile; the
+# widest P and N it takes; keys of a state block's step; the most heads of a
+# y block and of a state block; one block on each of an H100's SMs
+MT, MP, MN, SK = 64, 64, 128, 32
+HPB_MAX, HS_MAX = 4, 2
+SMS = 132
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _Strides = ctypes.c_longlong * 19
+
+
+def ssd_route(P: int, N: int, aligned: bool) -> str:
+    """The kernel for a call: "mma" (tensor cores) for P ≤ 64 and N ≤ 128,
+    both multiples of 8, where ``aligned`` (x, B and C 16-byte aligned with
+    (g, h, t) strides of multiples of 4 elements); "f32" (CUDA cores) for
+    everything else."""
+    fits = P % 8 == 0 and 8 <= P <= MP and N % 8 == 0 and 8 <= N <= MN
+    return "mma" if fits and aligned else "f32"
+
+
+class SsdPlan(NamedTuple):
+    hpb: int         # heads of a y block (they share its scores)
+    hs: int          # heads of a state block (they share its B)
+    state_pos: int   # y classes (by t tile, last first) before the state's
+    blocks: int
+
+
+def _costs(G, H, Q, N, hpb, hs):
+    """Steps of every block class of a plan, each step 96 mma.sync a warp:
+    the y blocks of t tile i, (i + 1) key tiles of ceil(N / 64) B half
+    tiles and an x step of hpb heads (one step a head: 2 warps a head, so
+    each SM sub-partition's share grows with the heads); the state blocks,
+    ceil(Q / 32) steps for each of hs heads. Returns ([(steps, blocks)] of
+    the y classes, last t tile first, (steps, blocks) of the state)."""
+    nt, nh = -(-Q // MT), -(-N // 64)
+    ys = [((i + 1) * (nh + hpb), G * (H // hpb)) for i in reversed(range(nt))]
+    return ys, (-(-Q // SK) * hs, G * (H // hs))
+
+
+def _makespan(steps) -> int:
+    """Steps until the last block ends when the blocks, in grid order, each
+    take the first SM to come free, one block an SM."""
+    free = [0] * SMS
+    for n in steps:
+        heapq.heappush(free, heapq.heappop(free) + n)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_plan(G: int, H: int, Q: int, N: int, shared_bc: bool) -> SsdPlan:
+    """Heads per y and state block for ssd_mma, from the shape alone.
+
+    More heads a y block computes the scores fewer times (once per head
+    group, not per head) but makes fewer, longer blocks. Each candidate —
+    hpb and hs divisors of H up to HPB_MAX and HS_MAX; 1 and 1 unless B and
+    C are shared by the heads (``shared_bc``) — has its grid run longest
+    class first (``state_pos``: the y classes longer than the state blocks
+    go before them) and is scored by the makespan of that order over SMS
+    SMs (:func:`_makespan`); the least wins, ties going to fewer steps, then
+    more heads. On an H100 this model ranked the plans timed at 8 chunk
+    rows (Q 256), 2 and 1 (Q 97) as they ran (PERF.md §6)."""
+    divs = [d for d in range(1, H + 1) if H % d == 0]
+    hpbs = [d for d in divs if d <= HPB_MAX] if shared_bc else [1]
+    hss = [d for d in divs if d <= HS_MAX] if shared_bc else [1]
+    best = None
+    for hpb in hpbs:
+        for hs in hss:
+            ys, (s_steps, s_blocks) = _costs(G, H, Q, N, hpb, hs)
+            pos = sum(c > s_steps for c, _ in ys)
+            order = [c for c, n in ys[:pos] for _ in range(n)] + \
+                [s_steps] * s_blocks + \
+                [c for c, n in ys[pos:] for _ in range(n)]
+            key = (_makespan(order), sum(order), -hpb, -hs)
+            if best is None or key < best[0]:
+                best = (key, SsdPlan(hpb, hs, pos, len(order)))
+    return best[1]
 
 
 def _lib() -> ctypes.CDLL:
@@ -29,6 +114,9 @@ def _lib() -> ctypes.CDLL:
     lib.ssd_intra_chunk.argtypes = [_I, _P, _P, _P, _P, _P, _P, _Strides, _I,
                                     _I, _I, _I, _I, _P]
     lib.ssd_intra_chunk.restype = ctypes.c_int
+    lib.ssd_intra_chunk_mma.argtypes = [_I, _P, _P, _P, _P, _P, _P, _Strides,
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.ssd_intra_chunk_mma.restype = ctypes.c_int
     return lib
 
 
@@ -47,6 +135,23 @@ def _check(x, cs, B, C) -> None:
         raise ValueError("x, cs, B and C must lie on one device")
     if any(t.stride(-1) != 1 for t in (x, B, C)):
         raise ValueError("x, B and C need a contiguous last dim")
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 and
+               all(s % 4 == 0 for s in t.stride()[:3]) for t in ts)
+
+
+def route_of(x, B, C) -> str:
+    """:func:`ssd_route` of a call's operands."""
+    return ssd_route(x.shape[-1], B.shape[-1], _aligned(x, B, C))
+
+
+def plan_of(x, B, C) -> SsdPlan:
+    """:func:`ssd_plan` of a call's operands."""
+    G, H, Q, _ = x.shape
+    return ssd_plan(G, H, Q, B.shape[-1],
+                    B.stride(1) == 0 and C.stride(1) == 0)
 
 
 def intra_chunk(x, cs, B, C):
@@ -71,10 +176,17 @@ def intra_chunk(x, cs, B, C):
     strides = _Strides(*[s for t in (x, cs, B, C, y) for s in t.stride()[:3]],
                        *st.stride())
     lib = _lib()
-    err = lib.ssd_intra_chunk(
-        x.device.index or 0, _build.ptr(x), _build.ptr(cs), _build.ptr(B),
-        _build.ptr(C), _build.ptr(y), _build.ptr(st), strides, G, H, Q, P, N,
-        _build.stream(x.device))
-    _build.check(lib, err, "ssd_intra_chunk")
+    args = (x.device.index or 0, _build.ptr(x), _build.ptr(cs),
+            _build.ptr(B), _build.ptr(C), _build.ptr(y), _build.ptr(st),
+            strides, G, H, Q, P, N)
+    route = route_of(x, B, C)
+    if route == "mma":
+        plan = plan_of(x, B, C)
+        err = lib.ssd_intra_chunk_mma(*args, plan.hpb, plan.hs,
+                                      plan.state_pos, _build.stream(x.device))
+    else:
+        err = lib.ssd_intra_chunk(*args, _build.stream(x.device))
+    _build.check(lib, err, f"ssd_intra_chunk ({route})")
     launches += 1
+    route_launches[route] += 1
     return y, st

@@ -807,29 +807,93 @@ def _ssd_case(dev, G, H, Q, P, N, seed=0, steep=False):
 
 
 @pytest.mark.parametrize("Q", [32, 97, 256])
-@pytest.mark.parametrize("H,P,N", [(3, 16, 32), (2, 64, 128), (1, 72, 40)])
-def test_ssd_kernel_matches_plain(dev, Q, H, P, N):
+@pytest.mark.parametrize("G,H,P,N,route", [
+    (4, 3, 16, 32, "mma"), (4, 2, 64, 128, "mma"), (4, 1, 72, 40, "f32"),
+    (4, 3, 20, 36, "f32"), (8, 24, 64, 128, "mma")])
+def test_ssd_kernel_matches_plain(dev, Q, G, H, P, N, route):
     """Q of a full chunk, an exact-length ragged chunk and 32; P and N that
-    fill, split and leave ragged 64-wide tiles; stride-0 B and C."""
-    x, cs, B, C = _ssd_case(dev, 4, H, Q, P, N, seed=Q + P)
-    n0 = ssd_ops.launches
+    fill, split and leave ragged tiles (P 72 and P 20 on the CUDA-core route,
+    the rest on the tensor cores, among them mamba2-130m's 8 chunk rows x 24
+    heads); stride-0 B and C. Each call runs the route ssd_route gives it."""
+    x, cs, B, C = _ssd_case(dev, G, H, Q, P, N, seed=Q + P)
+    assert ssd_ops.route_of(x, B, C) == route
+    n0, r0 = ssd_ops.launches, ssd_ops.route_launches[route]
     y, st = ssd_ops.intra_chunk(x, cs, B, C)
     assert ssd_ops.launches == n0 + 1
-    assert y.shape == (4, H, Q, P) and st.shape == (4, H, N, P)
+    assert ssd_ops.route_launches[route] == r0 + 1
+    assert y.shape == (G, H, Q, P) and st.shape == (G, H, N, P)
     yr, str_ = ssd_ref.ssd_intra_chunk_ref(x, cs, B, C)
     assert _rel(y, yr) < TOL[torch.float32]
     assert _rel(st, str_) < TOL[torch.float32]
 
 
-def test_ssd_kernel_overflow_above_diagonal(dev):
-    """A steep cs overflows exp above the diagonal: the kernel selects, so
-    y stays finite and equal to the plain version."""
-    x, cs, B, C = _ssd_case(dev, 2, 2, 64, 16, 32, steep=True)
+@pytest.mark.parametrize("Q", [97, 256])
+def test_ssd_kernel_own_bc_per_head(dev, Q):
+    """The TPU contract's flat G: B and C of their own for every head
+    (nonzero head strides), on the tensor cores with one head a group."""
+    G, H, P, N = 3, 4, 64, 128
+    x, cs, _, _ = _ssd_case(dev, G, H, Q, P, N, seed=Q)
+    g = torch.Generator(device=dev).manual_seed(Q + 1)
+    B = torch.randn((G, H, Q, N), generator=g, device=dev)
+    C = torch.randn((G, H, Q, N), generator=g, device=dev)
+    assert ssd_ops.route_of(x, B, C) == "mma"
+    assert ssd_ops.plan_of(x, B, C)[:2] == (1, 1)
+    y, st = ssd_ops.intra_chunk(x, cs, B, C)
+    yr, str_ = ssd_ref.ssd_intra_chunk_ref(x, cs, B, C)
+    assert _rel(y, yr) < TOL[torch.float32]
+    assert _rel(st, str_) < TOL[torch.float32]
+
+
+@pytest.mark.parametrize("P,N,route", [(64, 128, "mma"), (72, 40, "f32")])
+def test_ssd_kernel_bit_equal_calls(dev, P, N, route):
+    """Every output element is summed by one block in a fixed order: two
+    calls give the same bits on both routes."""
+    x, cs, B, C = _ssd_case(dev, 8, 24, 256, P, N, seed=P)
+    assert ssd_ops.route_of(x, B, C) == route
+    y1, st1 = ssd_ops.intra_chunk(x, cs, B, C)
+    y2, st2 = ssd_ops.intra_chunk(x, cs, B, C)
+    assert torch.equal(y1, y2) and torch.equal(st1, st2)
+
+
+def test_ssd_kernel_runs_tensor_cores_and_async_copies(dev):
+    """The SASS of ssd_mma holds tensor-core products (HMMA) and
+    asynchronous copies (LDGSTS), and ptxas spilled nothing."""
+    _build.build(("ssd",))
+    c = _build.sass_counts("ssd")["ssd_mma"]
+    assert c["HMMA"] > 0 and c["LDGSTS"] > 0, c
+    r = _build.ptxas_stats("ssd")["ssd_mma"]
+    assert r["spill_stores"] == 0 and r["spill_loads"] == 0, r
+
+
+@pytest.mark.parametrize("P,N,route", [(16, 32, "mma"), (72, 40, "f32")])
+def test_ssd_kernel_overflow_above_diagonal(dev, P, N, route):
+    """A steep cs overflows exp above the diagonal: each route's kernel
+    selects, so y stays finite and equal to the plain version."""
+    x, cs, B, C = _ssd_case(dev, 2, 2, 64, P, N, steep=True)
+    assert ssd_ops.route_of(x, B, C) == route
     y, st = ssd_ops.intra_chunk(x, cs, B, C)
     assert torch.isfinite(y).all() and torch.isfinite(st).all()
     yr, str_ = ssd_ref.ssd_intra_chunk_ref(x, cs, B, C)
     assert _rel(y, yr) < TOL[torch.float32]
     assert _rel(st, str_) < TOL[torch.float32]
+
+
+def test_ssd_kernel_refuses_head_groups_of_own_bc(dev, monkeypatch):
+    """ssd_mma shares a group's B and C across its heads, so its entry
+    refuses a plan of head groups (hpb or hs above 1) when B or C has a
+    head stride of its own, rather than use one head's B and C for all."""
+    G, H, Q, P, N = 2, 4, 64, 64, 128
+    x, cs, _, _ = _ssd_case(dev, G, H, Q, P, N)
+    g = torch.Generator(device=dev).manual_seed(1)
+    B = torch.randn((G, H, Q, N), generator=g, device=dev)
+    C = torch.randn((G, H, Q, N), generator=g, device=dev)
+    for hpb, hs in ((4, 1), (1, 2)):
+        plan = ssd_ops.SsdPlan(hpb, hs, 0, 0)
+        monkeypatch.setattr(ssd_ops, "plan_of", lambda *a, p=plan: p)
+        n0 = ssd_ops.launches
+        with pytest.raises(RuntimeError, match="ssd_intra_chunk"):
+            ssd_ops.intra_chunk(x, cs, B, C)
+        assert ssd_ops.launches == n0
 
 
 def test_ssd_kernel_rejects_bad_inputs(dev):

@@ -4,6 +4,7 @@ run without a card: the sources are read as text."""
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -11,6 +12,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.grouped_gemm import ops as gg_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
 
 CSRC = Path(flash_ops.__file__).resolve().parents[1] / "csrc"
 LIMIT = 227 * 1024            # shared memory one block may use on an H100
@@ -281,3 +283,158 @@ def test_paged_tiles_match_source():
     # a GQA split holds whole tiles of every warp, an MLA split whole tiles
     assert paged_ops.SPLIT_UNIT % (paged_ops.GQ_WARPS * paged_ops.GQ_TILE) \
         == 0 and paged_ops.SPLIT_UNIT % paged_ops.ML_KT == 0
+
+
+# --------------------------------------------------------- SSD intra-chunk
+def _mamba2_launch_shapes():
+    """(chunk rows G, Q) of every exact-length prefill group of the mamba2
+    serve run (chip_smoke.py::mamba_phase's 12 prompts, numpy seed 0; one
+    prompt a group; chunk 256, a shorter prompt its own Q)."""
+    lens = np.random.default_rng(0).integers(16, 2001, 12)
+    return sorted({(-(-int(n) // 256), min(256, int(n))) for n in lens})
+
+
+def test_ssd_route_every_shape():
+    """The tensor cores for P <= 64 and N <= 128, multiples of 8, on aligned
+    rows (mamba2's P 64, N 128 among them); the CUDA cores for the rest (P
+    72, N 40 of the card tests among them)."""
+    for P in range(1, 137):
+        for N in range(1, 201):
+            for aligned in (True, False):
+                want = "mma" if aligned and P % 8 == 0 and P <= 64 and \
+                    N % 8 == 0 and N <= 128 else "f32"
+                assert ssd_ops.ssd_route(P, N, aligned) == want, (P, N)
+    assert ssd_ops.ssd_route(64, 128, True) == "mma"
+    assert ssd_ops.ssd_route(72, 40, True) == "f32"
+
+
+def test_ssd_route_of_views():
+    """ssd_scan's views (heads second, B and C stride 0 over heads) are
+    aligned and shared; B and C of their own per head keep the route and
+    take one head a block; a row stride that is not a multiple of 4 leaves
+    the tensor cores."""
+    G, Q, H, P, N = 2, 97, 24, 64, 128
+    x = torch.zeros((G, Q, H, P)).permute(0, 2, 1, 3)
+    Bm = torch.zeros((G, Q, N))[:, None].expand(-1, H, -1, -1)
+    assert ssd_ops.route_of(x, Bm, Bm) == "mma"
+    assert ssd_ops.plan_of(x, Bm, Bm) == ssd_ops.ssd_plan(G, H, Q, N, True)
+    own = torch.zeros((G, H, Q, N))
+    assert ssd_ops.route_of(x, own, own) == "mma"
+    assert ssd_ops.plan_of(x, own, own)[:2] == (1, 1)
+    odd = torch.zeros((G, H, Q, N + 2))[..., :N]
+    assert ssd_ops.route_of(x, odd, odd) == "f32"
+
+
+@pytest.mark.parametrize("G,Q", _mamba2_launch_shapes())
+def test_ssd_plan_launch_shapes(G, Q):
+    """Every launch shape of the mamba2 serve run: head groups that cover
+    the 24 heads exactly, the grid's classes longest first, and the block
+    count the kernel launches."""
+    H, P, N = 24, 64, 128
+    plan = ssd_ops.ssd_plan(G, H, Q, N, True)
+    assert 1 <= plan.hpb <= ssd_ops.HPB_MAX and H % plan.hpb == 0
+    assert 1 <= plan.hs <= ssd_ops.HS_MAX and H % plan.hs == 0
+    nt = -(-Q // 64)
+    assert plan.blocks == G * (nt * (H // plan.hpb) + H // plan.hs)
+    ys, (s_steps, _) = ssd_ops._costs(G, H, Q, N, plan.hpb, plan.hs)
+    order = [c for c, _ in ys[:plan.state_pos]] + [s_steps] + \
+        [c for c, _ in ys[plan.state_pos:]]
+    assert order == sorted(order, reverse=True)
+    assert ssd_ops.ssd_plan(G, H, Q, N, False)[:2] == (1, 1)
+
+
+def test_ssd_plan_main_shape():
+    """mamba2's 8 chunk rows x 24 heads at Q 256 (a 1827- or 2000-token
+    prompt): scores shared by 4 heads, the state 2 heads a block, 288
+    blocks (at least one per SM), the state blocks after the y blocks of
+    the last two t tiles."""
+    plan = ssd_ops.ssd_plan(8, 24, 256, 128, True)
+    assert plan == (4, 2, 2, 288)
+    assert plan.blocks >= ssd_ops.SMS
+
+
+def test_ssd_smem_law():
+    """The shared memory ssd.cu asserts for one ssd_mma block fits what a
+    block may use (one block an SM)."""
+    n = _asserted("ssd.cu", r"MmaSmem::bytes")["MmaSmem::bytes"]
+    assert 0 < n <= LIMIT
+
+
+def test_ssd_tiles_match_source():
+    assert (ssd_ops.MT, ssd_ops.MP, ssd_ops.MN, ssd_ops.SK, ssd_ops.HPB_MAX,
+            ssd_ops.HS_MAX) == tuple(_constexpr("ssd.cu", n) for n in (
+                "MT", "MP", "MN", "SK", "HPB_MAX", "HS_MAX"))
+
+
+_TF32_MASK = torch.tensor(-8192, dtype=torch.int32)    # 0xffffe000
+
+
+def _tf32(v):
+    """v with the low 13 mantissa bits cleared (a TF32 value)."""
+    return (v.view(torch.int32) & _TF32_MASK).view(torch.float32)
+
+
+def _split_mm(eq, a, b, products):
+    """ssd_mma's product on the CPU: with 3 products each operand is hi +
+    lo, both TF32 (hi truncates v, lo the rest v - hi), and a b = a_lo b_hi
+    + a_hi b_lo + a_hi b_hi in f32; with 1, a_hi b_hi alone (plain TF32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = torch.einsum(eq, ah, bh)
+    if products == 3:
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        out = torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + out
+    return out
+
+
+def _ssd64(x, cs, B, C):
+    """The plain version's arithmetic (ref.py) in f64, B and C (G, Q, N)
+    shared by the heads."""
+    x, cs, B, C = (t.double() for t in (x, cs, B, C))
+    Q = x.shape[2]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    L = torch.where(tri, torch.exp(cs[..., :, None] - cs[..., None, :]), 0.0)
+    y = torch.einsum("gts,ghts,ghsp->ghtp", torch.einsum("gtn,gsn->gts", C, B),
+                     L, x)
+    d = torch.exp(cs[..., -1:] - cs)[..., None]
+    return y, torch.einsum("gsn,ghsp->ghnp", B, x * d)
+
+
+@pytest.mark.parametrize("products", [3, 1])
+def test_ssd_split_error(products):
+    """The arithmetic of ssd_mma emulated at mamba2's shape (8 chunk rows x
+    24 heads, Q 256, P 64, N 128; seed 0): scores once per chunk row, the
+    mask by selection, every operand split after masking and scaling. With
+    3xTF32 y and st stay within 1e-5 (relative max error) of the plain
+    version, ten times inside the card tests' 1e-4; one TF32 product would
+    miss the f32 contract. The decays are f64 exps rounded once to f32 (the
+    card's exp2f is within 2 ulp; torch.exp in f32 on some CPUs is not: it
+    has put 1e-4 into L), and the yardstick is the plain version's
+    arithmetic in f64."""
+    G, H, Q, P, N = 8, 24, 256, 64, 128
+    rng = np.random.default_rng(0)
+    f32 = np.float32
+    x = torch.from_numpy(rng.standard_normal((G, Q, H, P)).astype(f32))
+    a = torch.from_numpy(rng.standard_normal((G, Q, H)).astype(f32))
+    cs = torch.cumsum(-torch.nn.functional.softplus(a), dim=1)
+    Bm = torch.from_numpy(rng.standard_normal((G, Q, N)).astype(f32))
+    Cm = torch.from_numpy(rng.standard_normal((G, Q, N)).astype(f32))
+    xv, csv = x.permute(0, 2, 1, 3), cs.permute(0, 2, 1)
+    yr, str_ = _ssd64(xv, csv, Bm, Cm)
+
+    def exp(v):
+        return torch.exp(v.double()).float()
+
+    S = _split_mm("gtn,gsn->gts", Cm, Bm, products)[:, None]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool))
+    L = exp(csv[..., :, None] - csv[..., None, :])
+    y = _split_mm("ghts,ghsp->ghtp", torch.where(tri, S * L, 0.0), xv,
+                  products)
+    d = exp(csv[..., -1:] - csv)[..., None]
+    st = _split_mm("gsn,ghsp->ghnp", Bm, xv * d, products)
+
+    err = max(float((y - yr).abs().max() / yr.abs().max()),
+              float((st - str_).abs().max() / str_.abs().max()))
+    if products == 3:
+        assert err < 1e-5, err
+    else:
+        assert err > 1e-4, err
