@@ -27,17 +27,26 @@
    class and host threads as the core class, every result checked against
    the plain product; offload-only against heterogeneous at 4096².
 4. Serves full-width mistral-nemo-12b (seeded random weights made on the
-   card) through the paged engine, twice, and checks that every request
-   finishes with in-vocabulary tokens, the page pool is whole, its kernels
-   were launched, and the two runs give the same streams; profiles one
-   decode quantum; checks prefill → decode against a one-token-longer
-   prefill at full width (f32, depth cut to 2 layers).
-5. The same for deepseek-v2-236b (MLA + MoE) at full width with depth cut
-   to 6 layers (the dense first layer and 5 MoE layers): serve twice,
-   profile one decode quantum, and the f32 prefill → decode check with
-   depth cut to 2 layers. And for mamba2-130m at its published width and
-   depth (exact-length prefill through the SSD kernel, per-slot state),
-   with the f32 check at full depth.
+   card) through the paged engine, each decode quantum one replay of a
+   CUDA graph (one capture per live page-table width), twice, and checks
+   that every request finishes with in-vocabulary tokens, the page pool is
+   whole, its kernels were launched (a replay adds the launches its
+   capture recorded), one capture per width, and the two runs give the
+   same streams; profiles one replayed decode quantum; serves the workload
+   once more through the eager loop (``graphs=False``), checks the streams
+   are the same and profiles one eager quantum (busy share, kernels per
+   step, the paged kernels seen equal to those counted); serves it sampled
+   (temperature 0.8, top-k 50) through graphs and eagerly and checks the
+   streams are equal; checks prefill → decode against a one-token-longer
+   prefill at full width (f32, depth cut to 2 layers). Each serve run
+   prints decode tok/s over the quanta that did not capture, the captures
+   and their seconds and the widths used.
+5. The same (graphs twice, eager once, both quanta profiled) for
+   deepseek-v2-236b (MLA + MoE) at full width with depth cut to 6 layers
+   (the dense first layer and 5 MoE layers), with the f32 prefill →
+   decode check with depth cut to 2 layers; and for mamba2-130m at its
+   published width and depth (exact-length prefill through the SSD
+   kernel, per-slot state), with the f32 check at full depth.
 6. Training (the flash backward and the forward that saves lse): both
    kernels against their plain versions at the training shape (B=4,
    T=2048, 32 heads over 8, dh=128, causal, bf16; also f32 and window +
@@ -61,6 +70,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -909,53 +919,76 @@ def _counters() -> dict:
             "ssd_intra_chunk": (ssd_ops, "launches")}
 
 
-def serve_twice(eng, cfg, lens, prompts, max_new: int, path: list[str],
-                entries: list[dict]) -> None:
-    """Serve one workload twice through ``eng``. Checks: every request
-    finishes with in-vocabulary tokens, the pool is whole after each run,
-    every kernel of ``path`` was launched in the first run (the counts are
-    set to 0 just before it and read just after), and the second run gives
-    the same streams. Adds the first run's counts to ``entries``."""
+def serve_run(eng, cfg, lens, prompts, max_new: int):
+    """Serve the workload once through ``eng`` with every wrapper's launch
+    count set to 0 just before and read just after → (requests, launch
+    counts). Prints the wall time, prefill and decode seconds and rates
+    (decode over the quanta the tracker records: every eager quantum, and
+    with graphs every replay; a quantum that captured is not recorded, as
+    the JAX engine does not time one that compiled), the graph captures
+    and their seconds, the width buckets and peak memory. Checks that the
+    page pool is whole after the run."""
     from repro_torch.serve.engine import Request
     counters = _counters()
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    pre0 = eng.tracker.stats["prefill"].busy_time
+    dec = eng.tracker.stats["decode"]
+    dec0, tok0 = dec.busy_time, dec.iters_done
+    q0, g0, c0 = eng.quanta, eng.prefill_groups, eng.decode_captures
+    cs0 = eng.graphs.capture_seconds if eng.graphs else 0.0
+    w0 = Counter(eng.widths_used)
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    pre = eng.tracker.stats["prefill"].busy_time - pre0
+    d_s, d_tok = dec.busy_time - dec0, dec.iters_done - tok0
+    caps = eng.decode_captures - c0
+    cap_s = (eng.graphs.capture_seconds if eng.graphs else 0.0) - cs0
+    widths = dict(sorted((Counter(eng.widths_used) - w0).items()))
+    mode = "graphs" if eng.graphs else "eager"
+    print(f"serve {cfg.name} ({mode}): {len(reqs)} requests, prompt lengths "
+          f"{lens.tolist()}, max_new {max_new}: wall {wall:.3f} s, prefill "
+          f"{pre:.3f} s over {eng.prefill_groups - g0} groups "
+          f"({int(lens.sum()) / pre:.1f} prompt tok/s), decode "
+          f"{eng.quanta - q0} quanta, {caps} captures ({cap_s:.3f} s); "
+          f"{d_tok} tokens in {d_s:.3f} s over the other "
+          f"{eng.quanta - q0 - caps} ({d_tok / d_s:.1f} tok/s); widths "
+          f"{widths}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"{launches}")
+    eng.alloc.check()
+    check(len(eng.alloc.free) == eng.alloc.usable_pages,
+          f"{cfg.name} ({mode}): page pool whole and every page free after "
+          "the run")
+    return reqs, launches
 
-    def serve():
-        reqs = [Request(rid=i, prompt=p, max_new=max_new)
-                for i, p in enumerate(prompts)]
-        torch.cuda.reset_peak_memory_stats()
-        pre0 = eng.tracker.stats["prefill"].busy_time
-        dec0 = eng.tracker.stats["decode"].busy_time
-        q0, g0 = eng.quanta, eng.prefill_groups
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        t = time.perf_counter()
-        eng.run(reqs)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = {n: getattr(mod, attr)
-                    for n, (mod, attr) in counters.items()}
-        pre = eng.tracker.stats["prefill"].busy_time - pre0
-        dec = eng.tracker.stats["decode"].busy_time - dec0
-        emitted = sum(len(r.out) - 1 for r in reqs)  # first token: prefill
-        print(f"serve {cfg.name}: {len(reqs)} requests, prompt lengths "
-              f"{lens.tolist()}, max_new {max_new}: wall {wall:.3f} s, "
-              f"prefill {pre:.3f} s over {eng.prefill_groups - g0} groups "
-              f"({int(lens.sum()) / pre:.1f} prompt tok/s), decode "
-              f"{dec:.3f} s over {eng.quanta - q0} quanta "
-              f"({emitted / dec:.1f} tok/s), peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"launches {launches}")
-        eng.alloc.check()
-        check(len(eng.alloc.free) == eng.alloc.usable_pages,
-              f"{cfg.name}: page pool whole and every page free after the "
-              "run")
-        return reqs, launches
 
-    reqs, launches = serve()
+def serve_twice(eng, cfg, lens, prompts, max_new: int, path: list[str],
+                entries: list[dict]) -> list[list[int]]:
+    """Serve one workload twice through ``eng`` (with CUDA graphs: one
+    capture per live page-table width, replays after). Checks: every
+    request finishes with in-vocabulary tokens, the pool is whole after
+    each run, every kernel of ``path`` was launched in the first run (the
+    counts are set to 0 just before it and read just after; a replay adds
+    the launches its capture recorded), one capture per width, and the
+    second run gives the same streams. Adds the first run's counts to
+    ``entries``; returns the streams."""
+    check(eng.graphs is not None, f"{cfg.name}: the engine replays CUDA "
+          "graphs on the card by default")
+    reqs, launches = serve_run(eng, cfg, lens, prompts, max_new)
     check(all(r.done and len(r.out) == max_new for r in reqs),
           f"{cfg.name}: every request finished with max_new tokens")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
           f"{cfg.name}: every token is in the vocabulary")
+    check(eng.decode_captures == len(eng.widths_used),
+          f"{cfg.name}: one graph capture per live page-table width "
+          f"({eng.decode_captures} for {sorted(eng.widths_used)})")
     for e in entries:
         n = launches[e["name"]]
         e.setdefault("launches_by_path", {})[cfg.name] = n
@@ -963,9 +996,49 @@ def serve_twice(eng, cfg, lens, prompts, max_new: int, path: list[str],
         if e["name"] in path:
             check(n > 0, f"{e['name']} launched on the {cfg.name} path "
                   f"({n} times)")
-    again, _ = serve()
+    again, _ = serve_run(eng, cfg, lens, prompts, max_new)
     check([r.out for r in again] == [r.out for r in reqs],
           f"{cfg.name}: a second run of the workload gives the same streams")
+    return [r.out for r in reqs]
+
+
+def serve_eager(cfg, params, dev, lens, prompts, max_new: int, streams,
+                pinned_f=None, **engine_kw) -> None:
+    """Serve the workload once more through an engine of the same settings
+    that runs the eager loop (``graphs=False``), check that the streams
+    equal the graph engine's, and profile one eager quantum."""
+    from repro_torch.serve.engine import Engine
+    eng = Engine(cfg, params, device=dev, graphs=False, **engine_kw)
+    if pinned_f is not None:
+        eng.tracker.f = lambda: pinned_f
+    reqs, _ = serve_run(eng, cfg, lens, prompts, max_new)
+    check([r.out for r in reqs] == streams, f"{cfg.name}: the eager loop "
+          "gives the graph engine's streams")
+    profile_phase(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def sampled_phase(cfg, params, dev, lens, prompts, **engine_kw) -> None:
+    """Sampled decoding (temperature 0.8, top-k 50, seed 0) through CUDA
+    graphs and through the eager loop: the streams are expected identical
+    (the registered generator advances its Philox offset at each replay as
+    the eager draws do) and are checked so."""
+    from repro_torch.serve.engine import Engine
+    outs = []
+    for graphs in (True, False):
+        eng = Engine(cfg, params, device=dev, graphs=graphs, temperature=0.8,
+                     top_k=50, sample_seed=0, **engine_kw)
+        eng.tracker.f = lambda: PINNED_F
+        reqs, _ = serve_run(eng, cfg, lens, prompts, 32)
+        outs.append([r.out for r in reqs])
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(*outs))
+    print(f"{cfg.name} sampled (temperature 0.8, top-k 50): {same}/"
+          f"{len(prompts)} streams identical between graphs and eager")
+    check(outs[0] == outs[1], f"{cfg.name}: sampled streams through CUDA "
+          "graphs equal the eager loop's")
 
 
 def serve_phase(dev, entries) -> None:
@@ -979,19 +1052,24 @@ def serve_phase(dev, entries) -> None:
     torch.cuda.synchronize()
     print(f"{cfg.name}: {n_params(cfg) / 1e9:.3f} B params made on the card "
           f"in {time.perf_counter() - t0:.1f} s")
-    eng = Engine(cfg, params, device=dev, max_slots=8, max_len=4096,
-                 page_size=16, decode_quantum=8)
+    kw = dict(max_slots=8, max_len=4096, page_size=16, decode_quantum=8)
+    eng = Engine(cfg, params, device=dev, **kw)
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 2001, 12)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
-    serve_twice(eng, cfg, lens, prompts, 32,
-                ["flash_attention_fwd", "paged_attention_gqa"], entries)
+    streams = serve_twice(eng, cfg, lens, prompts, 32,
+                          ["flash_attention_fwd", "paged_attention_gqa"],
+                          entries)
     profile_phase(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    serve_eager(cfg, params, dev, lens, prompts, 32, streams, **kw)
+    sampled_phase(cfg, params, dev, lens, prompts, **kw)
     rel = prefill_decode_rel(cfg, params, dev)
     print(f"full width bf16, 40 layers: prefill(S) + paged decode vs "
           f"prefill(S+1), relative max error {rel:.3g} (reported, not held:"
           f" bf16 rounding through 40 random layers)")
-    del eng, params
+    del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
     rel = prefill_decode_rel(cfg32, init_params(cfg32, seed=0, device=dev),
@@ -1019,17 +1097,21 @@ def deepseek_phase(dev, entries) -> None:
     print(f"{cfg.name}, depth cut to {cfg.n_layers} layers: "
           f"{n_params(cfg) / 1e9:.3f} B params made on the card in "
           f"{time.perf_counter() - t0:.1f} s")
-    eng = Engine(cfg, params, device=dev, max_slots=8, max_len=2048,
-                 page_size=16, decode_quantum=8)
+    kw = dict(max_slots=8, max_len=2048, page_size=16, decode_quantum=8)
+    eng = Engine(cfg, params, device=dev, **kw)
     eng.tracker.f = lambda: PINNED_F
     rng = np.random.default_rng(0)
     lens = rng.integers(16, 1001, 8)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
-    serve_twice(eng, cfg, lens, prompts, 16,
-                ["flash_attention_fwd", "paged_attention_mla",
-                 "grouped_gemm"], entries)
+    streams = serve_twice(eng, cfg, lens, prompts, 16,
+                          ["flash_attention_fwd", "paged_attention_mla",
+                           "grouped_gemm"], entries)
     profile_phase(eng, cfg)
-    del eng, params
+    del eng
+    torch.cuda.empty_cache()
+    serve_eager(cfg, params, dev, lens, prompts, 16, streams,
+                pinned_f=PINNED_F, **kw)
+    del params
     torch.cuda.empty_cache()
     m = cfg.moe
     cf = m.n_experts / m.top_k
@@ -1063,8 +1145,8 @@ def mamba_phase(dev, entries) -> None:
     torch.cuda.synchronize()
     print(f"{cfg.name}: {n_params(cfg) / 1e6:.3f} M params made on the card "
           f"in {time.perf_counter() - t0:.1f} s")
-    eng = Engine(cfg, params, device=dev, max_slots=8, max_len=4096,
-                 page_size=16, decode_quantum=8)
+    kw = dict(max_slots=8, max_len=4096, page_size=16, decode_quantum=8)
+    eng = Engine(cfg, params, device=dev, **kw)
     check(not eng.pad_safe, f"{cfg.name}: exact-length prefill (pad_safe "
           "False)")
     rng = np.random.default_rng(0)
@@ -1072,13 +1154,17 @@ def mamba_phase(dev, entries) -> None:
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
     from repro_torch.kernels.ssd import ops as ssd_ops
     before = dict(ssd_ops.route_launches)
-    serve_twice(eng, cfg, lens, prompts, 32, ["ssd_intra_chunk"], entries)
+    streams = serve_twice(eng, cfg, lens, prompts, 32, ["ssd_intra_chunk"],
+                          entries)
     routes = {r: n - before[r] for r, n in ssd_ops.route_launches.items()}
     check(routes["f32"] == 0 and routes["mma"] > 0, f"{cfg.name}: every SSD "
           f"launch of both runs on the tensor-core route ({routes})")
     prefill_profile(cfg, params, prompts[int(np.argmax(lens))], dev)
     profile_phase(eng, cfg)
-    del eng, params
+    del eng
+    torch.cuda.empty_cache()
+    serve_eager(cfg, params, dev, lens, prompts, 32, streams, **kw)
+    del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     rel = prefill_decode_rel(cfg32, init_params(cfg32, seed=0, device=dev),
@@ -1116,9 +1202,14 @@ def print_top(by_name, n: int = 12) -> None:
 
 def profile_phase(eng, cfg) -> None:
     """One decode quantum of 8 full slots at ~1k context under
-    torch.profiler (admission done before): device busy share of the wall
-    time and the kernels by device time."""
+    torch.profiler (admission done before, and one more quantum so that a
+    graph engine has captured the width the profiled quantum replays):
+    device busy share of the wall time, kernels per step, the kernels by
+    device time; the paged kernels the profiler saw equal the launches
+    their wrappers counted in that quantum (with graphs, what the replay
+    added)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(1)
     for i in range(eng.max_slots):
@@ -1126,25 +1217,36 @@ def profile_phase(eng, cfg) -> None:
                            prompt=rng.integers(0, cfg.vocab, 1024).tolist()))
     while eng.pending:                          # admit every request first
         eng.step()
+    eng.step()
     torch.cuda.synchronize()
+    c0 = eng.decode_captures
+    n0 = paged_ops.launches + paged_ops.mla_launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         rep = eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+    counted = paged_ops.launches + paged_ops.mla_launches - n0
     eng.drain()
+    mode = "graphs" if eng.graphs else "eager"
+    if eng.graphs:
+        check(eng.decode_captures == c0, f"{cfg.name}: the profiled quantum "
+              "replayed a captured graph")
     busy, n, by_name = device_time(prof)
-    print(f"profile: one decode quantum ({rep.decoded} tokens, "
-          f"{eng.decode_quantum} steps, 8 slots at ~1k context, profiler "
-          f"on): wall {wall * 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
-          f"({busy / 1e4 / wall:.1f} %), {n} kernels "
+    print(f"profile {cfg.name} ({mode}): one decode quantum ({rep.decoded} "
+          f"tokens, {eng.decode_quantum} steps, 8 slots at ~1k context, "
+          f"profiler on): wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy / 1e3:.1f} ms ({busy / 1e4 / wall:.1f} %), {n} kernels "
           f"({n / eng.decode_quantum:.0f} per step)")
     paged = [(us, k) for name, (us, k) in by_name.items()
              if "paged_" in name or "mla_combine" in name]
+    seen = sum(k for _, k in paged)
     if paged:
         print(f"  paged decode kernels: {sum(us for us, _ in paged) / 1e3:.3f}"
-              f" ms device over {sum(k for _, k in paged)} launches")
+              f" ms device over {seen} launches")
+    check(seen == counted, f"{cfg.name} ({mode}): the profiled quantum's "
+          f"paged kernels ({seen}) equal the launches counted ({counted})")
     print_top(by_name)
 
 

@@ -6,7 +6,8 @@ On CUDA tensors they launch the hand-written kernels
 the plain versions in ``ref.py`` run only for tensors on the CPU. Each op
 counts the calls that launched its kernels: ``launches`` (forward),
 ``lse_launches`` (forward with lse), ``bwd_launches`` (backward: delta, dq
-pass and dk/dv pass).
+pass and dk/dv pass). A CUDA graph's replay adds the counts its capture
+recorded (``serve/graphs.py``), so they count launches on the card.
 """
 from __future__ import annotations
 

@@ -9,7 +9,8 @@ shape, one of :data:`SHAPES`, and must fit the card's shared memory by
 :func:`smem_bytes` on either device: a shape over the law raises, it is
 never clamped. ``a`` may be a row slice of a larger matrix (a view with a
 row stride); ``b`` is contiguous. ``launches`` counts calls that launched
-the kernel (one per call, split or not).
+the kernel (one per call, split or not); a CUDA graph's replay adds what its
+capture recorded (``serve/graphs.py``).
 """
 from __future__ import annotations
 

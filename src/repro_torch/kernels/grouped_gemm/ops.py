@@ -4,7 +4,10 @@ On CUDA tensors it launches the hand-written kernel
 (``kernels/csrc/grouped_gemm.cu``) or raises; the plain version in
 ``ref.py`` runs only for tensors on the CPU. ``a`` may be a strided view
 (stride 0 over experts: decode passes its tokens broadcast to every expert
-without a copy); ``w`` is contiguous. ``launches`` counts kernel launches.
+without a copy); ``w`` is contiguous. ``launches`` counts kernel launches,
+those of CUDA graph replays too: ``serve/graphs.py`` records the count's
+change during a capture (taking it back: a capture launches nothing) and
+adds it at every replay.
 """
 from __future__ import annotations
 

@@ -5,6 +5,10 @@ On CUDA tensors they launch the hand-written kernels
 ``ref.py`` run only for tensors on the CPU. Outputs are the unnormalized
 ``(o, m, l)`` softmax partials that the caller combines. ``launches``
 counts GQA calls that launched their kernel, ``mla_launches`` MLA calls.
+A CUDA graph's replay runs no Python: ``serve/graphs.py`` records each
+count's change while a graph is captured (and takes it back: a capture
+launches nothing) and adds it at every replay, so the counts go on
+counting kernel launches on the card.
 
 Each op has two routes, chosen by a pure function of the call's shape and
 dtype: the tensor-core kernels (:func:`gqa_route` "mma", :func:`mla_route`

@@ -14,7 +14,9 @@ products, the scores computed once per chunk row for a group of heads when B
 and C are shared, sized by :func:`ssd_plan`) for P ≤ 64 and N ≤ 128,
 multiples of 8, on 16-byte aligned rows (mamba2: P 64, N 128), and "f32"
 (``ssd_intra``: the CUDA cores) for everything else. ``launches`` counts
-calls that launched a kernel, ``route_launches`` the same by route.
+calls that launched a kernel, ``route_launches`` the same by route. A
+CUDA graph's replay adds to ``launches`` what its capture recorded
+(``serve/graphs.py``); ``route_launches`` counts eager calls only.
 """
 from __future__ import annotations
 

@@ -12,10 +12,17 @@ its per-slot state (``mamba2_step``) for every slot, active or not, as JAX
 does: a slot's state is overwritten by the admit that next fills it.
 
 ``decode_loop`` runs a quantum of ``num_steps`` tokens as a Python loop
-whose state (tokens, positions, masks, cache) never leaves the device;
-the engine reads the packed result back once per quantum.
+whose state (tokens, positions, masks, cache) never leaves the device; it
+is the functional reference. ``decode_quantum`` runs the same loop and
+writes the carry, the Mamba-2 states and the packed result back into the
+tensors it was given, so a CUDA graph of it (``serve/graphs.py``) reads
+and writes the same storage at every replay; the engine reads the packed
+result back once per quantum. Per-step constants (the rope tables, the
+page and offset of ``pos``) are computed once per step for all layers.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,19 +47,28 @@ def _combine(o, m, l):
     return o / torch.clamp(l, min=1e-30)[..., None]
 
 
-def _paged_write(pool, new_row, pt, pos):
-    """Write ``new_row`` (B,…) at logical position ``pos`` (B,) through page
-    table ``pt`` (B,T) into ``pool`` (N, ps, …), IN PLACE (``index_put_``).
-    Distinct live slots hold disjoint pages (allocator invariant), so only
-    the trash page 0 can receive duplicate writes."""
-    ps = pool.shape[1]
+def _page_slot(pt, pos, ps: int):
+    """(page, offset) int64 (B,) where logical position ``pos`` (B,) lies
+    through page table ``pt`` (B,T) of ``ps``-row pages: computed once per
+    step for every layer's write."""
     T = pt.shape[1]
     idx = torch.clamp(pos // ps, max=T - 1).long()
     page = pt.gather(1, idx[:, None])[:, 0]
     # a slot frozen at pos == max_len still scribbles each step; route it
     # to the trash page, never a live one
     page = torch.where(pos < T * ps, page, torch.zeros_like(page))
-    pool.index_put_((page.long(), (pos % ps).long()), new_row)
+    return page.long(), (pos % ps).long()
+
+
+def _paged_write(pool, new_row, pt, pos, slot=None):
+    """Write ``new_row`` (B,…) at logical position ``pos`` (B,) through page
+    table ``pt`` (B,T) into ``pool`` (N, ps, …), IN PLACE (``index_put_``),
+    at ``slot`` (:func:`_page_slot`) when the caller has it. Distinct live
+    slots hold disjoint pages (allocator invariant), so only the trash page
+    0 can receive duplicate writes."""
+    if slot is None:
+        slot = _page_slot(pt, pos, pool.shape[1])
+    pool.index_put_(slot, new_row)
     return pool
 
 
@@ -79,13 +95,14 @@ def _check_paged_args(page_table, pos, *, update: bool = True,
 
 def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
                      softcap: float, page_table, window: int = 0,
-                     update: bool = True):
+                     slot, update: bool = True):
     """q (B,Hkv,G,dh); k_new/v_new (B,Hkv,dh); pools (N, ps, Hkv, dh); pos
-    (B,) int32; page_table (B,T) int32 → (out (B,Hkv,G,dh), pool_k,
-    pool_v), the pools updated in place."""
+    (B,) int32; page_table (B,T) int32; ``slot`` the write's
+    :func:`_page_slot` → (out (B,Hkv,G,dh), pool_k, pool_v), the pools
+    updated in place."""
     _check_paged_args(page_table, pos, update=update, window=window)
-    _paged_write(pool_k, k_new, page_table, pos)
-    _paged_write(pool_v, v_new, page_table, pos)
+    _paged_write(pool_k, k_new, page_table, pos, slot)
+    _paged_write(pool_v, v_new, page_table, pos, slot)
     B, hkv, grp, dh = q.shape
     o, m, l = paged_ops.paged_attend_gqa(
         q, pool_k, pool_v, page_table, pos, 0, page_size=pool_k.shape[1],
@@ -96,20 +113,49 @@ def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
 
 
 def flash_decode_mla(q_eff, new_row, pool, pos, *, kv_lora: int,
-                     scale: float, page_table):
+                     scale: float, page_table, slot):
     """q_eff (B,H,R); new_row (B,R); pool (N, ps, R); pos (B,) int32;
-    page_table (B,T) int32 → (out (B,H,kv_lora), pool), the pool updated in
-    place. Key = the pool row, value = its first kv_lora dims."""
+    page_table (B,T) int32; ``slot`` as in :func:`flash_decode_gqa` → (out
+    (B,H,kv_lora), pool), the pool updated in place. Key = the pool row,
+    value = its first kv_lora dims."""
     _check_paged_args(page_table, pos)
-    _paged_write(pool, new_row, page_table, pos)
+    _paged_write(pool, new_row, page_table, pos, slot)
     o, m, l = paged_ops.paged_attend_mla(
         q_eff, pool, page_table, pos, 0, page_size=pool.shape[1],
         kv_lora=kv_lora, scale=scale)
     return _combine(o, m, l).to(q_eff.dtype), pool
 
 
+# ------------------------------------------------------- per-step constants
+class StepConsts(NamedTuple):
+    """What every attention layer of one decode step shares: the rope
+    tables of ``pos`` (cos, sin (B, width/2) f32, None without rope) and
+    the page and offset the new row goes to (:func:`_page_slot`)."""
+    rope: Optional[tuple]
+    slot: tuple
+
+
+def step_consts(cfg: ModelConfig, cache, pos,
+                page_table) -> Optional[StepConsts]:
+    """The per-step constants of a model's attention layers, or None when
+    it has none (Mamba-2): one rope width (MLA's rope dims, else the head
+    dim) and one page size (every pool is the engine's)."""
+    pools = [c for bc, c in zip(block_cfgs(cfg), cache["layers"])
+             if bc.mixer == "attn"]
+    if not pools:
+        return None
+    ps = next(iter(pools[0].values())).shape[1]
+    rope = None
+    if cfg.mla:
+        rope = rope_tables(pos, cfg.mla.rope_dim, cfg.rope_theta)
+    elif cfg.use_rope:
+        rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
+    return StepConsts(rope, _page_slot(page_table, pos, ps))
+
+
 # --------------------------------------------------------- per-block decode
-def gqa_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
+def gqa_decode(cfg: ModelConfig, p, x, cache, pos, page_table,
+               consts: StepConsts):
     """x (B,D) → (out (B,D), cache)."""
     B, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -117,18 +163,19 @@ def gqa_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
     k = (x @ p["wk"].reshape(D, -1)).view(B, Hkv, dh)
     v = (x @ p["wv"].reshape(D, -1)).view(B, Hkv, dh)
     if cfg.use_rope:
-        cos, sin = rope_tables(pos, dh, cfg.rope_theta)         # (B, dh/2)
+        cos, sin = consts.rope                                  # (B, dh/2)
         q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
         k = apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
     qg = q.reshape(B, Hkv, H // Hkv, dh)
     out, ck, cv = flash_decode_gqa(
         qg, k, v, cache["k"], cache["v"], pos, scale=dh ** -0.5,
-        softcap=cfg.attn_softcap, page_table=page_table)
+        softcap=cfg.attn_softcap, page_table=page_table, slot=consts.slot)
     o = out.reshape(B, H * dh) @ p["wo"].reshape(-1, D)
     return o, {"k": ck, "v": cv}
 
 
-def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
+def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table,
+               consts: StepConsts):
     """x (B,D) → (out (B,D), cache). Absorbed query ``q_c = qn · W_uk``
     in the latent space, the rope part beside it, the scale of the expanded
     form (nope + rope)^-0.5, and the un-absorb through ``W_uv``: plain
@@ -140,7 +187,7 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
     q = (cq @ p["wuq"].reshape(m.q_lora, -1)).view(B, H,
                                                    m.nope_dim + m.rope_dim)
     qn, qr = q[..., :m.nope_dim], q[..., m.nope_dim:]
-    cos, sin = rope_tables(pos, m.rope_dim, cfg.rope_theta)       # (B, r/2)
+    cos, sin = consts.rope                                        # (B, r/2)
     qr = apply_rope(qr[:, None], cos[:, None], sin[:, None])[:, 0]
     wuk = p["wukv"][..., :m.nope_dim]                  # (kv_lora, H, nope)
     q_c = torch.einsum("bhn,rhn->bhr", qn, wuk)        # (B, H, kv_lora)
@@ -152,7 +199,7 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
     o_c, ckv = flash_decode_mla(q_eff, row, cache["ckv"], pos,
                                 kv_lora=m.kv_lora,
                                 scale=(m.nope_dim + m.rope_dim) ** -0.5,
-                                page_table=page_table)
+                                page_table=page_table, slot=consts.slot)
     wuv = p["wukv"][..., m.nope_dim:]                  # (kv_lora, H, v)
     o = torch.einsum("bhr,rhv->bhv", o_c, wuv)
     o = o.reshape(B, H * m.v_dim) @ p["wo"].reshape(-1, D)
@@ -160,13 +207,13 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table):
 
 
 def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
-                 page_table):
+                 page_table, consts: StepConsts):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "mamba":
         y, new_state = mamba2_step(cfg, p["mamba"], x, cache)
         return h + y, new_state                # Mamba-2 blocks have no FFN
     attn = mla_decode if cfg.mla else gqa_decode
-    y, new_cache = attn(cfg, p["attn"], x, cache, pos, page_table)
+    y, new_cache = attn(cfg, p["attn"], x, cache, pos, page_table, consts)
     h = h + y
     x = rmsnorm(h, p["norm2"], cfg.norm_eps)
     if bc.ffn == "moe":
@@ -179,9 +226,10 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos, page_table):
     """tokens (B,), pos (B,) int32 → (logits (B,V) f32, cache). The page
     pools of ``cache`` are updated in place; Mamba-2 states are replaced."""
     h = embed(cfg, params["embed"], tokens)
+    consts = step_consts(cfg, cache, pos, page_table)
     layers = []
     for bc, p, c in zip(block_cfgs(cfg), params["layers"], cache["layers"]):
-        h, c = block_decode(cfg, bc, p, c, h, pos, page_table)
+        h, c = block_decode(cfg, bc, p, c, h, pos, page_table, consts)
         layers.append(c)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(cfg, params["embed"], params["unembed"], h)
@@ -194,10 +242,10 @@ def _filter_logits(logits, *, temperature: float, top_k: int,
     """Temperature / top-k / nucleus (top-p) filtering → f32 logits with the
     truncated entries at NEG. ``temperature`` must be > 0 here."""
     lg = logits.to(F32) / temperature
-    neg = torch.tensor(NEG, dtype=F32, device=lg.device)
+    # NEG as a scalar: no host-to-device copy, which graph capture forbids
     if top_k:
         kth = torch.topk(lg, top_k, dim=-1).values[..., -1:]
-        lg = torch.where(lg < kth, neg, lg)
+        lg = torch.where(lg < kth, NEG, lg)
     if top_p and top_p < 1.0:
         probs = torch.softmax(lg, dim=-1)
         srt = torch.sort(probs, dim=-1, descending=True).values
@@ -207,7 +255,7 @@ def _filter_logits(logits, *, temperature: float, top_k: int,
         n_keep = torch.sum((csum - srt < top_p).to(torch.int64), dim=-1,
                            keepdim=True)
         thr = torch.gather(srt, -1, n_keep - 1)
-        lg = torch.where(probs < thr, neg, lg)
+        lg = torch.where(probs < thr, NEG, lg)
     return lg
 
 
@@ -263,3 +311,30 @@ def _pack(active, toks, msks):
     then the post-quantum ``active`` — so a quantum costs one host read."""
     return torch.cat([toks.to(torch.int32), msks.to(torch.int32),
                       active[None].to(torch.int32)], dim=0)
+
+
+def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
+                   remaining, page_table, packed, *, num_steps: int,
+                   eos_id: int, max_len: int, temperature: float = 0.0,
+                   top_k: int = 0, top_p: float = 0.0, generator=None):
+    """:func:`decode_loop` IN PLACE: the carry goes back into ``tokens``,
+    ``pos``, ``active`` and ``remaining``, each Mamba-2 layer's new state
+    into the state tensors of ``cache`` (the page pools are written in
+    place as the loop runs), and the packed result (:func:`_pack`) into
+    ``packed`` (2·num_steps + 1, B) int32. Every tensor it reads or writes
+    is one it was given, so a CUDA graph of a call replays on the same
+    storage; the values are decode_loop's, bit for bit."""
+    carry, toks, msks = decode_loop(
+        cfg, params, cache, tokens, pos, active, remaining,
+        num_steps=num_steps, eos_id=eos_id, max_len=max_len,
+        page_table=page_table, temperature=temperature, top_k=top_k,
+        top_p=top_p, generator=generator)
+    new_cache, new_tokens, new_pos, new_active, new_remaining = carry
+    for layer, new in zip(cache["layers"], new_cache["layers"]):
+        for name, t in new.items():
+            if t is not layer[name]:           # Mamba-2 state; pools alias
+                layer[name].copy_(t)
+    packed.copy_(_pack(new_active, toks, msks))
+    for dst, src in ((tokens, new_tokens), (pos, new_pos),
+                     (active, new_active), (remaining, new_remaining)):
+        dst.copy_(src)

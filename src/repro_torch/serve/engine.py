@@ -13,7 +13,11 @@ at admit; their state scan would absorb pad tokens, so such models
 power-of-2 batch. The engine does not otherwise depend on the model
 family. Decode runs ``decode_quantum`` tokens per cycle with every piece
 of state on the device and exactly one device-to-host read per quantum
-(``_host_fetch``).
+(``_host_fetch``). On the card each quantum is one replay of a CUDA graph
+(``serve/graphs.py``), captured at the first quantum of each live
+page-table width, as the JAX engine jits its quantum once per width: the
+slot state, cache, page tables and result buffer are static tensors that
+every quantum updates in place.
 
 Admission follows the paper's scheduling law: the decode quantum is the
 fixed accelerator chunk ``S_f``; the prompt-token budget admitted per
@@ -42,7 +46,8 @@ from repro_torch.core.chunking import cpu_chunk
 from repro_torch.core.tracker import ThroughputTracker
 from repro_torch.kernels import _build
 from repro_torch.models.transformer import block_cfgs, check_supported
-from repro_torch.serve.decode import _pack, _sample_tokens, decode_loop
+from repro_torch.serve.decode import _sample_tokens, decode_quantum
+from repro_torch.serve.graphs import DecodeGraphs
 from repro_torch.serve.kv_cache import (cache_kinds, make_cache,
                                         paged_cache_defs)
 from repro_torch.serve.prefill import bucket_len, prefill
@@ -188,7 +193,8 @@ class Engine:
                  decode_quantum: int = 8, prefill_batch: int | None = None,
                  min_bucket: int = 16, page_size: int = 16,
                  num_pages: int | None = None, temperature: float = 0.0,
-                 top_k: int = 0, top_p: float = 0.0, sample_seed: int = 0):
+                 top_k: int = 0, top_p: float = 0.0, sample_seed: int = 0,
+                 graphs: bool | None = None):
         """Build a paged serving engine over an existing parameter tree
         (``params.init_params`` or ``params.params_from_numpy``) that lies
         on ``device`` (the card unless ``device="cpu"``).
@@ -201,9 +207,16 @@ class Engine:
         including the trash page 0 (default: every slot at full
         ``max_len``). ``temperature`` 0 decodes greedily, > 0 samples on
         the device with top-k / top-p truncation, from ``sample_seed``.
+        ``graphs`` (default: on the card) runs each decode quantum as one
+        replay of a CUDA graph per live page-table width; False runs the
+        eager loop, which the CPU always does (True there raises).
         """
         check_supported(cfg)
         self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError(f"CUDA graphs need the card; the engine is on "
+                             f"{self.device}")
         if params["embed"]["table"].device.type != self.device.type:
             raise ValueError(f"params lie on "
                              f"{params['embed']['table'].device}, the engine "
@@ -245,6 +258,8 @@ class Engine:
             max_slots=max_slots), dev)
         self.kinds = cache_kinds(cfg)
         self.page_table_dev = torch.tensor(self.alloc.table, device=dev)
+        # the live-width prefixes the quanta read, one static buffer each
+        self._tables = {self.pages_per_slot: self.page_table_dev}
         self._table_dirty = False
         self.pos_host = np.zeros(max_slots, np.int64)  # device-pos mirror
         self.slot_req: list[Optional[Request]] = [None] * max_slots
@@ -254,6 +269,7 @@ class Engine:
         self._last_admitted = 0
         self.quanta = 0                                # decode dispatches
         self.prefill_groups = 0                        # prefill dispatches
+        self.widths_used: Counter = Counter()          # quanta per width
         # device-resident decode state
         self.tokens_dev = torch.zeros(max_slots, dtype=torch.int32,
                                       device=dev)
@@ -261,10 +277,21 @@ class Engine:
         self.active_dev = torch.zeros(max_slots, dtype=torch.bool, device=dev)
         self.remaining_dev = torch.zeros(max_slots, dtype=torch.int32,
                                          device=dev)
+        # the quantum's packed result: tokens, masks, then active
+        self._packed = torch.zeros((2 * self.decode_quantum + 1, max_slots),
+                                   dtype=torch.int32, device=dev)
         self._gen = torch.Generator(device=dev).manual_seed(sample_seed)
         # independent stream for first-token sampling at prefill
         self._prefill_gen = torch.Generator(device=dev).manual_seed(
             sample_seed + 1)
+        use_graphs = on_card if graphs is None else graphs
+        self.graphs = DecodeGraphs(dev, self._gen) if use_graphs else None
+
+    @property
+    def decode_captures(self) -> int:
+        """Decode quanta that captured a graph (the JAX engine's compile
+        count probe): one per live page-table width used."""
+        return self.graphs.captures if self.graphs is not None else 0
 
     # ---- admission ---------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -360,24 +387,47 @@ class Engine:
 
     def _push_page_table(self) -> None:
         if self._table_dirty:
-            # torch.tensor copies: the host table keeps changing
-            self.page_table_dev = torch.tensor(self.alloc.table,
-                                               device=self.device)
+            # a blocking copy: the host table keeps changing
+            self.page_table_dev.copy_(torch.from_numpy(self.alloc.table))
             self._table_dirty = False
 
-    def _live_page_table(self, active_slots: list[int]) -> torch.Tensor:
+    def _live_width(self, active_slots: list[int]) -> int:
         """Page-table columns handed to the decode quantum: enough pages to
         cover every active slot through the quantum, rounded up to a power
         of two and floored at 8, as the JAX engine buckets them. The kernel
         reads no page past a slot's ``pos`` either way; a stale ``pos``
-        beyond the slice writes to the trash page (``_paged_write``)."""
+        beyond the slice writes to the trash page (``_paged_write``). A
+        model without a page pool reads no table: its quanta share the full
+        width, and so one graph."""
+        if "paged" not in self.kinds:
+            return self.pages_per_slot
         end = max(min(int(self.pos_host[i]) + self.decode_quantum,
                       self.max_len) for i in active_slots)
         n_live = max(-(-end // self.page_size), 8)
-        n_live = min(self.pages_per_slot, 1 << (n_live - 1).bit_length())
-        if n_live == self.pages_per_slot:
-            return self.page_table_dev
-        return self.page_table_dev[:, :n_live].contiguous()
+        return min(self.pages_per_slot, 1 << (n_live - 1).bit_length())
+
+    def _live_page_table(self, width: int) -> torch.Tensor:
+        """The static buffer of ``width`` columns, holding the live prefix
+        of the device page table (the full table is its own buffer)."""
+        buf = self._tables.get(width)
+        if buf is None:
+            buf = self._tables[width] = torch.empty(
+                (self.max_slots, width), dtype=torch.int32,
+                device=self.device)
+        if buf is not self.page_table_dev:
+            buf.copy_(self.page_table_dev[:, :width])
+        return buf
+
+    def _quantum(self, page_table: torch.Tensor) -> None:
+        """One decode quantum in place on the engine's static tensors (the
+        function a graph captures): the slot state, cache and packed
+        result are read from and written back to ``self``."""
+        decode_quantum(
+            self.cfg, self.params, self.cache, self.tokens_dev, self.pos_dev,
+            self.active_dev, self.remaining_dev, page_table, self._packed,
+            num_steps=self.decode_quantum, eos_id=self.eos_id,
+            max_len=self.max_len, temperature=self.temperature,
+            top_k=self.top_k, top_p=self.top_p, generator=self._gen)
 
     # ---- one engine cycle -------------------------------------------------
     def step(self) -> StepReport:
@@ -394,25 +444,26 @@ class Engine:
         self._grant_quantum_pages(active_slots)
         self._push_page_table()
         t0 = time.perf_counter()
-        carry, toks, msks = decode_loop(
-            self.cfg, self.params, self.cache, self.tokens_dev, self.pos_dev,
-            self.active_dev, self.remaining_dev,
-            num_steps=self.decode_quantum, eos_id=self.eos_id,
-            max_len=self.max_len,
-            page_table=self._live_page_table(active_slots),
-            temperature=self.temperature, top_k=self.top_k, top_p=self.top_p,
-            generator=self._gen)
-        (self.cache, self.tokens_dev, self.pos_dev, self.active_dev,
-         self.remaining_dev) = carry
-        packed_h = _host_fetch(_pack(self.active_dev, toks, msks))  # ONE sync
+        width = self._live_width(active_slots)
+        table = self._live_page_table(width)
+        captured = False
+        if self.graphs is None:
+            self._quantum(table)
+        else:
+            captured = self.graphs.run(width, lambda: self._quantum(table))
+        packed_h = _host_fetch(self._packed)           # the ONE sync
         dt = time.perf_counter() - t0
         self.quanta += 1
+        self.widths_used[width] += 1
         N = self.decode_quantum
         toks_h = packed_h[:N]
         msks_h = packed_h[N:2 * N].astype(bool)
         act_h = packed_h[-1].astype(bool)
         emitted = int(msks_h.sum())
-        if emitted:
+        # a quantum that captured does not measure decode speed: feeding it
+        # to the tracker would skew the admission ratio f (the JAX engine's
+        # warm rule)
+        if emitted and not captured:
             self.tracker.record("decode", emitted, dt)
         self.pos_host += msks_h.sum(axis=0)
         for q in range(N):

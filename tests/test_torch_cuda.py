@@ -224,6 +224,76 @@ def test_engine_on_card_matches_host(dev, arch):
     assert outs[0] == outs[1]
 
 
+def _graph_workload(cfg):
+    """tests/test_torch_serve.py's prompts at page size 4 and max_len 128:
+    the quanta take more than one page-table width."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in (4, 5, 9, 17, 18, 23, 63)]
+    return prompts, dict(max_slots=3, max_len=128, page_size=4,
+                         decode_quantum=4)
+
+
+def _serve_counted(cfg, params, device, prompts, kw, **extra):
+    """Serve ``prompts`` (6 tokens each) at a pinned admission ratio →
+    (streams, engine, change of every wrapper's launch count)."""
+    from repro_torch.serve import graphs
+    eng = Engine(cfg, tree_map(lambda t: t.to(device), params),
+                 device=device, **kw, **extra)
+    eng.tracker.f = lambda: 0.01
+    reqs = [Request(rid=i, prompt=p, max_new=6)
+            for i, p in enumerate(prompts)]
+    before = graphs.launch_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    eng.alloc.check()
+    delta = tuple(a - b for a, b in zip(graphs.launch_counts(), before))
+    return [r.out for r in reqs], eng, delta
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-236b",
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-130m"])
+def test_engine_graphs_match_eager_and_host(dev, arch):
+    """f32 smoke model: the engine's replayed CUDA graphs (one capture per
+    live page-table width) give the streams of its eager loop on the card
+    and of the host engine; the wrappers' launch counts of the graph run
+    (captures' warm-ups plus every replay's recorded launches) equal the
+    eager run's, which launches every kernel itself."""
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts, kw = _graph_workload(cfg)
+    host, _, _ = _serve_counted(cfg, params, "cpu", prompts, kw)
+    eager, e_eng, e_launch = _serve_counted(cfg, params, dev, prompts, kw,
+                                            graphs=False)
+    graph, g_eng, g_launch = _serve_counted(cfg, params, dev, prompts, kw)
+    assert e_eng.graphs is None and g_eng.graphs is not None
+    assert graph == eager == host
+    assert g_eng.decode_captures == len(g_eng.widths_used)
+    assert g_eng.widths_used == e_eng.widths_used
+    assert g_eng.quanta > g_eng.decode_captures
+    if "paged" in g_eng.kinds:
+        assert len(g_eng.widths_used) > 1
+    assert g_launch == e_launch and any(g_launch), (g_launch, e_launch)
+
+
+def test_engine_graphs_sampled_match_eager(dev):
+    """Sampled mistral smoke streams (temperature 0.8, top-k 50, one seed)
+    from replayed graphs equal the eager loop's: the registered generator
+    advances its Philox offset at each replay as the eager draws do."""
+    cfg = dataclasses.replace(smoke_config(get_config("mistral-nemo-12b")),
+                              param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts, kw = _graph_workload(cfg)
+    sampled = dict(temperature=0.8, top_k=50, sample_seed=3)
+    eager, _, _ = _serve_counted(cfg, params, dev, prompts, kw,
+                                 graphs=False, **sampled)
+    graph, eng, _ = _serve_counted(cfg, params, dev, prompts, kw, **sampled)
+    greedy, _, _ = _serve_counted(cfg, params, dev, prompts, kw)
+    assert eng.decode_captures > 1
+    assert graph == eager != greedy
+
+
 # ------------------------------------------------------------ grouped GEMM
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E,M,K,N", [(4, 8, 128, 64), (3, 13, 64, 136),
