@@ -7,21 +7,28 @@
 2. Builds the hand-written kernels from this checkout (nvcc, sm_90a, one
    process per source, all started together), and prints for each kernel
    built on the tensor cores and asynchronous copies (the flash forward at
-   its three head dims, the grouped GEMM's prefill and decode paths and
-   paged MLA decode: wgmma and TMA, HGMMA and UTMALDG; paged GQA decode:
-   mma.sync and cp.async, HMMA and LDGSTS) those instructions in the SASS
-   and its ptxas registers and spills; a count of 0 fails.
+   its four head dims, 256 included, the grouped GEMM's prefill and decode
+   paths and paged MLA decode: wgmma and TMA, HGMMA and UTMALDG; paged GQA
+   decode at dh 64, 128 and 256: mma.sync and cp.async, HMMA and LDGSTS)
+   those instructions in the SASS and its ptxas registers and spills; a
+   count of 0 fails.
 3. Holds each kernel against its plain PyTorch version at the main paths'
-   shapes (paged GQA and MLA decode, flash prefill at GQA and MLA head
-   dims, the grouped expert GEMM in bf16 and f32, the tiled GEMM on the hbb
+   shapes (paged GQA decode at mistral's dh 128 and gemma2-2b's dh 256 with
+   softcap 50, paged MLA decode, flash prefill at GQA and MLA head dims, at
+   gemma2-2b's dh 256 (window 4096, softcap 50) and h2o-danube-1.8b's dh
+   80, the grouped expert GEMM in bf16 and f32, the tiled GEMM on the hbb
    path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16 at
    each shape's plan, with the Table 2 sweep of bn, the SSD intra-chunk at
    mamba2-130m's shapes; the flash forward and the bf16 grouped GEMM also
-   bit-equal over two calls), and times kernel, plain version and the
+   bit-equal over two calls; attention outputs row by row against the
+   largest value of the row, a softcap with queries scaled so that the
+   scores pass it and the kernel without it shown to miss), and times
+   kernel, plain version and the
    PyTorch call that computes the same function, where there is one, with
    CUDA events; the paged decode kernels by their device time
-   (torch.profiler, one launch a call checked) beside the wrapper's event
-   time, with their route, splits and ptxas numbers.
+   (torch.profiler after a warm-up cycle, one launch a call checked in the
+   profile and by the wrapper's count) beside the wrapper's event time,
+   with their route, splits and ptxas numbers.
    Then the paper's experiment (Fig. 5): HBB ``parallel_for`` over the
    rows of a 1024² f32 GEMM with the card's kernel as the accelerator
    class and host threads as the core class, every result checked against
@@ -47,7 +54,20 @@
    decode check with depth cut to 2 layers; and for mamba2-130m at its
    published width and depth (exact-length prefill through the SSD
    kernel, per-slot state), with the f32 check at full depth.
-6. Training (the flash backward and the forward that saves lse): both
+6. nemotron-4-15b (non-gated squared-ReLU FFN, paged engine, the mistral
+   workload), gemma2-2b (paged engine at max_len 8192: 13 global layers in
+   the pool, 13 window-4096 rings, post-norm, softcaps; 8 prompts of
+   16-6000 tokens, two longer than the window) and h2o-danube-1.8b (the
+   dense engine, ``paged=False``, rings of 4096 on every layer; gemma2's
+   workload), each at published width and depth: once through CUDA graphs
+   and once through the eager loop (streams checked equal, one quantum of
+   each profiled), a check that gemma2's and danube's decode ran past
+   position 4096, and prefill → decode against a one-token-longer prefill
+   (nemotron's bf16 at full depth reported, gemma2's held to 3e-2 through
+   its paged layout; f32 at depth 2 held, past the window for gemma2 and
+   danube). Each model's weights are freed before the next. Every launch
+   counts for the one kernel entry whose paths hold the model.
+7. Training (the flash backward and the forward that saves lse): both
    kernels against their plain versions at the training shape (B=4,
    T=2048, 32 heads over 8, dh=128, causal, bf16; also f32 and window +
    softcap), timed beside the backward of ``scaled_dot_product_attention``;
@@ -58,7 +78,7 @@
    one profiled step; an f32 gradient check at full width (depth 2) of the
    kernels against autograd through the plain versions; and the training
    launcher at smoke size in a subprocess.
-7. Prints one JSON line {"kernels": [...]}, then as the last line
+8. Prints one JSON line {"kernels": [...]}, then as the last line
    {"ok": true, "device": {...}}. Any failed check exits non-zero without it.
 """
 from __future__ import annotations
@@ -71,6 +91,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -83,6 +104,9 @@ HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12,
                   "tf32": 495e12}
 BF16_TOL = 3e-2          # as tests/test_kernels.py for bf16
+# a bf16 attention output against the f32 reference: each row (query, head)
+# within 1e-2 of its largest |value| (bf16 rounds to 2^-9 of a value)
+ROW_TOL = 1e-2
 F32_REL_TOL = 1e-4       # grouped GEMM in f32, as tests/test_kernels.py
 FAILURES: list[str] = []
 # MoE capacity couples the rows of a prefill group, so two serve runs give
@@ -111,18 +135,54 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernels_ms(fn, calls: int = 1) -> dict[str, list]:
-    """``calls`` calls of ``fn`` under torch.profiler: {device kernel name:
-    [ms, launches]}, both per call."""
+# The profiler drops a kernel whose device timestamps, put on the host's
+# clock, fall outside the profile's window ("Out-of-range" in its log): a
+# kernel right at a profile's start or end. On an H100, 6 of 700 profiles
+# of one short kernel lost it so; none of 700 with the host and the card
+# idle for this long at each end.
+PROFILE_PAD_S = 0.02
+
+
+@contextmanager
+def device_profile(cpu: bool = False):
+    """torch.profiler over the block (CUDA, and CPU with ``cpu``), idle for
+    ``PROFILE_PAD_S`` before it and, after a synchronize, after it."""
     from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def kernels_ms(fn, calls: int = 1) -> tuple[dict[str, list], dict]:
+    """``calls`` calls of ``fn`` under :func:`device_profile` → ({device
+    kernel name: [ms, launches]}, {wrapper count of ``_counters``:
+    launches}), all per call and of the same calls."""
+    counters = _counters()
+
+    def counts():
+        return {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
+        n0 = counts()
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {k: [us / 1e3 / calls, n / calls]
-            for k, (us, n) in device_time(prof)[2].items()}
+    counted = {n: (c - n0[n]) / calls for n, c in counts().items()}
+    return ({k: [us / 1e3 / calls, n / calls]
+             for k, (us, n) in device_time(prof)[2].items()}, counted)
+
+
+def row_err(out, want) -> float:
+    """Largest error of an output row (the last dim) relative to the row's
+    largest |value| of the reference, over all rows."""
+    out, want = out.float(), want.float()
+    d = (out - want).abs().amax(-1)
+    return float((d / want.abs().amax(-1).clamp_min(1e-30)).max())
 
 
 def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -150,6 +210,11 @@ WGMMA_KERNELS = {
     "paged_attention_gqa": ("paged_attention", dict.fromkeys([
         f"paged_gqa_mma<{dh}, {cap}>" for dh in (64, 128) for cap in (0, 1)],
         ("HMMA", "LDGSTS"))),
+    "paged_attention_gqa_dh256": ("paged_attention", dict.fromkeys([
+        f"paged_gqa_mma<256, {cap}>" for cap in (0, 1)],
+        ("HMMA", "LDGSTS"))),
+    "flash_attention_fwd_dh256": ("flash_attention", {
+        "flash_fwd_wgmma<256, 256>": WGMMA}),
     "paged_attention_mla": ("paged_attention", dict.fromkeys([
         "paged_mla_wgmma<512>", "paged_mla_wgmma<576>"], WGMMA)),
     "ssd_intra_chunk": ("ssd", {"ssd_mma": ("HMMA", "LDGSTS")}),
@@ -177,19 +242,23 @@ def sass_phase() -> dict[str, dict]:
     return out
 
 
-def paged_call(fn, kernel: str, n_bytes: float, n_ops: float) -> dict:
+def paged_call(fn, kernel: str, counter: str, n_bytes: float,
+               n_ops: float) -> dict:
     """Device and event times of a paged decode call and its kernel's
     ptxas numbers: device ms per call from torch.profiler (20 calls; one
-    launch of ``kernel`` each, nothing else on the card, checked), event ms
+    launch of ``kernel`` each, nothing else on the card, and one launch
+    each by the wrapper's count ``counter``, checked), event ms
     of the wrapper (50 calls back to back: the host's cost where it exceeds
     the device's), GB/s and TFLOP/s on the device time."""
     from repro_torch.kernels import _build
-    by_name = kernels_ms(fn, 20)
+    by_name, counted = kernels_ms(fn, 20)
     dev = sum(t for t, _ in by_name.values())
     one = len(by_name) == 1 and all(n == 1 and kernel in name
                                     for name, (_, n) in by_name.items())
-    check(one, f"{kernel}: one launch per call, nothing else on the card "
-          f"({ {k[:60]: n for k, (_, n) in by_name.items()} })")
+    check(one and counted[counter] == 1, f"{kernel}: one launch per call, "
+          f"nothing else on the card "
+          f"({ {k[:60]: n for k, (_, n) in by_name.items()} }; counted "
+          f"{counted[counter]})")
     label = _build.kernel_label(next(iter(by_name)))
     regs = _build.ptxas_stats("paged_attention").get(label, {})
     return {"kernel": label, "device_ms": dev,
@@ -198,38 +267,59 @@ def paged_call(fn, kernel: str, n_bytes: float, n_ops: float) -> dict:
 
 
 # ------------------------------------------------------------ paged decode
-def paged_phase(dev) -> dict:
+def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
+                    max_len: int, caps: tuple, cap: float, pos_head: list,
+                    paths: list) -> dict:
+    """Paged GQA decode at B=8, 16-token pages, a ``max_len``-key table:
+    held against the plain version for each (softcap, gain) of ``caps``
+    (q scaled by gain: unit inputs give scores of std ~1, which a softcap of
+    30 or 50 barely bends, so a softcap is held where scores reach it, and
+    the kernel without it must miss), timed at ``cap`` (device time; one
+    launch a call checked), and SDPA on the gathered K/V with the same keys
+    live (``sdpa_gathered_ms``; not a library time: SDPA neither reads a
+    page table nor returns partials)."""
     from repro_torch.kernels.paged_attention import ops, ref
-    B, hkv, grp, dh, ps, max_len = 8, 8, 4, 128, 16, 4096
+    B, ps = 8, 16
     T = max_len // ps
     N = 1 + B * T
     rng = np.random.default_rng(0)
     dt = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn((B, hkv, grp, dh), generator=g, device=dev).to(dt)
+    q32 = torch.randn((B, hkv, grp, dh), generator=g, device=dev)
+    q = q32.to(dt)
     pk = torch.randn((N, ps, hkv, dh), generator=g, device=dev).to(dt)
     pv = torch.randn((N, ps, hkv, dh), generator=g, device=dev).to(dt)
     table = torch.tensor(1 + rng.permutation(N - 1).reshape(B, T),
                          dtype=torch.int32, device=dev)
-    pos_h = np.concatenate([[max_len - 1, 0, ps - 1, ps],
-                            rng.integers(1, max_len, B - 4)])
+    pos_h = np.concatenate([pos_head,
+                            rng.integers(1, max_len, B - len(pos_head))])
     pos = torch.tensor(pos_h, dtype=torch.int32, device=dev)
     scale = dh ** -0.5
     err = 0.0
-    for softcap in (0.0, 30.0):
-        o, m, l = ops.paged_attend_gqa(q, pk, pv, table, pos, 0,
-                                       page_size=ps, scale=scale,
-                                       softcap=softcap)
+    for softcap, gain in caps:
+        qg = (q32 * gain).to(dt)
+        kw = dict(page_size=ps, scale=scale)
+        o, m, l = ops.paged_attend_gqa(qg, pk, pv, table, pos, 0,
+                                       softcap=softcap, **kw)
         o_r, m_r, l_r = ref.paged_flash_decode_gqa_ref(
-            q, pk, pv, table, pos, 0, page_size=ps, scale=scale,
-            softcap=softcap)
-        e = float((o / l[..., None] - o_r / l_r[..., None]).abs().max())
+            qg, pk, pv, table, pos, 0, softcap=softcap, **kw)
+        want = o_r / l_r[..., None]
+        e = row_err(o / l[..., None], want)
         e_m = float((m - m_r).abs().max())
         e_l = float(((l - l_r).abs() / l_r).max())
-        err = max(err, e)
+        err = max(err, float((o / l[..., None] - want).abs().max()))
         check(e <= 1e-3 and e_m <= 1e-3 and e_l <= 1e-3,
-              f"paged decode softcap={softcap}: |o/l - ref| {e:.3g}, "
-              f"|m - ref| {e_m:.3g}, rel |l - ref| {e_l:.3g} (tol 1e-3)")
+              f"paged decode dh={dh} G={grp} softcap={softcap} q x {gain}: "
+              f"|o/l - ref| {e:.3g} of the row's largest, |m - ref| "
+              f"{e_m:.3g}, rel |l - ref| {e_l:.3g} (tol 1e-3)")
+        if softcap and gain > 1:
+            o0, _, l0 = ops.paged_attend_gqa(qg, pk, pv, table, pos, 0,
+                                             softcap=0.0, **kw)
+            e0 = row_err(o0 / l0[..., None], want)
+            check(e0 > 1e-3, f"paged decode dh={dh} softcap={softcap} q x "
+                  f"{gain}: the kernel without the softcap misses the "
+                  f"reference by {e0:.3g} of a row's largest (> tol 1e-3): "
+                  "the scores reach the cap")
     keys = int((pos_h + 1).sum())               # positions ≤ pos per slot
     n_bytes = (q.numel() * 2 + 2 * keys * hkv * dh * 2
                + 4 * int(sum(-(-(p + 1) // ps) for p in pos_h)) + 4 * B
@@ -239,30 +329,71 @@ def paged_phase(dev) -> dict:
     route = ops.gqa_route(dt, grp, dh)
     splits, chunk = ops.split_plan(T, ps, ops.GQA_PLAN)
     call = paged_call(lambda: ops.paged_attend_gqa(
-        q, pk, pv, table, pos, 0, page_size=ps, scale=scale),
-        "paged_gqa", n_bytes, n_ops)
+        q, pk, pv, table, pos, 0, page_size=ps, scale=scale, softcap=cap),
+        "paged_gqa", "paged_attention_gqa", n_bytes, n_ops)
     ms = call["device_ms"]
     plain = time_ms(lambda: ref.paged_flash_decode_gqa_ref(
-        q, pk, pv, table, pos, 0, page_size=ps, scale=scale), 10)
+        q, pk, pv, table, pos, 0, page_size=ps, scale=scale, softcap=cap),
+        10)
+    # SDPA over the gathered (B, Hkv, max_len, dh) K/V, keys <= pos live
+    kg = pk[table.long()].reshape(B, max_len, hkv, dh).permute(0, 2, 1, 3)
+    vg = pv[table.long()].reshape(B, max_len, hkv, dh).permute(0, 2, 1, 3)
+    kg, vg = kg.contiguous(), vg.contiguous()
+    qs = q.reshape(B, hkv * grp, 1, dh)
+    live = (torch.arange(max_len, device=dev)[None] <= pos[:, None].long())
+    mask = live[:, None, None, :]
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True), 20)
+    del kg, vg
     print(f"paged decode B={B} Hkv={hkv} G={grp} dh={dh} ps={ps} "
-          f"pos={pos_h.tolist()}: route {route} ({call['kernel']}), "
-          f"{splits} splits of {chunk} keys: device {ms:.4f} ms "
-          f"({call['GB_s']:.1f} GB/s), event {call['event_ms']:.4f} ms a "
-          f"call, plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-          f"ptxas {call.get('registers')} registers, "
+          f"softcap={cap} table {max_len} keys pos={pos_h.tolist()}: route "
+          f"{route} ({call['kernel']}), {splits} splits of {chunk} keys: "
+          f"device {ms:.4f} ms ({call['GB_s']:.1f} GB/s), event "
+          f"{call['event_ms']:.4f} ms a call, plain {plain:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}), sdpa on the gathered K/V "
+          f"{sdpa:.4f} ms; ptxas {call.get('registers')} registers, "
           f"{call.get('spill_stores')} B spill stores, "
           f"{call.get('spill_loads')} B spill loads")
-    return {"name": "paged_attention_gqa", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-            "replaces": "src/repro/kernels/paged_attention/"
-                        "paged_attention.py:161",
-            "max_abs_err": err, "tol": 1e-3, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "paged": {"route": route, "splits": splits, "chunk": chunk,
-                      **call},
-            "check": "o/l, m, l against paged_flash_decode_gqa_ref, bf16 "
-                     "pools, mixed pos up to 4095, softcap 0 and 30; ms is "
-                     "the device time"}
+    entry = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention/"
+                         "paged_attention.py:161",
+             "counter": "paged_attention_gqa",
+             "max_abs_err": err, "tol": 1e-3, "ms": ms, "plain_ms": plain,
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+             "sdpa_gathered_ms": sdpa,
+             "paged": {"route": route, "splits": splits, "chunk": chunk,
+                       **call},
+             "paths": paths,
+             "check": f"o/l (each row within 1e-3 of its largest value), m, "
+                      f"l against paged_flash_decode_gqa_ref, bf16 pools, "
+                      f"B=8 Hkv={hkv} G={grp} dh={dh}, mixed pos up to "
+                      f"{max_len - 1}, (softcap, q gain) {caps}, and with a "
+                      f"gain the kernel without its softcap missing; "
+                      f"max_abs_err is |o/l - ref|; ms is the device time "
+                      f"at softcap {cap}"}
+    return entry
+
+
+def paged_phase(dev) -> dict:
+    """mistral-nemo-12b's decode shape: Hkv=8, G=4, dh=128, a 4096-key
+    table; checked at softcap 0 and 30 (scores to ~±100), timed at 0. Its
+    launches are mistral's and nemotron-4-15b's (dh 128)."""
+    return paged_gqa_entry(dev, name="paged_attention_gqa", hkv=8, grp=4,
+                           dh=128, max_len=4096, caps=((0.0, 1), (30.0, 25)),
+                           cap=0.0, pos_head=[4095, 0, 15, 16],
+                           paths=["mistral-nemo-12b", "nemotron-4-15b"])
+
+
+def paged256_phase(dev) -> dict:
+    """gemma2-2b's global-layer decode: Hkv=4, G=2, dh=256, softcap 50, an
+    8192-key table; checked at softcap 0 and 50 (unit scores and scores to
+    ~±120), timed at 50. Its launches are gemma2's."""
+    return paged_gqa_entry(dev, name="paged_attention_gqa_dh256", hkv=4,
+                           grp=2, dh=256, max_len=8192,
+                           caps=((0.0, 1), (50.0, 1), (50.0, 30)),
+                           cap=50.0, pos_head=[8191, 0, 15, 16, 4095, 4096],
+                           paths=["gemma2-2b"])
 
 
 # ------------------------------------------------------------ flash prefill
@@ -270,21 +401,24 @@ def flash_phase(dev) -> dict:
     """GQA prefill shapes of mistral-nemo-12b (B=8, H=32, Hkv=8, dh=128) and
     the MLA prefill shape of deepseek-v2-236b (H=128, G=1, q/k dim 192 =
     nope 128 + rope 64, v dim 128, v a strided slice as prefill passes
-    it)."""
+    it). Each output row within ``ROW_TOL`` of its largest value of the f32
+    reference; the softcap case with q scaled by 20 (scores to ~±80, past
+    the cap of 30), where the kernel without its softcap must miss."""
     from repro_torch.kernels.flash_attention import ops, ref
     dt = torch.bfloat16
     err, main, mla = 0.0, None, None
-    for B, H, Hk, dh, dv, T, causal, window, softcap in (
-            (8, 32, 8, 128, 128, 1024, True, 0, 0.0),
-            (8, 32, 8, 128, 128, 2048, True, 0, 0.0),
-            (8, 32, 8, 128, 128, 1024, True, 256, 30.0),
-            (8, 32, 8, 128, 128, 1000, True, 0, 0.0),
-            (8, 32, 8, 64, 64, 1024, True, 0, 0.0),
-            (8, 128, 128, 192, 128, 1024, True, 0, 0.0)):
+    for B, H, Hk, dh, dv, T, causal, window, softcap, gain in (
+            (8, 32, 8, 128, 128, 1024, True, 0, 0.0, 1),
+            (8, 32, 8, 128, 128, 2048, True, 0, 0.0, 1),
+            (8, 32, 8, 128, 128, 1024, True, 256, 30.0, 20),
+            (8, 32, 8, 128, 128, 1000, True, 0, 0.0, 1),
+            (8, 32, 8, 64, 64, 1024, True, 0, 0.0, 1),
+            (8, 128, 128, 192, 128, 1024, True, 0, 0.0, 1)):
         scale = dh ** -0.5
         g = torch.Generator(device=dev).manual_seed(T + window + dh)
         # the prefill's layout: (B, T, heads, d) memory, head-major views
-        q = torch.randn((B, T, H, dh), generator=g, device=dev).to(dt)
+        q = (gain * torch.randn((B, T, H, dh), generator=g,
+                                device=dev)).to(dt)
         k = torch.randn((B, T, Hk, dh), generator=g, device=dev).to(dt)
         if dv == dh:
             v = torch.randn((B, T, Hk, dv), generator=g, device=dev).to(dt)
@@ -293,17 +427,10 @@ def flash_phase(dev) -> dict:
                             device=dev).to(dt)[..., 128:]
         qv, kv, vv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
         kw = dict(scale=scale, causal=causal, window=window, softcap=softcap)
-        out = ops.attend(qv, kv, vv, **kw)
-        same = torch.equal(out, ops.attend(qv, kv, vv, **kw))
-        want = ref.flash_attention_ref(qv, kv, vv, **kw)
-        e = float((out.float() - want.float()).abs().max())
-        err = max(err, e)
         route = ops.fwd_route(dt, dh, dv, True)
-        check(e <= BF16_TOL and same, f"flash ({route}) H={H} dh={dh} "
-              f"dv={dv} T={T} causal={causal} window={window} "
-              f"softcap={softcap}: max |out - ref| {e:.3g} (tol {BF16_TOL}), "
-              f"two calls bit-equal {same}")
-        del want
+        what = (f"flash ({route}) H={H} dh={dh} dv={dv} T={T} causal="
+                f"{causal} window={window} softcap={softcap} q x {gain}")
+        err = max(err, check_flash(ops, ref, qv, kv, vv, kw, gain, what))
         rows = np.arange(T)
         lo = np.maximum(0, rows - window + 1) if window else np.zeros(T)
         hi = rows if causal else np.full(T, T - 1)
@@ -332,21 +459,154 @@ def flash_phase(dev) -> dict:
             mla = {"shape": f"B={B} H={H} dqk={dh} dv={dv} T={T} causal",
                    "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
                    "bound_by": b_by, "library_ms": lib}
-        del q, k, v, qv, kv, vv, out
+        del q, k, v, qv, kv, vv
         torch.cuda.empty_cache()
     ms, plain, b_ms, b_by, lib = main
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:92",
-            "max_abs_err": err, "tol": BF16_TOL, "ms": ms, "plain_ms": plain,
+            "paths": ["mistral-nemo-12b", "deepseek-v2-236b",
+                      "nemotron-4-15b"],
+            "max_abs_err": err, "tol": ROW_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "mla": mla,
-            "check": "out against flash_attention_ref, bf16, B=8 H=32 Hkv=8 "
-                     "dh=128: T=1024/2048 causal, window 256 + softcap 30, "
-                     "ragged T=1000; dh=64 T=1024 causal; B=8 H=128 dqk=192 "
+            "check": "out (bf16) against flash_attention_ref in f32, each "
+                     "row within 1e-2 of its largest value; max_abs_err is "
+                     "|out - ref|: B=8 H=32 Hkv=8 dh=128: T=1024/2048 "
+                     "causal, window 256 + softcap 30 with q x 20 (the "
+                     "kernel without its softcap must miss), ragged "
+                     "T=1000; dh=64 T=1024 causal; B=8 H=128 dqk=192 "
                      "dv=128 T=1024 causal; two calls bit-equal at each; "
                      "times at B=8 H=32 T=1024 causal (mla: the MLA shape)"}
+
+
+def check_flash(ops, ref, qv, kv, vv, kw, gain, what: str) -> float:
+    """The flash forward (bf16) on q, k, v against the plain version in
+    f32: each output row within ``ROW_TOL`` of its largest value, two calls
+    bit-equal; with a softcap and q scaled up (scores past the cap), the
+    kernel without the softcap must miss by more than the tolerance.
+    Returns max |out - ref|."""
+    out = ops.attend(qv, kv, vv, **kw)
+    same = torch.equal(out, ops.attend(qv, kv, vv, **kw))
+    want = ref.flash_attention_ref(qv.float(), kv.float(), vv.float(), **kw)
+    e = row_err(out, want)
+    check(e <= ROW_TOL and same, f"{what}: |out - ref| {e:.3g} of the "
+          f"row's largest (tol {ROW_TOL}), two calls bit-equal {same}")
+    if kw["softcap"] and gain > 1:
+        e0 = row_err(ops.attend(qv, kv, vv, **{**kw, "softcap": 0.0}), want)
+        check(e0 > ROW_TOL, f"{what}: the kernel without the softcap misses "
+              f"the reference by {e0:.3g} of a row's largest (> tol "
+              f"{ROW_TOL}): the scores reach the cap")
+    e_abs = float((out.float() - want).abs().max())
+    del out, want
+    torch.cuda.empty_cache()
+    return e_abs
+
+
+# ------------------------------------- flash prefill at head dims 256 and 80
+def _band_mask(T: int, window: int, dev):
+    """(T, T) bool: key <= row, and key > row - window when windowed."""
+    i = torch.arange(T, device=dev)[:, None]
+    j = torch.arange(T, device=dev)[None, :]
+    ok = j <= i
+    return ok & (j > i - window) if window else ok
+
+
+def flash_dims_entry(dev, *, name: str, H: int, Hk: int, d: int,
+                     cases: tuple, paths: list) -> dict:
+    """The flash forward at head dim ``d`` (= dv): each case (B, T, window,
+    softcap, q gain) held by :func:`check_flash`; the first case also
+    timed (CUDA events) beside the plain
+    version and ``scaled_dot_product_attention`` with the same mask (SDPA
+    has no softcap: it computes the masked softmax without it)."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    dt = torch.bfloat16
+    err, timed = 0.0, None
+    for B, T, window, softcap, gain in cases:
+        g = torch.Generator(device=dev).manual_seed(T + window + d)
+        q = (gain * torch.randn((B, T, H, d), generator=g,
+                                device=dev)).to(dt)
+        k = torch.randn((B, T, Hk, d), generator=g, device=dev).to(dt)
+        v = torch.randn((B, T, Hk, d), generator=g, device=dev).to(dt)
+        qv, kv, vv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+        kw = dict(scale=d ** -0.5, causal=True, window=window,
+                  softcap=softcap)
+        route = ops.fwd_route(dt, d, d, True)
+        err = max(err, check_flash(
+            ops, ref, qv, kv, vv, kw, gain, f"flash ({route}) B={B} H={H} "
+            f"Hkv={Hk} dh=dv={d} T={T} window={window} softcap={softcap} "
+            f"q x {gain}"))
+        if timed is None:
+            rows = np.arange(T)
+            lo = np.maximum(0, rows - window + 1) if window else np.zeros(T)
+            pairs = int((rows - lo + 1).sum())
+            n_ops = 4 * d * pairs * B * H
+            n_bytes = 2 * B * T * (2 * H * d + 2 * Hk * d)
+            b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
+            ms = time_ms(lambda: ops.attend(qv, kv, vv, **kw), 10)
+            plain = time_ms(lambda: ref.flash_attention_ref(qv, kv, vv,
+                                                            **kw), 2, 1)
+            qc, kc, vc = qv.contiguous(), kv.contiguous(), vv.contiguous()
+            if window and window < T:
+                mask = _band_mask(T, window, dev)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    qc, kc, vc, attn_mask=mask, scale=d ** -0.5,
+                    enable_gqa=Hk != H), 10)
+            else:                   # the band is the causal mask
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    qc, kc, vc, is_causal=True, scale=d ** -0.5,
+                    enable_gqa=Hk != H), 10)
+            del qc, kc, vc
+            print(f"flash ({route}) B={B} H={H} Hkv={Hk} dh=dv={d} T={T} "
+                  f"window={window} softcap={softcap}: kernel {ms:.4f} ms, "
+                  f"plain {plain:.4f} ms, sdpa (same mask, no softcap) "
+                  f"{lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                  f"{n_ops / ms / 1e9:.2f} TFLOP/s")
+            timed = (ms, plain, b_ms, b_by, lib, route,
+                     f"B={B} H={H} Hkv={Hk} dh=dv={d} T={T} "
+                     f"window={window} softcap={softcap}")
+        del q, k, v, qv, kv, vv
+        torch.cuda.empty_cache()
+    ms, plain, b_ms, b_by, lib, route, shape = timed
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:92",
+            "counter": "flash_attention_fwd", "paths": paths,
+            "kernel_route": route,
+            "max_abs_err": err, "tol": ROW_TOL, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "check": "out (bf16) against flash_attention_ref in f32, each "
+                     "row within 1e-2 of its largest value (max_abs_err is "
+                     "|out - ref|), causal, cases (B, T, window, softcap, q "
+                     "gain) " + str(list(cases)) + "; with a softcap and a "
+                     "gain the kernel without its softcap must miss; two "
+                     "calls bit-equal; times at " + shape +
+                     "; library: scaled_dot_product_attention with the same "
+                     "mask, no softcap"}
+
+
+def flash256_phase(dev) -> dict:
+    """gemma2-2b's prefill: 8 heads over 4, dh = dv = 256, softcap 50,
+    window 4096 on the local layers; the wgmma route (64-key tiles); q
+    scaled by 30 in two cases (scores to ~±120, past the cap). Its launches
+    are gemma2's."""
+    return flash_dims_entry(
+        dev, name="flash_attention_fwd_dh256", H=8, Hk=4, d=256,
+        cases=((8, 4096, 4096, 50.0, 1), (2, 8192, 4096, 50.0, 30),
+               (2, 8192, 0, 50.0, 30), (2, 1000, 300, 0.0, 1)),
+        paths=["gemma2-2b"])
+
+
+def flash80_phase(dev) -> dict:
+    """h2o-danube-1.8b's prefill: 32 heads over 8, dh = dv = 80, window
+    4096; the CUDA-core route. Its launches are danube's."""
+    return flash_dims_entry(
+        dev, name="flash_attention_fwd_dh80", H=32, Hk=8, d=80,
+        cases=((2, 4096, 4096, 0.0, 1), (1, 8192, 4096, 0.0, 1),
+               (2, 1000, 300, 0.0, 1)),
+        paths=["h2o-danube-1.8b"])
 
 
 # ------------------------------------------------ flash backward (training)
@@ -421,7 +681,7 @@ def flash_bwd_phase(dev) -> list[dict]:
         del again
         passes = {}
         for name, (ms, n) in kernels_ms(lambda: ops.attend_bwd(
-                qv, kv, vv, o, lse, dov, **kw)).items():
+                qv, kv, vv, o, lse, dov, **kw))[0].items():
             key = ("dq pass" if "bwd_dq" in name else "dk/dv pass"
                    if "bwd_dkv" in name else "delta" if "delta" in name
                    else name[:40])
@@ -476,6 +736,7 @@ def flash_bwd_phase(dev) -> list[dict]:
                         "flash_attention_bwd.cu" if name.endswith("bwd")
                         else "flash_attention.cu"),
                     "replaces": "src/repro/kernels/flash_attention/" + replaces,
+                    "paths": ["train"],
                     "max_abs_err": err, "tol": tol, "ms": ms,
                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib, "check": f"{chk}; times at {shape}"})
@@ -528,7 +789,8 @@ def mla_phase(dev) -> dict:
     route = ops.mla_route(dt, H, R, lora, ps)
     splits, chunk = ops.split_plan(T, ps, ops.MLA_PLAN)
     call = paged_call(lambda: ops.paged_attend_mla(
-        q, pool, table, pos, 0, **kw), "paged_mla", n_bytes, n_ops)
+        q, pool, table, pos, 0, **kw), "paged_mla", "paged_attention_mla",
+        n_bytes, n_ops)
     ms = call["device_ms"]
     plain = time_ms(lambda: ref.paged_flash_decode_mla_ref(
         q, pool, table, pos, 0, **kw), 10)
@@ -545,6 +807,7 @@ def mla_phase(dev) -> dict:
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention/"
                         "paged_attention.py:213",
+            "paths": ["deepseek-v2-236b"],
             "max_abs_err": err, "tol": 1e-3, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "paged": {"route": route, "splits": splits, "chunk": chunk,
@@ -622,6 +885,7 @@ def gg_phase(dev) -> dict:
     return {"name": "grouped_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
             "replaces": "src/repro/kernels/grouped_gemm/grouped_gemm.py:34",
+            "paths": ["deepseek-v2-236b"],
             "max_abs_err": err, "tol": BF16_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "decode": decode,
@@ -667,7 +931,7 @@ def gemm_phase(dev) -> dict:
         ms = time_ms(lambda: ops.gemm(a, b), iters)
         plain = time_ms(lambda: ref.gemm_ref(a, b), iters)
         lib = time_ms(lambda: torch.matmul(a, b), iters)
-        dev_ms = sum(t for t, _ in kernels_ms(lambda: ops.gemm(a, b))
+        dev_ms = sum(t for t, _ in kernels_ms(lambda: ops.gemm(a, b))[0]
                      .values())
         print(f"gemm {label} {dt} plan {pl}: kernel {ms:.4f} ms "
               f"({n_ops / ms / 1e9:.2f} TFLOP/s; device {dev_ms:.4f} ms), "
@@ -720,7 +984,7 @@ def gemm_phase(dev) -> dict:
     return {"name": "gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gemm.cu",
             "replaces": "src/repro/kernels/gemm/gemm.py:39",
-            "tol": tols[torch.float32],
+            "paths": ["hbb"], "tol": tols[torch.float32],
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
             "max_abs_err": max(c["max_abs_err"] for c in chunks),
@@ -798,10 +1062,12 @@ def ssd_phase(dev) -> dict:
         check(e <= 1e-4 and same, f"ssd intra-chunk ({route}) G={G}x24 "
               f"Q={Q} P={P} N={N}: relative max error of y and st {e:.3g} "
               f"(tol 1e-4), two calls bit-equal {same}")
-        by_name = kernels_ms(lambda: ops.intra_chunk(*args), 20)
+        by_name, counted = kernels_ms(lambda: ops.intra_chunk(*args), 20)
         check(len(by_name) == 1 and all(n == 1 and "ssd_" in k for k, (
-            _, n) in by_name.items()), f"ssd intra-chunk G={G} Q={Q}: one "
-              "launch a call, nothing else on the card")
+            _, n) in by_name.items()) and counted["ssd_intra_chunk"] == 1,
+              f"ssd intra-chunk G={G} Q={Q}: one launch a call, nothing "
+              f"else on the card ({ {k[:40]: n for k, (_, n) in by_name.items()} }"
+              f"; counted {counted['ssd_intra_chunk']})")
         ms = sum(t for t, _ in by_name.values())
         event = time_ms(lambda: ops.intra_chunk(*args), 20)
         plain = time_ms(lambda: ref.ssd_intra_chunk_ref(*args), 5)
@@ -831,6 +1097,7 @@ def ssd_phase(dev) -> dict:
     return {"name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/ssd.py:46",
+            "paths": ["mamba2-130m"],
             "max_abs_err": err, "tol": 1e-4, "ms": main["device_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
@@ -868,10 +1135,8 @@ def hbb_phase(dev, entries) -> None:
     ops.launches = 0
     rows = hetero_gemm.fig5(GEMM_N_MAIN, ncc, FPGA_CHUNK_SWEEP, device=dev)
     n = ops.launches
+    _add_launches(entries, {"gemm": n}, "hbb", ["gemm"])
     gemm = next(e for e in entries if e["name"] == "gemm")
-    gemm["launches"] = n
-    gemm["launches_by_path"] = {"hbb": n}
-    check(n > 0, f"gemm launched on the hbb path ({n} times)")
     check(all(r.ok for r in rows), f"Fig. 5 at {GEMM_N_MAIN}²: every "
           "config's C equals the plain product (relative max error ≤ 1e-5)")
     t_off, t_het, red = hetero_gemm.reduction(rows)
@@ -951,7 +1216,8 @@ def serve_run(eng, cfg, lens, prompts, max_new: int):
     caps = eng.decode_captures - c0
     cap_s = (eng.graphs.capture_seconds if eng.graphs else 0.0) - cs0
     widths = dict(sorted((Counter(eng.widths_used) - w0).items()))
-    mode = "graphs" if eng.graphs else "eager"
+    mode = ("graphs" if eng.graphs else "eager") + \
+        ("" if eng.paged else ", dense")
     print(f"serve {cfg.name} ({mode}): {len(reqs)} requests, prompt lengths "
           f"{lens.tolist()}, max_new {max_new}: wall {wall:.3f} s, prefill "
           f"{pre:.3f} s over {eng.prefill_groups - g0} groups "
@@ -962,15 +1228,33 @@ def serve_run(eng, cfg, lens, prompts, max_new: int):
           f"{widths}; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
           f"{launches}")
-    eng.alloc.check()
-    check(len(eng.alloc.free) == eng.alloc.usable_pages,
-          f"{cfg.name} ({mode}): page pool whole and every page free after "
-          "the run")
+    if eng.paged:
+        eng.alloc.check()
+        check(len(eng.alloc.free) == eng.alloc.usable_pages,
+              f"{cfg.name} ({mode}): page pool whole and every page free "
+              "after the run")
     return reqs, launches
 
 
+def _add_launches(entries, launches, where: str, path) -> None:
+    """Add a run's launch counts to the kernel entries whose ``paths`` hold
+    ``where`` (an entry counts the wrapper count it names in ``counter``,
+    else its own; one wrapper count serves several entries, each for the
+    head dims of its own paths, so every launch is counted once) and check
+    that every kernel of ``path`` was launched on ``where``."""
+    for e in entries:
+        if where not in e["paths"]:
+            continue
+        n = launches[e.get("counter", e["name"])]
+        e.setdefault("launches_by_path", {})[where] = n
+        e["launches"] = e.get("launches", 0) + n
+        if e["name"] in path:
+            check(n > 0, f"{e['name']} launched on the {where} path "
+                  f"({n} times)")
+
+
 def serve_twice(eng, cfg, lens, prompts, max_new: int, path: list[str],
-                entries: list[dict]) -> list[list[int]]:
+                entries: list[dict], twice: bool = True) -> list[list[int]]:
     """Serve one workload twice through ``eng`` (with CUDA graphs: one
     capture per live page-table width, replays after). Checks: every
     request finishes with in-vocabulary tokens, the pool is whole after
@@ -989,13 +1273,9 @@ def serve_twice(eng, cfg, lens, prompts, max_new: int, path: list[str],
     check(eng.decode_captures == len(eng.widths_used),
           f"{cfg.name}: one graph capture per live page-table width "
           f"({eng.decode_captures} for {sorted(eng.widths_used)})")
-    for e in entries:
-        n = launches[e["name"]]
-        e.setdefault("launches_by_path", {})[cfg.name] = n
-        e["launches"] = e.get("launches", 0) + n
-        if e["name"] in path:
-            check(n > 0, f"{e['name']} launched on the {cfg.name} path "
-                  f"({n} times)")
+    _add_launches(entries, launches, cfg.name, path)
+    if not twice:
+        return [r.out for r in reqs]
     again, _ = serve_run(eng, cfg, lens, prompts, max_new)
     check([r.out for r in again] == [r.out for r in reqs],
           f"{cfg.name}: a second run of the workload gives the same streams")
@@ -1208,7 +1488,6 @@ def profile_phase(eng, cfg) -> None:
     device time; the paged kernels the profiler saw equal the launches
     their wrappers counted in that quantum (with graphs, what the replay
     added)."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.paged_attention import ops as paged_ops
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(1)
@@ -1221,8 +1500,7 @@ def profile_phase(eng, cfg) -> None:
     torch.cuda.synchronize()
     c0 = eng.decode_captures
     n0 = paged_ops.launches + paged_ops.mla_launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=True) as prof:
         t = time.perf_counter()
         rep = eng.step()
         torch.cuda.synchronize()
@@ -1256,7 +1534,6 @@ def prefill_profile(cfg, params, prompt, dev) -> dict:
     unprofiled run of it. Prints its wall time, the device busy share, the
     SSD kernel's device ms and launches (one a Mamba-2 layer) and the
     kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.serve.prefill import prefill
     toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
@@ -1268,8 +1545,7 @@ def prefill_profile(cfg, params, prompt, dev) -> dict:
     run()
     torch.cuda.synchronize()
     n0 = ssd_ops.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=True) as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1289,24 +1565,34 @@ def prefill_profile(cfg, params, prompt, dev) -> dict:
             "ssd_ms": ssd_us / 1e3, "ssd_launches": launches}
 
 
-def prefill_decode_rel(cfg, params, dev) -> float:
-    """prefill(S) + paged decode of token S against the last logits of
+def prefill_decode_rel(cfg, params, dev, S: int = 100,
+                       paged: bool = True) -> float:
+    """prefill(S) + decode of token S against the last logits of
     prefill(S + 1): the relative max error (tests/test_serve.py's check).
-    Pooled layers get their prefill rows as pages; Mamba-2 layers carry
-    their state."""
+    ``paged``: the paged engine's layout, pooled layers getting their
+    prefill rows as pages; else the dense engine's (per-slot rows, no page
+    table). Ring layers (rings of min(window, S + 16) slots) and Mamba-2
+    layers carry their rows and state either way."""
     from repro_torch.serve.decode import decode_step
     from repro_torch.serve.kv_cache import cache_kinds
     from repro_torch.serve.prefill import prefill
-    S, ps = 100, 16
+    ps = 16
     g = torch.Generator(device=dev).manual_seed(1)
     toks = torch.randint(0, cfg.vocab, (1, S + 1), generator=g, device=dev,
                          dtype=torch.int32)
     ref, _ = prefill(cfg, params, toks)
-    _, rows = prefill(cfg, params, toks[:, :S], page_size=ps)
+    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    if not paged:
+        _, cache = prefill(cfg, params, toks[:, :S], max_len=S + 16)
+        got, _ = decode_step(cfg, params, cache, toks[:, S], pos)
+        check(bool(torch.isfinite(got).all()), "decode logits are finite")
+        return float((got - ref).abs().max() / ref.abs().max())
+    _, rows = prefill(cfg, params, toks[:, :S], max_len=S + 16,
+                      page_size=ps)
     n_rows = -(-S // ps)
     T = -(-(S + 1) // ps)
     layers = []
-    for kind, layer in zip(cache_kinds(cfg), rows["layers"]):
+    for kind, layer in zip(cache_kinds(cfg, paged=True), rows["layers"]):
         if kind == "dense":
             layers.append(layer)
             continue
@@ -1317,11 +1603,146 @@ def prefill_decode_rel(cfg, params, dev) -> float:
             pool[name] = p
         layers.append(pool)
     table = torch.arange(1, 1 + T, dtype=torch.int32, device=dev)[None]
-    pos = torch.tensor([S], dtype=torch.int32, device=dev)
     got, _ = decode_step(cfg, params, {"layers": layers}, toks[:, S], pos,
                          table)
     check(bool(torch.isfinite(got).all()), "decode logits are finite")
     return float((got - ref).abs().max() / ref.abs().max())
+
+
+# ------------------------------- nemotron-4-15b, gemma2-2b, h2o-danube-1.8b
+def _make_params(cfg, dev):
+    from repro_torch.params import init_params, n_params
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {n_params(cfg) / 1e9:.3f} B params made on the card "
+          f"in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return params
+
+
+def serve_graphs_then_eager(cfg, params, dev, entries, lens, prompts,
+                            path, **kw) -> list:
+    """One run through CUDA graphs (counts, checks and a profiled replayed
+    quantum), then one through the eager loop of an engine of the same
+    settings (streams checked equal, a profiled eager quantum). Returns
+    the graph run's streams."""
+    from repro_torch.serve.engine import Engine
+    eng = Engine(cfg, params, device=dev, **kw)
+    streams = serve_twice(eng, cfg, lens, prompts, 32, path, entries,
+                          twice=False)
+    profile_phase(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    serve_eager(cfg, params, dev, lens, prompts, 32, streams, **kw)
+    return streams
+
+
+def nemotron_phase(dev, entries) -> None:
+    """nemotron-4-15b at its published width and depth (32 layers, d 6144,
+    48 heads over 8 of 128, squared-ReLU FFN of 24576 without a gate, vocab
+    256000, untied; 15.63 B params, 31.3 GB in bf16) on the mistral serve
+    workload through the paged engine."""
+    from repro_torch.configs import get_config
+    cfg = get_config("nemotron-4-15b")
+    params = _make_params(cfg, dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 2001, 12)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    serve_graphs_then_eager(cfg, params, dev, entries, lens, prompts,
+                            ["flash_attention_fwd", "paged_attention_gqa"],
+                            max_slots=8, max_len=4096, page_size=16,
+                            decode_quantum=8)
+    rel = prefill_decode_rel(cfg, params, dev)
+    print(f"{cfg.name} full width bf16, 32 layers: prefill(S) + paged "
+          f"decode vs prefill(S+1), relative max error {rel:.3g} (reported,"
+          " not held: bf16 rounding through 32 random layers)")
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
+    rel = prefill_decode_rel(cfg32, _make_params(cfg32, dev), dev)
+    check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 layers: "
+          f"prefill(S) + paged decode ≡ prefill(S+1), relative max error "
+          f"{rel:.3g} (tol 1e-3)")
+    torch.cuda.empty_cache()
+
+
+def _long_workload(vocab):
+    """8 prompts of 16–6000 tokens from numpy seed 0, the first two drawn
+    from 4097–6000 so that at least two are longer than the window of
+    4096: their rings are packed from a bucket of 8192 and their decode
+    runs past position 4096."""
+    rng = np.random.default_rng(0)
+    lens = np.concatenate([rng.integers(4097, 6001, 2),
+                           rng.integers(16, 6001, 6)])
+    return lens, [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def gemma2_phase(dev, entries) -> None:
+    """gemma2-2b at its published width and depth (26 layers alternating a
+    window of 4096 and global attention, d 2304, 8 heads over 4 of 256,
+    attention softcap 50, final softcap 30, sandwich post-norms, GeGLU
+    9216, tied embeddings scaled by sqrt(d), vocab 256000; 2.61 B params)
+    through the paged engine at max_len 8192: the 13 global layers in the
+    page pool (paged GQA at dh 256), the 13 local layers in per-slot
+    rings."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma2-2b")
+    params = _make_params(cfg, dev)
+    lens, prompts = _long_workload(cfg.vocab)
+    streams = serve_graphs_then_eager(
+        cfg, params, dev, entries, lens, prompts,
+        ["flash_attention_fwd_dh256", "paged_attention_gqa_dh256"],
+        max_slots=8, max_len=8192, page_size=16, decode_quantum=8)
+    last = max(len(p) + len(o) - 1 for p, o in zip(prompts, streams))
+    check(last > cfg.sliding_window and int((lens > 4096).sum()) >= 2,
+          f"{cfg.name}: {int((lens > 4096).sum())} prompts longer than the "
+          f"window (rings packed from the 8192 bucket); decode reached "
+          f"position {last} (> {cfg.sliding_window}: the rings wrap)")
+    S = 4200
+    rel = prefill_decode_rel(cfg, params, dev, S=S)
+    check(rel < BF16_TOL, f"{cfg.name} full width bf16, 26 layers, S={S} "
+          f"past the window: prefill(S) + decode (13 global layers through "
+          f"paged_gqa_mma<256, 1>, 13 rings) vs prefill(S+1), relative max "
+          f"error {rel:.3g} (tol {BF16_TOL}, the bf16 logits' limit)")
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
+    rel = prefill_decode_rel(cfg32, _make_params(cfg32, dev), dev, S=S,
+                             paged=False)
+    check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 layers (a "
+          f"ring and a global layer), S={S}: prefill(S) + dense decode ≡ "
+          f"prefill(S+1), relative max error {rel:.3g} (tol 1e-3; f32 "
+          "paged decode at dh 256 has no kernel: the dense layout)")
+    torch.cuda.empty_cache()
+
+
+def danube_phase(dev, entries) -> None:
+    """h2o-danube-1.8b at its published width and depth (24 layers, d 2560,
+    32 heads over 8 of 80, a window of 4096 on every layer, SwiGLU 6912,
+    vocab 32000; 1.83 B params) through the dense engine (``paged=False``)
+    on gemma2's workload at max_len 8192: every layer a per-slot ring of
+    4096."""
+    from repro_torch.configs import get_config
+    cfg = get_config("h2o-danube-1.8b")
+    params = _make_params(cfg, dev)
+    lens, prompts = _long_workload(cfg.vocab)
+    streams = serve_graphs_then_eager(
+        cfg, params, dev, entries, lens, prompts,
+        ["flash_attention_fwd_dh80"], paged=False, max_slots=8,
+        max_len=8192, decode_quantum=8)
+    last = max(len(p) + len(o) - 1 for p, o in zip(prompts, streams))
+    check(last > cfg.sliding_window, f"{cfg.name}: decode reached position "
+          f"{last} (> {cfg.sliding_window}: the rings wrap)")
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
+    rel = prefill_decode_rel(cfg32, _make_params(cfg32, dev), dev, S=4200,
+                             paged=False)
+    check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 layers, "
+          f"S=4200 past the window: prefill(S) + dense decode ≡ "
+          f"prefill(S+1), relative max error {rel:.3g} (tol 1e-3)")
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------ training
@@ -1346,7 +1767,6 @@ def train_phase(dev, entries) -> None:
     through ``PrefetchLoader``; counts read around those 5 steps. Then one
     profiled step, and the f32 gradient check at full width, depth 2,
     batch 1 x 512."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.data.loader import PrefetchLoader
     from repro_torch.data.synthetic import SyntheticLM
@@ -1412,8 +1832,7 @@ def train_phase(dev, entries) -> None:
               f"{steady:.3f} s, {B * S / steady:.0f} tokens/s, model FLOP/s "
               f"{100 * flops / steady / PEAK_OPS_PER_S[torch.bfloat16]:.1f} "
               f"% of the bf16 peak; launches {launches}")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile(cpu=True) as prof:
             batch = next(loader)
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -1439,13 +1858,8 @@ def train_phase(dev, entries) -> None:
           "variance 0.02²·d)")
     check(sum(losses[-2:]) / 2 < losses[0], "train: the mean of the last two "
           f"losses {sum(losses[-2:]) / 2:.4f} is below the first")
-    for e in entries:
-        k = launches[e["name"]]
-        e.setdefault("launches_by_path", {})["train"] = k
-        e["launches"] = e.get("launches", 0) + k
-        if e["name"] in ("flash_attention_fwd_lse", "flash_attention_bwd"):
-            check(k > 0, f"{e['name']} launched on the train path ({k} "
-                  "times)")
+    _add_launches(entries, launches, "train",
+                  ("flash_attention_fwd_lse", "flash_attention_bwd"))
     del state, m, batch, prof
     torch.cuda.empty_cache()
 
@@ -1511,8 +1925,10 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
     sass = sass_phase()
-    entries = [paged_phase(dev), flash_phase(dev), *flash_bwd_phase(dev),
-               mla_phase(dev), gg_phase(dev), gemm_phase(dev), ssd_phase(dev)]
+    entries = [paged_phase(dev), paged256_phase(dev), flash_phase(dev),
+               flash256_phase(dev), flash80_phase(dev),
+               *flash_bwd_phase(dev), mla_phase(dev), gg_phase(dev),
+               gemm_phase(dev), ssd_phase(dev)]
     for e in entries:
         if e["name"] in sass:
             e["sass"] = sass[e["name"]]
@@ -1521,6 +1937,9 @@ def main() -> int:
     serve_phase(dev, entries)
     deepseek_phase(dev, entries)
     mamba_phase(dev, entries)
+    nemotron_phase(dev, entries)
+    gemma2_phase(dev, entries)
+    danube_phase(dev, entries)
     train_phase(dev, entries)
     launcher_phase()
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1529,7 +1948,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(x for x in (
             "passes_ms", "mla", "decode", "chunks", "n4096", "paged",
-            "ssd", "sass")
+            "ssd", "sass", "sdpa_gathered_ms", "kernel_route")
             if x in e)}
         for e in entries]}))
     print(smi)

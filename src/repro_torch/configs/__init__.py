@@ -6,7 +6,10 @@ from repro_torch.configs.base import (  # noqa: F401
 
 from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
+    gemma2_2b,
+    h2o_danube_18b,
     mamba2_130m,
     mistral_nemo_12b,
+    nemotron4_15b,
     phi35_moe_42b,
 )

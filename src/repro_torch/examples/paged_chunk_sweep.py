@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -32,10 +33,14 @@ def device_ms(fn, calls: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    # idle at both ends: the profiler drops a kernel whose device timestamps
+    # fall just outside its window
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+        time.sleep(0.02)
     return sum(e.time_range.end - e.time_range.start for e in prof.events()
                if e.device_type == DeviceType.CUDA) / calls / 1e3
 

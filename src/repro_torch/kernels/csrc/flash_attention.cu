@@ -16,9 +16,9 @@
 //
 // Three paths, one contract, chosen by flash_attention/ops.py::fwd_route.
 //
-// flash_fwd_wgmma (bf16, dh = dv in {64, 128} or MLA's dh = 192 (nope 128 +
-// rope 64) with dv = 128, 16-byte aligned rows; the main path of both served
-// models and of training): Hopper's warpgroup tensor-core products fed by
+// flash_fwd_wgmma (bf16, dh = dv in {64, 128, 256} or MLA's dh = 192 (nope
+// 128 + rope 64) with dv = 128, 16-byte aligned rows; the main path of the
+// served models and of training, gemma2-2b's prefill at 256): Hopper's warpgroup tensor-core products fed by
 // TMA, in the structure of FlashAttention-3. Persistent: one block of three
 // warpgroups per SM takes work tiles (128 query rows of one batch * head)
 // in the order of a walk that keeps a group of heads' K/V in L2 and runs
@@ -26,7 +26,8 @@
 // counter as it frees up. A producer warpgroup (one thread issues TMA; its
 // registers go to the consumers by setmaxnreg) loads each tile's Q and
 // keeps a ring of 128-key K/V tiles in flight (3 stages at dh <= 128, 2 at
-// MLA's 192: fwd_stages), reading the caller's strided (d, T, heads, B)
+// MLA's 192: fwd_stages; 64-key tiles in 2 stages at dv 256, where the
+// output accumulator alone takes 128 registers a thread: fwd_kn), reading the caller's strided (d, T, heads, B)
 // views through 4-D tensor maps (MLA's V is the slice 256 bytes into each
 // (nope + v) row; TMA zero-fills the ragged T edge), with full and empty
 // mbarriers per stage and for Q, so the next tile's loads run under the
@@ -42,7 +43,7 @@
 // in flight while the next tile's S products are issued behind them. Key
 // tiles outside a warpgroup's band are not computed; a block visits only
 // the tiles its rows can see. Shared memory: FwdSmem (230,472 bytes at dh
-// 128, 214,072 at 192), one block per SM. Where it stands (PERF.md §6, on
+// 128, 214,072 at 192, 197,688 at 256), one block per SM. Where it stands (PERF.md §6, on
 // an H100 at 700 W): 2.8x its operations bound at the serving shape, 2.2x
 // with lse at the training shape, 1.2-1.3x scaled_dot_product_attention.
 // What is left: no ping-pong between the two consumers and no second S
@@ -58,10 +59,10 @@
 // memory, padded against bank conflicts.
 //
 // flash_fwd_kernel (f32, and any other head dims or unaligned rows: dh <=
-// 256, dv <= 128): CUDA cores in f32. One block of 256 threads per (64-row
+// 256, dv <= 256): CUDA cores in f32. One block of 256 threads per (64-row
 // query tile, batch * head) loops over 32-key tiles; each thread owns a
-// 4 x 2 tile of scores and a 4 x 8 slice of the output, with Q, K, V in
-// shared memory (rows padded to dh + 1 floats).
+// 4 x 2 tile of scores and a 4 x NC slice of the output (NC 8 up to dv 128,
+// 16 above), with Q, K, V in shared memory (rows padded to dh + 1 floats).
 //
 // All run the query tiles heaviest first and visit only the key tiles
 // between the first key the window allows and the last key causality
@@ -91,7 +92,7 @@ constexpr int BQ = 64;
 constexpr int BK = 32;
 constexpr int THREADS = 256;
 constexpr int MAXDQK = 256;   // q/k head dim limit (f32 path: dynamic smem)
-constexpr int MAXDV = 128;    // v head dim limit (acc covers 8 x 16 columns)
+constexpr int MAXDV = 256;    // v head dim limit (acc: NC x 16 columns)
 constexpr int SP = BK + 1;   // padded score row
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -111,7 +112,7 @@ struct Strides {
   long long b, h, t;
 };
 
-template <typename T>
+template <typename T, int NC>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -148,11 +149,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const int tx = tid % 16, ty = tid / 16;
-  float acc[4][8];
+  float acc[4][NC];
 #pragma unroll
   for (int r = 0; r < 4; ++r)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
 
   const int q1 = min(q0 + BQ, Tq) - 1;          // last query row of the tile
   const int k_lo = window ? max(0, q0 - window + 1) : 0;
@@ -229,21 +230,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < 4; ++r) {
       const float corr = c_s[ty + 16 * r];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] *= corr;
+      for (int c = 0; c < NC; ++c) acc[r][c] *= corr;
     }
     for (int j = 0; j < BK; ++j) {
-      float pv[4], vv[8];
+      float pv[4], vv[NC];
 #pragma unroll
       for (int r = 0; r < 4; ++r) pv[r] = Ss[(ty + 16 * r) * SP + j];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
+      for (int c = 0; c < NC; ++c) {
         const int col = tx + 16 * c;
         vv[c] = col < dv ? Vs[j * dv + col] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] += pv[r] * vv[c];
+        for (int c = 0; c < NC; ++c) acc[r][c] += pv[r] * vv[c];
     }
   }
   __syncthreads();
@@ -254,7 +255,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row >= Tq) continue;
     const float inv = 1.f / fmaxf(l_s[ty + 16 * r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
       if (col < dv) ob[row * os.t + col] = from_f<T>(acc[r][c] * inv);
     }
@@ -432,7 +433,7 @@ flash_fwd_mma(const __nv_bfloat16* __restrict__ q,
 
 // ------------------------------------------- wgmma + TMA bf16 path
 constexpr int WQ = 128;          // query rows per work tile: 2 warpgroups
-constexpr int WK = 128;          // keys per K/V tile
+constexpr int WK = 128;          // keys per K/V tile (64 at dv 256: fwd_kn)
 constexpr int WCONSUMERS = 256;  // threads of the two consumer warpgroups
 constexpr int WTHREADS = WCONSUMERS + 128;  // + the producer warpgroup
 // Registers per thread after the split (setmaxnreg): 128 x 40 + 256 x 232
@@ -441,23 +442,29 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// Keys per K/V tile (flash_attention/ops.py::fwd_kn): WK, and 64 at dv 256,
+// where the output accumulator alone takes 128 registers a thread and a
+// 64-key tile keeps the scores and P at 32 and 16.
+constexpr int fwd_kn(int dv) { return dv > 128 ? 64 : WK; }
+
 // Shared memory of one block (flash_attention/ops.py::fwd_smem_bytes): Q
-// (WQ x dh), a ring of K (WK x dh) and V (WK x dv) tiles, the barriers (Q
+// (WQ x dh), a ring of K (kn x dh) and V (kn x dv) tiles, the barriers (Q
 // full and empty, and full and empty per stage), the current work tile's
 // index (8 bytes), and the 1024-byte alignment. The ring has 3 stages where
 // they fit in the 227 KiB a block may use, else 2
 // (flash_attention/ops.py::fwd_stages).
 constexpr int fwd_bytes(int dh, int dv, int stages) {
-  return SMEM_ALIGN + WQ * dh * 2 + stages * WK * (dh + dv) * 2 +
+  return SMEM_ALIGN + WQ * dh * 2 + stages * fwd_kn(dv) * (dh + dv) * 2 +
          8 * (3 + 2 * stages);
 }
 
 template <int DH, int DV>
 struct FwdSmem {
   static constexpr int stages = fwd_bytes(DH, DV, 3) <= SMEM_LIMIT ? 3 : 2;
+  static constexpr int kn = fwd_kn(DV);
   static constexpr int q = WQ * DH * 2;
-  static constexpr int k = WK * DH * 2;
-  static constexpr int stage = k + WK * DV * 2;
+  static constexpr int k = kn * DH * 2;
+  static constexpr int stage = k + kn * DV * 2;
   static constexpr int bytes = fwd_bytes(DH, DV, stages);
 };
 static_assert(FwdSmem<64, 64>::bytes == 115784, "fwd_smem_bytes(64, 64)");
@@ -465,6 +472,8 @@ static_assert(FwdSmem<128, 128>::bytes == 230472,
               "fwd_smem_bytes(128, 128)");
 static_assert(FwdSmem<192, 128>::bytes == 214072,
               "fwd_smem_bytes(192, 128)");
+static_assert(FwdSmem<256, 256>::bytes == 197688,
+              "fwd_smem_bytes(256, 256)");
 
 // A work tile: WQ query rows of one (batch, head) and the key tiles
 // [t0, t0 + nt) they can see. The walk takes the (batch, head)s in groups
@@ -479,7 +488,7 @@ struct FwdTile {
 
 __device__ __forceinline__ FwdTile fwd_tile(int p, int B, int H, int Tq,
                                             int Tk, int causal, int window,
-                                            int gsize) {
+                                            int gsize, int kn) {
   const int nq = (Tq + WQ - 1) / WQ;
   const int g = p / (gsize * nq), rem = p - g * gsize * nq;
   const int size = min(gsize, B * H - g * gsize);
@@ -491,8 +500,8 @@ __device__ __forceinline__ FwdTile fwd_tile(int p, int B, int H, int Tq,
   const int q1 = min(f.q0 + WQ, Tq) - 1;
   const int k_lo = window ? max(0, f.q0 - window + 1) : 0;
   const int k_hi = causal ? min(Tk - 1, q1) : Tk - 1;
-  f.t0 = k_lo / WK;
-  f.nt = k_hi >= f.t0 * WK ? (k_hi - f.t0 * WK) / WK + 1 : 0;
+  f.t0 = k_lo / kn;
+  f.nt = k_hi >= f.t0 * kn ? (k_hi - f.t0 * kn) / kn + 1 : 0;
   return f;
 }
 
@@ -549,6 +558,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 int gsize, int* __restrict__ counter) {
   using SM = FwdSmem<DH, DV>;
   constexpr int S = SM::stages;
+  constexpr int KN = SM::kn;     // keys per K/V tile
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* sm = smem_base(smem_raw);
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm);
@@ -584,7 +594,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
           mbar_arrive(q_full);
           break;
         }
-        const FwdTile f = fwd_tile(p, B, H, Tq, Tk, causal, window, gsize);
+        const FwdTile f =
+            fwd_tile(p, B, H, Tq, Tk, causal, window, gsize, KN);
         const int hk = f.h / group;
         mbar_expect_tx(q_full, SM::q);
 #pragma unroll
@@ -596,14 +607,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
           __nv_bfloat16* Ks =
               reinterpret_cast<__nv_bfloat16*>(ring + s * SM::stage);
           __nv_bfloat16* Vs = Ks + SM::k / 2;
-          const int k0 = (f.t0 + t) * WK;
+          const int k0 = (f.t0 + t) * KN;
           mbar_expect_tx(&full[s], SM::stage);
 #pragma unroll
           for (int c = 0; c < DH / 64; ++c)
-            tma_load(Ks + c * WK * 64, &tk, &full[s], c * 64, k0, hk, f.b);
+            tma_load(Ks + c * KN * 64, &tk, &full[s], c * 64, k0, hk, f.b);
 #pragma unroll
           for (int c = 0; c < DV / 64; ++c)
-            tma_load(Vs + c * WK * 64, &tv, &full[s], c * 64, k0, hk, f.b);
+            tma_load(Vs + c * KN * 64, &tv, &full[s], c * 64, k0, hk, f.b);
         }
         p = gridDim.x + atomicAdd(counter, 1);
       }
@@ -614,14 +625,15 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int wg = warp >> 2, wl = warp & 3, gq = lane >> 2, tg = lane & 3;
     const float sl2 = softcap > 0.f ? scale / softcap : scale * LOG2E;
     const float cap2 = softcap * LOG2E;
-    float oacc[DV / 2], sacc[WK / 2];
-    uint32_t pa[WK / 16][4];
+    float oacc[DV / 2], sacc[KN / 2];
+    uint32_t pa[KN / 16][4];
     int it = 0;
     for (int wi = 0;; ++wi) {
       mbar_wait(q_full, wi & 1);
       const int p = *tile;
       if (p >= n_work) break;
-      const FwdTile f = fwd_tile(p, B, H, Tq, Tk, causal, window, gsize);
+      const FwdTile f =
+          fwd_tile(p, B, H, Tq, Tk, causal, window, gsize, KN);
       const int r0 = f.q0 + 64 * wg;
       const int r1 = min(r0 + 63, Tq - 1);
       const int rows[2] = {r0 + 16 * wl + gq, r0 + 16 * wl + gq + 8};
@@ -634,16 +646,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 
       for (int t = 0; t < f.nt; ++t, ++it) {
         const int s = it % S;
-        const int k0 = (f.t0 + t) * WK;
+        const int k0 = (f.t0 + t) * KN;
         const __nv_bfloat16* Ks =
             reinterpret_cast<const __nv_bfloat16*>(ring + s * SM::stage);
         const __nv_bfloat16* Vs = Ks + SM::k / 2;
         mbar_wait(&full[s], (it / S) & 1);
-        if (!(r0 < Tq && k0 <= w_hi && k0 + WK - 1 >= w_lo)) {
+        if (!(r0 < Tq && k0 <= w_hi && k0 + KN - 1 >= w_lo)) {
           if (pending >= 0) {                   // outside this band
             wg_wait<0>();
             reg_fence<DV / 2>(oacc);
-            reg_fence<WK / 4>(&pa[0][0]);
+            reg_fence<KN / 4>(&pa[0][0]);
             mbar_arrive(&empty[pending]);
             pending = -1;
           }
@@ -656,33 +668,33 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < DH / 16; ++kk) {
           const int c = kk / 4, k4 = (kk % 4) * 16;
-          WgmmaSS<WK>::run<0, 0>(
+          WgmmaSS<KN>::template run<0, 0>(
               sacc, sw128_desc(Qs + c * WQ * 64 + 64 * wg * 64 + k4, 16, 1024),
-              sw128_desc(Ks + c * WK * 64 + k4, 16, 1024), kk > 0);
+              sw128_desc(Ks + c * KN * 64 + k4, 16, 1024), kk > 0);
         }
         wg_commit();
         wg_wait<0>();
-        reg_fence<WK / 2>(sacc);
+        reg_fence<KN / 2>(sacc);
         reg_fence<DV / 2>(oacc);
-        reg_fence<WK / 4>(&pa[0][0]);
+        reg_fence<KN / 4>(&pa[0][0]);
         if (pending >= 0) mbar_arrive(&empty[pending]);
         if (t == f.nt - 1) mbar_arrive(q_empty);
 
         // online softmax in log2 units; the mask only where the tile cuts an
         // edge of the causal or window band or of Tk
-        const bool masked = k0 + WK > Tk || (causal && k0 + WK - 1 > r0) ||
+        const bool masked = k0 + KN > Tk || (causal && k0 + KN - 1 > r0) ||
                             (window && k0 <= r1 - window);
         float mx[2];
         const Band band{rows[0], rows[1], k0 + 2 * tg, Tk, causal, window};
         if (softcap > 0.f) {
           if (masked)
-            tile_scores<true, true, WK>(sacc, mx, sl2, cap2, band);
+            tile_scores<true, true, KN>(sacc, mx, sl2, cap2, band);
           else
-            tile_scores<true, false, WK>(sacc, mx, sl2, cap2, band);
+            tile_scores<true, false, KN>(sacc, mx, sl2, cap2, band);
         } else if (masked) {
-          tile_scores<false, true, WK>(sacc, mx, sl2, cap2, band);
+          tile_scores<false, true, KN>(sacc, mx, sl2, cap2, band);
         } else {
-          tile_scores<false, false, WK>(sacc, mx, sl2, cap2, band);
+          tile_scores<false, false, KN>(sacc, mx, sl2, cap2, band);
         }
         // without a softcap the scores stay raw: scale * log2 e enters the
         // exponent's FFMA, and the maxima are scaled here
@@ -705,7 +717,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
           }
         }
 #pragma unroll
-        for (int j = 0; j < WK / 8; ++j) {
+        for (int j = 0; j < KN / 8; ++j) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const float p = exp2f(fmaf(sacc[4 * j + i], xs, -msafe[i >> 1]));
@@ -717,7 +729,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         // mma.sync's A fragment layout), V MN-major: no transposed copy.
         // Left in flight: the next tile's S products queue behind them.
 #pragma unroll
-        for (int kk = 0; kk < WK / 16; ++kk) {
+        for (int kk = 0; kk < KN / 16; ++kk) {
           pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
           pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
           pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
@@ -725,15 +737,16 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         }
         wg_fence();
 #pragma unroll
-        for (int kk = 0; kk < WK / 16; ++kk)
+        for (int kk = 0; kk < KN / 16; ++kk)
           WgmmaRS<DV>::template run<1>(
-              oacc, pa[kk], sw128_desc(Vs + kk * 16 * 64, WK * 128, 1024), 1);
+              oacc, pa[kk], sw128_desc(Vs + kk * 16 * 64, KN * 128, 1024),
+              1);
         wg_commit();
         pending = s;
       }
       wg_wait<0>();
       reg_fence<DV / 2>(oacc);
-      reg_fence<WK / 4>(&pa[0][0]);
+      reg_fence<KN / 4>(&pa[0][0]);
       if (pending >= 0) mbar_arrive(&empty[pending]);
       if (f.nt == 0) mbar_arrive(q_empty);
 
@@ -768,7 +781,8 @@ cudaError_t launch_wgmma(int device, int* counter, const void* q,
                          int causal, int window, float softcap,
                          cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  const int box_q[4] = {64, WQ, 1, 1}, box_kv[4] = {64, WK, 1, 1};
+  const int box_q[4] = {64, WQ, 1, 1};
+  const int box_kv[4] = {64, FwdSmem<DH, DV>::kn, 1, 1};
   const long long dq[4] = {DH, Tq, H, B}, sq[3] = {qs.t, qs.h, qs.b};
   const long long dk[4] = {DH, Tk, Hk, B}, sk[3] = {ks.t, ks.h, ks.b};
   const long long dv[4] = {DV, Tk, Hk, B}, sv[3] = {vs.t, vs.h, vs.b};
@@ -822,12 +836,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   const size_t smem = sizeof(float) *
       ((size_t)(BQ + BK) * (dh + 1) + (size_t)BK * dv + BQ * SP + 3 * BQ);
+  auto kernel = dv > 128 ? flash_fwd_kernel<T, 16> : flash_fwd_kernel<T, 8>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Tq + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, qs, ks, vs, os, H,
       H / Hk, Tq, Tk, dh, dv, scale, causal, window, softcap);
@@ -841,8 +855,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). route (the pure
 // function flash_attention/ops.py::fwd_route): 0 = CUDA cores, any dims;
 // 1 = mma.sync, bf16, dh = dv in {16, 32}; 2 = wgmma and TMA, bf16, (dh, dv)
-// in {(64, 64), (128, 128), (192, 128)}; routes 1 and 2 need 16-byte
-// aligned rows (every pointer and stride a multiple of 8 elements).
+// in {(64, 64), (128, 128), (256, 256), (192, 128)}; routes 1 and 2 need
+// 16-byte aligned rows (every pointer and stride a multiple of 8 elements).
 // Strides are in elements, the last dim of every tensor is contiguous. lse,
 // when not null, is a contiguous (B, H, Tq) float32 output. counter: route
 // 2's work-tile claims, one int32 on the device set to 0 (unused by the
@@ -859,8 +873,8 @@ int flash_attention_fwd(int device, int dtype, int route, const void* q,
                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (dh < 1 || dh > MAXDQK || dv < 1 || dv > MAXDV || Hk < 1 || H % Hk ||
-      Tq < 1 || Tk < 1 || B < 1 || dtype < 0 || dtype > 1)
+  if (dh < 1 || dh > MAXDQK || dv < 1 || dv > MAXDV || Hk < 1 ||
+      H % Hk || Tq < 1 || Tk < 1 || B < 1 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qsh, qst}, ks{ksb, ksh, kst}, vs{vsb, vsh, vst},
       os{osb, osh, ost};
@@ -881,10 +895,11 @@ int flash_attention_fwd(int device, int dtype, int route, const void* q,
         q, k, v, o, lse, qs, ks, vs, os, B, H, Hk, Tq, Tk, scale, causal,
         window, softcap, st);
   else if (route == 2 && dtype == 1 && aligned && counter != nullptr &&
-           ((dh == dv && (dh == 64 || dh == 128)) ||
+           ((dh == dv && (dh == 64 || dh == 128 || dh == 256)) ||
             (dh == 192 && dv == 128)))
     err = (dh == 64    ? launch_wgmma<64, 64>
            : dh == 128 ? launch_wgmma<128, 128>
+           : dh == 256 ? launch_wgmma<256, 256>
                        : launch_wgmma<192, 128>)(   // MLA: nope + rope, v
         device, static_cast<int*>(counter), q, k, v, o, lse, qs, ks, vs, os,
         B, H, Hk, Tq, Tk, scale, causal, window, softcap, st);

@@ -16,8 +16,9 @@
 // from the table width alone (ops.py::split_plan), never from pos, so the
 // grid of a width bucket is static.
 //
-// paged_gqa_mma (bf16, G <= 8, dh 64 or 128: mistral-nemo-12b and
-// phi3.5-moe decode). What bounds it: the bytes of live K/V, 2 Hkv dh
+// paged_gqa_mma (bf16, G <= 8, dh 64, 128 or 256: mistral-nemo-12b,
+// phi3.5-moe and nemotron-4-15b decode at 128, gemma2-2b's global layers at
+// 256). What bounds it: the bytes of live K/V, 2 Hkv dh
 // elements per key read once; at the main-path shape (B 8, Hkv 8, G 4, dh
 // 128, 15,239 live keys) 62.4 MB, 18.7 us at 3.35 TB/s. The arithmetic (4
 // flops per element and query row) is far below the card's rate, but on
@@ -30,7 +31,8 @@
 //            through its own ring of 3 stages of K and V tiles, filled by
 //            16-byte cp.async (rows XOR-swizzled for ldmatrix; rows past
 //            the live keys zero-filled, read nothing), so 2 tiles stay in
-//            flight under each tile's arithmetic; two blocks per SM;
+//            flight under each tile's arithmetic; two blocks per SM (one
+//            at dh 256, whose rings take 192 KiB);
 //   products mma.sync m16n8k16 with the keys as M ("swap AB": a group of 4
 //            query rows is too few for M): S^T = K Q^T with Q^T padded to
 //            n = 8 in registers, then O^T = V^T P^T with V^T's fragments by
@@ -104,7 +106,7 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr int WARPS = 8;
-constexpr int MAXD = 128;      // head dim limit
+constexpr int MAXD = 128;      // head dim limit of the CUDA-core kernels
 constexpr int CHUNK = 32;      // keys per warp step, one per lane
 constexpr int KPASS = 8;       // 16-byte K chunks a lane loads together
 constexpr int VB = 16;         // V rows whose loads a warp issues together
@@ -373,8 +375,8 @@ cudaError_t dispatch(int G, const void* q, const void* pk, const void* pv,
 }
 
 // ------------------------------------------------ GQA on the tensor cores
-// paged_gqa_mma (bf16, G <= 8, dh 64 or 128: the served models' path). See
-// the note on top of this file.
+// paged_gqa_mma (bf16, G <= 8, dh 64, 128 or 256: the served models'
+// path). See the note on top of this file.
 constexpr int GQ_WARPS = 4;
 constexpr int GQ_THREADS = GQ_WARPS * 32;
 constexpr int GQ_TILE = 16;      // keys per warp step: the M of m16n8k16
@@ -399,6 +401,7 @@ struct GqaSmem {
 };
 static_assert(GqaSmem<64>::bytes == 49152, "gqa_smem_bytes(64)");
 static_assert(GqaSmem<128>::bytes == 98304, "gqa_smem_bytes(128)");
+static_assert(GqaSmem<256>::bytes == 196608, "gqa_smem_bytes(256)");
 // two blocks per SM: 228 KiB, 1 KiB reserved for each block
 static_assert(2 * (GqaSmem<128>::bytes + 1024) <= 228 * 1024,
               "two GQA blocks per SM");
@@ -751,6 +754,10 @@ cudaError_t dispatch_gqa_mma(int device, int dh, float softcap,
   if (dh == 128) {
     if (cap) GQA_MMA(128, true);
     GQA_MMA(128, false);
+  }
+  if (dh == 256) {
+    if (cap) GQA_MMA(256, true);
+    GQA_MMA(256, false);
   }
 #undef GQA_MMA
   return cudaErrorInvalidValue;
@@ -1514,7 +1521,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q and both pools); route: 0 = the CUDA
 // cores (paged_gqa_kernel, any dtype, dh a multiple of 8 up to 128), 1 =
-// the tensor cores (paged_gqa_mma: bf16, G <= 8, dh 64 or 128). Route 1
+// the tensor cores (paged_gqa_mma: bf16, G <= 8, dh 64, 128 or 256). Route 1
 // cuts each slot's keys into `splits` chunks of `chunk` keys (splits *
 // chunk >= width * ps); with splits > 1, ws_o (splits, B, Hkv, G, dh),
 // ws_m and ws_l (splits, B, Hkv, G) are f32 scratch and cnt holds B * Hkv
@@ -1529,8 +1536,8 @@ int paged_attention_gqa(int device, int dtype, const void* q, const void* pk,
                         int chunk, int route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (dh > MAXD || dh < 8 || dh % 8 || B < 1 || hkv < 1 || width < 1 ||
-      ps < 1 || ps > page_size || (uintptr_t)pk % 16 || (uintptr_t)pv % 16)
+  if (dh < 8 || dh % 8 || B < 1 || hkv < 1 || width < 1 || ps < 1 ||
+      ps > page_size || (uintptr_t)pk % 16 || (uintptr_t)pv % 16)
     return (int)cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(table);
   const int* pp = static_cast<const int*>(pos);
@@ -1550,7 +1557,7 @@ int paged_attention_gqa(int device, int dtype, const void* q, const void* pk,
         static_cast<float*>(ws_l), static_cast<unsigned*>(cnt), B, hkv, G,
         n_pages, ps, width, page_size, base, scale, splits, chunk, st);
   }
-  if (route != 0) return (int)cudaErrorInvalidValue;
+  if (route != 0 || dh > MAXD) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     err = dispatch<float>(G, q, pk, pv, tb, pp, of, mf, lf, B, hkv, dh,
                           n_pages, ps, width, page_size, base, scale, softcap,

@@ -24,15 +24,16 @@ bwd_launches = 0
 
 SMEM_LIMIT = 232448      # shared memory one block may opt into on an H100
 # The wgmma forward's tiles (csrc/flash_attention.cu): query rows per work
-# tile and keys per K/V tile; its ring has 3 stages where they fit, else 2
+# tile and keys per K/V tile (fwd_kn: 64 at dv 256); its ring has 3 stages
+# where they fit, else 2
 WQ, WK = 128, 128
-_WGMMA_DIMS = frozenset([(64, 64), (128, 128), (192, 128)])
+_WGMMA_DIMS = frozenset([(64, 64), (128, 128), (192, 128), (256, 256)])
 _MMA_DIMS = frozenset([(16, 16), (32, 32)])
 _ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_DQK = 256           # q/k head dim (MLA prefill: nope 128 + rope 64)
-_MAX_DV = 128
+_MAX_DV = 256
 _MAX_BWD = 256           # backward: q/k and v head dims
 _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
@@ -42,32 +43,39 @@ _BWD_ARGTYPES = [_I, _I] + [_P] * 10 + [_LL] * 24 + [_I] * 7 + \
     [_F, _I, _I, _F, _P]
 
 
+def fwd_kn(dv: int) -> int:
+    """Keys per K/V tile of the wgmma forward: WK, and 64 at dv 256, where
+    the output accumulator alone takes 128 registers a thread."""
+    return 64 if dv > 128 else WK
+
+
 def _smem(dh: int, dv: int, stages: int) -> int:
-    return 1024 + 2 * (WQ * dh + stages * WK * (dh + dv)) + \
+    return 1024 + 2 * (WQ * dh + stages * fwd_kn(dv) * (dh + dv)) + \
         8 * (3 + 2 * stages)
 
 
 def fwd_stages(dh: int, dv: int) -> int:
     """K/V tiles in flight in the wgmma forward's ring: 3 where they fit in
-    the shared memory a block may use (dh <= 128), else 2 (MLA's 192)."""
+    the shared memory a block may use (dh <= 128), else 2 (MLA's 192, and
+    256)."""
     return 3 if _smem(dh, dv, 3) <= SMEM_LIMIT else 2
 
 
 def fwd_smem_bytes(dh: int, dv: int) -> int:
     """Shared memory of one block of the wgmma forward: Q (WQ x dh), a ring
-    of ``fwd_stages`` K (WK x dh) and V (WK x dv) tiles in bf16, full and
-    empty mbarriers for Q and for each stage, the work tile's index (8
-    bytes), and 1024 bytes to align the tiles to the 128-byte swizzle's
-    period (FwdSmem in csrc/flash_attention.cu)."""
+    of ``fwd_stages`` K (kn x dh) and V (kn x dv) tiles in bf16 (kn =
+    :func:`fwd_kn`), full and empty mbarriers for Q and for each stage, the
+    work tile's index (8 bytes), and 1024 bytes to align the tiles to the
+    128-byte swizzle's period (FwdSmem in csrc/flash_attention.cu)."""
     return _smem(dh, dv, fwd_stages(dh, dv))
 
 
 def fwd_route(dtype: torch.dtype, dh: int, dv: int, aligned: bool) -> str:
     """The forward's kernel for a call: "wgmma" (bf16, (dh, dv) of the
-    served and trained models: 64, 128 or MLA's (192, 128)), "mma" (bf16,
-    dh = dv in {16, 32}: test-sized models) or "f32" (CUDA cores: f32, any
-    other dims, or rows not 16-byte aligned). ``aligned``: every pointer
-    and stride of q, k, v is a multiple of 8 elements."""
+    served and trained models: 64, 128, 256 or MLA's (192, 128)), "mma"
+    (bf16, dh = dv in {16, 32}: test-sized models) or "f32" (CUDA cores:
+    f32, any other dims, or rows not 16-byte aligned). ``aligned``: every
+    pointer and stride of q, k, v is a multiple of 8 elements."""
     if dtype != torch.bfloat16 or not aligned:
         return "f32"
     if (dh, dv) in _WGMMA_DIMS:
@@ -137,8 +145,8 @@ def _on_card(q) -> bool:
 
 def _fwd(q, k, v, lse, scale, causal, window, softcap):
     B, H, Tq, _ = q.shape
-    out = _empty_like_order(q, (B, H, Tq, v.shape[3]))
     route = fwd_route(q.dtype, q.shape[3], v.shape[3], _aligned(q, k, v))
+    out = _empty_like_order(q, (B, H, Tq, v.shape[3]))
     # the wgmma path's blocks claim work tiles from this counter
     counter = torch.zeros(1, dtype=torch.int32, device=q.device) \
         if route == "wgmma" else None

@@ -33,7 +33,8 @@ mla_launches = 0
 SMEM_LIMIT = 232448      # shared memory one block may opt into on an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 8
-_MAX_DIM = 128
+_MAX_DIM = 256           # GQA head dims: the tensor-core kernel's largest
+_CORE_MAX_DIM = 128      # GQA head dims the CUDA-core kernel takes
 _MLA_MAX_R = 1024
 _MLA_MAX_LORA = 512
 
@@ -53,7 +54,7 @@ SPLIT_UNIT = 64
 # paged_gqa_mma: warps per block, keys per warp tile, tiles in each warp's
 # ring; the head dims it is compiled for; the group padded to mma's n
 GQ_WARPS, GQ_TILE, GQ_STAGES = 4, 16, 3
-GQA_DIMS = (64, 128)
+GQA_DIMS = (64, 128, 256)
 GQ_N = 8
 # paged_mla_wgmma: heads per block, keys per tile, stages of the key ring,
 # the value dims (two warpgroups of 256), the row dims it is compiled for,
@@ -101,8 +102,9 @@ def mla_smem_bytes(R: int) -> int:
 
 def gqa_route(dtype: torch.dtype, grp: int, dh: int) -> str:
     """The GQA decode kernel for a call: "mma" (paged_gqa_mma: bf16, a
-    group of at most 8 query rows, dh 64 or 128) or "f32" (paged_gqa_kernel
-    on the CUDA cores: f32, or any other group or head dim)."""
+    group of at most 8 query rows, dh 64, 128 or 256) or "f32"
+    (paged_gqa_kernel on the CUDA cores: f32, or any other group or head
+    dim; it takes dh up to 128, and the wrapper refuses the rest)."""
     if dtype == torch.bfloat16 and 1 <= grp <= GQ_N and dh in GQA_DIMS:
         return "mma"
     return "f32"
@@ -206,6 +208,10 @@ def paged_attend_gqa(q, pool_k, pool_v, page_table, pos, base: int = 0, *,
     N, ps = pool_k.shape[:2]
     width = page_table.shape[1]
     route = gqa_route(q.dtype, grp, dh)
+    if route == "f32" and dh > _CORE_MAX_DIM:
+        raise ValueError(f"head dim {dh} takes the tensor-core kernel only "
+                         f"(bf16, dh in {GQA_DIMS}); the CUDA cores take dh "
+                         f"up to {_CORE_MAX_DIM}")
     splits, chunk = split_plan(width, ps, GQA_PLAN)
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty((B, hkv * grp, dh), **f32)

@@ -1,6 +1,6 @@
-"""Shared layer primitives (``repro/models/layers.py``): norm, rope, gated
-MLP, embedding, the f32 logits and the chunked cross-entropy, on one
-device."""
+"""Shared layer primitives (``repro/models/layers.py``): norm, rope, the
+gated and non-gated MLP, embedding, the f32 logits and the chunked
+cross-entropy, on one device."""
 from __future__ import annotations
 
 import torch
@@ -45,19 +45,38 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                      dim=-1).to(dt)
 
 
-# ------------------------------------------------------------- dense MLP
-def gate_fn(act: str):
-    if act == "swiglu":
-        return F.silu
-    if act == "geglu":
+# ------------------------------------------------------------ activations
+def activation(name: str):
+    """The non-gated activations: relu2 (squared ReLU, nemotron) and gelu
+    (the tanh approximation)."""
+    if name in ("swiglu", "geglu"):
+        raise ValueError("gated activations are handled inside mlp()")
+    if name == "relu2":
+        return lambda x: torch.square(F.relu(x))
+    if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
-    raise NotImplementedError(f"activation {act!r} is not ported")
+    raise ValueError(name)
 
 
+def is_gated(act: str) -> bool:
+    return act in ("swiglu", "geglu")
+
+
+def gate_fn(act: str):
+    return F.silu if act == "swiglu" else (
+        lambda x: F.gelu(x, approximate="tanh"))
+
+
+# ------------------------------------------------------------- dense MLP
 def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP, x (…, D) → (…, D); projections on cuBLAS."""
+    """Gated (``w_gate``) or non-gated MLP, x (…, D) → (…, D), in the JAX
+    order: up-projection, then the gate's product or the activation, then
+    the down-projection; projections on cuBLAS."""
     h = x @ p["w_up"]
-    h = gate_fn(cfg.act)(x @ p["w_gate"]) * h
+    if is_gated(cfg.act):
+        h = gate_fn(cfg.act)(x @ p["w_gate"]) * h
+    else:
+        h = activation(cfg.act)(h)
     return h @ p["w_down"]
 
 

@@ -17,7 +17,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import gqa_attention
-from repro_torch.models.layers import chunked_ce_loss, embed, mlp, rmsnorm
+from repro_torch.models.layers import (chunked_ce_loss, embed, is_gated,
+                                       mlp, rmsnorm)
 
 
 @dataclass(frozen=True)
@@ -76,12 +77,12 @@ def layer_schedule(cfg: ModelConfig) -> tuple[Segment, ...]:
 
 def check_params(cfg: ModelConfig) -> None:
     """The families whose parameters the port lays out: decoders whose
-    every layer is attention (GQA or MLA) with a dense or MoE gated FFN, or
-    a Mamba-2 (SSD) mixer with no FFN."""
-    if cfg.enc_dec or cfg.frontend != "none" or cfg.use_post_norm:
+    every layer is attention (GQA or MLA) with a dense FFN (gated swiglu or
+    geglu, or non-gated relu2 or gelu) or a gated MoE FFN, pre-norm or
+    sandwich post-norm (gemma2), or a Mamba-2 (SSD) mixer with no FFN."""
+    if cfg.enc_dec or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: enc-dec, front-end and post-norm models are not "
-            "ported")
+            f"{cfg.name}: enc-dec and front-end models are not ported")
     if cfg.ssm is not None:
         if cfg.ssm.version != 2:
             raise NotImplementedError(
@@ -100,27 +101,32 @@ def check_params(cfg: ModelConfig) -> None:
                 f"{cfg.name} layer {i} is {bc}; attention layers without "
                 "an FFN are not ported")
     if any(bc.ffn != "none" for bc in block_cfgs(cfg)) and \
-            cfg.act not in ("swiglu", "geglu"):
+            cfg.act not in ("swiglu", "geglu", "relu2", "gelu"):
         raise NotImplementedError(
-            f"{cfg.name}: activation {cfg.act!r} is not ported (gated "
-            "swiglu/geglu only)")
+            f"{cfg.name}: activation {cfg.act!r} is not ported (swiglu, "
+            "geglu, relu2, gelu)")
+    if cfg.moe is not None and not is_gated(cfg.act):
+        raise NotImplementedError(
+            f"{cfg.name}: MoE with a non-gated FFN is not ported")
+    if cfg.use_post_norm and cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: post-norm Mamba-2 blocks are not ported")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the families of :func:`check_params` with full
-    attention only (no sliding-window cache yet)."""
+    """The port serves the families of :func:`check_params`; full-attention
+    layers keep their K/V in the page pool (or dense rows), sliding-window
+    layers in per-slot rings (GQA only: the port has no windowed MLA)."""
     check_params(cfg)
-    for i, bc in enumerate(block_cfgs(cfg)):
-        if bc.mixer == "attn" and bc.window:
-            raise NotImplementedError(
-                f"{cfg.name} layer {i} is {bc}; the port serves "
-                "full-attention layers with an FFN only (no sliding "
-                "windows)")
+    if cfg.mla is not None and any(bc.window for bc in block_cfgs(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window MLA layers are not ported")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
     """The port trains decoders whose every layer is GQA attention (full or
-    sliding window: training keeps no cache) with a dense gated FFN."""
+    sliding window: training keeps no cache) with a dense FFN, gated or not,
+    pre-norm or post-norm."""
     check_params(cfg)
     if cfg.ssm is not None:
         raise NotImplementedError(
@@ -138,12 +144,20 @@ def check_trainable(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------- training
 def block_apply(cfg: ModelConfig, bc: BlockCfg, p, h: torch.Tensor,
                 positions) -> torch.Tensor:
-    """One pre-norm GQA + dense-FFN block: h (B,S,D) → h'."""
+    """One GQA + dense-FFN block, h (B,S,D) → h': pre-norm, and with
+    ``use_post_norm`` each branch's output normed again (``post1``,
+    ``post2``) before its residual add, as JAX ``block_apply``."""
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
-    h = h + gqa_attention(cfg, p["attn"], x, window=bc.window,
-                          positions=positions)
+    y = gqa_attention(cfg, p["attn"], x, window=bc.window,
+                      positions=positions)
+    if cfg.use_post_norm:
+        y = rmsnorm(y, p["post1"], cfg.norm_eps)
+    h = h + y
     x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-    return h + mlp(cfg, p["mlp"], x)
+    y = mlp(cfg, p["mlp"], x)
+    if cfg.use_post_norm:
+        y = rmsnorm(y, p["post2"], cfg.norm_eps)
+    return h + y
 
 
 def apply_stack(cfg: ModelConfig, layers, h: torch.Tensor,

@@ -2,14 +2,17 @@
 ``repro/models/model.py::model_defs``).
 
 The tree keeps the JAX layouts leaf by leaf — ``wq`` (D,H,dh), ``wk``/``wv``
-(D,Hkv,dh), ``wo`` (H,dh,D), ``w_up``/``w_gate`` (D,F), ``w_down`` (F,D),
+(D,Hkv,dh), ``wo`` (H,dh,D), ``w_up``/``w_gate`` (D,F; no ``w_gate`` when the
+FFN is not gated), ``w_down`` (F,D), the post-norm weights ``post1``/``post2``
+of a sandwich-norm model (gemma2),
 the MLA projections (``wdq`` (D,q_lora) … ``wukv`` (kv_lora,H,nope+v)),
 the expert stacks (``w_up`` (E,D,F) …), the embedding (V,D), the
 unembedding (D,V), f32 norm weights and router — but holds the blocks as a
 plain list ``layers`` in layer order instead of stacked scan segments:
 
-    {"embed": {"table"}, "layers": [{"norm1", "attn": {...}, "norm2",
-     "mlp" or "moe": {...}}, ...], "final_norm", "unembed": {"w"}}
+    {"embed": {"table"}, "layers": [{"norm1", "attn": {...}, ["post1",]
+     "norm2", "mlp" or "moe": {...}[, "post2"]}, ...], "final_norm",
+     "unembed": {"w"} (empty with tied embeddings)}
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import is_gated
 from repro_torch.models.transformer import (block_cfgs, check_params,
                                             layer_schedule)
 
@@ -60,7 +64,9 @@ def param_specs(cfg: ModelConfig):
     normal·0.02/sqrt(2L), ones for the norms, the MoE router in f32. Each
     layer follows its :class:`BlockCfg`: GQA (``attention.py::gqa_defs``)
     or MLA attention (``mla_defs``), a dense MLP of the block's width
-    (``layers.py::mlp_defs``) or the MoE tree (``moe.py::moe_defs``), or a
+    (``layers.py::mlp_defs``: ``w_gate`` only when gated) or the MoE tree
+    (``moe.py::moe_defs``), the post-norms of a post-norm model
+    (``transformer.py::block_defs``), or a
     Mamba-2 mixer (``mamba.py::mamba2_defs``: A_log, D_skip and dt_bias in
     f32, zeros for A_log, dt_bias and the conv biases, ones for D_skip)."""
     check_params(cfg)
@@ -120,15 +126,21 @@ def param_specs(cfg: ModelConfig):
                 "gn": norm(C),
                 "wo": ParamSpec((C, D), pdt, scale=out_scale)}
 
+    def mlp(d_ff):
+        d = {"w_up": ParamSpec((D, d_ff), pdt),
+             "w_down": ParamSpec((d_ff, D), pdt, scale=out_scale)}
+        if is_gated(cfg.act):
+            d["w_gate"] = ParamSpec((D, d_ff), pdt)
+        return d
+
     def layer(bc):
         if bc.mixer == "mamba":
             return {"norm1": norm(D), "mamba": mamba()}
-        ffn = ({"moe": moe()} if bc.ffn == "moe" else
-               {"mlp": {"w_up": ParamSpec((D, bc.d_ff), pdt),
-                        "w_down": ParamSpec((bc.d_ff, D), pdt,
-                                            scale=out_scale),
-                        "w_gate": ParamSpec((D, bc.d_ff), pdt)}})
-        return {"norm1": norm(D), "attn": attn(), "norm2": norm(D), **ffn}
+        ffn = {"moe": moe()} if bc.ffn == "moe" else {"mlp": mlp(bc.d_ff)}
+        post = ({"post1": norm(D), "post2": norm(D)} if cfg.use_post_norm
+                else {})
+        return {"norm1": norm(D), "attn": attn(), "norm2": norm(D), **ffn,
+                **post}
 
     return {
         "embed": {"table": ParamSpec((cfg.vocab, D), pdt)},

@@ -1,11 +1,18 @@
-"""Single-token paged decode and the fused decode quantum
-(``repro/serve/decode.py``, paged full-attention GQA or MLA with a dense or
-MoE FFN, or Mamba-2 mixers, on one device).
+"""Single-token decode and the fused decode quantum
+(``repro/serve/decode.py``: GQA attention, full or sliding-window, or MLA,
+with a dense or MoE FFN, pre- or post-norm, or Mamba-2 mixers, on one
+device).
 
-Each layer writes the new token's K/V (GQA) or latent row (MLA) into its
-page pools in place (``_paged_write``), then a hand-written paged kernel
-(``kernels/paged_attention``) walks the page table and returns the
-unnormalized ``(o, m, l)`` partials, which ``_combine`` normalizes. MLA
+A full-attention layer of a paged engine writes the new token's K/V (GQA)
+or latent row (MLA) into its page pools in place (``_paged_write``), then a
+hand-written paged kernel (``kernels/paged_attention``) walks the page
+table and returns the unnormalized ``(o, m, l)`` partials, which
+``_combine`` normalizes. A layer with dense per-slot rows (every attention
+layer of the dense engine, and the sliding-window rings of either engine)
+writes its row in place at ``pos`` (a ring at ``pos mod Sc``,
+``_local_write``) and attends over the rows in plain torch, as JAX does
+with an einsum (no TPU kernel computes it): a ring slot j holds position
+``p_j = pos - ((pos - j) mod Sc)``, live while ``p_j > pos - window``. MLA
 decodes in the latent space with the absorbed weights: the cache row is
 both key and value (MQA-style, dim kv_lora + rope). A Mamba-2 layer steps
 its per-slot state (``mamba2_step``) for every slot, active or not, as JAX
@@ -18,7 +25,8 @@ writes the carry, the Mamba-2 states and the packed result back into the
 tensors it was given, so a CUDA graph of it (``serve/graphs.py``) reads
 and writes the same storage at every replay; the engine reads the packed
 result back once per quantum. Per-step constants (the rope tables, the
-page and offset of ``pos``) are computed once per step for all layers.
+page and offset of ``pos``, the write row and live keys of each shape of
+dense rows) are computed once per step for all layers.
 """
 from __future__ import annotations
 
@@ -45,6 +53,52 @@ def _combine(o, m, l):
     cross-rank max/sum combine a sharded decode adds."""
     del m
     return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _local_write(cache, new_row, rel):
+    """Write ``new_row`` (B,…) at row ``rel`` (B,) of each slot of ``cache``
+    (B, S, …), IN PLACE; a ``rel`` outside [0, S) writes nothing (the slot
+    keeps its row)."""
+    B, S = cache.shape[0], cache.shape[1]
+    in_range = (rel >= 0) & (rel < S)
+    relc = rel.clamp(0, S - 1).long()
+    b = torch.arange(B, device=cache.device)
+    cur = cache[b, relc]                                   # (B, …)
+    mask = in_range.reshape((B,) + (1,) * (cache.dim() - 2))
+    cache.index_put_((b, relc), torch.where(mask, new_row.to(cache.dtype),
+                                            cur))
+    return cache
+
+
+def _dense_rows(pos, S: int, window: int):
+    """(write row (B,), live mask (B, S)) of a layer of S dense rows per slot
+    at positions ``pos`` (B,), the new token's row included: a ring (a
+    window) writes at ``pos mod S`` and its slot j holds position ``p_j =
+    pos - ((pos - j) mod S)``, live while ``p_j >= 0`` and ``p_j > pos -
+    window``; full rows write at ``pos`` and see rows ``<= pos``."""
+    gpos = torch.arange(S, device=pos.device)
+    p = pos.long()[:, None]
+    if window:
+        p_j = p - torch.remainder(p - gpos[None], S)
+        return torch.remainder(pos.long(), S), (p_j >= 0) & (p_j > p - window)
+    return pos.long(), gpos[None] <= p
+
+
+def _dense_attend(q, k, v, live, *, scale: float, softcap: float = 0.0):
+    """Attention of one query row per (slot, head) over dense rows, in f32 as
+    the JAX einsum: q (B,Hk,G,d), k (B,S,Hk,d), v (B,S,Hk,dv) (MLA: Hk 1,
+    v the rows' first dims), live (B,S) → (B,Hk,G,dv); softcap before the
+    mask."""
+    s = torch.einsum("bhgd,bshd->bhgs", q.to(F32) * scale, k.to(F32))
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    live = live[:, None, None]
+    s = torch.where(live, s, NEG)
+    m = torch.amax(s, -1)
+    m_safe = torch.where(m <= NEG / 2, 0.0, m)
+    p = torch.where(live, torch.exp(s - m_safe[..., None]), 0.0)
+    o = torch.einsum("bhgs,bshd->bhgd", p, v.to(F32))
+    return _combine(o, m, torch.sum(p, -1))
 
 
 def _page_slot(pt, pos, ps: int):
@@ -94,12 +148,24 @@ def _check_paged_args(page_table, pos, *, update: bool = True,
 
 
 def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
-                     softcap: float, page_table, window: int = 0,
-                     slot, update: bool = True):
-    """q (B,Hkv,G,dh); k_new/v_new (B,Hkv,dh); pools (N, ps, Hkv, dh); pos
-    (B,) int32; page_table (B,T) int32; ``slot`` the write's
-    :func:`_page_slot` → (out (B,Hkv,G,dh), pool_k, pool_v), the pools
-    updated in place."""
+                     softcap: float, page_table=None, window: int = 0,
+                     slot=None, rows=None, update: bool = True):
+    """q (B,Hkv,G,dh); k_new/v_new (B,Hkv,dh); pos (B,) int32 → (out
+    (B,Hkv,G,dh), k, v), the cache written in place.
+
+    With ``page_table`` (B,T) int32 the cache is the pools (N, ps, Hkv, dh)
+    and ``slot`` the write's :func:`_page_slot`: the paged kernel. Without,
+    it is dense rows (B, S, Hkv, dh), a ring of S slots with ``window``, and
+    ``rows`` the layer's :func:`_dense_rows`: plain torch, as JAX's einsum
+    (``update=False`` attends without writing)."""
+    if page_table is None:
+        rel, live = rows
+        if update:
+            _local_write(pool_k, k_new, rel)
+            _local_write(pool_v, v_new, rel)
+        out = _dense_attend(q, pool_k, pool_v, live, scale=scale,
+                            softcap=softcap)
+        return out.to(q.dtype), pool_k, pool_v
     _check_paged_args(page_table, pos, update=update, window=window)
     _paged_write(pool_k, k_new, page_table, pos, slot)
     _paged_write(pool_v, v_new, page_table, pos, slot)
@@ -113,11 +179,19 @@ def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
 
 
 def flash_decode_mla(q_eff, new_row, pool, pos, *, kv_lora: int,
-                     scale: float, page_table, slot):
-    """q_eff (B,H,R); new_row (B,R); pool (N, ps, R); pos (B,) int32;
-    page_table (B,T) int32; ``slot`` as in :func:`flash_decode_gqa` → (out
-    (B,H,kv_lora), pool), the pool updated in place. Key = the pool row,
-    value = its first kv_lora dims."""
+                     scale: float, page_table=None, slot=None, rows=None):
+    """q_eff (B,H,R); new_row (B,R); pos (B,) int32 → (out (B,H,kv_lora),
+    cache), the cache written in place. Key = the cache row, value = its
+    first kv_lora dims. With ``page_table`` (B,T) int32 the cache is the
+    pool (N, ps, R), ``slot`` as in :func:`flash_decode_gqa`; without, dense
+    rows (B, S, R) and ``rows`` their :func:`_dense_rows`."""
+    if page_table is None:
+        rel, live = rows
+        _local_write(pool, new_row, rel)
+        ckv = pool[:, :, None, :]                            # one kv head
+        out = _dense_attend(q_eff[:, None], ckv, ckv[..., :kv_lora], live,
+                            scale=scale)[:, 0]
+        return out.to(q_eff.dtype), pool
     _check_paged_args(page_table, pos)
     _paged_write(pool, new_row, page_table, pos, slot)
     o, m, l = paged_ops.paged_attend_mla(
@@ -129,34 +203,52 @@ def flash_decode_mla(q_eff, new_row, pool, pos, *, kv_lora: int,
 # ------------------------------------------------------- per-step constants
 class StepConsts(NamedTuple):
     """What every attention layer of one decode step shares: the rope
-    tables of ``pos`` (cos, sin (B, width/2) f32, None without rope) and
-    the page and offset the new row goes to (:func:`_page_slot`)."""
+    tables of ``pos`` (cos, sin (B, width/2) f32, None without rope), the
+    page and offset the new row goes to in the pools (:func:`_page_slot`;
+    None without pooled layers), and for each (rows, window) of the dense
+    layers their :func:`_dense_rows`."""
     rope: Optional[tuple]
-    slot: tuple
+    slot: Optional[tuple]
+    dense: dict
+
+
+def _uses_pool(bc: BlockCfg, page_table) -> bool:
+    """Full-attention layers read the page pool when there is a table; ring
+    layers always keep dense rings (``pt = None if bc.window``)."""
+    return page_table is not None and not bc.window
 
 
 def step_consts(cfg: ModelConfig, cache, pos,
                 page_table) -> Optional[StepConsts]:
     """The per-step constants of a model's attention layers, or None when
     it has none (Mamba-2): one rope width (MLA's rope dims, else the head
-    dim) and one page size (every pool is the engine's)."""
-    pools = [c for bc, c in zip(block_cfgs(cfg), cache["layers"])
-             if bc.mixer == "attn"]
-    if not pools:
+    dim), one page size (every pool is the engine's), and one
+    :func:`_dense_rows` per shape of dense rows."""
+    attn = [(bc, c) for bc, c in zip(block_cfgs(cfg), cache["layers"])
+            if bc.mixer == "attn"]
+    if not attn:
         return None
-    ps = next(iter(pools[0].values())).shape[1]
     rope = None
     if cfg.mla:
         rope = rope_tables(pos, cfg.mla.rope_dim, cfg.rope_theta)
     elif cfg.use_rope:
         rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
-    return StepConsts(rope, _page_slot(page_table, pos, ps))
+    slot, dense = None, {}
+    for bc, c in attn:
+        n = next(iter(c.values())).shape[1]        # page size, or rows
+        if _uses_pool(bc, page_table):
+            if slot is None:
+                slot = _page_slot(page_table, pos, n)
+        elif (n, bc.window) not in dense:
+            dense[(n, bc.window)] = _dense_rows(pos, n, bc.window)
+    return StepConsts(rope, slot, dense)
 
 
 # --------------------------------------------------------- per-block decode
-def gqa_decode(cfg: ModelConfig, p, x, cache, pos, page_table,
-               consts: StepConsts):
-    """x (B,D) → (out (B,D), cache)."""
+def gqa_decode(cfg: ModelConfig, p, x, cache, pos, window: int,
+               page_table, consts: StepConsts):
+    """x (B,D) → (out (B,D), cache): the pools through ``page_table``, or
+    the layer's dense rows (a ring with ``window``) without one."""
     B, D = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"].reshape(D, -1)).view(B, H, dh)
@@ -167,9 +259,12 @@ def gqa_decode(cfg: ModelConfig, p, x, cache, pos, page_table,
         q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
         k = apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
     qg = q.reshape(B, Hkv, H // Hkv, dh)
+    rows = None if page_table is not None else \
+        consts.dense[(cache["k"].shape[1], window)]
     out, ck, cv = flash_decode_gqa(
         qg, k, v, cache["k"], cache["v"], pos, scale=dh ** -0.5,
-        softcap=cfg.attn_softcap, page_table=page_table, slot=consts.slot)
+        softcap=cfg.attn_softcap, page_table=page_table, window=window,
+        slot=consts.slot, rows=rows)
     o = out.reshape(B, H * dh) @ p["wo"].reshape(-1, D)
     return o, {"k": ck, "v": cv}
 
@@ -196,10 +291,13 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table,
     kr_t = x @ p["wkr"]
     kr_t = apply_rope(kr_t[:, None, None], cos[:, None], sin[:, None])[:, 0, 0]
     row = torch.cat([ckv_t, kr_t], dim=-1).to(cache["ckv"].dtype)
+    rows = None if page_table is not None else \
+        consts.dense[(cache["ckv"].shape[1], 0)]
     o_c, ckv = flash_decode_mla(q_eff, row, cache["ckv"], pos,
                                 kv_lora=m.kv_lora,
                                 scale=(m.nope_dim + m.rope_dim) ** -0.5,
-                                page_table=page_table, slot=consts.slot)
+                                page_table=page_table, slot=consts.slot,
+                                rows=rows)
     wuv = p["wukv"][..., m.nope_dim:]                  # (kv_lora, H, v)
     o = torch.einsum("bhr,rhv->bhv", o_c, wuv)
     o = o.reshape(B, H * m.v_dim) @ p["wo"].reshape(-1, D)
@@ -212,19 +310,31 @@ def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
     if bc.mixer == "mamba":
         y, new_state = mamba2_step(cfg, p["mamba"], x, cache)
         return h + y, new_state                # Mamba-2 blocks have no FFN
-    attn = mla_decode if cfg.mla else gqa_decode
-    y, new_cache = attn(cfg, p["attn"], x, cache, pos, page_table, consts)
+    # only full-attention layers are paged; rings keep dense buffers
+    pt = page_table if _uses_pool(bc, page_table) else None
+    if cfg.mla:
+        y, new_cache = mla_decode(cfg, p["attn"], x, cache, pos, pt, consts)
+    else:
+        y, new_cache = gqa_decode(cfg, p["attn"], x, cache, pos, bc.window,
+                                  pt, consts)
+    if cfg.use_post_norm:
+        y = rmsnorm(y, p["post1"], cfg.norm_eps)
     h = h + y
     x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-    if bc.ffn == "moe":
-        return h + moe_decode(cfg, p["moe"], x), new_cache
-    return h + mlp(cfg, p["mlp"], x), new_cache
+    y = moe_decode(cfg, p["moe"], x) if bc.ffn == "moe" else \
+        mlp(cfg, p["mlp"], x)
+    if cfg.use_post_norm:
+        y = rmsnorm(y, p["post2"], cfg.norm_eps)
+    return h + y, new_cache
 
 
 # ------------------------------------------------------------- decode step
-def decode_step(cfg: ModelConfig, params, cache, tokens, pos, page_table):
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
+                page_table=None):
     """tokens (B,), pos (B,) int32 → (logits (B,V) f32, cache). The page
-    pools of ``cache`` are updated in place; Mamba-2 states are replaced."""
+    pools and dense rows of ``cache`` are updated in place; Mamba-2 states
+    are replaced. ``page_table`` (B,T) int32 addresses the pools of a paged
+    cache; None for the dense engine's."""
     h = embed(cfg, params["embed"], tokens)
     consts = step_consts(cfg, cache, pos, page_table)
     layers = []

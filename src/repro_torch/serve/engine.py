@@ -1,34 +1,38 @@
-"""Continuous-batching paged serving engine (``repro/serve/engine.py``,
-fast paged path).
+"""Continuous-batching serving engine (``repro/serve/engine.py``, fast
+path), paged or dense.
 
 Slot-based: a fixed decode batch of ``max_slots`` sequences. Pending
-requests are prefilled in power-of-2 length buckets, batched, and their
-page-aligned cache rows are copied into pages of the shared pools of each
-layer (``(num_pages, page_size, Hkv, dh)`` K and V for GQA, one
-``(num_pages, page_size, kv_lora + rope)`` latent pool for MLA), addressed
-through a per-slot page table kept by a host-side free-list allocator.
-Mamba-2 layers keep dense per-slot state beside the pool, written per slot
-at admit; their state scan would absorb pad tokens, so such models
-(``pad_safe`` False) prefill in exact-length groups of the smallest
-power-of-2 batch. The engine does not otherwise depend on the model
-family. Decode runs ``decode_quantum`` tokens per cycle with every piece
-of state on the device and exactly one device-to-host read per quantum
-(``_host_fetch``). On the card each quantum is one replay of a CUDA graph
-(``serve/graphs.py``), captured at the first quantum of each live
-page-table width, as the JAX engine jits its quantum once per width: the
-slot state, cache, page tables and result buffer are static tensors that
-every quantum updates in place.
+requests are prefilled in power-of-2 length buckets, batched. In the paged
+engine (``paged=True``) their page-aligned full-attention rows are copied
+into pages of the shared pools of each layer (``(num_pages, page_size,
+Hkv, dh)`` K and V for GQA, one ``(num_pages, page_size, kv_lora + rope)``
+latent pool for MLA), addressed through a per-slot page table kept by a
+host-side free-list allocator. In the dense engine (``paged=False``, the
+JAX engine's default) every attention layer keeps ``max_len`` rows per
+slot and reads no page table. Either way sliding-window layers keep a ring
+per slot and Mamba-2 layers their state, and every such dense row is
+written into its slot at admit (``_admit``). A Mamba-2 state scan would
+absorb pad tokens, so such models (``pad_safe`` False) prefill in
+exact-length groups of the smallest power-of-2 batch. The engine does not
+otherwise depend on the model family. Decode runs ``decode_quantum`` tokens
+per cycle with every piece of state on the device and exactly one
+device-to-host read per quantum (``_host_fetch``). On the card each quantum
+is one replay of a CUDA graph (``serve/graphs.py``), captured at the first
+quantum of each live page-table width (a model without a page table: one
+graph), as the JAX engine jits its quantum once per width: the slot state,
+cache, page tables and result buffer are static tensors that every quantum
+updates in place.
 
 Admission follows the paper's scheduling law: the decode quantum is the
 fixed accelerator chunk ``S_f``; the prompt-token budget admitted per
 cycle is the adaptive ``S_c`` side, driven by the measured prefill:decode
 throughput ratio ``f``.
 
-This slice ports ``Engine(fast=True, paged=True)`` with the paged kernel.
-The dense engine, ``fast=False``, speculative decode and the gathered-view
-decode (``paged_kernel=False``) are not ported. The kernels are built when
-an engine is constructed on the card, so no timed interval includes a
-build.
+The port has ``Engine(fast=True)``, paged (with the paged kernel, the
+port's default) and dense. ``fast=False``, speculative decode and the
+gathered-view decode (``paged_kernel=False``) are not ported. The kernels
+are built when an engine is constructed on the card, so no timed interval
+includes a build.
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ from repro_torch.kernels import _build
 from repro_torch.models.transformer import block_cfgs, check_supported
 from repro_torch.serve.decode import _sample_tokens, decode_quantum
 from repro_torch.serve.graphs import DecodeGraphs
-from repro_torch.serve.kv_cache import (cache_kinds, make_cache,
+from repro_torch.serve.kv_cache import (cache_defs, cache_kinds, make_cache,
                                         paged_cache_defs)
 from repro_torch.serve.prefill import bucket_len, prefill
 
@@ -191,20 +195,22 @@ class Engine:
     def __init__(self, cfg: ModelConfig, params, *, device=None,
                  max_slots: int = 4, max_len: int = 128, eos_id: int = -1,
                  decode_quantum: int = 8, prefill_batch: int | None = None,
-                 min_bucket: int = 16, page_size: int = 16,
-                 num_pages: int | None = None, temperature: float = 0.0,
-                 top_k: int = 0, top_p: float = 0.0, sample_seed: int = 0,
-                 graphs: bool | None = None):
-        """Build a paged serving engine over an existing parameter tree
+                 min_bucket: int = 16, paged: bool = True,
+                 page_size: int = 16, num_pages: int | None = None,
+                 temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+                 sample_seed: int = 0, graphs: bool | None = None):
+        """Build a serving engine over an existing parameter tree
         (``params.init_params`` or ``params.params_from_numpy``) that lies
         on ``device`` (the card unless ``device="cpu"``).
 
         ``max_slots`` concurrent streams of up to ``max_len`` tokens each;
         ``decode_quantum`` tokens per decode cycle (one host read each);
         ``prefill_batch`` rows per batched prefill (default ``max_slots``);
-        ``min_bucket`` the smallest prompt-length bucket; ``page_size``
-        tokens per page, dividing ``max_len``; ``num_pages`` pool size
-        including the trash page 0 (default: every slot at full
+        ``min_bucket`` the smallest prompt-length bucket. ``paged`` serves
+        full-attention K/V from a shared page pool through a per-slot page
+        table (False: dense ``max_slots × max_len`` rows, no table):
+        ``page_size`` tokens per page, dividing ``max_len``; ``num_pages``
+        pool size including the trash page 0 (default: every slot at full
         ``max_len``). ``temperature`` 0 decodes greedily, > 0 samples on
         the device with top-k / top-p truncation, from ``sample_seed``.
         ``graphs`` (default: on the card) runs each decode quantum as one
@@ -238,28 +244,35 @@ class Engine:
         # padded buckets are only sound when every mixer is attention: a
         # Mamba-2 state scan would absorb the pad tokens
         self.pad_safe = all(bc.mixer == "attn" for bc in block_cfgs(cfg))
-        if page_size <= 0:
-            raise ValueError(f"page_size {page_size} must be positive")
-        if max_len % page_size:
-            raise ValueError(f"max_len {max_len} must be a multiple of "
-                             f"page_size {page_size}")
-        self.page_size = page_size
-        self.pages_per_slot = max_len // page_size
-        self.num_pages = num_pages or 1 + max_slots * self.pages_per_slot
-        self.alloc = PageAllocator(self.num_pages, max_slots,
-                                   self.pages_per_slot)
+        self.paged = bool(paged)
         if self.device.type == "cuda":
             _build.build()
             for name in _build.NAMES:
                 _build.load(name)
         dev = self.device
-        self.cache = make_cache(paged_cache_defs(
-            cfg, num_pages=self.num_pages, page_size=page_size,
-            max_slots=max_slots), dev)
-        self.kinds = cache_kinds(cfg)
-        self.page_table_dev = torch.tensor(self.alloc.table, device=dev)
-        # the live-width prefixes the quanta read, one static buffer each
-        self._tables = {self.pages_per_slot: self.page_table_dev}
+        self.alloc = None
+        self.page_table_dev = None
+        if self.paged:
+            if page_size <= 0:
+                raise ValueError(f"page_size {page_size} must be positive")
+            if max_len % page_size:
+                raise ValueError(f"max_len {max_len} must be a multiple of "
+                                 f"page_size {page_size}")
+            self.page_size = page_size
+            self.pages_per_slot = max_len // page_size
+            self.num_pages = num_pages or 1 + max_slots * self.pages_per_slot
+            self.alloc = PageAllocator(self.num_pages, max_slots,
+                                       self.pages_per_slot)
+            self.cache = make_cache(paged_cache_defs(
+                cfg, num_pages=self.num_pages, page_size=page_size,
+                max_slots=max_slots, max_len=max_len), dev)
+            self.page_table_dev = torch.tensor(self.alloc.table, device=dev)
+            # the live-width prefixes the quanta read, one static buffer each
+            self._tables = {self.pages_per_slot: self.page_table_dev}
+        else:
+            self.cache = make_cache(cache_defs(cfg, max_slots=max_slots,
+                                               max_len=max_len), dev)
+        self.kinds = cache_kinds(cfg, paged=self.paged)
         self._table_dirty = False
         self.pos_host = np.zeros(max_slots, np.int64)  # device-pos mirror
         self.slot_req: list[Optional[Request]] = [None] * max_slots
@@ -319,11 +332,14 @@ class Engine:
 
     def plan_admission(self, reqs: list[Request]) -> int:
         """How many of ``reqs`` (a prefix, in order) this engine could admit
-        right now: bounded by free slots net of pending work and by the
-        pool's worst-case commit budget. Advisory only."""
+        right now: bounded by free slots net of pending work and, for a
+        paged engine, by the pool's worst-case commit budget. Advisory
+        only."""
         n = min(len(reqs), len(self.free_slots()) - len(self.pending))
         if n <= 0:
             return 0
+        if not self.paged:
+            return n
         planned = sum(self._worst_pages(r) for r in self.pending)
         k = 0
         for req in reqs[:n]:
@@ -347,8 +363,9 @@ class Engine:
 
     def abort(self) -> list:
         """Reclaim every admitted request without stepping the model: each
-        is handed back with the tokens it already emitted, its pages are
-        released and the device-side active/remaining vectors are zeroed.
+        is handed back with the tokens it already emitted, its pages (if
+        paged) are released and the device-side active/remaining vectors are
+        zeroed.
         Pending requests are not included (see ``take_pending``). Returns
         the reclaimed requests in slot order."""
         out = []
@@ -382,11 +399,12 @@ class Engine:
                 self._table_dirty = True
 
     def _release_slot_pages(self, slot: int) -> None:
-        self.alloc.release(slot)
-        self._table_dirty = True
+        if self.paged:
+            self.alloc.release(slot)
+            self._table_dirty = True
 
     def _push_page_table(self) -> None:
-        if self._table_dirty:
+        if self.paged and self._table_dirty:
             # a blocking copy: the host table keeps changing
             self.page_table_dev.copy_(torch.from_numpy(self.alloc.table))
             self._table_dirty = False
@@ -397,18 +415,21 @@ class Engine:
         of two and floored at 8, as the JAX engine buckets them. The kernel
         reads no page past a slot's ``pos`` either way; a stale ``pos``
         beyond the slice writes to the trash page (``_paged_write``). A
-        model without a page pool reads no table: its quanta share the full
-        width, and so one graph."""
+        model without a page pool (and the dense engine) reads no table:
+        its quanta share one width, and so one graph."""
         if "paged" not in self.kinds:
-            return self.pages_per_slot
+            return self.pages_per_slot if self.paged else 0
         end = max(min(int(self.pos_host[i]) + self.decode_quantum,
                       self.max_len) for i in active_slots)
         n_live = max(-(-end // self.page_size), 8)
         return min(self.pages_per_slot, 1 << (n_live - 1).bit_length())
 
-    def _live_page_table(self, width: int) -> torch.Tensor:
+    def _live_page_table(self, width: int) -> Optional[torch.Tensor]:
         """The static buffer of ``width`` columns, holding the live prefix
-        of the device page table (the full table is its own buffer)."""
+        of the device page table (the full table is its own buffer); None
+        in the dense engine."""
+        if not self.paged:
+            return None
         buf = self._tables.get(width)
         if buf is None:
             buf = self._tables[width] = torch.empty(
@@ -418,7 +439,7 @@ class Engine:
             buf.copy_(self.page_table_dev[:, :width])
         return buf
 
-    def _quantum(self, page_table: torch.Tensor) -> None:
+    def _quantum(self, page_table: Optional[torch.Tensor]) -> None:
         """One decode quantum in place on the engine's static tensors (the
         function a graph captures): the slot state, cache and packed
         result are read from and written back to ``self``."""
@@ -441,8 +462,9 @@ class Engine:
                         if r is not None]
         if not active_slots:          # everything finished at prefill
             return StepReport(admitted=self._last_admitted)
-        self._grant_quantum_pages(active_slots)
-        self._push_page_table()
+        if self.paged:
+            self._grant_quantum_pages(active_slots)
+            self._push_page_table()
         t0 = time.perf_counter()
         width = self._live_width(active_slots)
         table = self._live_page_table(width)
@@ -481,8 +503,9 @@ class Engine:
     def _admit_pending(self, free: list[int]) -> None:
         """HBB chunking law over token units: the decode quantum is the
         fixed accelerator chunk (S_f = quantum × slots tokens); the prompt-
-        token budget admitted this cycle is the adaptive S_c side. Admission
-        also stops at the pool's worst-case page budget."""
+        token budget admitted this cycle is the adaptive S_c side. A paged
+        engine's admission also stops at the pool's worst-case page
+        budget."""
         r_tokens = sum(len(q.prompt) for q in self.pending)
         budget = cpu_chunk(S_f=self.decode_quantum * self.max_slots,
                            f=self.tracker.f(), r=r_tokens, n_cores=1)
@@ -493,10 +516,11 @@ class Engine:
             n = len(req.prompt)
             if take and budget < n:            # always admit ≥ 1
                 break
-            W = self._worst_pages(req)
-            if not self.alloc.can_commit(planned_pages + W):
-                break                          # pool backpressure
-            planned_pages += W
+            if self.paged:
+                W = self._worst_pages(req)
+                if not self.alloc.can_commit(planned_pages + W):
+                    break                      # pool backpressure
+                planned_pages += W
             budget -= n
             take.append(self.pending.pop(0))
         if not take:
@@ -534,14 +558,15 @@ class Engine:
             toks[j, :len(req.prompt)] = req.prompt
             pl[j] = len(req.prompt)
             slots[j] = free.pop(0)
-        page_src = self._alloc_group_pages(Sb, reqs, slots)
+        page_src = (self._alloc_group_pages(Sb, reqs, slots) if self.paged
+                    else None)
         dev = self.device
         t0 = time.perf_counter()
         pl_dev = torch.tensor(pl, device=dev)
-        logits, new_cache = prefill(self.cfg, self.params,
-                                    torch.tensor(toks, device=dev),
-                                    prompt_len=pl_dev,
-                                    page_size=self.page_size)
+        logits, new_cache = prefill(
+            self.cfg, self.params, torch.tensor(toks, device=dev),
+            max_len=self.max_len, prompt_len=pl_dev,
+            page_size=self.page_size if self.paged else None)
         first = _sample_tokens(logits, self._prefill_gen,
                                temperature=self.temperature, top_k=self.top_k,
                                top_p=self.top_p)
@@ -563,13 +588,14 @@ class Engine:
         return dt
 
     def _admit(self, new_cache, first, pl_dev, reqs, slots, page_src):
-        """Move a prefilled group into its slots: the page-aligned cache rows
-        are copied into their freshly granted pool pages IN PLACE
-        (``index_copy_``), dense leaves (Mamba-2 state) into the group's
-        slots, and the slot state vectors take the group's first token,
-        position and budget. ``page_src`` (num_pages,) is the flat
-        (row · pages_per_row + page) source of each pool page, -1 where the
-        group writes nothing."""
+        """Move a prefilled group into its slots IN PLACE (``index_copy_``):
+        each dense leaf (per-slot rows, rings, Mamba-2 state) takes the
+        group's rows into their slots in one pass, the paged layers'
+        page-aligned rows go into their freshly granted pool pages, and the
+        slot state vectors take the group's first token, position and
+        budget. ``page_src`` (num_pages,) is the flat (row · pages_per_row +
+        page) source of each pool page, -1 where the group writes nothing
+        (None in the dense engine)."""
         dev = self.device
         n = len(reqs)
         slot_dev = torch.tensor(slots, device=dev)
@@ -580,14 +606,16 @@ class Engine:
         self.pos_dev[slot_dev] = pl_dev[:n]
         self.remaining_dev[slot_dev] = torch.tensor(rem, device=dev)
         self.active_dev[slot_dev] = torch.tensor(act, device=dev)
-        dst = np.nonzero(page_src >= 0)[0]
-        dst_dev = torch.tensor(dst, device=dev)
-        src_dev = torch.tensor(page_src[dst].astype(np.int64), device=dev)
-        ps = self.page_size
+        if self.paged:
+            dst = np.nonzero(page_src >= 0)[0]
+            dst_dev = torch.tensor(dst, device=dev)
+            src_dev = torch.tensor(page_src[dst].astype(np.int64),
+                                   device=dev)
+            ps = self.page_size
         for kind, pools, rows in zip(self.kinds, self.cache["layers"],
                                      new_cache["layers"]):
             for name, r in rows.items():
-                if kind == "dense":            # per-slot Mamba-2 state
+                if kind == "dense":            # per-slot rows and state
                     pools[name].index_copy_(0, slot_dev,
                                             r[:n].to(pools[name].dtype))
                     continue

@@ -4,7 +4,8 @@ JAX engine's ``jax.jit(decode_loop_fn(...), donate_argnums=...)`` and its
 compile cache.
 
 The engine keys a graph by the live page-table width (its power-of-two
-buckets); temperature, top-k/p and the quantum are fixed per engine. The
+buckets; one key for the dense engine and for a model without a page
+pool); temperature, top-k/p and the quantum are fixed per engine. The
 first quantum of a key runs eagerly on a side stream (the warm-up, which
 also makes the paged kernels' arrival counters of that stream, sets each
 kernel's shared-memory attribute at its first launch and gives cuBLAS its
@@ -18,7 +19,8 @@ and advances it as the eager draws would.
 A graph fixes every pointer it reads at capture (kernel arguments, the
 TMA tensor maps built from them), so the function it captures must read
 and write the same storage at every call: the engine's static slot
-state, page-table buffers, cache and output buffer.
+state, page-table buffers, cache (pools, dense rows and rings, written in
+place; ring slots computed on the device from ``pos``) and output buffer.
 
 The kernel wrappers count launches in Python, which a replay does not
 run. So each capture records the change of every wrapper's count

@@ -1,14 +1,22 @@
-"""Paged cache layout (``repro/serve/kv_cache.py``: full-attention pools
-beside dense per-slot Mamba-2 state).
+"""Decode-cache layouts (``repro/serve/kv_cache.py``): dense per-slot rows,
+sliding-window rings, page pools and per-slot Mamba-2 state.
 
-Every full-attention GQA layer owns two pools ``(num_pages, page_size, Hkv,
-dh)``, every MLA layer one latent pool ``{"ckv": (num_pages, page_size,
-kv_lora + rope)}`` (the row is both key and value), addressed through the
-engine's per-slot page table. Page 0 is the allocator's reserved trash
-page. A Mamba-2 layer keeps its O(1) state densely per slot, beside the
-pool: ``conv_x``/``conv_B``/``conv_C`` ``(max_slots, d_conv - 1, ·)`` in
-the parameter dtype and ``ssm`` ``(max_slots, H, P, N)`` in f32. A model
-may have no pooled layer at all.
+Dense engine (``cache_defs``): every attention layer keeps per-slot rows
+``(max_slots, Sc, Hkv, dh)`` K and V for GQA, ``{"ckv": (max_slots, Sc,
+kv_lora + rope)}`` for MLA (the row is both key and value), with ``Sc =
+max_len`` for full attention and a ring of ``Sc = min(window, max_len)``
+slots for a sliding-window layer (position p lands in slot p mod Sc), as
+``attn_cache_len`` sizes them.
+
+Paged engine (``paged_cache_defs``): every full-attention layer owns pools
+``(num_pages, page_size, Hkv, dh)`` (MLA: one latent pool), addressed
+through the engine's per-slot page table; page 0 is the allocator's
+reserved trash page. Ring layers keep their dense per-slot rings beside
+the pools: they are already bounded per slot.
+
+Either way a Mamba-2 layer keeps its O(1) state densely per slot:
+``conv_x``/``conv_B``/``conv_C`` ``(max_slots, d_conv - 1, ·)`` in the
+parameter dtype and ``ssm`` ``(max_slots, H, P, N)`` in f32.
 """
 from __future__ import annotations
 
@@ -18,6 +26,35 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mamba import mamba2_state_defs
 from repro_torch.models.transformer import BlockCfg, block_cfgs, check_supported
 from repro_torch.params import ParamSpec, tree_map
+
+
+def attn_cache_len(window: int, seq_len: int) -> int:
+    """Rows of an attention layer's per-slot cache: a ring of
+    ``min(window, seq_len)`` slots for a windowed layer, ``seq_len``
+    otherwise (one device: no padding to a model axis)."""
+    return min(window, seq_len) if window else seq_len
+
+
+def block_cache_defs(cfg: ModelConfig, bc: BlockCfg, batch: int,
+                     seq_len: int):
+    """Dense cache defs of one layer for ``batch`` slots of ``seq_len``
+    tokens: rows (or a ring) for attention, the state for Mamba-2."""
+    if bc.mixer == "mamba":
+        return mamba2_state_defs(cfg, batch)
+    Sc = attn_cache_len(bc.window, seq_len)
+    if cfg.mla:
+        R = cfg.mla.kv_lora + cfg.mla.rope_dim
+        return {"ckv": ParamSpec((batch, Sc, R), cfg.pdtype, "zeros")}
+    shape = (batch, Sc, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": ParamSpec(shape, cfg.pdtype, "zeros"),
+            "v": ParamSpec(shape, cfg.pdtype, "zeros")}
+
+
+def cache_defs(cfg: ModelConfig, *, max_slots: int, max_len: int):
+    """The dense engine's cache defs: :func:`block_cache_defs` per layer."""
+    check_supported(cfg)
+    return {"layers": [block_cache_defs(cfg, bc, max_slots, max_len)
+                       for bc in block_cfgs(cfg)]}
 
 
 def page_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int):
@@ -32,27 +69,29 @@ def page_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int):
 
 
 def _is_pooled(bc: BlockCfg) -> bool:
-    """Full-attention mixers go through the page pool; Mamba-2 layers keep
-    their O(1) per-slot state."""
+    """Full-attention mixers go through the page pool; ring (sliding-window)
+    and Mamba-2 layers keep their dense / O(1) per-slot layouts."""
     return bc.mixer == "attn" and not bc.window
 
 
 def paged_cache_defs(cfg: ModelConfig, *, num_pages: int, page_size: int,
-                     max_slots: int):
-    """Cache defs per layer: a page pool, or the per-slot Mamba-2 state of
-    ``max_slots`` slots."""
+                     max_slots: int, max_len: int):
+    """Cache defs per layer: a page pool for full attention, else the dense
+    per-slot ring or Mamba-2 state of ``max_slots`` slots of ``max_len``
+    tokens."""
     check_supported(cfg)
     return {"layers": [page_pool_defs(cfg, num_pages, page_size)
                        if _is_pooled(bc) else
-                       mamba2_state_defs(cfg, max_slots)
+                       block_cache_defs(cfg, bc, max_slots, max_len)
                        for bc in block_cfgs(cfg)]}
 
 
-def cache_kinds(cfg: ModelConfig) -> list[str]:
+def cache_kinds(cfg: ModelConfig, *, paged: bool = True) -> list[str]:
     """Per-layer layout label, "paged" or "dense": what the engine's admit
     does with the layer's prefill rows (scatter into pool pages, or write
     per slot)."""
-    return ["paged" if _is_pooled(bc) else "dense" for bc in block_cfgs(cfg)]
+    return ["paged" if paged and _is_pooled(bc) else "dense"
+            for bc in block_cfgs(cfg)]
 
 
 def make_cache(defs, device) -> dict:

@@ -1,16 +1,20 @@
 """Prefill: full forward pass that also builds the cache rows
-(``repro/serve/prefill.py``, full-attention GQA or MLA with a dense or MoE
-FFN, or Mamba-2 mixers).
+(``repro/serve/prefill.py``: GQA attention, full or sliding-window, or MLA,
+with a dense or MoE FFN, pre- or post-norm, or Mamba-2 mixers).
 
 Bucketed serving path: prompts are right-padded to a power-of-2 length
 bucket and prefilled batched with an explicit per-row ``prompt_len``.
 Causality keeps real rows from attending pad keys, and the last-token
-logits are gathered at ``prompt_len - 1`` per row. With ``page_size`` the
-cache rows come out page-aligned, ``(B, ceil(S / page_size) · page_size,
-Hkv, dh)`` for GQA, ``(B, …, kv_lora + rope)`` for MLA, ready for the
-engine's admit scatter into its pools. A Mamba-2 layer returns its decode
-state instead (``mamba2_mixer(return_state=True)``); its scan would absorb
-pad tokens, so the engine prefills such models in exact-length groups.
+logits are gathered at ``prompt_len - 1`` per row. Full-attention rows
+come out ``(B, max_len, Hkv, dh)`` for the dense engine, or page-aligned
+with ``page_size``, ``(B, ceil(S / page_size) · page_size, Hkv, dh)`` for
+GQA, ``(B, …, kv_lora + rope)`` for MLA, ready for the paged engine's
+admit scatter into its pools. A sliding-window layer's rows are its ring,
+``attn_cache_len(window, max_len)`` slots with position p at slot p mod
+Sc, packed per row so that pad positions never enter it (``_ring_pack_pl``).
+A Mamba-2 layer returns its decode state instead
+(``mamba2_mixer(return_state=True)``); its scan would absorb pad tokens, so
+the engine prefills such models in exact-length groups.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.models.layers import embed, logits_fn, mlp, rmsnorm
 from repro_torch.models.mamba import mamba2_mixer
 from repro_torch.models.moe import moe_block
 from repro_torch.models.transformer import BlockCfg, block_cfgs
+from repro_torch.serve.kv_cache import attn_cache_len
 
 
 def _pad_to(k: torch.Tensor, Sc: int) -> torch.Tensor:
@@ -31,6 +36,25 @@ def _pad_to(k: torch.Tensor, Sc: int) -> torch.Tensor:
         return k[:, :Sc]
     pad = k.new_zeros((k.shape[0], Sc - S) + tuple(k.shape[2:]))
     return torch.cat([k, pad], dim=1)
+
+
+def _ring_pack_pl(k: torch.Tensor, Sc: int,
+                  prompt_len: torch.Tensor) -> torch.Tensor:
+    """Per-row ring pack: (B,S,…) + prompt_len (B,) → (B,Sc,…), ring slot j
+    holding the last real position p ≤ prompt_len - 1 with p ≡ j (mod Sc),
+    zeros where no position is. Pad positions (≥ prompt_len) never enter
+    the ring: a tail roll would let them displace real tokens whenever the
+    padded bucket is longer than the window."""
+    S = k.shape[1]
+    j = torch.arange(Sc, device=k.device)
+    last = prompt_len.long()[:, None] - 1                      # (B, 1)
+    p_j = last - torch.remainder(last - j[None, :], Sc)        # (B, Sc)
+    tail = (1,) * (k.dim() - 2)
+    idx = p_j.clamp(0, S - 1).reshape(p_j.shape + tail)
+    g = torch.take_along_dim(k, idx, dim=1)
+    valid = (p_j >= 0).reshape(p_j.shape + tail)
+    return torch.where(valid, g, torch.zeros((), dtype=k.dtype,
+                                             device=k.device))
 
 
 def bucket_len(n: int, *, min_bucket: int = 16,
@@ -50,19 +74,26 @@ def bucket_len(n: int, *, min_bucket: int = 16,
 
 
 def gqa_prefill(cfg: ModelConfig, p, x, *, window: int, positions,
-                seq_len_cache: int):
-    """Attention + cache build. x (B,S,D) → (out, {"k", "v"}) with the cache
-    rows padded to ``seq_len_cache``. Pad rows land at positions ≥
-    prompt_len, which decode never attends before overwriting."""
-    if window:
-        raise NotImplementedError("sliding-window ring caches are not ported")
+                seq_len_cache: int, prompt_len=None):
+    """Attention + cache build. x (B,S,D) → (out, {"k", "v"}). Full
+    attention: the rows padded to ``seq_len_cache``; pad rows land at
+    positions ≥ prompt_len, which decode never attends before overwriting.
+    A window: the ring of ``seq_len_cache`` slots, packed per row up to
+    ``prompt_len`` (B,) (S for every row when not given)."""
     B, S = x.shape[:2]
     q, k, v = gqa_project(cfg, p, x, positions)
     out = attend(q, k, v, scale=cfg.head_dim ** -0.5, causal=True,
                  window=window, softcap=cfg.attn_softcap)
     o = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \
         p["wo"].reshape(-1, cfg.d_model)
-    return o, {"k": _pad_to(k, seq_len_cache), "v": _pad_to(v, seq_len_cache)}
+    if window:
+        if prompt_len is None:                  # every row is S real tokens
+            prompt_len = torch.full((B,), S, device=x.device)
+        ck = _ring_pack_pl(k, seq_len_cache, prompt_len)
+        cv = _ring_pack_pl(v, seq_len_cache, prompt_len)
+    else:
+        ck, cv = _pad_to(k, seq_len_cache), _pad_to(v, seq_len_cache)
+    return o, {"k": ck, "v": cv}
 
 
 def mla_prefill(cfg: ModelConfig, p, x, *, positions, seq_len_cache: int):
@@ -89,28 +120,34 @@ def mla_prefill(cfg: ModelConfig, p, x, *, positions, seq_len_cache: int):
 
 def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
                   seq_len: int, max_len: int | None = None,
-                  page_size: int | None = None):
+                  prompt_len=None, page_size: int | None = None):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "mamba":
         y, cache = mamba2_mixer(cfg, p["mamba"], x, return_state=True)
         return h + y, cache                    # Mamba-2 blocks have no FFN
-    if page_size:
-        # paged engine: rows sized by the bucket, rounded up to whole pages
+    if page_size and not bc.window:
+        # paged engine: full-attention rows sized by the bucket, rounded up
+        # to whole pages (the admit copies them into pool pages)
         Sc = -(-seq_len // page_size) * page_size
     else:
-        Sc = max_len or seq_len
+        Sc = attn_cache_len(bc.window, max_len or seq_len)
     if cfg.mla:
         y, cache = mla_prefill(cfg, p["attn"], x, positions=positions,
                                seq_len_cache=Sc)
     else:
         y, cache = gqa_prefill(cfg, p["attn"], x, window=bc.window,
-                               positions=positions, seq_len_cache=Sc)
+                               positions=positions, seq_len_cache=Sc,
+                               prompt_len=prompt_len)
+    if cfg.use_post_norm:
+        y = rmsnorm(y, p["post1"], cfg.norm_eps)
     h = h + y
     x = rmsnorm(h, p["norm2"], cfg.norm_eps)
     if bc.ffn == "moe":
         y, _ = moe_block(cfg, p["moe"], x)
     else:
         y = mlp(cfg, p["mlp"], x)
+    if cfg.use_post_norm:
+        y = rmsnorm(y, p["post2"], cfg.norm_eps)
     return h + y, cache
 
 
@@ -121,8 +158,9 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     {"ckv"} or the Mamba-2 state {"conv_x", "conv_B", "conv_C", "ssm"}]}).
 
     ``prompt_len`` (B,) marks right-padded rows: logits are gathered at
-    prompt_len-1 per row. ``page_size`` sizes the cache rows by the bucket
-    (page-aligned) instead of ``max_len``.
+    prompt_len-1 per row, and ring caches are packed per row. ``max_len``
+    (default S) sizes full-attention rows and the rings; ``page_size``
+    sizes full-attention rows by the bucket (page-aligned) instead.
     """
     S = tokens.shape[1]
     h = embed(cfg, params["embed"], tokens)
@@ -130,7 +168,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     caches = []
     for bc, p in zip(block_cfgs(cfg), params["layers"]):
         h, c = block_prefill(cfg, bc, p, h, positions, S, max_len,
-                             page_size=page_size)
+                             prompt_len=prompt_len, page_size=page_size)
         caches.append(c)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if prompt_len is None:

@@ -4,6 +4,7 @@ card. These skip where there is no CUDA device; on a machine with an H100:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -118,7 +119,8 @@ def test_paged_kernel_rejects_bad_inputs(dev):
     (True, 0, 0.0), (True, 64, 0.0), (False, 0, 0.0), (True, 0, 30.0),
     (True, 32, 50.0)])
 @pytest.mark.parametrize("T,H,Hk,dh", [(128, 3, 3, 32), (100, 8, 2, 128),
-                                       (37, 4, 1, 16), (50, 2, 2, 24)])
+                                       (37, 4, 1, 16), (50, 2, 2, 24),
+                                       (300, 8, 2, 80), (100, 4, 2, 256)])
 def test_flash_kernel_matches_plain(dev, dtype, causal, window, softcap, T,
                                     H, Hk, dh):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -154,9 +156,9 @@ def test_flash_kernel_strided_views(dev):
 
 
 def test_flash_kernel_rejects_bad_inputs(dev):
-    q = torch.randn((1, 2, 16, 160), device=dev)
+    q = torch.randn((1, 2, 16, 264), device=dev)
     with pytest.raises(ValueError):
-        flash_ops.attend(q, q, q, scale=0.1)             # dh > 128
+        flash_ops.attend(q, q, q, scale=0.1)             # dh, dv > 256
     q = torch.randn((1, 3, 16, 32), device=dev)
     k = torch.randn((1, 2, 16, 32), device=dev)
     with pytest.raises(ValueError):
@@ -198,7 +200,8 @@ def test_bf16_prefill_decode_on_card_match_host(dev):
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-236b",
-                                  "phi3.5-moe-42b-a6.6b", "mamba2-130m"])
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-130m",
+                                  "nemotron-4-15b"])
 def test_engine_on_card_matches_host(dev, arch):
     """The paged engine on the card (every kernel of the model's path) gives
     the greedy streams of the same engine on the host (plain versions), in
@@ -246,7 +249,8 @@ def _serve_counted(cfg, params, device, prompts, kw, **extra):
     before = graphs.launch_counts()
     eng.run(reqs)
     torch.cuda.synchronize()
-    eng.alloc.check()
+    if eng.paged:
+        eng.alloc.check()
     delta = tuple(a - b for a, b in zip(graphs.launch_counts(), before))
     return [r.out for r in reqs], eng, delta
 
@@ -274,6 +278,40 @@ def test_engine_graphs_match_eager_and_host(dev, arch):
     assert g_eng.quanta > g_eng.decode_captures
     if "paged" in g_eng.kinds:
         assert len(g_eng.widths_used) > 1
+    assert g_launch == e_launch and any(g_launch), (g_launch, e_launch)
+
+
+LAYOUTS = [("gemma2-2b", True), ("gemma2-2b", False),
+           ("h2o-danube-1.8b", False)]
+
+
+@pytest.mark.parametrize("arch,paged", LAYOUTS,
+                         ids=[f"{a}-{'paged' if p else 'dense'}"
+                              for a, p in LAYOUTS])
+def test_engine_graphs_rings_and_dense_match_eager_and_host(dev, arch,
+                                                            paged):
+    """f32 smoke models with sliding-window rings (window 32): gemma2's
+    paged engine (global layers in the pool, local layers in rings, post-
+    norm, softcaps) and the dense engine (gemma2, danube: one graph, no
+    page table): replayed graphs = the eager loop on the card = the host
+    engine, decoding past the window, and equal launch counts."""
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts, kw = _graph_workload(cfg)
+    host, _, _ = _serve_counted(cfg, params, "cpu", prompts, kw,
+                                paged=paged)
+    eager, e_eng, e_launch = _serve_counted(cfg, params, dev, prompts, kw,
+                                            graphs=False, paged=paged)
+    graph, g_eng, g_launch = _serve_counted(cfg, params, dev, prompts, kw,
+                                            paged=paged)
+    assert graph == eager == host
+    assert g_eng.decode_captures == len(g_eng.widths_used)
+    assert g_eng.widths_used == e_eng.widths_used
+    if not paged:
+        assert set(g_eng.widths_used) == {0}
+    assert g_eng.quanta > g_eng.decode_captures
+    assert max(len(p) + len(o) for p, o in zip(prompts, graph)) > 33
     assert g_launch == e_launch and any(g_launch), (g_launch, e_launch)
 
 
@@ -527,7 +565,7 @@ def _close_partials(got, want):
 
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 @pytest.mark.parametrize("base", [0, 8])
-@pytest.mark.parametrize("grp,dh", [(4, 128), (8, 64), (1, 128)])
+@pytest.mark.parametrize("grp,dh", [(4, 128), (8, 64), (1, 128), (2, 256)])
 def test_paged_gqa_mma_main_shape(dev, softcap, base, grp, dh):
     """The tensor-core route at the main path's table (256 pages of 16, 8
     splits) against the plain version: 4095 keys across every split, an
@@ -570,15 +608,20 @@ def test_paged_mla_wgmma_main_shape(dev, base, H, R):
 
 def _paged_calls(dev):
     q, pk, pv, pt, pos = _gqa_main(dev)
+    q2, pk2, pv2, pt2, pos2 = _gqa_main(dev, grp=2, dh=256, hkv=4)
     qm, pool, ptm, posm = _mla_main(dev)
     gqa = (lambda p: paged_ops.paged_attend_gqa(
         q, pk, pv, pt, p, 0, page_size=16, scale=0.088, softcap=30.0))
+    gqa256 = (lambda p: paged_ops.paged_attend_gqa(
+        q2, pk2, pv2, pt2, p, 0, page_size=16, scale=0.0625, softcap=50.0))
     mla = (lambda p: paged_ops.paged_attend_mla(
         qm, pool, ptm, p, 0, page_size=16, kv_lora=512, scale=0.072))
-    return {"gqa": (gqa, pos, "launches"), "mla": (mla, posm, "mla_launches")}
+    return {"gqa": (gqa, pos, "launches"), "gqa256": (gqa256, pos2,
+                                                      "launches"),
+            "mla": (mla, posm, "mla_launches")}
 
 
-@pytest.mark.parametrize("op", ["gqa", "mla"])
+@pytest.mark.parametrize("op", ["gqa", "gqa256", "mla"])
 def test_paged_tensor_core_one_launch_bit_equal(dev, op):
     """One call: the launch count +1 and one kernel on the card (the merge
     runs in the same launch); two calls bit-equal (the partials merge in
@@ -588,18 +631,22 @@ def test_paged_tensor_core_one_launch_bit_equal(dev, op):
     first = fn(pos)                              # counters made before
     torch.cuda.synchronize()
     n0 = getattr(paged_ops, counter)
+    # idle at both ends: the profiler drops a kernel whose device
+    # timestamps fall just outside its window (chip_smoke.PROFILE_PAD_S)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
         again = fn(pos)
         torch.cuda.synchronize()
+        time.sleep(0.02)
     assert getattr(paged_ops, counter) == n0 + 1
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    want = "paged_gqa_mma" if op == "gqa" else "paged_mla_wgmma"
+    want = "paged_mla_wgmma" if op == "mla" else "paged_gqa_mma"
     assert len(kernels) == 1 and want in kernels[0], kernels
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-@pytest.mark.parametrize("op", ["gqa", "mla"])
+@pytest.mark.parametrize("op", ["gqa", "gqa256", "mla"])
 def test_paged_tensor_core_cuda_graph(dev, op):
     """One call captured in a CUDA graph and replayed twice, with other
     positions written into pos before the second replay: each replay equals
@@ -631,7 +678,7 @@ def test_paged_kernels_run_tensor_cores_and_async_copies(dev):
     wgmma (HGMMA) and TMA tile loads (UTMALDG) for MLA."""
     _build.build(("paged_attention",))
     counts = _build.sass_counts("paged_attention")
-    for dh in (64, 128):
+    for dh in (64, 128, 256):
         for cap in (0, 1):
             c = counts[f"paged_gqa_mma<{dh}, {cap}>"]
             assert c["HMMA"] > 0 and c["LDGSTS"] > 0, c
@@ -680,7 +727,8 @@ def _fwd_views(dev, B, T, H, Hk, dh, dv, seed, mla=False):
 @pytest.mark.parametrize("T", [129, 640, 1000, 2048])
 @pytest.mark.parametrize("H,Hk,dh,dv,mla", [(8, 2, 64, 64, False),
                                             (8, 2, 128, 128, False),
-                                            (4, 4, 192, 128, True)])
+                                            (4, 4, 192, 128, True),
+                                            (8, 4, 256, 256, False)])
 @pytest.mark.parametrize("causal,window,softcap", [
     (True, 0, 0.0), (True, 256, 0.0), (True, 0, 30.0), (False, 0, 0.0),
     (True, 256, 30.0)])
@@ -736,7 +784,8 @@ def test_redesigned_kernels_run_wgmma_and_tma(dev):
     fa = _build.sass_counts("flash_attention")
     gg = _build.sass_counts("grouped_gemm")
     for counts in [fa[f"flash_fwd_wgmma<{dh}, {dv}>"]
-                   for dh, dv in ((64, 64), (128, 128), (192, 128))] + \
+                   for dh, dv in ((64, 64), (128, 128), (192, 128),
+                                  (256, 256))] + \
             [gg["gg_prefill"], gg["gg_decode"]]:
         assert counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, (fa, gg)
 

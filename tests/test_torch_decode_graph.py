@@ -1,8 +1,9 @@
 """The decode quantum as one device program, on the CPU, at the smoke
-configs of the four served models in f32: the in-place quantum
+configs of the served models in f32: the in-place quantum
 (``decode_quantum``) against the functional ``decode_loop`` bit for bit,
-greedy and sampled; and the paged engine with a CPU stand-in for its CUDA
-graphs (``serve/graphs.py``) against the JAX fast paged engine. The
+greedy and sampled, on page pools and on dense rows and rings; and the
+paged and dense engines with a CPU stand-in for their CUDA graphs
+(``serve/graphs.py``) against the JAX fast engine of the same layout. The
 stand-in captures by running the quantum once and replays by running it
 again, and asserts that a replay reads the storage the capture read: what
 a CUDA graph, whose pointers are fixed at capture, needs. Parameters come
@@ -27,7 +28,8 @@ from repro_torch.params import init_params, params_from_numpy, tree_map
 from repro_torch.serve import engine as teng
 from repro_torch.serve import graphs
 from repro_torch.serve.decode import _pack, decode_loop, decode_quantum
-from repro_torch.serve.kv_cache import make_cache, paged_cache_defs
+from repro_torch.serve.kv_cache import (cache_defs, make_cache,
+                                        paged_cache_defs)
 
 ARCHS = ["mistral-nemo-12b", "deepseek-v2-236b", "phi3.5-moe-42b-a6.6b",
          "mamba2-130m"]
@@ -51,7 +53,7 @@ def _state(cfg, B=4, T=4, ps=8, seed=0):
     rng = np.random.default_rng(seed)
     N = 1 + B * T
     cache = make_cache(paged_cache_defs(cfg, num_pages=N, page_size=ps,
-                                        max_slots=B), "cpu")
+                                        max_slots=B, max_len=T * ps), "cpu")
     for layer in cache["layers"]:
         for t in layer.values():
             t.copy_(torch.from_numpy(rng.normal(size=t.shape) * 0.5))
@@ -64,6 +66,50 @@ def _state(cfg, B=4, T=4, ps=8, seed=0):
     pt = torch.from_numpy((1 + rng.permutation(N - 1).reshape(B, T)).astype(
         np.int32))
     return cache, slots, pt
+
+
+@pytest.mark.parametrize("sampling", ["greedy", "sampled"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "h2o-danube-1.8b"])
+def test_inplace_quantum_dense_matches_decode_loop(arch, sampling):
+    """The dense engine's quantum (no page table; every row dense, rings of
+    the smoke window 32 at max_len 48, slots before and past a wrap, one
+    frozen at max_len): in place equals ``decode_loop`` bit for bit, and
+    every cache leaf is written in place (none rebound)."""
+    cfg = _tcfg(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    B, max_len = 4, 48
+    cache = make_cache(cache_defs(cfg, max_slots=B, max_len=max_len), "cpu")
+    for layer in cache["layers"]:
+        for t in layer.values():
+            t.copy_(torch.from_numpy(rng.normal(size=t.shape) * 0.5))
+    slots = dict(
+        tokens=torch.from_numpy(rng.integers(0, cfg.vocab, B).astype(
+            np.int32)),
+        pos=torch.tensor([5, 30, 40, max_len], dtype=torch.int32),
+        active=torch.tensor([True, True, True, False]),
+        remaining=torch.tensor([6, 8, 3, 9], dtype=torch.int32))
+    kw = dict(num_steps=4, eos_id=-1, max_len=max_len,
+              **(SAMPLED if sampling == "sampled" else {}))
+    ref_cache = tree_map(lambda t: t.clone(), cache)
+    carry, toks, msks = decode_loop(
+        cfg, params, ref_cache, *(t.clone() for t in slots.values()),
+        page_table=None, generator=torch.Generator().manual_seed(3), **kw)
+    leaves = tree_leaves(cache)
+    packed = torch.full((9, 4), -7, dtype=torch.int32)
+    decode_quantum(cfg, params, cache, *slots.values(), None, packed,
+                   generator=torch.Generator().manual_seed(3), **kw)
+    assert torch.equal(packed, _pack(carry[3], toks, msks))
+    for name, want in zip(slots, carry[1:]):
+        assert torch.equal(slots[name], want), name
+    for layer, ref in zip(cache["layers"], carry[0]["layers"]):
+        for name, t in layer.items():
+            assert torch.equal(t, ref[name]), name
+    # the dense rows and rings are written in place: decode_loop hands back
+    # the leaves it was given, and the quantum rebinds none
+    assert all(a is b for a, b in zip(
+        tree_leaves(carry[0]), tree_leaves(ref_cache)))
+    assert all(a is b for a, b in zip(tree_leaves(cache), leaves))
 
 
 @pytest.mark.parametrize("sampling", ["greedy", "sampled"])
@@ -219,6 +265,59 @@ def test_engine_standin_graphs_match_jax(arch, monkeypatch):
     replays = sum(g.replays for g, _ in eng.graphs._graphs.values())
     assert replays == eng.quanta - eng.decode_captures > 0
     # JAX's warm rule: the capturing quanta are not in the tracker
+    assert len(decode_records) == eng.quanta - eng.decode_captures
+    assert len(fetches) == eng.quanta + eng.prefill_groups
+
+
+STANDIN_LAYOUTS = [("gemma2-2b", True), ("gemma2-2b", False),
+                   ("h2o-danube-1.8b", False)]
+
+
+@pytest.mark.parametrize("arch,paged", STANDIN_LAYOUTS,
+                         ids=[f"{a}-{'paged' if p else 'dense'}"
+                              for a, p in STANDIN_LAYOUTS])
+def test_engine_standin_graphs_rings_and_dense_match_jax(arch, paged,
+                                                         monkeypatch):
+    """Ring leaves beside the pools (gemma2 paged) and the dense engine
+    (gemma2, danube: no page table) through the stand-in graphs, against
+    the JAX fast engine of the same layout: identical streams past the
+    smoke window, every replay reading the storage its capture read (ring
+    slots computed on the device from ``pos``; no leaf rebound), one
+    capture per width (the dense engine: one graph), the capturing quanta
+    out of the tracker, one host read per quantum and group."""
+    jcfg = dataclasses.replace(smoke_config(all_configs()[arch]),
+                               param_dtype="float32")
+    tcfg = _tcfg(arch)
+    jp = prm.materialize(model_defs(jcfg), jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
+    prompts, _, kw = _workload(arch, tcfg.vocab)
+    budget = [1 if i == 1 else 30 for i in range(len(prompts))]
+    jeng = jmake_engine(jcfg, single_device_ctx(), paged=paged, **kw)
+    monkeypatch.setattr(jeng.tracker, "f", lambda: PINNED_F)
+    jreqs = [JRequest(rid=i, prompt=p, max_new=n)
+             for i, (p, n) in enumerate(zip(prompts, budget))]
+    jeng.run(jreqs)
+    fetches = []
+    fetch = teng._host_fetch
+    monkeypatch.setattr(teng, "_host_fetch",
+                        lambda x: fetches.append(1) or fetch(x))
+    eng, decode_records = _standin_engine(tcfg, tp, monkeypatch, kw,
+                                          paged=paged)
+    monkeypatch.setattr(eng.tracker, "f", lambda: PINNED_F)
+    leaves = tree_leaves(eng.cache)
+    reqs = [teng.Request(rid=i, prompt=p, max_new=n)
+            for i, (p, n) in enumerate(zip(prompts, budget))]
+    eng.run(reqs)
+    assert all(r.done for r in reqs)
+    assert [r.out for r in reqs] == [r.out for r in jreqs], \
+        [(a.out, b.out) for a, b in zip(jreqs, reqs)]
+    assert max(len(p) + len(r.out) for p, r in zip(prompts, reqs)) > 32
+    assert all(a is b for a, b in zip(tree_leaves(eng.cache), leaves))
+    widths = set(eng.widths_used)
+    assert eng.decode_captures == len(widths)
+    assert widths == ({8, 16, 32} & widths if paged else {0})
+    replays = sum(g.replays for g, _ in eng.graphs._graphs.values())
+    assert replays == eng.quanta - eng.decode_captures > 0
     assert len(decode_records) == eng.quanta - eng.decode_captures
     assert len(fetches) == eng.quanta + eng.prefill_groups
 

@@ -37,14 +37,16 @@ def _constexpr(source: str, name: str) -> int:
 @pytest.mark.parametrize("aligned", [True, False])
 def test_fwd_route_every_dim(dtype, aligned):
     """Every (dh, dv) the wrapper accepts: the wgmma path for bf16 at the
-    models' dims (64, 128 and MLA's (192, 128)) with aligned rows, mma.sync
-    at dh = dv in {16, 32}, the CUDA cores for everything else."""
+    models' dims (64, 128, 256 and MLA's (192, 128)) with aligned rows,
+    mma.sync at dh = dv in {16, 32}, the CUDA cores for everything else."""
+    assert flash_ops._MAX_DV == 256 == _constexpr("flash_attention.cu",
+                                                  "MAXDV")
     for dh in range(1, flash_ops._MAX_DQK + 1):
         for dv in range(1, flash_ops._MAX_DV + 1):
             got = flash_ops.fwd_route(dtype, dh, dv, aligned)
             if dtype != torch.bfloat16 or not aligned:
                 want = "f32"
-            elif (dh, dv) in ((64, 64), (128, 128), (192, 128)):
+            elif (dh, dv) in ((64, 64), (128, 128), (192, 128), (256, 256)):
                 want = "wgmma"
             elif dh == dv and dh in (16, 32):
                 want = "mma"
@@ -80,6 +82,19 @@ def test_fwd_smem_law(dh, dv):
         8 * (3 + 2 * stages)
     assert _asserted("flash_attention.cu", r"FwdSmem<\d+, \d+>::bytes")[
         f"FwdSmem<{dh}, {dv}>::bytes"] == n
+
+
+def test_fwd_smem_law_dh256():
+    """At dh = dv = 256 (gemma2-2b) the key tiles are 64 rows (the output
+    accumulator takes 128 registers a thread), two stages fit and three do
+    not, and the law equals the size flash_attention.cu asserts."""
+    assert flash_ops.fwd_kn(256) == 64 and flash_ops.fwd_kn(128) == 128
+    assert flash_ops.fwd_stages(256, 256) == 2
+    n = flash_ops.fwd_smem_bytes(256, 256)
+    assert n == 1024 + 2 * 128 * 256 + 2 * 2 * 64 * 512 + 8 * 7 <= LIMIT
+    assert 1024 + 2 * 128 * 256 + 3 * 2 * 64 * 512 + 8 * 9 > LIMIT
+    assert _asserted("flash_attention.cu", r"FwdSmem<\d+, \d+>::bytes")[
+        "FwdSmem<256, 256>::bytes"] == n
 
 
 def test_fwd_tiles_match_source():
@@ -175,14 +190,19 @@ def test_kernel_label(signature, label):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gqa_route_every_shape(dtype):
     """Every (group, dh) the GQA wrapper accepts: the tensor-core kernel for
-    bf16 at dh 64 and 128 (the source's instances), the CUDA cores for the
-    rest; the served models' (G 4, dh 128) among the first."""
+    bf16 at dh 64, 128 and 256 (the source's instances), the CUDA cores for
+    the rest (which take dh up to 128: above, only the tensor cores); the
+    served models' (G 4, dh 128) and gemma2-2b's (G 2, dh 256) among the
+    first."""
+    assert paged_ops._CORE_MAX_DIM == _constexpr("paged_attention.cu",
+                                                 "MAXD")
     for grp in range(1, paged_ops._MAX_GROUP + 1):
         for dh in range(8, paged_ops._MAX_DIM + 1, 8):
-            want = "mma" if dtype == torch.bfloat16 and dh in (64, 128) \
-                else "f32"
+            want = "mma" if dtype == torch.bfloat16 and \
+                dh in (64, 128, 256) else "f32"
             assert paged_ops.gqa_route(dtype, grp, dh) == want, (grp, dh)
     assert paged_ops.gqa_route(torch.bfloat16, 4, 128) == "mma"
+    assert paged_ops.gqa_route(torch.bfloat16, 2, 256) == "mma"
     sized = {int(k.split("<")[1].split(">")[0]) for k in _asserted(
         "paged_attention.cu", r"GqaSmem<\d+>::bytes")}
     assert sized == set(paged_ops.GQA_DIMS)
@@ -254,6 +274,16 @@ def test_gqa_smem_law(dh):
         f"GqaSmem<{dh}>::bytes"] == n
     assert 2 * (n + 1024) <= 228 * 1024
     assert paged_ops.GQ_WARPS * paged_ops.GQ_N * (dh + 2) * 4 <= n
+
+
+def test_gqa_smem_law_dh256():
+    """At dh 256 the rings take 192 KiB: one block per SM fits, and the
+    warps' partials fit in the ring they reuse."""
+    n = paged_ops.gqa_smem_bytes(256)
+    sized = _asserted("paged_attention.cu", r"GqaSmem<\d+>::bytes")
+    assert n == 196608 == sized["GqaSmem<256>::bytes"]
+    assert n + 1024 <= 228 * 1024 < 2 * (n + 1024)
+    assert paged_ops.GQ_WARPS * paged_ops.GQ_N * (256 + 2) * 4 <= n
 
 
 @pytest.mark.parametrize("R", [512, 576])

@@ -210,7 +210,8 @@ def test_prefill_then_decode_equals_longer_prefill(model):
 
 def test_cache_defs_hold_dense_state_and_no_pool(model):
     _, tcfg, _, _ = model
-    defs = paged_cache_defs(tcfg, num_pages=9, page_size=8, max_slots=3)
+    defs = paged_cache_defs(tcfg, num_pages=9, page_size=8, max_slots=3,
+                            max_len=64)
     H = tcfg.d_inner // tcfg.ssm.head_dim
     for layer in defs["layers"]:
         assert layer["ssm"].shape == (3, H, tcfg.ssm.head_dim,

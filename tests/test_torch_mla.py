@@ -181,7 +181,8 @@ def test_prefill_logits_and_ckv_rows_match_jax(model, bucket):
 
 def test_mla_pool_layout():
     _, tcfg = _cfgs()
-    defs = paged_cache_defs(tcfg, num_pages=9, page_size=8, max_slots=1)
+    defs = paged_cache_defs(tcfg, num_pages=9, page_size=8, max_slots=1,
+                            max_len=64)
     R = tcfg.mla.kv_lora + tcfg.mla.rope_dim
     assert [{n: s.shape for n, s in l.items()} for l in defs["layers"]] == \
         [{"ckv": (9, 8, R)}] * tcfg.n_layers

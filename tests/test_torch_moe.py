@@ -181,7 +181,7 @@ def test_config_and_schedule_match_jax(arch, smoke):
 
 def test_check_supported_refuses_what_is_not_ported():
     t = tconfigs.smoke_config(tconfigs.get_config(PHI))
-    for bad in (dict(sliding_window=32), dict(use_post_norm=True),
+    for bad in (dict(enc_dec=True), dict(frontend="vision"),
                 dict(act="relu2")):
         with pytest.raises(NotImplementedError):
             ttr.check_supported(dataclasses.replace(t, **bad))

@@ -251,7 +251,7 @@ def test_engine_validation(small_engine_args):
     with pytest.raises(ValueError):
         bucket_len(65, max_bucket=64)
     with pytest.raises(NotImplementedError):
-        teng.Engine(dataclasses.replace(tcfg, sliding_window=32), tp,
+        teng.Engine(dataclasses.replace(tcfg, frontend="vision"), tp,
                     device="cpu")
 
 

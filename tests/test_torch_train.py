@@ -189,7 +189,7 @@ def test_check_trainable_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError, match=msg):
             make_train_step(cfg, OptConfig())
     with pytest.raises(NotImplementedError):
-        ttr.check_trainable(dataclasses.replace(tcfg, use_post_norm=True))
+        ttr.check_trainable(dataclasses.replace(tcfg, frontend="vision"))
 
 
 # ------------------------------------------------------- optimizer pieces

@@ -47,7 +47,7 @@ def main() -> int:
     dev = torch.device("cuda")
     for G, Q, P, N in chip_smoke.SSD_SHAPES:
         a = chip_smoke.ssd_case(dev, G, Q, P, N)
-        by_name = chip_smoke.kernels_ms(lambda: ops.intra_chunk(*a), 20)
+        by_name, _ = chip_smoke.kernels_ms(lambda: ops.intra_chunk(*a), 20)
         event = chip_smoke.time_ms(lambda: ops.intra_chunk(*a), 20)
         names = ", ".join(f"{name.split('(')[0].split('::')[-1]} {ms:.4f} "
                           f"ms x {n:g}" for name, (ms, n) in by_name.items())
