@@ -14,7 +14,7 @@
    count of 0 fails.
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (paged GQA decode at mistral's dh 128 and gemma2-2b's dh 256 with
-   softcap 50, paged MLA decode, flash prefill at GQA and MLA head dims, at
+   softcap 50, the latter also in f32 on the CUDA cores, paged MLA decode, flash prefill at GQA and MLA head dims, at
    gemma2-2b's dh 256 (window 4096, softcap 50) and h2o-danube-1.8b's dh
    80, the grouped expert GEMM in bf16 and f32, the tiled GEMM on the hbb
    path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16 at
@@ -27,7 +27,9 @@
    PyTorch call that computes the same function, where there is one, with
    CUDA events; the paged decode kernels by their device time
    (torch.profiler after a warm-up cycle, one launch a call checked in the
-   profile and by the wrapper's count) beside the wrapper's event time,
+   profile and by the wrapper's count; each profile opens with an
+   uncounted lead-in kernel, and one that lost it is taken again) beside
+   the wrapper's event time,
    with their route, splits and ptxas numbers.
    Then the paper's experiment (Fig. 5): HBB ``parallel_for`` over the
    rows of a 1024² f32 GEMM with the card's kernel as the accelerator
@@ -47,7 +49,20 @@
    streams are equal; checks prefill → decode against a one-token-longer
    prefill at full width (f32, depth cut to 2 layers). Each serve run
    prints decode tok/s over the quanta that did not capture, the captures
-   and their seconds and the widths used.
+   and their seconds and the widths used. Then, over the same parameters,
+   the heterogeneous tier pool (``serve/multi_engine.py``): a short-context
+   dense tier and a long-context paged tier, each engine on its own CUDA
+   stream, serve 24 requests (4 prompts only the long tier holds); with
+   routing at the priors and admission pinned, a serial and a concurrent
+   run (fresh engines; the long tier's first capture held open while the
+   short tier steps) give the same assignments, streams and launch counts
+   (the "pool" path of the kernels line), no health transition, one
+   capture per width and whole page pools; measured routing, concurrent
+   and serial, is reported (routed, decoded, tok/s, wall); the long tier's
+   bf16 streams against one paged engine's are reported. At f32, depth
+   cut to 2 layers, a raise fault on the short tier and a hang past the
+   long tier's deadline: every stream as the unfailed pool's, the short
+   tier quarantined → probation → healthy, no recapture, no page leaked.
 5. The same (graphs twice, eager once, both quanta profiled) for
    deepseek-v2-236b (MLA + MoE) at full width with depth cut to 6 layers
    (the dense first layer and 5 MoE layers), with the f32 prefill →
@@ -65,8 +80,10 @@
    position 4096, and prefill → decode against a one-token-longer prefill
    (nemotron's bf16 at full depth reported, gemma2's held to 3e-2 through
    its paged layout; f32 at depth 2 held, past the window for gemma2 and
-   danube). Each model's weights are freed before the next. Every launch
-   counts for the one kernel entry whose paths hold the model.
+   danube, gemma2's through its dense and its paged layout, the latter on
+   the CUDA-core kernel at dh 256). Each model's weights are freed before
+   the next. Every launch counts for the one kernel entry whose paths hold
+   the model.
 7. Training (the flash backward and the forward that saves lse): both
    kernels against their plain versions at the training shape (B=4,
    T=2048, 32 heads over 8, dh=128, causal, bf16; also f32 and window +
@@ -78,8 +95,11 @@
    one profiled step; an f32 gradient check at full width (depth 2) of the
    kernels against autograd through the plain versions; and the training
    launcher at smoke size in a subprocess.
-8. Prints one JSON line {"kernels": [...]}, then as the last line
-   {"ok": true, "device": {...}}. Any failed check exits non-zero without it.
+8. Prints report lines (``report {...}``: the f32 paged decode kernel at
+   dh 256, each pool run beside the card's name and power limit), one
+   JSON line {"kernels": [...]} (each entry's launches by path, the
+   pool's among them), then as the last line {"ok": true, "device":
+   {...}}. Any failed check exits non-zero without it.
 """
 from __future__ import annotations
 
@@ -109,6 +129,7 @@ BF16_TOL = 3e-2          # as tests/test_kernels.py for bf16
 ROW_TOL = 1e-2
 F32_REL_TOL = 1e-4       # grouped GEMM in f32, as tests/test_kernels.py
 FAILURES: list[str] = []
+CARD = ""                # nvidia-smi's name and power limit, set in main
 # MoE capacity couples the rows of a prefill group, so two serve runs give
 # the same streams only if they form the same groups: the engines of this
 # script admit with one fixed HBB speed ratio instead of the measured one
@@ -141,16 +162,29 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 # of one short kernel lost it so; none of 700 with the host and the card
 # idle for this long at each end.
 PROFILE_PAD_S = 0.02
+# On one H100 host every profile from a minute into the run lost its first
+# kernel record (a 20-call profile saw 19 launches, a one-kernel profile
+# none); on another one profile lost 3 of 21; most hosts lose none. So each
+# profile starts with a lead-in kernel (``torch.cuda._sleep``'s spin kernel)
+# that no reading counts: it takes a lost first record, and a profile
+# without it is known to have lost records (``kernels_ms`` profiles again,
+# at most ``PROFILE_ATTEMPTS`` times).
+LEAD_IN = "spin_kernel"
+LEAD_INS = {"profiles": 0, "lost": 0}
+PROFILE_ATTEMPTS = 3
 
 
 @contextmanager
 def device_profile(cpu: bool = False):
     """torch.profiler over the block (CUDA, and CPU with ``cpu``), idle for
-    ``PROFILE_PAD_S`` before it and, after a synchronize, after it."""
+    ``PROFILE_PAD_S`` and a lead-in kernel (``LEAD_IN``) before it and,
+    after a synchronize, idle after it."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     with profile(activities=acts) as prof:
         time.sleep(PROFILE_PAD_S)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         yield prof
         torch.cuda.synchronize()
         time.sleep(PROFILE_PAD_S)
@@ -159,7 +193,8 @@ def device_profile(cpu: bool = False):
 def kernels_ms(fn, calls: int = 1) -> tuple[dict[str, list], dict]:
     """``calls`` calls of ``fn`` under :func:`device_profile` → ({device
     kernel name: [ms, launches]}, {wrapper count of ``_counters``:
-    launches}), all per call and of the same calls."""
+    launches}), all per call and of the same calls. A profile that lost
+    its lead-in kernel is taken again (``PROFILE_ATTEMPTS`` in all)."""
     counters = _counters()
 
     def counts():
@@ -167,14 +202,21 @@ def kernels_ms(fn, calls: int = 1) -> tuple[dict[str, list], dict]:
 
     fn()
     torch.cuda.synchronize()
-    with device_profile() as prof:
-        n0 = counts()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        lost = LEAD_INS["lost"]
+        with device_profile() as prof:
+            n0 = counts()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name = device_time(prof)[2]
+        if LEAD_INS["lost"] == lost:
+            break
+        print(f"profile {attempt} of {calls} calls lost its lead-in kernel "
+              f"(it saw {sum(n for _, n in by_name.values())} kernels)")
     counted = {n: (c - n0[n]) / calls for n, c in counts().items()}
     return ({k: [us / 1e3 / calls, n / calls]
-             for k, (us, n) in device_time(prof)[2].items()}, counted)
+             for k, (us, n) in by_name.items()}, counted)
 
 
 def row_err(out, want) -> float:
@@ -269,8 +311,10 @@ def paged_call(fn, kernel: str, counter: str, n_bytes: float,
 # ------------------------------------------------------------ paged decode
 def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
                     max_len: int, caps: tuple, cap: float, pos_head: list,
-                    paths: list) -> dict:
-    """Paged GQA decode at B=8, 16-token pages, a ``max_len``-key table:
+                    paths: list, dt=torch.bfloat16) -> dict:
+    """Paged GQA decode at B=8, 16-token pages, a ``max_len``-key table, in
+    ``dt`` (bf16: the tensor cores at the served shapes; f32: the CUDA
+    cores):
     held against the plain version for each (softcap, gain) of ``caps``
     (q scaled by gain: unit inputs give scores of std ~1, which a softcap of
     30 or 50 barely bends, so a softcap is held where scores reach it, and
@@ -283,7 +327,7 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
     T = max_len // ps
     N = 1 + B * T
     rng = np.random.default_rng(0)
-    dt = torch.bfloat16
+    esz = torch.finfo(dt).bits // 8
     g = torch.Generator(device=dev).manual_seed(0)
     q32 = torch.randn((B, hkv, grp, dh), generator=g, device=dev)
     q = q32.to(dt)
@@ -321,7 +365,7 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
                   f"reference by {e0:.3g} of a row's largest (> tol 1e-3): "
                   "the scores reach the cap")
     keys = int((pos_h + 1).sum())               # positions ≤ pos per slot
-    n_bytes = (q.numel() * 2 + 2 * keys * hkv * dh * 2
+    n_bytes = (q.numel() * esz + 2 * keys * hkv * dh * esz
                + 4 * int(sum(-(-(p + 1) // ps) for p in pos_h)) + 4 * B
                + B * hkv * grp * (dh + 2) * 4)
     n_ops = 4 * keys * hkv * grp * dh
@@ -366,7 +410,7 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
                        **call},
              "paths": paths,
              "check": f"o/l (each row within 1e-3 of its largest value), m, "
-                      f"l against paged_flash_decode_gqa_ref, bf16 pools, "
+                      f"l against paged_flash_decode_gqa_ref, {dt} pools, "
                       f"B=8 Hkv={hkv} G={grp} dh={dh}, mixed pos up to "
                       f"{max_len - 1}, (softcap, q gain) {caps}, and with a "
                       f"gain the kernel without its softcap missing; "
@@ -382,7 +426,8 @@ def paged_phase(dev) -> dict:
     return paged_gqa_entry(dev, name="paged_attention_gqa", hkv=8, grp=4,
                            dh=128, max_len=4096, caps=((0.0, 1), (30.0, 25)),
                            cap=0.0, pos_head=[4095, 0, 15, 16],
-                           paths=["mistral-nemo-12b", "nemotron-4-15b"])
+                           paths=["mistral-nemo-12b", "nemotron-4-15b",
+                                  "pool"])
 
 
 def paged256_phase(dev) -> dict:
@@ -394,6 +439,26 @@ def paged256_phase(dev) -> dict:
                            caps=((0.0, 1), (50.0, 1), (50.0, 30)),
                            cap=50.0, pos_head=[8191, 0, 15, 16, 4095, 4096],
                            paths=["gemma2-2b"])
+
+
+def paged256_f32_report(dev) -> dict:
+    """The CUDA-core kernel at gemma2-2b's global-layer shape in f32 (the
+    path of the f32 paged checks at dh 256: paged_gqa_kernel<float, 2,
+    256>): held and timed as paged256_phase, printed as a report line
+    (its launches are counted with the dh-256 entry's, on no serve
+    path)."""
+    e = paged_gqa_entry(dev, name="paged_attention_gqa_f32_dh256", hkv=4,
+                        grp=2, dh=256, max_len=8192,
+                        caps=((0.0, 1), (50.0, 1), (50.0, 30)), cap=50.0,
+                        pos_head=[8191, 0, 15, 16, 4095, 4096], paths=[],
+                        dt=torch.float32)
+    check(e["paged"]["route"] == "f32", "f32 paged decode at dh 256 takes "
+          f"the CUDA cores ({e['paged']['kernel']})")
+    report = {k: e[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by", "sdpa_gathered_ms")}
+    print("report " + json.dumps({**report, "kernel": e["paged"]["kernel"],
+                                  "event_ms": e["paged"]["event_ms"]}))
+    return report
 
 
 # ------------------------------------------------------------ flash prefill
@@ -467,7 +532,7 @@ def flash_phase(dev) -> dict:
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:92",
             "paths": ["mistral-nemo-12b", "deepseek-v2-236b",
-                      "nemotron-4-15b"],
+                      "nemotron-4-15b", "pool"],
             "max_abs_err": err, "tol": ROW_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "mla": mla,
@@ -1321,6 +1386,279 @@ def sampled_phase(cfg, params, dev, lens, prompts, **engine_kw) -> None:
           "graphs equal the eager loop's")
 
 
+# ------------------------------------------------------------ the tier pool
+# the two tiers of examples/serve_multitier.py at full width: a short-context
+# dense tier and a long-context paged tier over one parameter tree
+POOL_TIERS = (("short", dict(paged=False, max_slots=8, max_len=1024,
+                             decode_quantum=8)),
+              ("long", dict(paged=True, max_slots=8, max_len=4096,
+                            page_size=16, decode_quantum=8)))
+POOL_MAX_NEW = 32
+
+
+def pool_workload(vocab):
+    """24 requests from numpy seed 0: 20 prompts of 16-900 tokens and 4 of
+    1100-3000 that only "long" can hold."""
+    rng = np.random.default_rng(0)
+    lens = np.concatenate([rng.integers(16, 901, 20),
+                           rng.integers(1100, 3001, 4)])
+    return lens, [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def pool_engines(cfg, params, dev) -> list:
+    from repro_torch.serve.engine import Engine
+    return [Engine(cfg, params, device=dev, **kw) for _, kw in POOL_TIERS]
+
+
+def pool_over(engines, *, concurrent: bool, pinned: bool, policy=None):
+    """A MultiEngine over ``engines`` (POOL_TIERS' names); ``pinned``: the
+    routing speeds at the tiers' priors and every engine's HBB ratio at
+    PINNED_F, so that two runs route and admit alike; else both
+    measured."""
+    from repro_torch.serve.multi_engine import EngineTier, MultiEngine
+    meng = MultiEngine([EngineTier(name, eng) for (name, _), eng
+                        in zip(POOL_TIERS, engines)],
+                       concurrent=concurrent, policy=policy)
+    for eng in engines:
+        eng = getattr(eng, "engine", eng)
+        if pinned:
+            eng.tracker.f = lambda: PINNED_F
+        else:
+            vars(eng.tracker).pop("f", None)
+    if pinned:
+        meng.tracker.throughput = lambda name: 0.0
+    return meng
+
+
+def overlap_first_captures(capturing, stepping) -> dict:
+    """Hold the first graph capture of tier ``capturing`` open until tier
+    ``stepping`` has made one whole step (admission, prefill, its own first
+    quantum's capture) on its stream from its thread, so that the first
+    quanta of a concurrent pool capture while the other tier steps.
+    Returns flags the caller checks: both waits met."""
+    import threading
+    in_capture, stepped = threading.Event(), threading.Event()
+    flags = {"capture_waited": False, "step_waited": False}
+    graphs = capturing.engine.graphs
+    real_capture, real_step = graphs._capture, stepping.engine.step
+
+    def capture(fn):
+        calls = [0]
+
+        def held():
+            calls[0] += 1                      # 1: warm-up, 2: captured
+            if calls[0] == 2 and not in_capture.is_set():
+                in_capture.set()
+                flags["capture_waited"] = stepped.wait(120)
+            fn()
+        return real_capture(held)
+
+    def step():
+        if stepped.is_set():
+            return real_step()
+        flags["step_waited"] = in_capture.wait(120)
+        try:
+            return real_step()
+        finally:
+            stepped.set()
+
+    graphs._capture = capture
+    stepping.engine.step = step
+    return flags
+
+
+def pool_run(meng, cfg, prompts, what: str, healthy: bool = True):
+    """Serve the pool workload once through ``meng`` with every wrapper's
+    launch count set to 0 just before and read just after → (requests,
+    launch counts, wall seconds). Prints each tier's routed requests,
+    decoded tokens, measured tok/s, captures and widths, and the pool's
+    wall time and aggregate tok/s beside the card. Checks: every request
+    done with POOL_MAX_NEW in-vocabulary tokens, no dead letter, with
+    ``healthy`` no health transition, and every tier's slots empty and its
+    page pool whole."""
+    from repro_torch.serve.engine import Request
+    counters = _counters()
+    reqs = [Request(rid=i, prompt=p, max_new=POOL_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    t = time.perf_counter()
+    meng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    tok = sum(len(r.out) for r in reqs)
+    tiers = {}
+    for t_ in meng.tiers:
+        eng = getattr(t_.engine, "engine", t_.engine)
+        st = meng.stats()["tiers"][t_.name]
+        tiers[t_.name] = {"routed": st["routed"], "decoded": st["decoded"],
+                          "tok_s": st["tok_s"], "health": st["health"],
+                          "captures": eng.decode_captures,
+                          "widths": dict(sorted(eng.widths_used.items()))}
+    print("report " + json.dumps({
+        "pool": what, "card": CARD, "wall_s": wall, "tokens": tok,
+        "tok_s": tok / wall, "cycles": meng.cycles, "tiers": tiers,
+        "launches": {k: v for k, v in launches.items() if v}}))
+    check(all(r.done and len(r.out) == POOL_MAX_NEW for r in reqs)
+          and all(0 <= x < cfg.vocab for r in reqs for x in r.out),
+          f"pool {what}: every request done with {POOL_MAX_NEW} "
+          "in-vocabulary tokens")
+    check(not meng.dead_letters, f"pool {what}: no dead letter")
+    if healthy:
+        check(not meng.health_log, f"pool {what}: no health transition "
+              f"({meng.health_log})")
+    for t_ in meng.tiers:
+        eng = getattr(t_.engine, "engine", t_.engine)
+        whole = all(r is None for r in eng.slot_req)
+        if eng.paged:
+            eng.alloc.check()
+            whole = whole and len(eng.alloc.free) == eng.alloc.usable_pages
+        check(whole, f"pool {what}: tier {t_.name}'s slots empty and its "
+              "page pool whole")
+    return reqs, launches, wall
+
+
+def pool_phase(cfg, params, dev, entries) -> None:
+    """The heterogeneous tier pool over the full-width parameters already
+    on the card: "short" (dense, 8 slots of 1024) and "long" (paged, 8
+    slots of 4096) on the pool workload. With routing at the priors and
+    admission pinned, a serial and a concurrent run (fresh engines each;
+    in the concurrent run the long tier's first capture stays open while
+    the short tier steps) must agree on assignments, streams and launch
+    counts; then measured routing on the warm engines, concurrent and
+    serial; then the bf16 agreement of "long"'s streams with one paged
+    engine's (reported, not held: grouping differs, and bf16 rounding can
+    flip a greedy token)."""
+    from repro_torch.serve.engine import Engine, Request
+    lens, prompts = pool_workload(cfg.vocab)
+    long_ids = [i for i, n in enumerate(lens) if n >= POOL_TIERS[0][1][
+        "max_len"]]
+    runs = {}
+    for concurrent in (False, True):
+        what = "pinned, " + ("concurrent" if concurrent else "serial")
+        engines = pool_engines(cfg, params, dev)
+        meng = pool_over(engines, concurrent=concurrent, pinned=True)
+        flags = (overlap_first_captures(meng.tiers[1], meng.tiers[0])
+                 if concurrent else None)
+        reqs, launches, wall = pool_run(meng, cfg, prompts, what)
+        if concurrent:
+            check(all(flags.values()), f"pool {what}: the long tier's first "
+                  f"capture stayed open through a whole step of the short "
+                  f"tier ({flags})")
+        for t in meng.tiers:
+            check(t.routed > 0 and t.engine.decode_captures
+                  == len(t.engine.widths_used) > 0,
+                  f"pool {what}: tier {t.name} routed {t.routed}, one "
+                  f"capture per width ({t.engine.decode_captures} for "
+                  f"{sorted(t.engine.widths_used)})")
+        check(all(meng.assigned[i] == "long" for i in long_ids),
+              f"pool {what}: every prompt longer than 1024 on long")
+        runs[concurrent] = (dict(meng.assigned), [r.out for r in reqs],
+                            launches, engines)
+        del meng
+        if not concurrent:
+            del engines
+            torch.cuda.empty_cache()
+    (a_s, s_s, l_s, _), (a_c, s_c, l_c, engines) = runs[False], runs[True]
+    check(a_s == a_c, "pool: serial and concurrent runs assign alike")
+    check(s_s == s_c, "pool: serial and concurrent runs give the same "
+          "streams")
+    check(l_s == l_c, f"pool: serial and concurrent runs launch alike "
+          f"({l_s} / {l_c})")
+    _add_launches(entries, l_c, "pool",
+                  ["flash_attention_fwd", "paged_attention_gqa"])
+    for concurrent in (True, False):
+        meng = pool_over(engines, concurrent=concurrent, pinned=False)
+        pool_run(meng, cfg, prompts, "measured, " +
+                 ("concurrent" if concurrent else "serial") +
+                 ", warm engines")
+    del engines, meng
+    runs.clear()
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, params, device=dev, **POOL_TIERS[1][1])
+    eng.tracker.f = lambda: PINNED_F
+    ids = [i for i in range(len(prompts)) if a_c[i] == "long"]
+    single = [Request(rid=i, prompt=prompts[i], max_new=POOL_MAX_NEW)
+              for i in ids]
+    eng.run(single)
+    same = sum(r.out == s_c[r.rid] for r in single)
+    first = [next((j for j, (x, y) in enumerate(zip(r.out, s_c[r.rid]))
+                   if x != y), None) for r in single]
+    print(f"pool bf16: {same}/{len(single)} of long's streams identical to "
+          f"one paged engine's (first differing position per stream "
+          f"{first}; reported, not held)")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def pool_fault_phase(cfg, params, dev) -> None:
+    """Faults in the concurrent pool at full width in f32 (depth cut to 2
+    layers): an unfailed run (which prewarms both tiers and measures their
+    slowest step), then the same workload with a raise fault on "short"
+    for two consecutive steps and a hang on "long" past its step deadline
+    (three slowest steps, at least 0.5 s; the hang two deadlines): every
+    request done, streams identical to the unfailed run's, "short"
+    quarantined → probation → healthy, no capture at a width it had
+    captured, no page leaked."""
+    from repro_torch.serve.faults import Fault, FaultyEngine
+    from repro_torch.serve.multi_engine import HealthPolicy
+    _, prompts = pool_workload(cfg.vocab)
+    engines = pool_engines(cfg, params, dev)
+    steps = []
+    for eng in engines:
+        def timed(real=eng.step):
+            t = time.perf_counter()
+            rep = real()
+            steps.append(time.perf_counter() - t)
+            return rep
+        eng.step = timed
+    meng = pool_over(engines, concurrent=True, pinned=True)
+    ref, _, _ = pool_run(meng, cfg, prompts, "f32 2 layers, unfailed")
+    for eng in engines:
+        del eng.step                            # the class's step again
+    deadline = max(0.5, 3 * max(steps))
+    widths = [set(e.widths_used) for e in engines]
+    caps0 = [e.decode_captures for e in engines]
+    engines[1].step_deadline_s = deadline
+    faulty = [FaultyEngine(engines[0], [Fault(kind="raise", at=(1,), n=2)]),
+              FaultyEngine(engines[1], [Fault(kind="hang", at=(2,),
+                                              hang_s=2 * deadline)])]
+    meng = pool_over(faulty, concurrent=True, pinned=True,
+                     policy=HealthPolicy(quarantine_after=2,
+                                         quarantine_cycles=1,
+                                         probation_steps=1, retry_backoff=0))
+    reqs, _, _ = pool_run(meng, cfg, prompts, "f32 2 layers, faulted",
+                          healthy=False)
+    print(f"pool faults: slowest unfailed step {max(steps):.3f} s, long's "
+          f"deadline {deadline:.3f} s; fault logs "
+          f"{[f.fault_log for f in faulty]}; health log {meng.health_log}; "
+          f"retries {meng.retries}")
+    check([r.out for r in reqs] == [r.out for r in ref],
+          "pool faults: every stream identical to the unfailed pool's")
+    check([k for _, k in faulty[0].fault_log] == ["raise", "raise"] and
+          [k for _, k in faulty[1].fault_log] == ["hang"],
+          "pool faults: the raise fault fired on two steps of short, the "
+          "hang on one of long")
+    states = [h["to"] for h in meng.health_log if h["tier"] == "short"]
+    at = states.index("quarantined") if "quarantined" in states else -1
+    check(at >= 0 and states[at:at + 3] == ["quarantined", "probation",
+                                             "healthy"],
+          f"pool faults: short went quarantined → probation → healthy "
+          f"({states})")
+    check(any(h["tier"] == "long" and "deadline" in h["reason"]
+              for h in meng.health_log),
+          "pool faults: long's hung step counted against its deadline")
+    for eng, w, c in zip(engines, widths, caps0):
+        new = set(eng.widths_used) - w
+        check(eng.decode_captures - c == len(new),
+              f"pool faults: no capture at a width already captured "
+              f"({eng.decode_captures - c} captures, new widths "
+              f"{sorted(new)})")
+    del engines, faulty, meng
+    torch.cuda.empty_cache()
+
+
 def serve_phase(dev, entries) -> None:
     from repro_torch.configs import get_config
     from repro_torch.params import init_params, n_params
@@ -1345,6 +1683,9 @@ def serve_phase(dev, entries) -> None:
     torch.cuda.empty_cache()
     serve_eager(cfg, params, dev, lens, prompts, 32, streams, **kw)
     sampled_phase(cfg, params, dev, lens, prompts, **kw)
+    t0 = time.perf_counter()
+    pool_phase(cfg, params, dev, entries)
+    print(f"pool phase (bf16) {time.perf_counter() - t0:.1f} s")
     rel = prefill_decode_rel(cfg, params, dev)
     print(f"full width bf16, 40 layers: prefill(S) + paged decode vs "
           f"prefill(S+1), relative max error {rel:.3g} (reported, not held:"
@@ -1352,11 +1693,15 @@ def serve_phase(dev, entries) -> None:
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
-    rel = prefill_decode_rel(cfg32, init_params(cfg32, seed=0, device=dev),
-                             dev)
+    params32 = init_params(cfg32, seed=0, device=dev)
+    rel = prefill_decode_rel(cfg32, params32, dev)
     check(rel < 1e-3, f"full width f32, depth cut to 2 layers: prefill(S) + "
           f"paged decode ≡ prefill(S+1), relative max error {rel:.3g} "
           f"(tol 1e-3)")
+    t0 = time.perf_counter()
+    pool_fault_phase(cfg32, params32, dev)
+    print(f"pool fault phase (f32) {time.perf_counter() - t0:.1f} s")
+    del params32
     torch.cuda.empty_cache()
 
 
@@ -1455,12 +1800,17 @@ def mamba_phase(dev, entries) -> None:
 
 
 def device_time(prof):
-    """Device kernels of a profile: (busy µs as the union of their
-    intervals, kernel count, {name: [µs, count]})."""
+    """Device kernels of a profile, its lead-in left out: (busy µs as the
+    union of their intervals, kernel count, {name: [µs, count]}). Counts
+    the profiles whose lead-in the profiler lost in ``LEAD_INS``."""
     from torch.autograd import DeviceType
     # device activity only; "Command Buffer Full" marks a full launch queue
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and "Command Buffer Full" not in e.name]
+    lead = [e for e in kernels if LEAD_IN in e.name]
+    LEAD_INS["profiles"] += 1
+    LEAD_INS["lost"] += not lead
+    kernels = [e for e in kernels if LEAD_IN not in e.name]
     busy, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end)
                        for e in kernels):
@@ -1708,12 +2058,17 @@ def gemma2_phase(dev, entries) -> None:
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
-    rel = prefill_decode_rel(cfg32, _make_params(cfg32, dev), dev, S=S,
-                             paged=False)
+    params32 = _make_params(cfg32, dev)
+    rel = prefill_decode_rel(cfg32, params32, dev, S=S, paged=False)
     check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 layers (a "
           f"ring and a global layer), S={S}: prefill(S) + dense decode ≡ "
-          f"prefill(S+1), relative max error {rel:.3g} (tol 1e-3; f32 "
-          "paged decode at dh 256 has no kernel: the dense layout)")
+          f"prefill(S+1), relative max error {rel:.3g} (tol 1e-3)")
+    rel = prefill_decode_rel(cfg32, params32, dev, S=S)
+    check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 layers, "
+          f"S={S}: prefill(S) + paged decode (the global layer through "
+          f"paged_gqa_kernel<float, 2, 256>) ≡ prefill(S+1), relative max "
+          f"error {rel:.3g} (tol 1e-3)")
+    del params32
     torch.cuda.empty_cache()
 
 
@@ -1912,6 +2267,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    global CARD
+    CARD = smi
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
@@ -1932,6 +2289,7 @@ def main() -> int:
     for e in entries:
         if e["name"] in sass:
             e["sass"] = sass[e["name"]]
+    paged256_f32_report(dev)
     torch.cuda.empty_cache()
     hbb_phase(dev, entries)
     serve_phase(dev, entries)
@@ -1952,6 +2310,8 @@ def main() -> int:
             if x in e)}
         for e in entries]}))
     print(smi)
+    print(f"profiles whose lead-in kernel the profiler lost: "
+          f"{LEAD_INS['lost']} of {LEAD_INS['profiles']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     if FAILURES:
         print(f"{len(FAILURES)} check(s) failed: {FAILURES}", file=sys.stderr)

@@ -106,7 +106,7 @@ namespace {
 
 constexpr float NEG = -1e30f;
 constexpr int WARPS = 8;
-constexpr int MAXD = 128;      // head dim limit of the CUDA-core kernels
+constexpr int MAXD = 256;      // head dim limit of the CUDA-core GQA kernel
 constexpr int CHUNK = 32;      // keys per warp step, one per lane
 constexpr int KPASS = 8;       // 16-byte K chunks a lane loads together
 constexpr int VB = 16;         // V rows whose loads a warp issues together
@@ -115,6 +115,9 @@ constexpr int VB = 16;         // V rows whose loads a warp issues together
 template <typename T> struct Raw8;
 template <> struct Raw8<float> {
   struct type { float4 a, b; };
+  __device__ static type zero() {
+    return {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  }
   __device__ static type load(const float* p) {
     return {reinterpret_cast<const float4*>(p)[0],
             reinterpret_cast<const float4*>(p)[1]};
@@ -126,6 +129,7 @@ template <> struct Raw8<float> {
 };
 template <> struct Raw8<__nv_bfloat16> {
   using type = uint4;
+  __device__ static type zero() { return make_uint4(0u, 0u, 0u, 0u); }
   __device__ static type load(const __nv_bfloat16* p) {
     return *reinterpret_cast<const uint4*>(p);
   }
@@ -157,6 +161,26 @@ template <> struct Raw4<__nv_bfloat16> {
     out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
   }
 };
+// a lane's VPL contiguous value dims as one or two raw loads
+template <typename T, int VPL> struct RawV;
+template <typename T> struct RawV<T, 4> {
+  using type = typename Raw4<T>::type;
+  __device__ static type zero() { return Raw4<T>::zero(); }
+  __device__ static type load(const T* p) {
+    return *reinterpret_cast<const type*>(p);
+  }
+  __device__ static void unpack(const type& r, float* out) {
+    Raw4<T>::unpack(r, out);
+  }
+};
+template <typename T> struct RawV<T, 8> {
+  using type = typename Raw8<T>::type;
+  __device__ static type zero() { return Raw8<T>::zero(); }
+  __device__ static type load(const T* p) { return Raw8<T>::load(p); }
+  __device__ static void unpack(const type& r, float* out) {
+    Raw8<T>::unpack(r, out);
+  }
+};
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -174,6 +198,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// cudaFuncSetAttribute once per kernel instance and device
+template <typename K>
+cudaError_t allow_smem(K kernel, int device, int bytes, bool* done) {
+  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
+  return err;
+}
+
 // ------------------------------------------------ GQA on the CUDA cores
 // paged_gqa_kernel (f32, and bf16 at group sizes or head dims that
 // paged_gqa_mma does not take). One block per (kv head h, slot b); 8
@@ -183,12 +217,28 @@ __device__ __forceinline__ float warp_sum(float x) {
 //           the group (kept scaled in shared memory, read as broadcasts);
 //   softmax one warp max and one warp sum per query row and chunk update
 //           the warp's running (m, l);
-//   values  lanes switch to 4 contiguous dims each; every key's p is
-//           broadcast by a shuffle and its V row read as one coalesced
-//           256-byte line, 16 rows' loads issued before their arithmetic.
+//   values  lanes switch to DC / 32 contiguous dims each (4 at head dims up
+//           to 128, 8 up to 256); every key's p is broadcast by a shuffle
+//           and its V row read as one coalesced line, 16 rows' loads issued
+//           before their arithmetic.
 // At the end the 8 warp partials are merged in shared memory with the exact
-// rescaling of serve/decode.py::_merge_partials.
-template <typename T, int G>
+// rescaling of serve/decode.py::_merge_partials. DC, the head-dim cap of an
+// instance (128 or 256), sizes the query rows and the warps' partials in
+// dynamic shared memory (gqa_core_smem_bytes): past 48 KB (G > 5 at DC
+// 256) the launch opts in to more.
+constexpr int gqa_core_smem_bytes(int G, int DC) {
+  return 4 * G * (DC * (1 + WARPS) + 2 * WARPS);
+}
+static_assert(gqa_core_smem_bytes(8, 128) == 37376,
+              "gqa_core_smem_bytes(8, 128)");
+static_assert(gqa_core_smem_bytes(8, 256) == 74240,
+              "gqa_core_smem_bytes(8, 256)");
+static_assert(gqa_core_smem_bytes(5, 256) == 46400,
+              "gqa_core_smem_bytes(5, 256)");
+static_assert(gqa_core_smem_bytes(6, 256) == 55680,
+              "gqa_core_smem_bytes(6, 256)");
+
+template <typename T, int G, int DC>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_gqa_kernel(const T* __restrict__ q,        // (B, Hkv, G, dh)
                  const T* __restrict__ pool_k,   // (N, ps, Hkv, dh)
@@ -200,18 +250,20 @@ paged_gqa_kernel(const T* __restrict__ q,        // (B, Hkv, G, dh)
                  float* __restrict__ l_out,      // (B, Hkv * G)
                  int n_pages, int ps, int hkv, int dh, int width,
                  int page_size, int base, float scale, float softcap) {
-  __shared__ __align__(16) float s_q[G][MAXD];
-  __shared__ float s_m[WARPS][G];
-  __shared__ float s_l[WARPS][G];
-  __shared__ __align__(16) float s_acc[WARPS][G][MAXD];
+  constexpr int VPL = DC / 32;                  // value dims per lane
+  extern __shared__ __align__(16) float core_smem[];
+  float* s_q = core_smem;                       // [G][DC]
+  float* s_acc = s_q + G * DC;                  // [WARPS][G][DC]
+  float* s_m = s_acc + WARPS * G * DC;          // [WARPS][G]
+  float* s_l = s_m + WARPS * G;                 // [WARPS][G]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t head = (size_t)b * hkv + h;
   const T* qb = q + head * G * dh;
-  for (int i = threadIdx.x; i < G * MAXD; i += WARPS * 32) {
-    const int g = i / MAXD, d = i % MAXD;     // zero past dh
-    s_q[g][d] = d < dh ? to_f(qb[g * dh + d]) * scale : 0.f;
+  for (int i = threadIdx.x; i < G * DC; i += WARPS * 32) {
+    const int g = i / DC, d = i % DC;           // zero past dh
+    s_q[i] = d < dh ? to_f(qb[g * dh + d]) * scale : 0.f;
   }
   __syncthreads();
 
@@ -224,15 +276,15 @@ paged_gqa_kernel(const T* __restrict__ q,        // (B, Hkv, G, dh)
     n_keys = min(t_last * ps + min(ps, off_last + 1), width * ps);
   }
   const long long row = (long long)hkv * dh;    // elements per pool row
-  const int d0 = lane * 4;                      // this lane's value dims
+  const int d0 = lane * VPL;                    // this lane's value dims
 
-  float m[G], l[G], acc[G][4];
+  float m[G], l[G], acc[G][VPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = NEG;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < VPL; ++i) acc[g][i] = 0.f;
   }
 
   for (int k0 = warp * CHUNK; k0 < n_keys; k0 += WARPS * CHUNK) {
@@ -260,7 +312,7 @@ paged_gqa_kernel(const T* __restrict__ q,        // (B, Hkv, G, dh)
         Raw8<T>::unpack(kraw[c], kv);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          const float4* q4 = reinterpret_cast<const float4*>(s_q[g]);
+          const float4* q4 = reinterpret_cast<const float4*>(s_q + g * DC);
           const float4 qa = q4[2 * (c0 + c)], qc = q4[2 * (c0 + c) + 1];
           s[g] += qa.x * kv[0] + qa.y * kv[1] + qa.z * kv[2] + qa.w * kv[3] +
                   qc.x * kv[4] + qc.y * kv[5] + qc.z * kv[6] + qc.w * kv[7];
@@ -279,29 +331,28 @@ paged_gqa_kernel(const T* __restrict__ q,        // (B, Hkv, G, dh)
       l[g] = l[g] * corr + warp_sum(pr[g]);
       m[g] = m_new;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[g][i] *= corr;
+      for (int i = 0; i < VPL; ++i) acc[g][i] *= corr;
     }
     const int n = min(CHUNK, n_keys - k0);
     for (int j0 = 0; j0 < n; j0 += VB) {       // VB V rows in flight
-      typename Raw4<T>::type vr[VB];
+      typename RawV<T, VPL>::type vr[VB];
 #pragma unroll
       for (int j = 0; j < VB; ++j) {
         const long long oj = __shfl_sync(0xffffffffu, off, j0 + j);
         if (j0 + j < n && d0 < dh)
-          vr[j] = *reinterpret_cast<const typename Raw4<T>::type*>(
-              pool_v + oj + d0);
+          vr[j] = RawV<T, VPL>::load(pool_v + oj + d0);
         else
-          vr[j] = Raw4<T>::zero();
+          vr[j] = RawV<T, VPL>::zero();
       }
 #pragma unroll
       for (int j = 0; j < VB; ++j) {
-        float v[4];
-        Raw4<T>::unpack(vr[j], v);
+        float v[VPL];
+        RawV<T, VPL>::unpack(vr[j], v);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float pj = __shfl_sync(0xffffffffu, pr[g], j0 + j);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[g][i] += pj * v[i];
+          for (int i = 0; i < VPL; ++i) acc[g][i] += pj * v[i];
         }
       }
     }
@@ -310,11 +361,12 @@ paged_gqa_kernel(const T* __restrict__ q,        // (B, Hkv, G, dh)
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     if (lane == 0) {
-      s_m[warp][g] = m[g];
-      s_l[warp][g] = l[g];
+      s_m[warp * G + g] = m[g];
+      s_l[warp * G + g] = l[g];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s_acc[warp][g][d0 + i] = acc[g][i];
+    for (int i = 0; i < VPL; ++i)
+      s_acc[(warp * G + g) * DC + d0 + i] = acc[g][i];
   }
   __syncthreads();
 
@@ -322,15 +374,15 @@ paged_gqa_kernel(const T* __restrict__ q,        // (B, Hkv, G, dh)
     const int g = idx / dh, d = idx % dh;
     float mg = NEG;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) mg = fmaxf(mg, s_m[w][g]);
+    for (int w = 0; w < WARPS; ++w) mg = fmaxf(mg, s_m[w * G + g]);
     const float m_safe = mg <= NEG / 2 ? 0.f : mg;
     float ov = 0.f, lv = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const float mw = s_m[w][g];
+      const float mw = s_m[w * G + g];
       const float c = expf((mw <= NEG / 2 ? NEG : mw) - m_safe);
-      ov += s_acc[w][g][d] * c;
-      lv += s_l[w][g] * c;
+      ov += s_acc[(w * G + g) * DC + d] * c;
+      lv += s_l[w * G + g] * c;
     }
     const size_t r = head * G + g;
     o[r * dh + d] = ov;
@@ -341,29 +393,39 @@ paged_gqa_kernel(const T* __restrict__ q,        // (B, Hkv, G, dh)
   }
 }
 
-template <typename T, int G>
-void launch(const void* q, const void* pk, const void* pv, const int* table,
-            const int* pos, float* o, float* m, float* l, int B, int hkv,
-            int dh, int n_pages, int ps, int width, int page_size, int base,
-            float scale, float softcap, cudaStream_t stream) {
+template <typename T, int G, int DC>
+cudaError_t launch(int device, const void* q, const void* pk, const void* pv,
+                   const int* table, const int* pos, float* o, float* m,
+                   float* l, int B, int hkv, int dh, int n_pages, int ps,
+                   int width, int page_size, int base, float scale,
+                   float softcap, cudaStream_t stream) {
+  constexpr int smem = gqa_core_smem_bytes(G, DC);
+  if (smem > 48 * 1024) {
+    static bool done[64] = {};
+    const cudaError_t err =
+        allow_smem(paged_gqa_kernel<T, G, DC>, device, smem, done);
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid(hkv, B);
-  paged_gqa_kernel<T, G><<<grid, WARPS * 32, 0, stream>>>(
+  paged_gqa_kernel<T, G, DC><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(pk),
       static_cast<const T*>(pv), table, pos, o, m, l, n_pages, ps, hkv, dh,
       width, page_size, base, scale, softcap);
+  return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(int G, const void* q, const void* pk, const void* pv,
-                     const int* table, const int* pos, float* o, float* m,
-                     float* l, int B, int hkv, int dh, int n_pages, int ps,
-                     int width, int page_size, int base, float scale,
-                     float softcap, cudaStream_t stream) {
+template <typename T, int DC>
+cudaError_t dispatch_dc(int device, int G, const void* q, const void* pk,
+                        const void* pv, const int* table, const int* pos,
+                        float* o, float* m, float* l, int B, int hkv, int dh,
+                        int n_pages, int ps, int width, int page_size,
+                        int base, float scale, float softcap,
+                        cudaStream_t stream) {
 #define PAGED_CASE(NG)                                                     \
   case NG:                                                                 \
-    launch<T, NG>(q, pk, pv, table, pos, o, m, l, B, hkv, dh, n_pages, ps, \
-                  width, page_size, base, scale, softcap, stream);         \
-    break;
+    return launch<T, NG, DC>(device, q, pk, pv, table, pos, o, m, l, B,    \
+                             hkv, dh, n_pages, ps, width, page_size, base, \
+                             scale, softcap, stream);
   switch (G) {
     PAGED_CASE(1) PAGED_CASE(2) PAGED_CASE(3) PAGED_CASE(4)
     PAGED_CASE(5) PAGED_CASE(6) PAGED_CASE(7) PAGED_CASE(8)
@@ -371,7 +433,22 @@ cudaError_t dispatch(int G, const void* q, const void* pk, const void* pv,
       return cudaErrorInvalidValue;
   }
 #undef PAGED_CASE
-  return cudaGetLastError();
+}
+
+// the instance of the smallest head-dim cap that holds dh
+template <typename T>
+cudaError_t dispatch(int device, int G, const void* q, const void* pk,
+                     const void* pv, const int* table, const int* pos,
+                     float* o, float* m, float* l, int B, int hkv, int dh,
+                     int n_pages, int ps, int width, int page_size, int base,
+                     float scale, float softcap, cudaStream_t stream) {
+  if (dh <= 128)
+    return dispatch_dc<T, 128>(device, G, q, pk, pv, table, pos, o, m, l, B,
+                               hkv, dh, n_pages, ps, width, page_size, base,
+                               scale, softcap, stream);
+  return dispatch_dc<T, MAXD>(device, G, q, pk, pv, table, pos, o, m, l, B,
+                              hkv, dh, n_pages, ps, width, page_size, base,
+                              scale, softcap, stream);
 }
 
 // ------------------------------------------------ GQA on the tensor cores
@@ -698,16 +775,6 @@ paged_gqa_mma(const __nv_bfloat16* __restrict__ q,       // (B, Hkv, G, dh)
       l_out[head * G + gq] = lv;
     }
   }
-}
-
-// cudaFuncSetAttribute once per kernel instance and device
-template <typename K>
-cudaError_t allow_smem(K kernel, int device, int bytes, bool* done) {
-  if (device >= 0 && device < 64 && done[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && device >= 0 && device < 64) done[device] = true;
-  return err;
 }
 
 template <int DH, bool CAP>
@@ -1520,7 +1587,7 @@ cudaError_t launch_mla_wgmma(int device, const void* q, const void* pool,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q and both pools); route: 0 = the CUDA
-// cores (paged_gqa_kernel, any dtype, dh a multiple of 8 up to 128), 1 =
+// cores (paged_gqa_kernel, any dtype, dh a multiple of 8 up to 256), 1 =
 // the tensor cores (paged_gqa_mma: bf16, G <= 8, dh 64, 128 or 256). Route 1
 // cuts each slot's keys into `splits` chunks of `chunk` keys (splits *
 // chunk >= width * ps); with splits > 1, ws_o (splits, B, Hkv, G, dh),
@@ -1559,13 +1626,13 @@ int paged_attention_gqa(int device, int dtype, const void* q, const void* pk,
   }
   if (route != 0 || dh > MAXD) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    err = dispatch<float>(G, q, pk, pv, tb, pp, of, mf, lf, B, hkv, dh,
-                          n_pages, ps, width, page_size, base, scale, softcap,
-                          st);
+    err = dispatch<float>(device, G, q, pk, pv, tb, pp, of, mf, lf, B, hkv,
+                          dh, n_pages, ps, width, page_size, base, scale,
+                          softcap, st);
   else if (dtype == 1)
-    err = dispatch<__nv_bfloat16>(G, q, pk, pv, tb, pp, of, mf, lf, B, hkv,
-                                  dh, n_pages, ps, width, page_size, base,
-                                  scale, softcap, st);
+    err = dispatch<__nv_bfloat16>(device, G, q, pk, pv, tb, pp, of, mf, lf,
+                                  B, hkv, dh, n_pages, ps, width, page_size,
+                                  base, scale, softcap, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.flash_attention import ref
 
 launches = 0
@@ -169,13 +169,12 @@ def attend(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
     """q (B,H,Tq,dh), k (B,Hk,Tk,dh), v (B,Hk,Tk,dv) → (B,H,Tq,dv) in q's
     dtype. Inputs may be strided views; the output of the kernel has the
     memory order of q (a head-transposed q gives a head-transposed out)."""
-    global launches
     if not _on_card(q):
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal,
                                        window=window, softcap=softcap)
     _check(q, k, v)
     out = _fwd(q, k, v, None, scale, causal, window, softcap)
-    launches += 1
+    _launches.bump(__name__, "launches")
     return out
 
 
@@ -183,7 +182,6 @@ def attend_fwd_lse(q, k, v, *, scale: float, causal: bool = True,
                    window: int = 0, softcap: float = 0.0):
     """As :func:`attend`, and also lse (B,H,Tq) f32: the residual of
     :func:`attend_bwd` (0 + log 1e-30 for a row with no live key)."""
-    global lse_launches
     if not _on_card(q):
         return ref.flash_attention_fwd_lse_ref(
             q, k, v, scale=scale, causal=causal, window=window,
@@ -192,7 +190,7 @@ def attend_fwd_lse(q, k, v, *, scale: float, causal: bool = True,
     B, H, Tq, _ = q.shape
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     out = _fwd(q, k, v, lse, scale, causal, window, softcap)
-    lse_launches += 1
+    _launches.bump(__name__, "lse_launches")
     return out, lse
 
 
@@ -202,7 +200,6 @@ def attend_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = True,
     :func:`attend_fwd_lse` and the output's cotangent ``do`` (B,H,Tq,dv).
     → (dq, dk, dv) shaped and typed as q, k, v (dk and dv with Hk heads,
     summed over each group), each in the memory order of its input."""
-    global bwd_launches
     if not _on_card(q):
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale,
                                            causal=causal, window=window,
@@ -233,5 +230,5 @@ def attend_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = True,
         int(bool(causal)), int(window), float(softcap),
         _build.stream(q.device))
     _build.check(lib, err, "flash_attention_bwd")
-    bwd_launches += 1
+    _launches.bump(__name__, "bwd_launches")
     return dq, dk, dv

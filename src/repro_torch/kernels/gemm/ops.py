@@ -19,7 +19,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.gemm import ref
 
 launches = 0
@@ -171,7 +171,6 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
     shape, tile and split of K follow :func:`plan`; ``(bm, bn, bk)`` given
     (unset ones default to ``BM``, ``BN``, ``BK``) is launched as given,
     unsplit. Any M; f32 any N and K, bf16 N and K multiples of 8."""
-    global launches
     M, K = a.shape[0], a.shape[-1]
     N = b.shape[-1]
     bm, bn, bk, splits = launch_shape(M, N, K, a.dtype, bm, bn, bk)
@@ -183,7 +182,7 @@ def gemm(a: torch.Tensor, b: torch.Tensor, *, bm: int | None = None,
     _check(a, b)
     out = _launch(a, b, bm, bn, bk, splits)
     if out.numel():
-        launches += 1
+        _launches.bump(__name__, "launches")
     return out
 
 

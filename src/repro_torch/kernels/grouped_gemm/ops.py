@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.grouped_gemm import ref
 
 launches = 0
@@ -82,7 +82,6 @@ def _check(a, w) -> None:
 
 def grouped_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a (E, M, K) @ w (E, K, N) → (E, M, N) in a's dtype, f32 sums."""
-    global launches
     if a.device.type == "cpu":
         return ref.grouped_gemm_ref(a, w)
     if a.device.type != "cuda":
@@ -100,5 +99,5 @@ def grouped_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         _build.ptr(out), a.stride(0), a.stride(1), E, M, K, N,
         _build.stream(a.device))
     _build.check(lib, err, "grouped_gemm")
-    launches += 1
+    _launches.bump(__name__, "launches")
     return out

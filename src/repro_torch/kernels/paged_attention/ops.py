@@ -24,7 +24,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.paged_attention import ref
 
 launches = 0
@@ -33,8 +33,11 @@ mla_launches = 0
 SMEM_LIMIT = 232448      # shared memory one block may opt into on an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GROUP = 8
-_MAX_DIM = 256           # GQA head dims: the tensor-core kernel's largest
-_CORE_MAX_DIM = 128      # GQA head dims the CUDA-core kernel takes
+_MAX_DIM = 256           # GQA head dims either route takes
+_CORE_MAX_DIM = 256      # GQA head dims the CUDA-core kernel takes
+CORE_WARPS = 8           # paged_gqa_kernel: warps per block
+CORE_CAPS = (128, _CORE_MAX_DIM)   # its instances' head-dim caps
+STATIC_SMEM = 48 * 1024  # shared memory a launch takes without opting in
 _MLA_MAX_R = 1024
 _MLA_MAX_LORA = 512
 
@@ -100,11 +103,26 @@ def mla_smem_bytes(R: int) -> int:
     return 1024 + (ML_M + ML_STAGES * ML_KT) * R * 2 + 8 * 2 * ML_STAGES
 
 
+def gqa_core_cap(dh: int) -> int:
+    """The head-dim cap of the paged_gqa_kernel instance that takes ``dh``:
+    the smallest of CORE_CAPS that holds it."""
+    return next(c for c in CORE_CAPS if dh <= c)
+
+
+def gqa_core_smem_bytes(grp: int, cap: int) -> int:
+    """Dynamic shared memory of one paged_gqa_kernel block at group ``grp``
+    and head-dim cap ``cap``: the group's scaled query rows and the
+    CORE_WARPS warps' partials (o rows, m, l) in f32
+    (gqa_core_smem_bytes in csrc/paged_attention.cu). Past STATIC_SMEM
+    the launch opts in to more."""
+    return 4 * grp * (cap * (1 + CORE_WARPS) + 2 * CORE_WARPS)
+
+
 def gqa_route(dtype: torch.dtype, grp: int, dh: int) -> str:
     """The GQA decode kernel for a call: "mma" (paged_gqa_mma: bf16, a
     group of at most 8 query rows, dh 64, 128 or 256) or "f32"
     (paged_gqa_kernel on the CUDA cores: f32, or any other group or head
-    dim; it takes dh up to 128, and the wrapper refuses the rest)."""
+    dim up to 256)."""
     if dtype == torch.bfloat16 and 1 <= grp <= GQ_N and dh in GQA_DIMS:
         return "mma"
     return "f32"
@@ -196,7 +214,6 @@ def paged_attend_gqa(q, pool_k, pool_v, page_table, pos, base: int = 0, *,
     (B,) int32; ``base`` the global position of in-page offset 0 (shard
     offset; 0 on one device) → (o (B,Hkv·G,dh), m (B,Hkv·G), l (B,Hkv·G))
     f32 partials."""
-    global launches
     if q.device.type == "cpu":
         return ref.paged_flash_decode_gqa_ref(
             q, pool_k, pool_v, page_table, pos, base, page_size=page_size,
@@ -208,10 +225,6 @@ def paged_attend_gqa(q, pool_k, pool_v, page_table, pos, base: int = 0, *,
     N, ps = pool_k.shape[:2]
     width = page_table.shape[1]
     route = gqa_route(q.dtype, grp, dh)
-    if route == "f32" and dh > _CORE_MAX_DIM:
-        raise ValueError(f"head dim {dh} takes the tensor-core kernel only "
-                         f"(bf16, dh in {GQA_DIMS}); the CUDA cores take dh "
-                         f"up to {_CORE_MAX_DIM}")
     splits, chunk = split_plan(width, ps, GQA_PLAN)
     f32 = dict(dtype=torch.float32, device=q.device)
     o = torch.empty((B, hkv * grp, dh), **f32)
@@ -233,7 +246,7 @@ def paged_attend_gqa(q, pool_k, pool_v, page_table, pos, base: int = 0, *,
         float(softcap), splits, chunk, _ROUTES[route],
         _build.stream(q.device))
     _build.check(lib, err, "paged_attention_gqa")
-    launches += 1
+    _launches.bump(__name__, "launches")
     return o, m, l
 
 
@@ -272,7 +285,6 @@ def paged_attend_mla(q, pool, page_table, pos, base: int = 0, *,
     ``kv_lora`` dims the value; page_table (B,T) int32; pos (B,) int32;
     ``base`` as in :func:`paged_attend_gqa` → (o (B,H,kv_lora), m (B,H),
     l (B,H)) f32 partials."""
-    global mla_launches
     if q.device.type == "cpu":
         return ref.paged_flash_decode_mla_ref(
             q, pool, page_table, pos, base, page_size=page_size,
@@ -309,5 +321,5 @@ def paged_attend_mla(q, pool, page_table, pos, base: int = 0, *,
         H, R, int(kv_lora), N, ps, width, int(page_size), int(base),
         float(scale), splits, chunk, _ROUTES[route], _build.stream(q.device))
     _build.check(lib, err, "paged_attention_mla")
-    mla_launches += 1
+    _launches.bump(__name__, "mla_launches")
     return o, m, l

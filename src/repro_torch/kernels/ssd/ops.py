@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.ssd import ref
 
 launches = 0
@@ -160,7 +160,6 @@ def intra_chunk(x, cs, B, C):
     """x (G,H,Q,P), cs (G,H,Q), B/C (G,H,Q,N) f32 → y (G,H,Q,P), states
     (G,H,N,P) f32: y = ((C Bᵀ) ⊙ L) x and st = (B ⊙ exp(cs[-1] − cs))ᵀ x
     per (g, h), with L[t,s] = exp(cs[t] − cs[s]) for t ≥ s, else 0."""
-    global launches
     if x.device.type == "cpu":
         return ref.ssd_intra_chunk_ref(x, cs, B, C)
     if x.device.type != "cuda":
@@ -189,6 +188,7 @@ def intra_chunk(x, cs, B, C):
     else:
         err = lib.ssd_intra_chunk(*args, _build.stream(x.device))
     _build.check(lib, err, f"ssd_intra_chunk ({route})")
-    launches += 1
-    route_launches[route] += 1
+    _launches.bump(__name__, "launches")
+    with _launches.lock:
+        route_launches[route] += 1
     return y, st

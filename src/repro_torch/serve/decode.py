@@ -26,7 +26,8 @@ tensors it was given, so a CUDA graph of it (``serve/graphs.py``) reads
 and writes the same storage at every replay; the engine reads the packed
 result back once per quantum. Per-step constants (the rope tables, the
 page and offset of ``pos``, the write row and live keys of each shape of
-dense rows) are computed once per step for all layers.
+dense rows) are computed once per step for all layers. ``plan_resume`` is
+the tier pool's retry law (``serve/multi_engine.py``).
 """
 from __future__ import annotations
 
@@ -448,3 +449,28 @@ def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
     for dst, src in ((tokens, new_tokens), (pos, new_pos),
                      (active, new_active), (remaining, new_remaining)):
         dst.copy_(src)
+
+
+# --------------------------------------------------- resume-from-emitted
+def plan_resume(prompt, out, max_new: int, eos_id: int = -1):
+    """Retry law for a stream reclaimed from a failed tier
+    (``repro/serve/decode.py::plan_resume``).
+
+    Returns ``(resume_prompt, remaining_new)``, the prompt to re-prefill
+    and the decode budget left, or ``None`` when the stream is already
+    terminal (budget spent, or the last emitted token is EOS) and needs no
+    retry.
+
+    Greedy recovery is token-identical: the emitted prefix came from causal
+    decoding, so the distribution of token ``len(out) + 1`` depends only on
+    ``prompt + out``, exactly the context a fresh prefill of
+    ``resume_prompt`` scores. The failed tier's cache is not trusted; the
+    context is rebuilt from the tokens the host already holds. Sampled
+    traffic resumes by the same law but not with the same draws.
+    """
+    emitted = len(out)
+    if emitted >= max_new:
+        return None                       # budget already spent
+    if eos_id >= 0 and emitted and out[-1] == eos_id:
+        return None                       # stream ended at EOS
+    return list(prompt) + list(out), max_new - emitted

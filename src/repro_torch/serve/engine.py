@@ -28,14 +28,24 @@ fixed accelerator chunk ``S_f``; the prompt-token budget admitted per
 cycle is the adaptive ``S_c`` side, driven by the measured prefill:decode
 throughput ratio ``f``.
 
+On the card each engine owns a CUDA stream: its state is made there
+(after the stream that made the parameters), and every ``step`` and
+``abort`` enqueues there, so engines stepped from several threads
+(``serve/multi_engine.py``) run side by side on one card, and a prefill
+waits for its own stream alone. Each cycle returns a :class:`StepReport`,
+the tier-facing surface of the pool, and ``step_deadline_s`` is the
+per-step budget its supervisor reads.
+
 The port has ``Engine(fast=True)``, paged (with the paged kernel, the
-port's default) and dense. ``fast=False``, speculative decode and the
-gathered-view decode (``paged_kernel=False``) are not ported. The kernels
-are built when an engine is constructed on the card, so no timed interval
-includes a build.
+port's default) and dense; :func:`make_engine` builds one over fresh
+parameters with the JAX default ``paged=False``. ``fast=False``,
+speculative decode and the gathered-view decode (``paged_kernel=False``)
+are not ported. The kernels are built when an engine is constructed on
+the card, so no timed interval includes a build.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import Counter
 from dataclasses import dataclass, field
@@ -50,6 +60,7 @@ from repro_torch.core.chunking import cpu_chunk
 from repro_torch.core.tracker import ThroughputTracker
 from repro_torch.kernels import _build
 from repro_torch.models.transformer import block_cfgs, check_supported
+from repro_torch.params import init_params
 from repro_torch.serve.decode import _sample_tokens, decode_quantum
 from repro_torch.serve.graphs import DecodeGraphs
 from repro_torch.serve.kv_cache import (cache_defs, cache_kinds, make_cache,
@@ -67,6 +78,17 @@ class EngineStallError(RuntimeError):
     """``run()``/``drain()`` made no forward progress for far longer than
     the outstanding workload warrants (see ``Engine._guard_limit``): a
     scheduling bug or slot/pool starvation, not a slow model."""
+
+
+class RequestFailedError(RuntimeError):
+    """Terminal per-request failure: the request exhausted its retry budget
+    (or the pool stalled) and was dead-lettered instead of being retried
+    forever.
+
+    Never raised out of ``MultiEngine.run``: the pool records an instance
+    in ``MultiEngine.dead_letters[rid]`` and stops tracking the request;
+    ``Request.done`` stays False and ``Request.out`` holds whatever prefix
+    was emitted before the final failure."""
 
 
 def worst_case_pages(prompt_len: int, max_new: int, decode_quantum: int,
@@ -98,12 +120,22 @@ class Request:
 
 @dataclass
 class StepReport:
-    """What one engine cycle did: requests admitted, tokens emitted, the
-    wall seconds of the decode quantum (the kernels are built at
-    construction, so no interval measures a build)."""
+    """What one engine cycle did, the tier-facing throughput surface:
+    ``MultiEngine`` feeds ``(decoded, dt)`` of warm cycles into its shared
+    tracker.
+
+    ``admitted`` requests moved into slots; ``decoded`` tokens emitted;
+    ``dt`` the wall seconds of the decode quantum (the kernels are built at
+    construction, so no interval measures a build); ``warm`` False for a
+    quantum that captured a graph (the JAX engine's quantum that compiled):
+    it measures the capture, not the tier. ``accepted`` and ``proposed``
+    are the draft tokens a speculative engine kept and tried, 0 here."""
     admitted: int = 0
     decoded: int = 0
     dt: float = 0.0
+    warm: bool = True
+    accepted: int = 0
+    proposed: int = 0
 
 
 class PageAllocator:
@@ -198,7 +230,8 @@ class Engine:
                  min_bucket: int = 16, paged: bool = True,
                  page_size: int = 16, num_pages: int | None = None,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
-                 sample_seed: int = 0, graphs: bool | None = None):
+                 sample_seed: int = 0, graphs: bool | None = None,
+                 step_deadline_s: float | None = None):
         """Build a serving engine over an existing parameter tree
         (``params.init_params`` or ``params.params_from_numpy``) that lies
         on ``device`` (the card unless ``device="cpu"``).
@@ -216,6 +249,9 @@ class Engine:
         ``graphs`` (default: on the card) runs each decode quantum as one
         replay of a CUDA graph per live page-table width; False runs the
         eager loop, which the CPU always does (True there raises).
+        ``step_deadline_s`` is the advisory wall-clock budget of one
+        ``step`` (None: unbounded) that ``MultiEngine``'s watchdog reads;
+        the engine never preempts a quantum.
         """
         check_supported(cfg)
         self.device = resolve_device(device)
@@ -229,6 +265,10 @@ class Engine:
                              f"on {self.device}")
         self.cfg, self.params = cfg, params
         self.max_slots, self.max_len, self.eos_id = max_slots, max_len, eos_id
+        if step_deadline_s is not None and step_deadline_s <= 0:
+            raise ValueError(f"step_deadline_s must be positive or None, "
+                             f"got {step_deadline_s}")
+        self.step_deadline_s = step_deadline_s
         self.decode_quantum = max(1, decode_quantum)
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
@@ -245,10 +285,28 @@ class Engine:
         # Mamba-2 state scan would absorb the pad tokens
         self.pad_safe = all(bc.mixer == "attn" for bc in block_cfgs(cfg))
         self.paged = bool(paged)
+        self.stream = None
         if self.device.type == "cuda":
             _build.build()
             for name in _build.NAMES:
                 _build.load(name)
+            self.stream = torch.cuda.Stream(self.device)
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with self._on_stream():
+            self._make_state(cfg, max_slots, max_len, page_size, num_pages,
+                             sample_seed, on_card if graphs is None
+                             else graphs)
+
+    def _on_stream(self):
+        """The engine's stream as the current one (a no-op on the CPU)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _make_state(self, cfg, max_slots, max_len, page_size, num_pages,
+                    sample_seed, use_graphs) -> None:
+        """The page pool or dense rows, slot state and graphs, made on the
+        engine's stream."""
         dev = self.device
         self.alloc = None
         self.page_table_dev = None
@@ -297,7 +355,6 @@ class Engine:
         # independent stream for first-token sampling at prefill
         self._prefill_gen = torch.Generator(device=dev).manual_seed(
             sample_seed + 1)
-        use_graphs = on_card if graphs is None else graphs
         self.graphs = DecodeGraphs(dev, self._gen) if use_graphs else None
 
     @property
@@ -316,6 +373,11 @@ class Engine:
                 f"request {req.rid}: prompt of {n} tokens needs at least "
                 f"one decode slot; engine max_len is {self.max_len}")
         self.pending.append(req)
+
+    def decode_throughput(self) -> float:
+        """EWMA decode tokens/sec this engine has measured for itself (0.0
+        until the first warm quantum)."""
+        return self.tracker.throughput("decode")
 
     def free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
@@ -376,9 +438,10 @@ class Engine:
             self.slot_req[i] = None
             self._release_slot_pages(i)
             self.pos_host[i] = 0
-        self._push_page_table()
-        self.active_dev.zero_()
-        self.remaining_dev.zero_()
+        with self._on_stream():
+            self._push_page_table()
+            self.active_dev.zero_()
+            self.remaining_dev.zero_()
         return out
 
     # ---- paged-pool bookkeeping ------------------------------------------
@@ -452,8 +515,13 @@ class Engine:
 
     # ---- one engine cycle -------------------------------------------------
     def step(self) -> StepReport:
-        """One engine cycle: admit pending prompts (HBB token budget), run
-        one decode quantum, retire finished slots."""
+        """One engine cycle on the engine's stream: admit pending prompts
+        (HBB token budget), run one decode quantum, retire finished
+        slots."""
+        with self._on_stream():
+            return self._step()
+
+    def _step(self) -> StepReport:
         self._last_admitted = 0
         free = self.free_slots()
         if self.pending and free:
@@ -498,7 +566,7 @@ class Engine:
                 self.slot_req[i] = None
                 self._release_slot_pages(i)
         return StepReport(admitted=self._last_admitted, decoded=emitted,
-                          dt=dt)
+                          dt=dt, warm=not captured)
 
     def _admit_pending(self, free: list[int]) -> None:
         """HBB chunking law over token units: the decode quantum is the
@@ -546,9 +614,10 @@ class Engine:
     def _prefill_group(self, Sb: int, reqs: list[Request],
                        free: list[int]) -> float:
         """Prefill + admit one bucket group; returns the device seconds of
-        the prefill and the admit copy (synchronized). Padded buckets use
-        the fixed ``prefill_batch`` rows, exact-length groups the smallest
-        power-of-2 batch."""
+        the prefill and the admit copy (the engine's stream synchronized:
+        another engine's work on the card is not waited for). Padded
+        buckets use the fixed ``prefill_batch`` rows, exact-length groups
+        the smallest power-of-2 batch."""
         P = (self.prefill_batch if self.pad_safe
              else 1 << (len(reqs) - 1).bit_length())
         toks = np.zeros((P, Sb), np.int32)
@@ -571,8 +640,8 @@ class Engine:
                                temperature=self.temperature, top_k=self.top_k,
                                top_p=self.top_p)
         self._admit(new_cache, first, pl_dev, reqs, slots, page_src)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        if self.stream is not None:
+            self.stream.synchronize()
         dt = time.perf_counter() - t0
         self.prefill_groups += 1
         first_h = _host_fetch(first)           # one sync per admitted group
@@ -664,3 +733,14 @@ class Engine:
             self.step()
             guard += 1
         return requests
+
+
+def make_engine(cfg: ModelConfig, *, seed: int = 0, device=None,
+                **kw) -> Engine:
+    """An :class:`Engine` over fresh parameters (``init_params(cfg, seed)``
+    on ``device``, the card unless ``device="cpu"``). Keeps the JAX
+    ``make_engine``'s default of a dense engine (``paged=False``), so the
+    same keywords build the same layout in both packages."""
+    kw.setdefault("paged", False)
+    return Engine(cfg, init_params(cfg, seed=seed, device=device),
+                  device=device, **kw)

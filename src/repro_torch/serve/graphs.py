@@ -23,14 +23,19 @@ state, page-table buffers, cache (pools, dense rows and rings, written in
 place; ring slots computed on the device from ``pos``) and output buffer.
 
 The kernel wrappers count launches in Python, which a replay does not
-run. So each capture records the change of every wrapper's count
-(:data:`COUNTERS`) while it ran, takes it back (the capture launched
-nothing), and every replay adds it: the counts go on counting kernel
-launches on the card.
+run. So each capture records the change of the capturing thread's own
+count of every wrapper (:data:`COUNTERS`, ``kernels/_launches.py``) while
+it ran, takes that change back from the global counts (the capture
+launched nothing), and every replay adds it: the counts go on counting
+kernel launches on the card, and the launches of an engine stepping in
+another thread meanwhile neither enter the capture's change nor leave the
+counts.
 
 A capture or replay that fails raises; nothing falls back to the eager
-loop. Capture runs under ``capture_error_mode="global"``, so a call the
-capture forbids (a host-to-device copy, a synchronize) raises.
+loop. Capture runs under ``capture_error_mode="thread_local"``: a call
+the capture forbids (a host-to-device copy, a synchronize) raises in the
+capturing thread, while engines stepping in other threads on their own
+streams (``MultiEngine``'s concurrent tiers) go on.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from typing import Callable, Hashable
 
 import torch
 
+from repro_torch.kernels import _launches
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.grouped_gemm import ops as gg_ops
@@ -57,10 +63,31 @@ def launch_counts() -> tuple[int, ...]:
     return tuple(getattr(mod, name) for mod, name in COUNTERS)
 
 
+def thread_launch_counts() -> tuple[int, ...]:
+    """The calling thread's own launch counts, in :data:`COUNTERS` order."""
+    return tuple(_launches.thread_count(mod.__name__, name)
+                 for mod, name in COUNTERS)
+
+
 def add_launches(delta: tuple[int, ...]) -> None:
-    for (mod, name), d in zip(COUNTERS, delta):
-        if d:
-            setattr(mod, name, getattr(mod, name) + d)
+    with _launches.lock:
+        for (mod, name), d in zip(COUNTERS, delta):
+            if d:
+                setattr(mod, name, getattr(mod, name) + d)
+
+
+def counted(fn: Callable[[], None]) -> tuple[int, ...]:
+    """Run ``fn`` and return the change of this thread's launch counts
+    while it ran, taken back from the global counts (what a capture
+    records: it launches nothing). Other threads' launches meanwhile stay
+    counted and out of the change."""
+    before = thread_launch_counts()
+    try:
+        fn()
+    finally:
+        delta = tuple(a - b for a, b in zip(thread_launch_counts(), before))
+        add_launches(tuple(-d for d in delta))
+    return delta
 
 
 class DecodeGraphs:
@@ -107,14 +134,19 @@ class DecodeGraphs:
             fn()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        before = launch_counts()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=side,
-                                  capture_error_mode="global"):
-                fn()
-            after = launch_counts()
-        finally:
-            add_launches(tuple(b - a for a, b in zip(launch_counts(),
-                                                     before)))
+
+        def capture():
+            # capture_begin/end, not ``torch.cuda.graph``: its entry
+            # synchronizes the device and empties the allocator's cache,
+            # which a capture in another engine's thread forbids
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=self._pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    fn()
+                finally:
+                    graph.capture_end()
+
+        delta = counted(capture)
         cur.wait_stream(side)
-        return graph, tuple(a - b for a, b in zip(after, before))
+        return graph, delta

@@ -1248,3 +1248,150 @@ def test_train_step_on_card_matches_host(dev, dtype):
         assert float(diff.median()) < 1e-6
     else:
         assert abs(l_d - l_h) <= 3e-2 * l_h
+
+
+# ------------------------------------- CUDA-core paged GQA above dh 128
+@pytest.mark.parametrize("dtype,grp,dh", [
+    (torch.float32, 2, 256), (torch.float32, 8, 256), (torch.float32, 5, 256),
+    (torch.float32, 6, 256), (torch.float32, 3, 192), (torch.float32, 4, 136),
+    (torch.bfloat16, 3, 200)])
+@pytest.mark.parametrize("softcap", [0.0, 5.0])
+def test_paged_core_kernel_above_dh128(dev, dtype, grp, dh, softcap):
+    """paged_gqa_kernel's dh-256 instance (8 value dims a lane; dynamic
+    shared memory, opted in past 48 KB at G 6 to 8) against the plain
+    version, f32 and a bf16 head dim the tensor cores do not take."""
+    assert paged_ops.gqa_route(dtype, grp, dh) == "f32"
+    q, pk, pv, pt, pos = _paged_case(dev, dtype, 16, grp, dh)
+    for base in (0, 8):
+        n0 = paged_ops.launches
+        got = paged_ops.paged_attend_gqa(q, pk, pv, pt, pos, base,
+                                         page_size=16, scale=dh ** -0.5,
+                                         softcap=softcap)
+        assert paged_ops.launches == n0 + 1
+        want = paged_ref.paged_flash_decode_gqa_ref(
+            q, pk, pv, pt, pos, base, page_size=16, scale=dh ** -0.5,
+            softcap=softcap)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+def test_paged_core_kernel_gemma2_shape_f32(dev):
+    """f32 paged decode at gemma2-2b's global layers (Hkv 4, G 2, dh 256,
+    softcap 50, an 8192-key table, q scaled so the scores pass the cap)
+    against ref.py."""
+    B, hkv, grp, dh, ps, max_len = 4, 4, 2, 256, 16, 8192
+    T = max_len // ps
+    N = 1 + B * T
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = 30 * torch.randn((B, hkv, grp, dh), generator=g, device=dev)
+    pk = torch.randn((N, ps, hkv, dh), generator=g, device=dev)
+    pv = torch.randn((N, ps, hkv, dh), generator=g, device=dev)
+    table = torch.tensor(1 + rng.permutation(N - 1).reshape(B, T),
+                         dtype=torch.int32, device=dev)
+    pos = torch.tensor([8191, 0, 4095, 4096], dtype=torch.int32, device=dev)
+    kw = dict(page_size=ps, scale=dh ** -0.5, softcap=50.0)
+    o, m, l = paged_ops.paged_attend_gqa(q, pk, pv, table, pos, 0, **kw)
+    o_r, m_r, l_r = paged_ref.paged_flash_decode_gqa_ref(q, pk, pv, table,
+                                                         pos, 0, **kw)
+    torch.testing.assert_close(m, m_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(l, l_r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(o / l[..., None], o_r / l_r[..., None],
+                               rtol=1e-4, atol=1e-4)
+
+
+# -------------------------------------------- the tier pool on the card
+def _overlap_first_captures(capturing, stepping) -> dict:
+    """Hold the first graph capture of tier ``capturing`` open until tier
+    ``stepping`` has made one whole step (admission, prefill, its own first
+    quantum's capture) on its stream from its thread: the first quanta of
+    a concurrent pool capture while the other tier steps. Returns flags
+    the caller checks: both waits met."""
+    import threading
+    in_capture, stepped = threading.Event(), threading.Event()
+    flags = {"capture_waited": False, "step_waited": False}
+    graphs = capturing.engine.graphs
+    real_capture, real_step = graphs._capture, stepping.engine.step
+
+    def capture(fn):
+        calls = [0]
+
+        def held():
+            calls[0] += 1                      # 1: warm-up, 2: captured
+            if calls[0] == 2 and not in_capture.is_set():
+                in_capture.set()
+                flags["capture_waited"] = stepped.wait(120)
+            fn()
+        return real_capture(held)
+
+    def step():
+        if stepped.is_set():
+            return real_step()
+        flags["step_waited"] = in_capture.wait(120)
+        try:
+            return real_step()
+        finally:
+            stepped.set()
+
+    graphs._capture = capture
+    stepping.engine.step = step
+    return flags
+
+
+def _card_pool(cfg, params, concurrent):
+    from repro_torch.serve.multi_engine import EngineTier, MultiEngine
+    tiers = [EngineTier("short", Engine(cfg, params, paged=False,
+                                        max_slots=4, max_len=64,
+                                        decode_quantum=4)),
+             EngineTier("long", Engine(cfg, params, paged=True, max_slots=4,
+                                       max_len=256, page_size=8,
+                                       decode_quantum=4))]
+    meng = MultiEngine(tiers, concurrent=concurrent)
+    meng.tracker.throughput = lambda name: 0.0     # routing at the priors
+    for t in tiers:
+        t.engine.tracker.f = lambda: 0.01
+    return meng
+
+
+def test_pool_concurrent_tiers_on_card(dev):
+    """A dense and a paged smoke tier over one parameter tree, stepped
+    serially and in two threads (each engine on its own stream), fresh
+    engines each time: in the concurrent run the long tier's first capture
+    stays open while the short tier makes a whole step (its own first
+    capture included). Both runs: no health transition, the same
+    assignments, streams and launch counts, one capture per width, every
+    page back."""
+    from repro_torch.serve import graphs
+    cfg = smoke_config(get_config("mistral-nemo-12b"))
+    params = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    lens = list(rng.integers(4, 40, 10)) + [150, 200]
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lens]
+    runs = []
+    for concurrent in (False, True):
+        meng = _card_pool(cfg, params, concurrent)
+        flags = (_overlap_first_captures(meng.tiers[1], meng.tiers[0])
+                 if concurrent else None)
+        reqs = [Request(rid=i, prompt=p, max_new=12)
+                for i, p in enumerate(prompts)]
+        before = graphs.launch_counts()
+        meng.run(reqs)
+        torch.cuda.synchronize()
+        delta = tuple(a - b for a, b in zip(graphs.launch_counts(), before))
+        assert not meng.health_log and not meng.dead_letters, meng.health_log
+        assert all(r.done and len(r.out) == 12 for r in reqs)
+        assert all(meng.assigned[i] == "long" for i in (10, 11))
+        for t in meng.tiers:
+            eng = t.engine
+            assert t.routed > 0
+            assert eng.decode_captures == len(eng.widths_used) > 0
+            assert all(r is None for r in eng.slot_req)
+            if eng.paged:
+                eng.alloc.check()
+                assert len(eng.alloc.free) == eng.alloc.usable_pages
+        if concurrent:
+            assert flags == {"capture_waited": True, "step_waited": True}
+        runs.append((dict(meng.assigned), [r.out for r in reqs], delta))
+    (a_s, s_s, d_s), (a_c, s_c, d_c) = runs
+    assert a_s == a_c and s_s == s_c
+    assert d_s == d_c and any(d_c), (d_s, d_c)

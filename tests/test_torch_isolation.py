@@ -12,7 +12,8 @@ import torch
 
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.params import init_params
-from repro_torch.serve.engine import Engine
+from repro_torch.serve.engine import Engine, make_engine
+from repro_torch.serve.multi_engine import make_multi_engine
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -38,7 +39,9 @@ def test_no_jax_imports(path):
 
 def test_engine_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.params, "
-            "repro_torch.train.loop, repro_torch.launch.train; "
+            "repro_torch.train.loop, repro_torch.launch.train, "
+            "repro_torch.serve.multi_engine, repro_torch.serve.faults, "
+            "repro_torch.launch.serve; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -55,3 +58,35 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, params)
     assert Engine(cfg, params, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_engine(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_multi_engine(cfg, [{"name": "a"}, {"name": "b"}])
+    assert make_engine(cfg, device="cpu").device.type == "cpu"
+    meng = make_multi_engine(cfg, [{"name": "a"}, {"name": "b"}],
+                             device="cpu")
+    assert {t.engine.device.type for t in meng.tiers} == {"cpu"}
+
+
+ENTRY_POINTS = {
+    "launch.serve": ["-m", "repro_torch.launch.serve", "--device", "cpu"],
+    "serve_batch": ["-m", "repro_torch.examples.serve_batch", "--smoke",
+                    "--device", "cpu"],
+    "serve_multitier": ["-m", "repro_torch.examples.serve_multitier",
+                        "--smoke", "--device", "cpu"],
+}
+
+
+@pytest.mark.parametrize("name", ENTRY_POINTS)
+def test_serving_entry_points_run_on_the_cpu(name):
+    """The serving launcher and examples, each in its own process, exit 0
+    on the CPU; the examples' smoke runs assert completion (and the long
+    prompts' tier) and print "smoke OK"."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, *ENTRY_POINTS[name]], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    if name == "launch.serve":
+        assert out.stdout.startswith("served 8 requests"), out.stdout
+    else:
+        assert "smoke OK" in out.stdout, out.stdout

@@ -191,9 +191,8 @@ def test_kernel_label(signature, label):
 def test_gqa_route_every_shape(dtype):
     """Every (group, dh) the GQA wrapper accepts: the tensor-core kernel for
     bf16 at dh 64, 128 and 256 (the source's instances), the CUDA cores for
-    the rest (which take dh up to 128: above, only the tensor cores); the
-    served models' (G 4, dh 128) and gemma2-2b's (G 2, dh 256) among the
-    first."""
+    the rest (f32 included up to dh 256); the served models' (G 4, dh 128)
+    and gemma2-2b's (G 2, dh 256) among the first."""
     assert paged_ops._CORE_MAX_DIM == _constexpr("paged_attention.cu",
                                                  "MAXD")
     for grp in range(1, paged_ops._MAX_GROUP + 1):
@@ -284,6 +283,33 @@ def test_gqa_smem_law_dh256():
     assert n == 196608 == sized["GqaSmem<256>::bytes"]
     assert n + 1024 <= 228 * 1024 < 2 * (n + 1024)
     assert paged_ops.GQ_WARPS * paged_ops.GQ_N * (256 + 2) * 4 <= n
+
+
+@pytest.mark.parametrize("grp", range(1, 9))
+def test_gqa_core_smem_law(grp):
+    """The CUDA-core GQA kernel's dynamic shared memory (the group's query
+    rows and 8 warps' partials in f32, sized by the instance's head-dim
+    cap): every head dim up to 256 takes the smallest cap that holds it,
+    the law equals every size paged_attention.cu asserts, fits one block,
+    and passes the 48 KB a launch takes without opting in only at cap 256
+    with a group above 5 (gemma2-2b's G 2 at dh 256: 18,560 bytes)."""
+    assert paged_ops.CORE_CAPS[-1] == paged_ops._CORE_MAX_DIM == \
+        paged_ops._MAX_DIM == _constexpr("paged_attention.cu", "MAXD")
+    assert paged_ops.CORE_WARPS == _constexpr("paged_attention.cu", "WARPS")
+    for dh in range(8, paged_ops._CORE_MAX_DIM + 1, 8):
+        cap = paged_ops.gqa_core_cap(dh)
+        assert cap == (128 if dh <= 128 else 256), dh
+    for cap in paged_ops.CORE_CAPS:
+        n = paged_ops.gqa_core_smem_bytes(grp, cap)
+        assert n == 4 * grp * (9 * cap + 16) <= LIMIT
+        assert (n > paged_ops.STATIC_SMEM) == (cap == 256 and grp > 5)
+    sized = _asserted("paged_attention.cu",
+                      r"gqa_core_smem_bytes\(\d+, \d+\)")
+    assert len(sized) >= 4
+    for label, n in sized.items():
+        g, cap = map(int, re.findall(r"\d+", label))
+        assert paged_ops.gqa_core_smem_bytes(g, cap) == n, label
+    assert paged_ops.gqa_core_smem_bytes(2, 256) == 18560
 
 
 @pytest.mark.parametrize("R", [512, 576])
