@@ -63,12 +63,35 @@
    cut to 2 layers, a raise fault on the short tier and a hang past the
    long tier's deadline: every stream as the unfailed pool's, the short
    tier quarantined → probation → healthy, no recapture, no page leaked.
+   Then speculative big/little decode over the same parameters: the deep
+   39 layers' ``wo`` and ``w_down`` scaled by 0.2 (``soften_deep_layers``)
+   and a draft of the first layer (``draft_from_target``), a paged engine
+   of 8 slots of 4096, quanta of 8 rounds of 4 proposals: the softened
+   target alone through graphs (reference streams and tok/s); the
+   speculative engine through graphs twice (every request done with 32
+   in-vocabulary tokens, the pool whole, one capture per width, paged GQA
+   and the flash forward launched on the "spec" path, each slot's device
+   pos advanced by exactly the tokens the host appended, the same streams
+   twice), eagerly (the same streams) and sampled (temperature 0.8, top-k
+   50, the first 6 prompts: graphs = eager); reported beside the card:
+   the bf16 streams equal to the target-only ones, tok/s, acceptance,
+   tokens a round, one replayed quantum profiled (busy share, kernels a
+   round) and one eager quantum's device ms of draft, verify, acceptance
+   and commit. At f32, depth cut to 2 layers, ``decode_verify`` of 5
+   tokens against 5 serial decode steps and ``decode_commit`` of 3
+   against 3 serial writes, held to 1e-3; and greedy speculative streams
+   through graphs held equal to the target alone's, the second layer
+   scaled by 0.05 so that rounds emit more than one token. The paged
+   kernels of step 3 are also held at a verify's rows (each slot's table
+   repeated 5 times at its last committed position, a never-filled slot
+   at position -1 merged to an empty row across the splits).
 5. The same (graphs twice, eager once, both quanta profiled) for
    deepseek-v2-236b (MLA + MoE) at full width with depth cut to 6 layers
    (the dense first layer and 5 MoE layers), with the f32 prefill →
-   decode check with depth cut to 2 layers; and for mamba2-130m at its
-   published width and depth (exact-length prefill through the SSD
-   kernel, per-slot state), with the f32 check at full depth.
+   decode check and the verify/commit check (paged MLA, MoE) with depth
+   cut to 2 layers; and for mamba2-130m at its published width and depth
+   (exact-length prefill through the SSD kernel, per-slot state), with
+   the f32 checks at full depth (the verify's staged states).
 6. nemotron-4-15b (non-gated squared-ReLU FFN, paged engine, the mistral
    workload), gemma2-2b (paged engine at max_len 8192: 13 global layers in
    the pool, 13 window-4096 rings, post-norm, softcaps; 8 prompts of
@@ -81,7 +104,8 @@
    (nemotron's bf16 at full depth reported, gemma2's held to 3e-2 through
    its paged layout; f32 at depth 2 held, past the window for gemma2 and
    danube, gemma2's through its dense and its paged layout, the latter on
-   the CUDA-core kernel at dh 256). Each model's weights are freed before
+   the CUDA-core kernel at dh 256; gemma2's verify/commit check past the
+   window through its paged layout). Each model's weights are freed before
    the next. Every launch counts for the one kernel entry whose paths hold
    the model.
 7. Training (the flash backward and the forward that saves lse): both
@@ -96,9 +120,10 @@
    kernels against autograd through the plain versions; and the training
    launcher at smoke size in a subprocess.
 8. Prints report lines (``report {...}``: the f32 paged decode kernel at
-   dh 256, each pool run beside the card's name and power limit), one
-   JSON line {"kernels": [...]} (each entry's launches by path, the
-   pool's among them), then as the last line {"ok": true, "device":
+   dh 256, each pool run and the speculative phase beside the card's
+   name and power limit), one JSON line {"kernels": [...]} (each entry's
+   launches by path, the pool's and the speculative engine's ("spec")
+   among them), then as the last line {"ok": true, "device":
    {...}}. Any failed check exits non-zero without it.
 """
 from __future__ import annotations
@@ -309,9 +334,51 @@ def paged_call(fn, kernel: str, counter: str, n_bytes: float,
 
 
 # ------------------------------------------------------------ paged decode
+def check_verify_rows(what: str, attend, plain, table, pos, q_row, dt,
+                      splits: int) -> float:
+    """A verify's call of a paged kernel at the served table, held: each
+    slot's table repeated K = SPEC_K + 1 times at its last committed
+    position pos0 - 1 (``decode._repeat_rows``), slot 1 never filled (pos0
+    0, so position -1), B·K random query rows of shape ``q_row``. o/l (each
+    row within 1e-3 of its largest value), m and l against the plain
+    version on the same rows, the same rows live, and the empty rows
+    merged across the ``splits`` to m = -1e30, l = 0, o = 0 → the largest
+    |o/l - ref|."""
+    from repro_torch.serve.decode import _repeat_rows
+    K = SPEC_K + 1
+    pos0 = pos + 1
+    pos0[1] = 0
+    ptf, posf = _repeat_rows(table, pos0, K)
+    g = torch.Generator(device=table.device).manual_seed(1)
+    q = torch.randn((ptf.shape[0],) + tuple(q_row), generator=g,
+                    device=table.device).to(dt)
+    o, m, l = attend(q, ptf, posf)
+    o_r, m_r, l_r = plain(q, ptf, posf)
+    live = l_r > 0
+    ok_live = bool(torch.equal(live, l > 0))
+    got = o[live] / l[live][:, None]
+    want = o_r[live] / l_r[live][:, None]
+    e = row_err(got, want)
+    e_m = float((m - m_r).abs().max())
+    e_l = float(((l - l_r).abs()[live] / l_r[live]).max())
+    empty = posf < 0
+    merged = bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
+                  and (o[empty] == 0).all())
+    check(ok_live and e <= 1e-3 and e_m <= 1e-3 and e_l <= 1e-3
+          and int(empty.sum()) == K and merged and splits > 1,
+          f"{what} at a verify's rows ({ptf.shape[0]} = {table.shape[0]} "
+          f"slots x {K}, table {tuple(ptf.shape)}, {splits} splits, "
+          f"{int(empty.sum())} rows at position -1): |o/l - ref| {e:.3g} of "
+          f"the row's largest, |m - ref| {e_m:.3g}, rel |l - ref| {e_l:.3g} "
+          f"(tol 1e-3), live rows {'equal' if ok_live else 'DIFFER'}, "
+          f"empty rows merged to m = -1e30, l = 0, o = 0: {merged}")
+    return float((got.float() - want.float()).abs().max())
+
+
 def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
                     max_len: int, caps: tuple, cap: float, pos_head: list,
-                    paths: list, dt=torch.bfloat16) -> dict:
+                    paths: list, dt=torch.bfloat16,
+                    verify: bool = False) -> dict:
     """Paged GQA decode at B=8, 16-token pages, a ``max_len``-key table, in
     ``dt`` (bf16: the tensor cores at the served shapes; f32: the CUDA
     cores):
@@ -321,7 +388,8 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
     the kernel without it must miss), timed at ``cap`` (device time; one
     launch a call checked), and SDPA on the gathered K/V with the same keys
     live (``sdpa_gathered_ms``; not a library time: SDPA neither reads a
-    page table nor returns partials)."""
+    page table nor returns partials). ``verify``: also held at a verify's
+    rows (:func:`check_verify_rows`, softcap ``cap``)."""
     from repro_torch.kernels.paged_attention import ops, ref
     B, ps = 8, 16
     T = max_len // ps
@@ -372,6 +440,13 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
     b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
     route = ops.gqa_route(dt, grp, dh)
     splits, chunk = ops.split_plan(T, ps, ops.GQA_PLAN)
+    kw = dict(page_size=ps, scale=scale, softcap=cap)
+    v_err = check_verify_rows(
+        f"paged decode {route} dh={dh} G={grp}",
+        lambda qr, tr, pr: ops.paged_attend_gqa(qr, pk, pv, tr, pr, 0, **kw),
+        lambda qr, tr, pr: ref.paged_flash_decode_gqa_ref(
+            qr, pk, pv, tr, pr, 0, **kw),
+        table, pos, (hkv, grp, dh), dt, splits) if verify else None
     call = paged_call(lambda: ops.paged_attend_gqa(
         q, pk, pv, table, pos, 0, page_size=ps, scale=scale, softcap=cap),
         "paged_gqa", "paged_attention_gqa", n_bytes, n_ops)
@@ -398,6 +473,7 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
           f"{sdpa:.4f} ms; ptxas {call.get('registers')} registers, "
           f"{call.get('spill_stores')} B spill stores, "
           f"{call.get('spill_loads')} B spill loads")
+    at_verify = "; and at a verify's B·K rows" if verify else ""
     entry = {"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
              "replaces": "src/repro/kernels/paged_attention/"
@@ -405,7 +481,7 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
              "counter": "paged_attention_gqa",
              "max_abs_err": err, "tol": 1e-3, "ms": ms, "plain_ms": plain,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-             "sdpa_gathered_ms": sdpa,
+             "sdpa_gathered_ms": sdpa, "verify_rows_err": v_err,
              "paged": {"route": route, "splits": splits, "chunk": chunk,
                        **call},
              "paths": paths,
@@ -413,7 +489,8 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
                       f"l against paged_flash_decode_gqa_ref, {dt} pools, "
                       f"B=8 Hkv={hkv} G={grp} dh={dh}, mixed pos up to "
                       f"{max_len - 1}, (softcap, q gain) {caps}, and with a "
-                      f"gain the kernel without its softcap missing; "
+                      f"gain the kernel without its softcap missing"
+                      f"{at_verify}; "
                       f"max_abs_err is |o/l - ref|; ms is the device time "
                       f"at softcap {cap}"}
     return entry
@@ -421,13 +498,14 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
 
 def paged_phase(dev) -> dict:
     """mistral-nemo-12b's decode shape: Hkv=8, G=4, dh=128, a 4096-key
-    table; checked at softcap 0 and 30 (scores to ~±100), timed at 0. Its
-    launches are mistral's and nemotron-4-15b's (dh 128)."""
+    table; checked at softcap 0 and 30 (scores to ~±100) and at the spec
+    path's verify rows (B·K = 40), timed at 0. Its launches are mistral's
+    and nemotron-4-15b's (dh 128)."""
     return paged_gqa_entry(dev, name="paged_attention_gqa", hkv=8, grp=4,
                            dh=128, max_len=4096, caps=((0.0, 1), (30.0, 25)),
                            cap=0.0, pos_head=[4095, 0, 15, 16],
                            paths=["mistral-nemo-12b", "nemotron-4-15b",
-                                  "pool"])
+                                  "pool", "spec"], verify=True)
 
 
 def paged256_phase(dev) -> dict:
@@ -532,7 +610,7 @@ def flash_phase(dev) -> dict:
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:92",
             "paths": ["mistral-nemo-12b", "deepseek-v2-236b",
-                      "nemotron-4-15b", "pool"],
+                      "nemotron-4-15b", "pool", "spec"],
             "max_abs_err": err, "tol": ROW_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "mla": mla,
@@ -812,7 +890,8 @@ def flash_bwd_phase(dev) -> list[dict]:
 # ------------------------------------------------------- paged MLA decode
 def mla_phase(dev) -> dict:
     """deepseek-v2's absorbed decode: B=8, H=128, R=576, kv_lora 512,
-    page 16, positions up to 4095 with 0, ps - 1 and ps, base 0 and 8."""
+    page 16, positions up to 4095 with 0, ps - 1 and ps, base 0 and 8;
+    and at a verify's B·K rows (:func:`check_verify_rows`)."""
     from repro_torch.kernels.paged_attention import ops, ref
     B, H, lora, rope, ps, max_len = 8, 128, 512, 64, 16, 4096
     R = lora + rope
@@ -853,6 +932,12 @@ def mla_phase(dev) -> dict:
     b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
     route = ops.mla_route(dt, H, R, lora, ps)
     splits, chunk = ops.split_plan(T, ps, ops.MLA_PLAN)
+    v_err = check_verify_rows(
+        f"paged MLA decode {route}",
+        lambda qr, tr, pr: ops.paged_attend_mla(qr, pool, tr, pr, 0, **kw),
+        lambda qr, tr, pr: ref.paged_flash_decode_mla_ref(qr, pool, tr, pr,
+                                                           0, **kw),
+        table, pos, (H, R), dt, splits)
     call = paged_call(lambda: ops.paged_attend_mla(
         q, pool, table, pos, 0, **kw), "paged_mla", "paged_attention_mla",
         n_bytes, n_ops)
@@ -875,11 +960,13 @@ def mla_phase(dev) -> dict:
             "paths": ["deepseek-v2-236b"],
             "max_abs_err": err, "tol": 1e-3, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "verify_rows_err": v_err,
             "paged": {"route": route, "splits": splits, "chunk": chunk,
                       **call},
             "check": "o/l, m, l against paged_flash_decode_mla_ref, bf16 "
                      "pool, B=8 H=128 R=576 kv_lora=512 page 16, mixed pos "
-                     "up to 4095, base 0 and 8; ms is the device time"}
+                     "up to 4095, base 0 and 8, and at a verify's B·K rows; "
+                     "ms is the device time"}
 
 
 # ------------------------------------------------------------ grouped GEMM
@@ -1659,6 +1746,305 @@ def pool_fault_phase(cfg, params, dev) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ speculative decode
+SPEC_K = 4           # draft proposals a round
+# the deep layers' residual projections scaled by benchmarks/bench_serve.py's
+# SPEC_ALPHA, so the one-layer draft agrees with the target often
+SPEC_ALPHA = 0.2
+SPEC_PARTS = (("draft", "decode_step"), ("verify", "decode_verify"),
+              ("commit", "decode_commit"))
+
+
+def _rate(eng, before=None):
+    """(decode tokens, seconds) the engine's tracker has recorded, or their
+    change since ``before``."""
+    dec = eng.tracker.stats["decode"]
+    now = (dec.iters_done, dec.busy_time)
+    return now if before is None else (now[0] - before[0], now[1] - before[1])
+
+
+def spec_parts(eng, cfg) -> dict:
+    """One eager speculative quantum of 8 full slots at ~1k context
+    (:func:`fill_slots`) under torch.profiler, with a range around each
+    part (the draft's ``decode_step``, ``decode_verify``,
+    ``decode_commit``) → {part: [device ms, kernels]}, the kernels outside
+    the ranges (acceptance and bookkeeping) under "accept"; {} if the
+    profiler gave no device spans of the ranges. Aborts the slots after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import record_function
+    from repro_torch.serve import decode
+    fill_slots(eng, cfg, 96)
+    saved = {fn: getattr(decode, fn) for _, fn in SPEC_PARTS}
+
+    def ranged(label, fn):
+        def inner(*a, **k):
+            with record_function("spec_" + label):
+                return fn(*a, **k)
+        return inner
+    try:
+        for label, fn in SPEC_PARTS:
+            setattr(decode, fn, ranged(label, saved[fn]))
+        with device_profile(cpu=True) as prof:
+            eng.step()
+    finally:
+        for fn, f in saved.items():
+            setattr(decode, fn, f)
+    eng.abort()
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans: dict[str, list] = {}
+    for e in dev_ev:
+        if e.name.startswith("spec_"):
+            spans.setdefault(e.name[5:], []).append(
+                (e.time_range.start, e.time_range.end))
+    parts: dict[str, list] = {}
+    if not spans:
+        return parts
+    for e in dev_ev:
+        if e.name.startswith("spec_") or any(
+                x in e.name for x in (LEAD_IN, "Memcpy", "Memset")):
+            continue
+        t = e.time_range.start
+        lab = next((lab for lab, iv in spans.items()
+                    if any(a <= t <= b for a, b in iv)), "accept")
+        acc = parts.setdefault(lab, [0.0, 0])
+        acc[0] += (e.time_range.end - t) / 1e3
+        acc[1] += 1
+    return parts
+
+
+def spec_phase(cfg, params, dev, entries, lens, prompts) -> None:
+    """Speculative big/little decode over the full-width parameters on the
+    card: the target with its 39 deep layers' ``wo`` and ``w_down`` scaled
+    by SPEC_ALPHA (``soften_deep_layers``, new tensors for those only) and
+    a draft of its first layer (``draft_from_target``: embed, final norm
+    and unembed shared), served paged with 8 slots of 4096, quanta of 8
+    rounds of SPEC_K proposals. Checks: the softened target alone through
+    graphs (reference streams and tok/s), the speculative engine through
+    graphs twice (every request done with 32 in-vocabulary tokens, the
+    pool whole, one capture per width, paged GQA and the flash forward
+    launched on the "spec" path, each slot's device pos advanced by
+    exactly the tokens the host appended, the same streams twice), eagerly
+    (the graph runs' streams), and sampled (temperature 0.8, top-k 50, the
+    first 6 prompts: graphs = eager).
+    Reports how many bf16 spec streams equal the target-only ones, tok/s,
+    acceptance, tokens a round, one profiled replayed quantum and one
+    eager quantum's device time by part."""
+    from repro_torch.models.draft import draft_from_target, soften_deep_layers
+    from repro_torch.params import tree_leaves
+    from repro_torch.serve.engine import Engine
+    soft = soften_deep_layers(cfg, params, 1, SPEC_ALPHA)
+    dcfg, dparams = draft_from_target(cfg, soft, 1)
+    kw = dict(max_slots=8, max_len=4096, page_size=16, decode_quantum=8)
+    spec = dict(draft_cfg=dcfg, draft_params=dparams, spec_k=SPEC_K)
+
+    eng = Engine(cfg, soft, device=dev, **kw)
+    eng.tracker.f = lambda: PINNED_F
+    ref, _ = serve_run(eng, cfg, lens, prompts, 32)
+    ref_tok, ref_s = _rate(eng)
+    del eng
+    torch.cuda.empty_cache()
+
+    eng = Engine(cfg, soft, device=dev, **kw, **spec)
+    eng.tracker.f = lambda: PINNED_F
+    check(eng.graphs is not None and eng.quantum_tokens == 8 * (SPEC_K + 1),
+          f"spec: graphs on, quantum_tokens {eng.quantum_tokens}")
+    draft_mb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(eng.draft_cache)) / 1e6
+    advanced = []
+    step = eng.step
+
+    def pos_dev():
+        with eng._on_stream():
+            return eng.pos_dev.cpu().numpy()
+
+    def checked_step():
+        # the slots held before the step keep their requests through its
+        # quantum: the device carry's advance is held to the tokens the
+        # host appended, and to the host's mirror where the slot goes on
+        held = {i: (r, len(r.out)) for i, r in enumerate(eng.slot_req)
+                if r is not None}
+        before = pos_dev()
+        rep = step()
+        after = pos_dev()
+        advanced.extend(
+            int(after[i] - before[i]) == len(r.out) - n0 and
+            (eng.slot_req[i] is None or int(eng.pos_host[i]) == after[i])
+            for i, (r, n0) in held.items())
+        return rep
+    eng.step = checked_step
+    reqs, launches = serve_run(eng, cfg, lens, prompts, 32)
+    spec_tok, spec_s = _rate(eng)
+    check(all(r.done and len(r.out) == 32 for r in reqs) and
+          all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "spec: every request finished with 32 in-vocabulary tokens")
+    check(eng.decode_captures == len(eng.widths_used),
+          f"spec: one graph capture per live page-table width "
+          f"({eng.decode_captures} for {sorted(eng.widths_used)})")
+    _add_launches(entries, launches, "spec",
+                  ["flash_attention_fwd", "paged_attention_gqa"])
+    again, _ = serve_run(eng, cfg, lens, prompts, 32)
+    streams = [r.out for r in reqs]
+    check([r.out for r in again] == streams,
+          "spec: a second run through graphs gives the same streams")
+    check(len(advanced) > 0 and all(advanced),
+          f"spec: every slot's device pos advanced by exactly its emitted "
+          f"tokens, and equals the host's mirror where the slot goes on "
+          f"({sum(advanced)}/{len(advanced)} slot-quanta)")
+    emitted = 2 * sum(len(r.out) - 1 for r in reqs)
+    rounds = eng.spec_proposed / SPEC_K
+    acceptance = eng.spec_accepted / eng.spec_proposed
+    del eng.step
+    replay = profile_phase(eng, cfg, max_new=96, drain=False)
+    del eng
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, soft, device=dev, graphs=False, **kw, **spec)
+    eng.tracker.f = lambda: PINNED_F
+    eager, _ = serve_run(eng, cfg, lens, prompts, 32)
+    eager_tok, eager_s = _rate(eng)
+    check([r.out for r in eager] == streams,
+          "spec: the eager loop gives the graph runs' streams")
+    parts = spec_parts(eng, cfg)
+    print(f"profile spec quantum: replayed {replay['busy_ms']:.3f} ms device "
+          f"busy, {replay['kernels'] / kw['decode_quantum']:.0f} kernels a "
+          f"round; eager, device [ms, kernels] by part {parts}")
+    del eng
+    torch.cuda.empty_cache()
+
+    outs = []
+    for graphs in (True, False):              # the first 6 prompts
+        eng = Engine(cfg, soft, device=dev, graphs=graphs, temperature=0.8,
+                     top_k=50, sample_seed=0, **kw, **spec)
+        eng.tracker.f = lambda: PINNED_F
+        sreqs, _ = serve_run(eng, cfg, lens[:6], prompts[:6], 32)
+        outs.append([r.out for r in sreqs])
+        del eng
+        torch.cuda.empty_cache()
+    check(outs[0] == outs[1], "spec sampled (temperature 0.8, top-k 50): "
+          "streams through CUDA graphs equal the eager loop's")
+    v_rel, c_rel = spec_module_rel(cfg, soft, dev, paged=True)
+    print(f"spec bf16, 40 layers: decode_verify vs 5 serial steps, relative"
+          f" max error {v_rel:.3g}; commit vs 3 serial writes {c_rel:.3g} "
+          f"(reported, not held: the verify's projections run at M = 5 "
+          f"rows, the steps' at 1)")
+    same = sum(a == b for a, b in zip(streams, [r.out for r in ref]))
+    first = [next((j for j, (x, y) in enumerate(zip(a, r.out)) if x != y),
+                  None) for a, r in zip(streams, ref)]
+    print("report " + json.dumps({
+        "spec": "mistral-nemo-12b, soften 0.2, one-layer draft, spec_k 4",
+        "card": CARD, "target_only_tok_s": ref_tok / ref_s,
+        "spec_tok_s": spec_tok / spec_s, "spec_eager_tok_s":
+        eager_tok / eager_s, "acceptance": acceptance,
+        "tokens_a_round": emitted / rounds, "rounds": rounds,
+        "same_as_target_only": same, "of": len(streams),
+        "first_difference": first, "draft_cache_mb": draft_mb,
+        "bf16_verify_rel": v_rel, "bf16_commit_rel": c_rel,
+        "replay_busy_ms": replay["busy_ms"], "replay_wall_ms":
+        replay["wall_ms"], "kernels_a_round":
+        replay["kernels"] / kw["decode_quantum"],
+        "eager_part_ms_kernels": parts}))
+    del soft, dparams
+    torch.cuda.empty_cache()
+
+
+def spec_module_rel(cfg, params, dev, S: int = 100, n: int = 3,
+                    paged: bool = True) -> tuple[float, float]:
+    """``decode_verify`` of K = SPEC_K + 1 tokens after prefill(S) against K
+    serial ``decode_step``s (relative max error of the logits), and
+    ``decode_commit`` of the first ``n`` staged rows against n serial
+    steps (relative max error over every cache leaf: pools but their trash
+    page, rings, rows, Mamba-2 states), in the layout of
+    :func:`prefilled_cache`."""
+    from repro_torch.params import tree_leaves, tree_map
+    from repro_torch.serve.decode import (decode_commit, decode_step,
+                                          decode_verify)
+    from repro_torch.serve.kv_cache import cache_kinds
+    K = SPEC_K + 1
+    toks, cache, table = prefilled_cache(cfg, params, dev, S, K, paged)
+    pos0 = torch.tensor([S], dtype=torch.int32, device=dev)
+    vt = toks[:, S:S + K]
+    before = tree_map(lambda t: t.clone(), cache)
+    logits, staged = decode_verify(cfg, params, cache, vt, pos0, table)
+    serial, after = [], None
+    c = tree_map(lambda t: t.clone(), cache)
+    for j in range(K):
+        lj, c = decode_step(cfg, params, c, vt[:, j], pos0 + j, table)
+        serial.append(lj)
+        if j == n - 1:
+            after = tree_map(lambda t: t.clone(), c)
+    want = torch.stack(serial, 1)
+    check(bool(torch.isfinite(logits).all()), "verify logits are finite")
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(cache),
+                                                tree_leaves(before))),
+          f"{cfg.name}: decode_verify leaves the cache untouched")
+    v_rel = float((logits - want).abs().max() / want.abs().max())
+    decode_commit(cfg, cache, staged, pos0,
+                  torch.tensor([n], dtype=torch.int32, device=dev), table)
+    c_rel = 0.0
+    for kind, got, ref in zip(cache_kinds(cfg, paged=paged),
+                              cache["layers"], after["layers"]):
+        for name, a in got.items():
+            b = ref[name]
+            if kind == "paged":        # the rejected rows' trash page 0
+                a, b = a[1:], b[1:]
+            c_rel = max(c_rel, float((a.float() - b.float()).abs().max() /
+                                     b.float().abs().max().clamp_min(1e-30)))
+    return v_rel, c_rel
+
+
+def check_spec_module(cfg, params, dev, what: str, **kw) -> None:
+    v_rel, c_rel = spec_module_rel(cfg, params, dev, **kw)
+    check(v_rel < 1e-3 and c_rel < 1e-3,
+          f"{cfg.name} {what}: decode_verify of {SPEC_K + 1} tokens ≡ "
+          f"{SPEC_K + 1} serial decode steps (relative max error "
+          f"{v_rel:.3g}), decode_commit of 3 ≡ 3 serial writes ({c_rel:.3g}"
+          f") (tol 1e-3)")
+
+
+# the f32 run's second layer scaled so little that the one-layer draft is
+# accepted often: multi-row commits, the bonus token and whole rounds run
+SPEC_F32_ALPHA = 0.05
+
+
+def spec_f32_phase(cfg, params, dev) -> None:
+    """Greedy speculative decode held to the target alone, in f32 at full
+    width (depth cut to 2 layers): the target's second layer softened by
+    SPEC_F32_ALPHA and the draft of its first layer, served paged (8 slots
+    of 4096, quanta of 8 rounds of SPEC_K) through CUDA graphs beside the
+    softened target alone: 8 prompts of 16–1000 tokens (numpy seed 2), 32
+    new tokens each. Held: the same streams, every request done, one
+    capture per width, and more than one token a round."""
+    from repro_torch.models.draft import draft_from_target, soften_deep_layers
+    from repro_torch.serve.engine import Engine
+    soft = soften_deep_layers(cfg, params, 1, SPEC_F32_ALPHA)
+    dcfg, dparams = draft_from_target(cfg, soft, 1)
+    kw = dict(max_slots=8, max_len=4096, page_size=16, decode_quantum=8)
+    rng = np.random.default_rng(2)
+    lens = rng.integers(16, 1001, 8)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    outs = []
+    for spec in ({}, dict(draft_cfg=dcfg, draft_params=dparams,
+                          spec_k=SPEC_K)):
+        eng = Engine(cfg, soft, device=dev, **kw, **spec)
+        eng.tracker.f = lambda: PINNED_F
+        reqs, _ = serve_run(eng, cfg, lens, prompts, 32)
+        check(all(r.done and len(r.out) == 32 for r in reqs) and
+              eng.decode_captures == len(eng.widths_used),
+              f"spec f32{' (target alone)' if not spec else ''}: every "
+              f"request done with 32 tokens, one capture per width "
+              f"({eng.decode_captures} for {sorted(eng.widths_used)})")
+        outs.append([r.out for r in reqs])
+    rounds = eng.spec_proposed / SPEC_K
+    per_round = sum(len(o) - 1 for o in outs[1]) / rounds
+    same = sum(a == b for a, b in zip(*outs))
+    check(outs[0] == outs[1] and per_round > 1,
+          f"spec f32, full width, 2 layers, soften {SPEC_F32_ALPHA}: greedy "
+          f"streams through graphs equal the target alone's ({same}/"
+          f"{len(outs[0])}); {per_round:.3f} tokens a round (> 1), "
+          f"acceptance {eng.spec_accepted / eng.spec_proposed:.4f}")
+    del eng, soft, dparams
+    torch.cuda.empty_cache()
+
+
 def serve_phase(dev, entries) -> None:
     from repro_torch.configs import get_config
     from repro_torch.params import init_params, n_params
@@ -1686,6 +2072,9 @@ def serve_phase(dev, entries) -> None:
     t0 = time.perf_counter()
     pool_phase(cfg, params, dev, entries)
     print(f"pool phase (bf16) {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    spec_phase(cfg, params, dev, entries, lens, prompts)
+    print(f"spec phase (bf16) {time.perf_counter() - t0:.1f} s")
     rel = prefill_decode_rel(cfg, params, dev)
     print(f"full width bf16, 40 layers: prefill(S) + paged decode vs "
           f"prefill(S+1), relative max error {rel:.3g} (reported, not held:"
@@ -1698,6 +2087,11 @@ def serve_phase(dev, entries) -> None:
     check(rel < 1e-3, f"full width f32, depth cut to 2 layers: prefill(S) + "
           f"paged decode ≡ prefill(S+1), relative max error {rel:.3g} "
           f"(tol 1e-3)")
+    check_spec_module(cfg32, params32, dev, "full width f32, depth cut to 2 "
+                      "layers, paged")
+    t0 = time.perf_counter()
+    spec_f32_phase(cfg32, params32, dev)
+    print(f"spec f32 phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     pool_fault_phase(cfg32, params32, dev)
     print(f"pool fault phase (f32) {time.perf_counter() - t0:.1f} s")
@@ -1746,11 +2140,14 @@ def deepseek_phase(dev, entries) -> None:
     print(f"f32 check: capacity_factor raised from {m.capacity_factor} to "
           f"{cf:.4g} so that no token is dropped at prefill (Ce >= tokens); "
           "decode never drops")
-    rel = prefill_decode_rel(cfg32, init_params(cfg32, seed=0, device=dev),
-                             dev)
+    params32 = init_params(cfg32, seed=0, device=dev)
+    rel = prefill_decode_rel(cfg32, params32, dev)
     check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 layers "
           f"(dense + MoE): prefill(S) + paged decode ≡ prefill(S+1), "
           f"relative max error {rel:.3g} (tol 1e-3)")
+    check_spec_module(cfg32, params32, dev, "full width f32, depth cut to 2 "
+                      "layers (dense + MoE), paged MLA")
+    del params32
     torch.cuda.empty_cache()
 
 
@@ -1792,10 +2189,13 @@ def mamba_phase(dev, entries) -> None:
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
-    rel = prefill_decode_rel(cfg32, init_params(cfg32, seed=0, device=dev),
-                             dev)
+    params32 = init_params(cfg32, seed=0, device=dev)
+    rel = prefill_decode_rel(cfg32, params32, dev)
     check(rel < 1e-3, f"{cfg.name} full width and depth, f32: prefill(S) + "
           f"decode ≡ prefill(S+1), relative max error {rel:.3g} (tol 1e-3)")
+    check_spec_module(cfg32, params32, dev, "full width and depth, f32 "
+                      "(the staged Mamba-2 states)")
+    del params32
     torch.cuda.empty_cache()
 
 
@@ -1830,24 +2230,30 @@ def print_top(by_name, n: int = 12) -> None:
         print(f"  {us / 1e3:9.3f} ms {k:6d}x  {name[:90]}")
 
 
-def profile_phase(eng, cfg) -> None:
-    """One decode quantum of 8 full slots at ~1k context under
-    torch.profiler (admission done before, and one more quantum so that a
-    graph engine has captured the width the profiled quantum replays):
-    device busy share of the wall time, kernels per step, the kernels by
-    device time; the paged kernels the profiler saw equal the launches
-    their wrappers counted in that quantum (with graphs, what the replay
-    added)."""
-    from repro_torch.kernels.paged_attention import ops as paged_ops
+def fill_slots(eng, cfg, max_new: int) -> None:
+    """Every slot given a request of a 1024-token prompt (numpy seed 1) and
+    ``max_new`` tokens, all admitted, then one more quantum stepped so that
+    a graph engine has captured the width the next quantum replays."""
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(1)
     for i in range(eng.max_slots):
-        eng.submit(Request(rid=100 + i, max_new=64,
+        eng.submit(Request(rid=100 + i, max_new=max_new,
                            prompt=rng.integers(0, cfg.vocab, 1024).tolist()))
     while eng.pending:                          # admit every request first
         eng.step()
     eng.step()
     torch.cuda.synchronize()
+
+
+def profile_phase(eng, cfg, max_new: int = 64, drain: bool = True) -> dict:
+    """One decode quantum of 8 full slots at ~1k context under
+    torch.profiler (after :func:`fill_slots`): device busy share of the
+    wall time, kernels per step, the kernels by device time; the paged
+    kernels the profiler saw equal the launches their wrappers counted in
+    that quantum (with graphs, what the replay added). Without ``drain``
+    the slots are aborted after. → wall and busy ms, kernels."""
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    fill_slots(eng, cfg, max_new)
     c0 = eng.decode_captures
     n0 = paged_ops.launches + paged_ops.mla_launches
     with device_profile(cpu=True) as prof:
@@ -1856,7 +2262,10 @@ def profile_phase(eng, cfg) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     counted = paged_ops.launches + paged_ops.mla_launches - n0
-    eng.drain()
+    if drain:
+        eng.drain()
+    else:
+        eng.abort()
     mode = "graphs" if eng.graphs else "eager"
     if eng.graphs:
         check(eng.decode_captures == c0, f"{cfg.name}: the profiled quantum "
@@ -1876,6 +2285,7 @@ def profile_phase(eng, cfg) -> None:
     check(seen == counted, f"{cfg.name} ({mode}): the profiled quantum's "
           f"paged kernels ({seen}) equal the launches counted ({counted})")
     print_top(by_name)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "kernels": n}
 
 
 def prefill_profile(cfg, params, prompt, dev) -> dict:
@@ -1915,32 +2325,28 @@ def prefill_profile(cfg, params, prompt, dev) -> dict:
             "ssd_ms": ssd_us / 1e3, "ssd_launches": launches}
 
 
-def prefill_decode_rel(cfg, params, dev, S: int = 100,
-                       paged: bool = True) -> float:
-    """prefill(S) + decode of token S against the last logits of
-    prefill(S + 1): the relative max error (tests/test_serve.py's check).
-    ``paged``: the paged engine's layout, pooled layers getting their
-    prefill rows as pages; else the dense engine's (per-slot rows, no page
-    table). Ring layers (rings of min(window, S + 16) slots) and Mamba-2
-    layers carry their rows and state either way."""
-    from repro_torch.serve.decode import decode_step
+def prefilled_cache(cfg, params, dev, S: int, extra: int = 1,
+                    paged: bool = True):
+    """Tokens (1, S + extra) from seed 1 and the cache of their prefill(S)
+    → (tokens, cache, page table). ``paged``: the paged engine's layout,
+    pooled layers getting their prefill rows as pages 1.. of a pool of
+    ceil((S + extra) / 16) pages of 16 (table (1, T)); else the dense
+    engine's (per-slot rows, table None). Ring layers (rings of
+    min(window, S + 16) slots) and Mamba-2 layers carry their rows and
+    state either way."""
     from repro_torch.serve.kv_cache import cache_kinds
     from repro_torch.serve.prefill import prefill
     ps = 16
     g = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab, (1, S + 1), generator=g, device=dev,
-                         dtype=torch.int32)
-    ref, _ = prefill(cfg, params, toks)
-    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    toks = torch.randint(0, cfg.vocab, (1, S + extra), generator=g,
+                         device=dev, dtype=torch.int32)
     if not paged:
         _, cache = prefill(cfg, params, toks[:, :S], max_len=S + 16)
-        got, _ = decode_step(cfg, params, cache, toks[:, S], pos)
-        check(bool(torch.isfinite(got).all()), "decode logits are finite")
-        return float((got - ref).abs().max() / ref.abs().max())
+        return toks, cache, None
     _, rows = prefill(cfg, params, toks[:, :S], max_len=S + 16,
                       page_size=ps)
     n_rows = -(-S // ps)
-    T = -(-(S + 1) // ps)
+    T = -(-(S + extra) // ps)
     layers = []
     for kind, layer in zip(cache_kinds(cfg, paged=True), rows["layers"]):
         if kind == "dense":
@@ -1953,8 +2359,20 @@ def prefill_decode_rel(cfg, params, dev, S: int = 100,
             pool[name] = p
         layers.append(pool)
     table = torch.arange(1, 1 + T, dtype=torch.int32, device=dev)[None]
-    got, _ = decode_step(cfg, params, {"layers": layers}, toks[:, S], pos,
-                         table)
+    return toks, {"layers": layers}, table
+
+
+def prefill_decode_rel(cfg, params, dev, S: int = 100,
+                       paged: bool = True) -> float:
+    """prefill(S) + decode of token S against the last logits of
+    prefill(S + 1): the relative max error (tests/test_serve.py's check),
+    in the layout of :func:`prefilled_cache`."""
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.prefill import prefill
+    toks, cache, table = prefilled_cache(cfg, params, dev, S, 1, paged)
+    ref, _ = prefill(cfg, params, toks)
+    pos = torch.tensor([S], dtype=torch.int32, device=dev)
+    got, _ = decode_step(cfg, params, cache, toks[:, S], pos, table)
     check(bool(torch.isfinite(got).all()), "decode logits are finite")
     return float((got - ref).abs().max() / ref.abs().max())
 
@@ -2068,6 +2486,9 @@ def gemma2_phase(dev, entries) -> None:
           f"S={S}: prefill(S) + paged decode (the global layer through "
           f"paged_gqa_kernel<float, 2, 256>) ≡ prefill(S+1), relative max "
           f"error {rel:.3g} (tol 1e-3)")
+    check_spec_module(cfg32, params32, dev, f"full width f32, depth cut to "
+                      f"2 layers, S={S} past the window (a ring, a paged "
+                      f"layer at dh 256, softcap 50)", S=S)
     del params32
     torch.cuda.empty_cache()
 
@@ -2306,7 +2727,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(x for x in (
             "passes_ms", "mla", "decode", "chunks", "n4096", "paged",
-            "ssd", "sass", "sdpa_gathered_ms", "kernel_route")
+            "ssd", "sass", "sdpa_gathered_ms", "verify_rows_err",
+            "kernel_route")
             if x in e)}
         for e in entries]}))
     print(smi)

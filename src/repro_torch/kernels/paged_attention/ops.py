@@ -80,8 +80,13 @@ _MLA_ARGTYPES = [_I, _I] + [_P] * 11 + [_I] * 9 + [_F] + [_I] * 3 + [_P]
 # (slot, head group) and column slice (ML_CLUSTER). They are zero between
 # calls (the last block of a row wraps its counter back to 0), so they are
 # made once and grown; kernels on one stream run in order, so that
-# stream's calls share them
+# stream's calls share them. A CUDA graph keeps the counter's pointer of
+# its capture: an engine's capturing stream sees one row count (decode
+# calls with B rows, a speculative engine's verify with B·K), made by the
+# warm-up that precedes the capture, and a counter that grows keeps the
+# one it replaces alive (``_retired``), so no graph points at freed memory
 _counters: dict[tuple[str, int, int], torch.Tensor] = {}
+_retired: list[torch.Tensor] = []
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -161,6 +166,8 @@ def _counter(kind: str, device, rows: int) -> torch.Tensor:
     key = (kind, dev, _build.stream(device))
     cnt = _counters.get(key)
     if cnt is None or cnt.numel() < rows:
+        if cnt is not None:
+            _retired.append(cnt)
         cnt = torch.zeros(rows, dtype=torch.int32, device=device)
         _counters[key] = cnt
     return cnt

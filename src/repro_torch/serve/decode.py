@@ -26,8 +26,21 @@ tensors it was given, so a CUDA graph of it (``serve/graphs.py``) reads
 and writes the same storage at every replay; the engine reads the packed
 result back once per quantum. Per-step constants (the rope tables, the
 page and offset of ``pos``, the write row and live keys of each shape of
-dense rows) are computed once per step for all layers. ``plan_resume`` is
-the tier pool's retry law (``serve/multi_engine.py``).
+dense rows) are computed once per step for all layers.
+
+Speculative big/little decode: a round runs ``spec_k`` serial draft steps
+(``decode_step`` of the draft on its own dense cache), one batched target
+verify of the K = spec_k + 1 positions (``decode_verify``: the cache
+read-only; each query sees the committed history, from the paged kernels
+on B·K repeated rows or from dense rows and rings in plain torch, merged
+with the staged K×K block's partials; a Mamba-2 layer steps its state K
+times and stages the K states), the emission law (``spec_candidates``:
+greedy acceptance, or rejection sampling against the filtered
+distributions) and the commit of the accepted prefix (``decode_commit``).
+``spec_decode_loop`` is its functional reference and
+``spec_decode_quantum`` the same loop in place, one CUDA graph per width
+like ``decode_quantum``. ``plan_resume`` is the tier pool's retry law
+(``serve/multi_engine.py``).
 """
 from __future__ import annotations
 
@@ -377,8 +390,15 @@ def _sample_tokens(logits, generator, *, temperature: float, top_k: int,
     (as ``jax.random.categorical``), noise drawn from ``generator``."""
     if not temperature:
         return torch.argmax(logits, -1).to(torch.int32)
-    lg = _filter_logits(logits, temperature=temperature, top_k=top_k,
-                        top_p=top_p)
+    return _gumbel_argmax(_filter_logits(logits, temperature=temperature,
+                                         top_k=top_k, top_p=top_p),
+                          generator)
+
+
+def _gumbel_argmax(lg, generator):
+    """A categorical draw over the last axis of the f32 log-weights ``lg``
+    by the Gumbel-max rule (as ``jax.random.categorical``): no host read,
+    noise from ``generator`` (advanced alike in a graph's replay)."""
     u = torch.rand(lg.shape, generator=generator, device=lg.device)
     gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(F32).tiny)))
     return torch.argmax(lg + gumbel, -1).to(torch.int32)
@@ -446,6 +466,520 @@ def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
             if t is not layer[name]:           # Mamba-2 state; pools alias
                 layer[name].copy_(t)
     packed.copy_(_pack(new_active, toks, msks))
+    for dst, src in ((tokens, new_tokens), (pos, new_pos),
+                     (active, new_active), (remaining, new_remaining)):
+        dst.copy_(src)
+
+
+# ------------------------------------------------ speculative decode: verify
+def _merge_partials(o1, m1, l1, o2, m2, l2):
+    """Online-softmax merge of two unnormalized (o, m, l) partial triples
+    (o = Σ e^{s-m}·v, l = Σ e^{s-m}); an empty one (m = NEG, l = 0, o = 0)
+    adds nothing. :func:`_combine` normalizes the result."""
+    m = torch.maximum(m1, m2)
+    m_safe = torch.where(m <= NEG / 2, 0.0, m)
+    c1 = torch.exp(torch.where(m1 <= NEG / 2, NEG, m1) - m_safe)
+    c2 = torch.exp(torch.where(m2 <= NEG / 2, NEG, m2) - m_safe)
+    return o1 * c1[..., None] + o2 * c2[..., None], m, l1 * c1 + l2 * c2
+
+
+def _causal(K: int, device):
+    """(Kq, Kk) bool: verify query j sees staged rows j' <= j."""
+    return torch.ones((K, K), dtype=torch.bool, device=device).tril()
+
+
+def _masked_partials(s, keep, v, eq: str):
+    """(o, m, l) of scores ``s`` (…, keys) where ``keep`` (broadcast to
+    ``s``), values ``v`` contracted by einsum ``eq``; all f32."""
+    s = torch.where(keep, s, NEG)
+    m = torch.amax(s, -1)
+    m_safe = torch.where(m <= NEG / 2, 0.0, m)
+    p = torch.where(keep, torch.exp(s - m_safe[..., None]), 0.0)
+    return torch.einsum(eq, p, v), m, torch.sum(p, -1)
+
+
+def _verify_rows(pos0, S: int, window: int, K: int):
+    """(B, K, S) bool: the committed dense rows each verify query of a layer
+    of S rows per slot sees. Full rows: positions < pos0. A ring (window)
+    is anchored at the last committed position pos0 - 1: slot j holds
+    ``p_j = (pos0-1) - ((pos0-1 - j) mod S)``, seen while ``p_j >= 0`` and
+    inside query (pos0 + k)'s window; K <= window keeps every staged row
+    inside every query's window."""
+    gpos = torch.arange(S, device=pos0.device)
+    p0 = pos0.long()[:, None]
+    if window:
+        anchor = p0 - 1
+        p_j = anchor - torch.remainder(anchor - gpos[None], S)   # (B, S)
+        qpos = p0 + torch.arange(K, device=pos0.device)[None]    # (B, K)
+        return (p_j >= 0)[:, None, :] & \
+            (p_j[:, None, :] > qpos[:, :, None] - window)
+    return (gpos[None] < p0)[:, None, :].expand(-1, K, -1)
+
+
+class VerifyConsts(NamedTuple):
+    """What every attention layer of one verify pass shares: the rope tables
+    of positions ``pos0 + j`` (cos, sin (B, K, width/2) f32, None without
+    rope), and for each (rows, window) of the dense layers their
+    :func:`_verify_rows`."""
+    rope: Optional[tuple]
+    dense: dict
+
+
+def verify_consts(cfg: ModelConfig, cache, pos0, K: int,
+                  page_table) -> Optional[VerifyConsts]:
+    """The verify constants of a model's attention layers (None for a model
+    without attention): :func:`step_consts` for K positions."""
+    attn = [(bc, c) for bc, c in zip(block_cfgs(cfg), cache["layers"])
+            if bc.mixer == "attn"]
+    if not attn:
+        return None
+    qpos = pos0[:, None] + torch.arange(K, device=pos0.device)[None]
+    rope = None
+    if cfg.mla:
+        rope = rope_tables(qpos, cfg.mla.rope_dim, cfg.rope_theta)
+    elif cfg.use_rope:
+        rope = rope_tables(qpos, cfg.head_dim, cfg.rope_theta)
+    dense = {}
+    for bc, c in attn:
+        n = next(iter(c.values())).shape[1]
+        if not _uses_pool(bc, page_table) and (n, bc.window) not in dense:
+            dense[(n, bc.window)] = _verify_rows(pos0, n, bc.window, K)
+    return VerifyConsts(rope, dense)
+
+
+def _repeat_rows(page_table, pos0, K: int):
+    """The paged kernels' rows of a verify: each slot's table repeated K
+    times and its last committed position ``pos0 - 1`` (kernel validity is
+    ``gpos <= pos``: the committed history only). A slot never filled
+    passes -1, which the kernels read as an empty row."""
+    B, T = page_table.shape
+    return (page_table[:, None].expand(B, K, T).reshape(B * K, T).contiguous(),
+            (pos0 - 1)[:, None].expand(B, K).reshape(B * K).contiguous())
+
+
+def flash_verify_gqa(q, k_new, v_new, ck, cv, pos0, *, window: int,
+                     scale: float, softcap: float, page_table=None,
+                     valid=None):
+    """Batched K-token verify attention. q (B,K,Hkv,G,dh); k_new/v_new
+    (B,K,Hkv,dh) the staged rows of positions pos0..pos0+K-1; ck/cv the
+    cache as the last commit left it, READ-ONLY here; pos0 (B,) → out
+    (B,K,Hkv,G,dh). Query j sees the committed history and the staged rows
+    j' <= j, which is what the serial loop's write-then-attend sees.
+
+    With ``page_table`` (B,T) int32 the cache is the pools and the history
+    comes from the paged kernel on the (B·K, Hkv, G, dh) queries
+    (:func:`_repeat_rows`); without, from dense rows (a ring with
+    ``window``) in plain torch, ``valid`` their :func:`_verify_rows`. The
+    staged K×K block's partials come from a plain einsum (JAX's; no TPU
+    kernel computes it) and are merged with the history's."""
+    B, K, hkv, grp, dh = q.shape
+    if window and K > window:
+        raise ValueError(f"verify block K={K} exceeds window={window}")
+    qf = q.to(F32) * scale
+    s2 = torch.einsum("bkhgd,bjhd->bhgkj", qf, k_new.to(F32))
+    if softcap:
+        s2 = torch.tanh(s2 / softcap) * softcap
+    staged = _masked_partials(s2, _causal(K, q.device), v_new.to(F32),
+                              "bhgkj,bjhd->bhgkd")
+    if page_table is not None:
+        _check_paged_args(page_table, pos0, window=window)
+        ptf, posf = _repeat_rows(page_table, pos0, K)
+        o, m, l = paged_ops.paged_attend_gqa(
+            q.reshape(B * K, hkv, grp, dh).contiguous(), ck, cv, ptf, posf,
+            0, page_size=ck.shape[1], scale=scale, softcap=softcap)
+        hist = (o.view(B, K, hkv, grp, dh).permute(0, 2, 3, 1, 4),
+                m.view(B, K, hkv, grp).permute(0, 2, 3, 1),
+                l.view(B, K, hkv, grp).permute(0, 2, 3, 1))
+    else:
+        s = torch.einsum("bkhgd,bshd->bhgks", qf, ck.to(F32))
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        hist = _masked_partials(s, valid[:, None, None], cv.to(F32),
+                                "bhgks,bshd->bhgkd")
+    out = _combine(*_merge_partials(*hist, *staged))      # (B,Hkv,G,K,dh)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def flash_verify_mla(q_eff, new_rows, ckv, pos0, *, kv_lora: int,
+                     scale: float, page_table=None, valid=None):
+    """MLA analogue of :func:`flash_verify_gqa`: q_eff (B,K,H,R); new_rows
+    (B,K,R) the staged latent rows; ckv the (N,ps,R) pool with
+    ``page_table``, else dense rows (B,S,R) and ``valid`` their
+    :func:`_verify_rows` → out (B,K,H,kv_lora). Read-only; full attention
+    only."""
+    B, K, H, R = q_eff.shape
+    qf = q_eff.to(F32) * scale
+    rows = new_rows.to(F32)
+    s2 = torch.einsum("bkhr,bjr->bhkj", qf, rows)
+    staged = _masked_partials(s2, _causal(K, q_eff.device),
+                              rows[..., :kv_lora], "bhkj,bjr->bhkr")
+    if page_table is not None:
+        _check_paged_args(page_table, pos0)
+        ptf, posf = _repeat_rows(page_table, pos0, K)
+        o, m, l = paged_ops.paged_attend_mla(
+            q_eff.reshape(B * K, H, R).contiguous(), ckv, ptf, posf, 0,
+            page_size=ckv.shape[1], kv_lora=kv_lora, scale=scale)
+        hist = (o.view(B, K, H, kv_lora).permute(0, 2, 1, 3),
+                m.view(B, K, H).permute(0, 2, 1),
+                l.view(B, K, H).permute(0, 2, 1))
+    else:
+        s = torch.einsum("bkhr,bsr->bhks", qf, ckv.to(F32))
+        hist = _masked_partials(s, valid[:, None], ckv[..., :kv_lora].to(F32),
+                                "bhks,bsr->bhkr")
+    out = _combine(*_merge_partials(*hist, *staged))      # (B,H,K,kv_lora)
+    return out.permute(0, 2, 1, 3).to(q_eff.dtype)
+
+
+def gqa_verify(cfg: ModelConfig, p, x, cache, pos0, window: int,
+               page_table, consts: VerifyConsts):
+    """x (B,K,D) → (out (B,K,D), staged {"k","v"} rows (B,K,Hkv,dh))."""
+    B, K, D = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ p["wq"].reshape(D, -1)).view(B, K, H, dh)
+    k = (x @ p["wk"].reshape(D, -1)).view(B, K, Hkv, dh)
+    v = (x @ p["wv"].reshape(D, -1)).view(B, K, Hkv, dh)
+    if cfg.use_rope:
+        cos, sin = consts.rope                                # (B, K, dh/2)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    valid = None if page_table is not None else \
+        consts.dense[(cache["k"].shape[1], window)]
+    out = flash_verify_gqa(
+        q.reshape(B, K, Hkv, H // Hkv, dh), k, v, cache["k"], cache["v"],
+        pos0, window=window, scale=dh ** -0.5, softcap=cfg.attn_softcap,
+        page_table=page_table, valid=valid)
+    o = out.reshape(B, K, H * dh) @ p["wo"].reshape(-1, D)
+    return o, {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
+
+
+def mla_verify(cfg: ModelConfig, p, x, cache, pos0, page_table,
+               consts: VerifyConsts):
+    """x (B,K,D) → (out (B,K,D), staged {"ckv"} latent rows (B,K,R)), the
+    absorbed form of :func:`mla_decode` for K positions."""
+    m = cfg.mla
+    B, K, D = x.shape
+    H = cfg.n_heads
+    cq = rmsnorm(x @ p["wdq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["wuq"].reshape(m.q_lora, -1)).view(B, K, H,
+                                                   m.nope_dim + m.rope_dim)
+    qn, qr = q[..., :m.nope_dim], q[..., m.nope_dim:]
+    cos, sin = consts.rope                                     # (B, K, r/2)
+    qr = apply_rope(qr, cos, sin)
+    q_c = torch.einsum("bkhn,rhn->bkhr", qn, p["wukv"][..., :m.nope_dim])
+    q_eff = torch.cat([q_c, qr], dim=-1)
+    ckv_t = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
+    kr_t = apply_rope((x @ p["wkr"])[:, :, None], cos, sin)[:, :, 0]
+    rows = torch.cat([ckv_t, kr_t], dim=-1).to(cache["ckv"].dtype)
+    valid = None if page_table is not None else \
+        consts.dense[(cache["ckv"].shape[1], 0)]
+    o_c = flash_verify_mla(q_eff, rows, cache["ckv"], pos0,
+                           kv_lora=m.kv_lora,
+                           scale=(m.nope_dim + m.rope_dim) ** -0.5,
+                           page_table=page_table, valid=valid)
+    o = torch.einsum("bkhr,rhv->bkhv", o_c, p["wukv"][..., m.nope_dim:])
+    o = o.reshape(B, K, H * m.v_dim) @ p["wo"].reshape(-1, D)
+    return o, {"ckv": rows}
+
+
+def block_verify(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos0,
+                 page_table, consts: VerifyConsts):
+    """h (B,K,D) → (h', staged). Attention layers stage their K new rows;
+    a Mamba-2 layer steps ``mamba2_step`` over the K inputs in order (a
+    state scan is serial: verify batches only the attention and FFN work)
+    and stages the K states, leaves (K, B, …)."""
+    x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    if bc.mixer == "mamba":
+        ys, states = [], []
+        state = cache
+        for j in range(x.shape[1]):
+            y, state = mamba2_step(cfg, p["mamba"], x[:, j], state)
+            ys.append(y)
+            states.append(state)
+        staged = {name: torch.stack([s[name] for s in states])
+                  for name in cache}
+        return h + torch.stack(ys, 1), staged   # Mamba-2 blocks have no FFN
+    pt = page_table if _uses_pool(bc, page_table) else None
+    if cfg.mla:
+        y, staged = mla_verify(cfg, p["attn"], x, cache, pos0, pt, consts)
+    else:
+        y, staged = gqa_verify(cfg, p["attn"], x, cache, pos0, bc.window, pt,
+                               consts)
+    if cfg.use_post_norm:
+        y = rmsnorm(y, p["post1"], cfg.norm_eps)
+    h = h + y
+    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    if bc.ffn == "moe":
+        B, K, D = x.shape
+        y = moe_decode(cfg, p["moe"], x.reshape(B * K, D)).reshape(B, K, D)
+    else:
+        y = mlp(cfg, p["mlp"], x)
+    if cfg.use_post_norm:
+        y = rmsnorm(y, p["post2"], cfg.norm_eps)
+    return h + y, staged
+
+
+def decode_verify(cfg: ModelConfig, params, cache, tokens, pos0,
+                  page_table=None):
+    """The verify pass of speculative decode. tokens (B,K) = [last committed
+    token, proposals g_1..g_{K-1}]; pos0 (B,) int32 the write position of
+    tokens[:, 0] → (logits (B,K,V) f32, staged {"layers": [...]}).
+    logits[:, j] is the target's next-token distribution after
+    tokens[:, :j+1]: what K serial :func:`decode_step`s give, in one
+    batched pass. The cache is read-only; :func:`decode_commit` writes the
+    accepted prefix."""
+    h = embed(cfg, params["embed"], tokens)
+    consts = verify_consts(cfg, cache, pos0, tokens.shape[1], page_table)
+    staged = []
+    for bc, p, c in zip(block_cfgs(cfg), params["layers"], cache["layers"]):
+        h, s = block_verify(cfg, bc, p, c, h, pos0, page_table, consts)
+        staged.append(s)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    logits = logits_fn(cfg, params["embed"], params["unembed"], h)
+    return logits, {"layers": staged}
+
+
+# ------------------------------------------------ speculative decode: commit
+def _commit_slot(page_table, pos0, n, K: int, ps: int):
+    """(page, offset) int64 (K·B,), j-major, where staged row j of each slot
+    lands in the pools: position pos0 + j for j < n, else the trash page 0
+    (as a frozen slot's scribble, :func:`_page_slot`). Computed once per
+    round for every pooled leaf."""
+    B, T = page_table.shape
+    j = torch.arange(K, device=pos0.device)[:, None]
+    pos = torch.where(j < n[None], pos0[None] + j, T * ps)        # (K, B)
+    return _page_slot(page_table[None].expand(K, B, T).reshape(K * B, T),
+                      pos.reshape(K * B), ps)
+
+
+def commit_rows(cache, rows, pos0, n, *, window: int = 0, page_table=None,
+                slot=None):
+    """Write the accepted prefix of staged ``rows`` (B,K,…) into one
+    attention cache leaf IN PLACE: row j lands at position pos0 + j for
+    j < n (B,). A paged leaf (``page_table`` (B,T)) takes the K rows of
+    every slot in one ``index_put_`` at ``slot`` (:func:`_commit_slot`),
+    a rejected row (j >= n) sent to the trash page 0: the K serial
+    :func:`_paged_write`s of JAX's loop, in their order. Dense leaves take
+    K :func:`_local_write`s (ring slot (pos0 + j) mod S with ``window``), a
+    rejected row at ``rel = -1``, which writes nothing. Returns the leaf."""
+    B, K = rows.shape[:2]
+    if page_table is not None:
+        _check_paged_args(page_table, pos0, window=window)
+        if slot is None:
+            slot = _commit_slot(page_table, pos0, n, K, cache.shape[1])
+        cache.index_put_(slot, rows.transpose(0, 1).reshape(
+            (K * B,) + tuple(rows.shape[2:])).to(cache.dtype))
+        return cache
+    S = cache.shape[1]
+    for j in range(K):
+        wpos = pos0 + j
+        if window:
+            wpos = torch.remainder(wpos, S)
+        _local_write(cache, rows[:, j], torch.where(j < n, wpos, -1))
+    return cache
+
+
+def _commit_scan_state(cache, states, n):
+    """Mamba-2 leaves, IN PLACE: ``states`` (K,B,…) are the K states staged
+    by :func:`block_verify`; each slot keeps state n-1 (n = 0: the state
+    before the verify)."""
+    b = torch.arange(n.shape[0], device=n.device)
+    for name, c in cache.items():
+        full = torch.cat([c[None], states[name].to(c.dtype)])
+        c.copy_(full[n.long(), b])
+    return cache
+
+
+def block_commit(cfg: ModelConfig, bc: BlockCfg, cache, staged, pos0, n,
+                 page_table=None, slot=None):
+    if bc.mixer == "mamba":
+        return _commit_scan_state(cache, staged, n)
+    pt = page_table if _uses_pool(bc, page_table) else None
+    return {name: commit_rows(cache[name], staged[name], pos0, n,
+                              window=bc.window, page_table=pt,
+                              slot=slot if pt is not None else None)
+            for name in cache}
+
+
+def decode_commit(cfg: ModelConfig, cache, staged, pos0, n,
+                  page_table=None):
+    """The commit half of the verify/commit split, IN PLACE: write the
+    first n (B,) staged rows and states into the cache. Positions
+    pos0..pos0+n-1 receive the K/V of the accepted verify *inputs*; the
+    correction token is not written: it is the next round's tokens[:, 0],
+    staged and committed by the next verify. The pools' (page, offset)
+    of the K rows is computed once for every pooled layer."""
+    slot = None
+    for bc, c, s in zip(block_cfgs(cfg), cache["layers"], staged["layers"]):
+        if _uses_pool(bc, page_table) and bc.mixer == "attn":
+            leaf = next(iter(c.values()))
+            slot = _commit_slot(page_table, pos0, n,
+                                next(iter(s.values())).shape[1],
+                                leaf.shape[1])
+            break
+    return {"layers": [
+        block_commit(cfg, bc, c, s, pos0, n, page_table, slot)
+        for bc, c, s in zip(block_cfgs(cfg), cache["layers"],
+                            staged["layers"])]}
+
+
+# --------------------------------------------------- acceptance / emission
+def spec_candidates(proposals, corrections, accept, active, remaining,
+                    pos0, *, eos_id: int, max_len: int):
+    """The emission law of one speculative round, in int32 on the device.
+
+    proposals (B,k): draft tokens g_1..g_k. corrections (B,k+1): the
+    target's fallback token at each acceptance depth (argmax in greedy
+    mode, residual or bonus draw otherwise; index k is the bonus). accept
+    (B,k): the verdict on each proposal. active/remaining/pos0 (B,): the
+    slot state entering the round.
+
+    Returns (cand (B,K), emit (B,K) bool, n (B,), m (B,)) with K = k+1:
+    m = the accepted prefix Σ cumprod(accept); cand[j] = g_{j+1} for j < m,
+    else corrections[m]; emit marks the emitted prefix after the EOS,
+    budget and max_len cuts: the tokens the serial loop would emit over
+    its next n = Σ emit steps (its still-active law applied cumulatively),
+    which makes greedy speculative decode token-identical to target-only
+    decode."""
+    i32 = torch.int32
+    B, k = proposals.shape
+    K = k + 1
+    m = torch.cumprod(accept.to(i32), 1, dtype=i32).sum(1, dtype=i32)
+    x = corrections.gather(1, m[:, None].long())[:, 0]
+    g_pad = torch.cat([proposals, proposals.new_zeros((B, 1))], 1)
+    jj = torch.arange(K, dtype=i32, device=proposals.device)[None]
+    cand = torch.where(jj < m[:, None], g_pad, x[:, None]).to(i32)
+    prev = torch.cat([torch.full((B, 1), -1, dtype=i32, device=cand.device),
+                      cand[:, :-1]], 1)
+    cond = (jj <= m[:, None]) & (prev != eos_id) & \
+        (remaining[:, None] > jj) & (pos0[:, None] + jj < max_len - 1)
+    # the first token is the serial loop's unconditional step: an active
+    # slot always emits at least one token a round
+    cond = torch.cat([torch.ones_like(cond[:, :1]), cond[:, 1:]], 1)
+    emit = active[:, None] & (torch.cumprod(cond.to(i32), 1, dtype=i32) > 0)
+    n = emit.sum(1, dtype=i32)
+    return cand, emit, n, m
+
+
+# ------------------------------------------------- the speculative quantum
+def spec_decode_loop(cfg: ModelConfig, draft_cfg: ModelConfig, params,
+                     draft_params, cache, draft_cache, tokens, pos, active,
+                     remaining, *, spec_k: int, num_steps: int, eos_id: int,
+                     max_len: int, page_table=None, temperature: float = 0.0,
+                     top_k: int = 0, top_p: float = 0.0, generator=None):
+    """A speculative quantum of ``num_steps`` rounds, each ``spec_k`` serial
+    draft steps and ONE batched target verify, emitting 1 to spec_k + 1
+    tokens a slot; nothing is read back to the host.
+
+    Greedy (temperature 0): a proposal is accepted iff it equals the
+    target's argmax at its depth, and the corrections are the argmaxes, so
+    the stream is token-identical to :func:`decode_loop`'s. Sampled:
+    rejection sampling against the filtered (temperature, top-k, top-p)
+    distributions p and q: accept g iff ``u·q(g) < p(g)``; on the first
+    rejection at depth i draw from ``norm(max(p_i - q_i, 0))`` (p_i where
+    p_i ≡ q_i); after k acceptances draw the bonus token from p_k. Every
+    draw (Gumbel-max, and the uniforms u) comes from ``generator``, in one
+    order, so a graph's replay draws as the eager run does.
+
+    The draft writes its dense cache optimistically at pos..pos+k-1; a row
+    past the accepted prefix is stale, but the draft is full attention on
+    dense rows (validity ``gpos <= pos``), so the next round's step at that
+    position overwrites it before any query sees it. The target's cache is
+    read-only in the verify; :func:`decode_commit` writes exactly the
+    accepted prefix. The pools, the dense rows and the Mamba-2 states are
+    all written in place.
+
+    Returns ((cache, draft_cache, tokens, pos, active, remaining), toks,
+    msks, acc): toks/msks (num_steps, K, B) in emission order, acc
+    (num_steps, B) the accepted proposals of each active round."""
+    K = spec_k + 1
+    fkw = dict(temperature=temperature, top_k=top_k, top_p=top_p)
+    toks, msks, accs = [], [], []
+    for _ in range(num_steps):
+        dtok, dpos = tokens, pos
+        gs, qs = [], []
+        for _ in range(spec_k):
+            dlogits, draft_cache = decode_step(draft_cfg, draft_params,
+                                               draft_cache, dtok, dpos)
+            if temperature:
+                fl = _filter_logits(dlogits, **fkw)
+                g = _gumbel_argmax(fl, generator)
+                qs.append(torch.softmax(fl, -1))
+            else:
+                g = torch.argmax(dlogits, -1).to(torch.int32)
+            gs.append(g)
+            dtok, dpos = g, dpos + 1
+        gT = torch.stack(gs, 1)                                 # (B, k)
+        logits, staged = decode_verify(
+            cfg, params, cache, torch.cat([tokens[:, None], gT], 1), pos,
+            page_table)
+        if temperature:
+            pp = torch.softmax(_filter_logits(logits, **fkw), -1)  # (B,K,V)
+            qT = torch.stack(qs, 1)                             # (B, k, V)
+            gi = gT.long()[..., None]
+            p_at = pp[:, :spec_k].gather(-1, gi)[..., 0]
+            q_at = qT.gather(-1, gi)[..., 0]
+            u = torch.rand(gT.shape, generator=generator, device=gT.device)
+            accept = u * q_at < p_at             # u < p/q without the divide
+            r = torch.clamp(pp[:, :spec_k] - qT, min=0.0)
+            r = torch.where(r.sum(-1, keepdim=True) > 0.0, r,
+                            pp[:, :spec_k])               # p ≡ q → use p
+            resid = torch.cat([r, pp[:, spec_k:]], 1)
+            corrections = _gumbel_argmax(torch.log(resid + 1e-30), generator)
+        else:
+            corrections = torch.argmax(logits, -1).to(torch.int32)
+            accept = gT == corrections[:, :spec_k]
+        cand, emit, n, m = spec_candidates(gT, corrections, accept, active,
+                                           remaining, pos, eos_id=eos_id,
+                                           max_len=max_len)
+        cache = decode_commit(cfg, cache, staged, pos, n, page_table)
+        toks.append(torch.where(emit, cand, -1).T)
+        msks.append(emit.T)
+        accs.append(torch.where(active, m, 0))
+        remaining = remaining - n.to(remaining.dtype)
+        pos = pos + n.to(pos.dtype)
+        last = cand.gather(1, torch.clamp(n - 1, min=0).long()[:, None])[:, 0]
+        still = active & (remaining > 0) & (last != eos_id) & \
+            (pos < max_len - 1)
+        tokens = torch.where(still, last, tokens)
+        active = still
+    carry = (cache, draft_cache, tokens, pos, active, remaining)
+    return carry, torch.stack(toks), torch.stack(msks), torch.stack(accs)
+
+
+def _pack_spec(active, toks, msks, acc):
+    """One (2·N·K + N + 1, B) int32 array — emitted tokens and emission
+    masks (round-major, in emission order), the accepted proposals of each
+    round, then the post-quantum ``active`` — so a speculative quantum
+    costs one host read too."""
+    NK = toks.shape[0] * toks.shape[1]
+    B = active.shape[0]
+    return torch.cat([toks.reshape(NK, B).to(torch.int32),
+                      msks.reshape(NK, B).to(torch.int32),
+                      acc.to(torch.int32), active[None].to(torch.int32)])
+
+
+def spec_decode_quantum(cfg: ModelConfig, draft_cfg: ModelConfig, params,
+                        draft_params, cache, draft_cache, tokens, pos, active,
+                        remaining, page_table, packed, *, spec_k: int,
+                        num_steps: int, eos_id: int, max_len: int,
+                        temperature: float = 0.0, top_k: int = 0,
+                        top_p: float = 0.0, generator=None):
+    """:func:`spec_decode_loop` IN PLACE, as :func:`decode_quantum` is for
+    :func:`decode_loop`: the carry goes back into ``tokens``, ``pos``,
+    ``active`` and ``remaining``, and the packed result (:func:`_pack_spec`)
+    into ``packed`` (2·num_steps·(spec_k+1) + num_steps + 1, B) int32. The
+    pools, the target's and the draft's dense rows and the target's
+    Mamba-2 states are written in place as the loop runs, so a CUDA graph
+    of a call replays on the same storage; the values are the loop's, bit
+    for bit."""
+    carry, toks, msks, acc = spec_decode_loop(
+        cfg, draft_cfg, params, draft_params, cache, draft_cache, tokens,
+        pos, active, remaining, spec_k=spec_k, num_steps=num_steps,
+        eos_id=eos_id, max_len=max_len, page_table=page_table,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        generator=generator)
+    _, _, new_tokens, new_pos, new_active, new_remaining = carry
+    packed.copy_(_pack_spec(new_active, toks, msks, acc))
     for dst, src in ((tokens, new_tokens), (pos, new_pos),
                      (active, new_active), (remaining, new_remaining)):
         dst.copy_(src)

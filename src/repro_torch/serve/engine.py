@@ -37,10 +37,13 @@ the tier-facing surface of the pool, and ``step_deadline_s`` is the
 per-step budget its supervisor reads.
 
 The port has ``Engine(fast=True)``, paged (with the paged kernel, the
-port's default) and dense; :func:`make_engine` builds one over fresh
-parameters with the JAX default ``paged=False``. ``fast=False``,
-speculative decode and the gathered-view decode (``paged_kernel=False``)
-are not ported. The kernels are built when an engine is constructed on
+port's default) and dense, with or without speculative decode
+(``draft_cfg``, ``draft_params``, ``spec_k``: a draft on a dense cache of
+its own proposes, the target verifies and commits, each quantum of rounds
+still one graph per live width and one host read); :func:`make_engine`
+builds one over fresh parameters with the JAX default ``paged=False``.
+``fast=False`` and the gathered-view decode (``paged_kernel=False``) are
+not ported. The kernels are built when an engine is constructed on
 the card, so no timed interval includes a build.
 """
 from __future__ import annotations
@@ -61,7 +64,8 @@ from repro_torch.core.tracker import ThroughputTracker
 from repro_torch.kernels import _build
 from repro_torch.models.transformer import block_cfgs, check_supported
 from repro_torch.params import init_params
-from repro_torch.serve.decode import _sample_tokens, decode_quantum
+from repro_torch.serve.decode import (_sample_tokens, decode_quantum,
+                                     spec_decode_quantum)
 from repro_torch.serve.graphs import DecodeGraphs
 from repro_torch.serve.kv_cache import (cache_defs, cache_kinds, make_cache,
                                         paged_cache_defs)
@@ -129,7 +133,8 @@ class StepReport:
     construction, so no interval measures a build); ``warm`` False for a
     quantum that captured a graph (the JAX engine's quantum that compiled):
     it measures the capture, not the tier. ``accepted`` and ``proposed``
-    are the draft tokens a speculative engine kept and tried, 0 here."""
+    are the draft tokens a speculative engine kept and tried (spec_k for
+    each round a slot was active), 0 for an engine without a draft."""
     admitted: int = 0
     decoded: int = 0
     dt: float = 0.0
@@ -231,7 +236,8 @@ class Engine:
                  page_size: int = 16, num_pages: int | None = None,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  sample_seed: int = 0, graphs: bool | None = None,
-                 step_deadline_s: float | None = None):
+                 draft_cfg: ModelConfig | None = None, draft_params=None,
+                 spec_k: int = 0, step_deadline_s: float | None = None):
         """Build a serving engine over an existing parameter tree
         (``params.init_params`` or ``params.params_from_numpy``) that lies
         on ``device`` (the card unless ``device="cpu"``).
@@ -249,9 +255,17 @@ class Engine:
         ``graphs`` (default: on the card) runs each decode quantum as one
         replay of a CUDA graph per live page-table width; False runs the
         eager loop, which the CPU always does (True there raises).
-        ``step_deadline_s`` is the advisory wall-clock budget of one
-        ``step`` (None: unbounded) that ``MultiEngine``'s watchdog reads;
-        the engine never preempts a quantum.
+        ``draft_cfg`` turns on speculative decode: a little draft model
+        (full attention, the target's vocab) proposes ``spec_k`` tokens a
+        round from a dense cache of its own, and the target verifies them
+        in one batched pass (``decode.spec_decode_loop``), so a round emits
+        1 to ``spec_k + 1`` tokens; greedy streams are the target-only
+        engine's. ``draft_params`` must lie on ``device`` (None:
+        ``init_params(draft_cfg, seed=0)``; ``models/draft.py`` builds an
+        aligned pair from the target). ``step_deadline_s`` is the advisory
+        wall-clock budget of one ``step`` (None: unbounded) that
+        ``MultiEngine``'s watchdog reads; the engine never preempts a
+        quantum.
         """
         check_supported(cfg)
         self.device = resolve_device(device)
@@ -279,6 +293,7 @@ class Engine:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
         self.temperature, self.top_k = float(temperature), int(top_k)
         self.top_p = float(top_p)
+        self._check_spec(cfg, draft_cfg, spec_k)
         self.prefill_batch = prefill_batch or max_slots
         self.min_bucket = min_bucket
         # padded buckets are only sound when every mixer is attention: a
@@ -296,6 +311,65 @@ class Engine:
             self._make_state(cfg, max_slots, max_len, page_size, num_pages,
                              sample_seed, on_card if graphs is None
                              else graphs)
+            self._make_draft(draft_params)
+
+    def _check_spec(self, cfg, draft_cfg, spec_k) -> None:
+        """The speculative settings, validated as the JAX engine's: a draft
+        with ``spec_k >= 1``, decoder-only, full attention with no window
+        (its rows are written optimistically, sound only where validity is
+        ``gpos <= pos`` on a dense cache), the target's vocab, and ``spec_k
+        + 1`` verify rows inside the target's smallest window."""
+        self.spec = draft_cfg is not None
+        if spec_k and not self.spec:
+            raise ValueError("spec_k requires a draft_cfg")
+        self.spec_k = int(spec_k)
+        self.draft_cfg = draft_cfg
+        self.tokens_per_step = self.spec_k + 1 if self.spec else 1
+        self.spec_accepted = 0                 # lifetime acceptance counters
+        self.spec_proposed = 0
+        if not self.spec:
+            return
+        if spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1 with a draft, got "
+                             f"{spec_k}")
+        if draft_cfg.enc_dec:
+            raise ValueError("draft must be decoder-only")
+        if draft_cfg.vocab != cfg.vocab:
+            raise ValueError(
+                f"draft vocab {draft_cfg.vocab} != target vocab "
+                f"{cfg.vocab} — proposals must be target token ids")
+        check_supported(draft_cfg)
+        if any(bc.mixer != "attn" or bc.window
+               for bc in block_cfgs(draft_cfg)):
+            raise ValueError(
+                "draft must be full-attention with no sliding window: its "
+                "cache rows are written optimistically, which is only sound "
+                "when validity is gpos <= pos on a dense cache")
+        windows = [bc.window for bc in block_cfgs(cfg)
+                   if bc.mixer == "attn" and bc.window]
+        if windows and min(windows) < spec_k + 1:
+            raise ValueError(
+                f"spec_k+1 = {spec_k + 1} verify rows exceed the target's "
+                f"smallest window {min(windows)} — staged rows must all be "
+                f"in-window for every verify query")
+
+    def _make_draft(self, draft_params) -> None:
+        """The draft's parameters and its dense cache (one row per position
+        of every slot: the draft never reads a page table)."""
+        self.draft_params = self.draft_cache = None
+        if not self.spec:
+            return
+        if draft_params is None:
+            draft_params = init_params(self.draft_cfg, seed=0,
+                                       device=self.device)
+        if draft_params["embed"]["table"].device.type != self.device.type:
+            raise ValueError(f"draft params lie on "
+                             f"{draft_params['embed']['table'].device}, the "
+                             f"engine on {self.device}")
+        self.draft_params = draft_params
+        self.draft_cache = make_cache(cache_defs(
+            self.draft_cfg, max_slots=self.max_slots, max_len=self.max_len),
+            self.device)
 
     def _on_stream(self):
         """The engine's stream as the current one (a no-op on the CPU)."""
@@ -348,9 +422,12 @@ class Engine:
         self.active_dev = torch.zeros(max_slots, dtype=torch.bool, device=dev)
         self.remaining_dev = torch.zeros(max_slots, dtype=torch.int32,
                                          device=dev)
-        # the quantum's packed result: tokens, masks, then active
-        self._packed = torch.zeros((2 * self.decode_quantum + 1, max_slots),
-                                   dtype=torch.int32, device=dev)
+        # the quantum's packed result: tokens, masks, (speculative: the
+        # accepted proposals of each round,) then active
+        NK = self.decode_quantum * self.tokens_per_step
+        self._packed = torch.zeros(
+            (2 * NK + (self.decode_quantum if self.spec else 0) + 1,
+             max_slots), dtype=torch.int32, device=dev)
         self._gen = torch.Generator(device=dev).manual_seed(sample_seed)
         # independent stream for first-token sampling at prefill
         self._prefill_gen = torch.Generator(device=dev).manual_seed(
@@ -445,16 +522,24 @@ class Engine:
         return out
 
     # ---- paged-pool bookkeeping ------------------------------------------
+    @property
+    def quantum_tokens(self) -> int:
+        """Most tokens one decode quantum can advance a slot: each round
+        emits up to ``tokens_per_step`` (1, or spec_k + 1 for a speculative
+        engine). Page grants and the live table width budget this worst
+        case; acceptance below 100% leaves slack."""
+        return self.decode_quantum * self.tokens_per_step
+
     def _worst_pages(self, req: Request) -> int:
         return worst_case_pages(len(req.prompt), req.max_new,
-                                self.decode_quantum, self.max_len,
+                                self.quantum_tokens, self.max_len,
                                 self.page_size)
 
     def _grant_quantum_pages(self, active_slots: list[int]) -> None:
         """Pre-grant every occupied slot enough pages to cover the coming
         quantum, so the decode loop never needs a device-side allocator."""
         for i in active_slots:
-            end = min(int(self.pos_host[i]) + self.decode_quantum,
+            end = min(int(self.pos_host[i]) + self.quantum_tokens,
                       self.max_len)
             target = -(-end // self.page_size)
             if target > self.alloc.count[i]:
@@ -482,7 +567,7 @@ class Engine:
         its quanta share one width, and so one graph."""
         if "paged" not in self.kinds:
             return self.pages_per_slot if self.paged else 0
-        end = max(min(int(self.pos_host[i]) + self.decode_quantum,
+        end = max(min(int(self.pos_host[i]) + self.quantum_tokens,
                       self.max_len) for i in active_slots)
         n_live = max(-(-end // self.page_size), 8)
         return min(self.pages_per_slot, 1 << (n_live - 1).bit_length())
@@ -505,7 +590,18 @@ class Engine:
     def _quantum(self, page_table: Optional[torch.Tensor]) -> None:
         """One decode quantum in place on the engine's static tensors (the
         function a graph captures): the slot state, cache and packed
-        result are read from and written back to ``self``."""
+        result are read from and written back to ``self``; a speculative
+        engine's draft cache too."""
+        if self.spec:
+            spec_decode_quantum(
+                self.cfg, self.draft_cfg, self.params, self.draft_params,
+                self.cache, self.draft_cache, self.tokens_dev, self.pos_dev,
+                self.active_dev, self.remaining_dev, page_table,
+                self._packed, spec_k=self.spec_k,
+                num_steps=self.decode_quantum, eos_id=self.eos_id,
+                max_len=self.max_len, temperature=self.temperature,
+                top_k=self.top_k, top_p=self.top_p, generator=self._gen)
+            return
         decode_quantum(
             self.cfg, self.params, self.cache, self.tokens_dev, self.pos_dev,
             self.active_dev, self.remaining_dev, page_table, self._packed,
@@ -546,17 +642,30 @@ class Engine:
         self.quanta += 1
         self.widths_used[width] += 1
         N = self.decode_quantum
-        toks_h = packed_h[:N]
-        msks_h = packed_h[N:2 * N].astype(bool)
+        # a speculative round emits up to tokens_per_step tokens: N·K
+        # emission rows, round-major, in emission order
+        NK = N * self.tokens_per_step
+        toks_h = packed_h[:NK]
+        msks_h = packed_h[NK:2 * NK].astype(bool)
         act_h = packed_h[-1].astype(bool)
         emitted = int(msks_h.sum())
+        accepted = proposed = 0
+        if self.spec:
+            accepted = int(packed_h[2 * NK:2 * NK + N].sum())
+            # a round's first emission row is "active at the round's start":
+            # each active round made spec_k proposals
+            rounds = int(msks_h.reshape(N, self.tokens_per_step, -1)[
+                :, 0].sum())
+            proposed = self.spec_k * rounds
+            self.spec_accepted += accepted
+            self.spec_proposed += proposed
         # a quantum that captured does not measure decode speed: feeding it
         # to the tracker would skew the admission ratio f (the JAX engine's
         # warm rule)
         if emitted and not captured:
             self.tracker.record("decode", emitted, dt)
         self.pos_host += msks_h.sum(axis=0)
-        for q in range(N):
+        for q in range(NK):
             for i in active_slots:
                 if msks_h[q, i]:
                     self.slot_req[i].out.append(int(toks_h[q, i]))
@@ -566,7 +675,8 @@ class Engine:
                 self.slot_req[i] = None
                 self._release_slot_pages(i)
         return StepReport(admitted=self._last_admitted, decoded=emitted,
-                          dt=dt, warm=not captured)
+                          dt=dt, warm=not captured, accepted=accepted,
+                          proposed=proposed)
 
     def _admit_pending(self, free: list[int]) -> None:
         """HBB chunking law over token units: the decode quantum is the
@@ -575,7 +685,7 @@ class Engine:
         engine's admission also stops at the pool's worst-case page
         budget."""
         r_tokens = sum(len(q.prompt) for q in self.pending)
-        budget = cpu_chunk(S_f=self.decode_quantum * self.max_slots,
+        budget = cpu_chunk(S_f=self.quantum_tokens * self.max_slots,
                            f=self.tracker.f(), r=r_tokens, n_cores=1)
         take: list[Request] = []
         planned_pages = 0
@@ -632,14 +742,21 @@ class Engine:
         dev = self.device
         t0 = time.perf_counter()
         pl_dev = torch.tensor(pl, device=dev)
+        toks_dev = torch.tensor(toks, device=dev)
         logits, new_cache = prefill(
-            self.cfg, self.params, torch.tensor(toks, device=dev),
-            max_len=self.max_len, prompt_len=pl_dev,
+            self.cfg, self.params, toks_dev, max_len=self.max_len,
+            prompt_len=pl_dev,
             page_size=self.page_size if self.paged else None)
+        draft_rows = None
+        if self.spec:      # the draft's dense rows of the same prompts
+            _, draft_rows = prefill(self.draft_cfg, self.draft_params,
+                                    toks_dev, max_len=self.max_len,
+                                    prompt_len=pl_dev)
         first = _sample_tokens(logits, self._prefill_gen,
                                temperature=self.temperature, top_k=self.top_k,
                                top_p=self.top_p)
-        self._admit(new_cache, first, pl_dev, reqs, slots, page_src)
+        self._admit(new_cache, first, pl_dev, reqs, slots, page_src,
+                    draft_rows)
         if self.stream is not None:
             self.stream.synchronize()
         dt = time.perf_counter() - t0
@@ -656,15 +773,17 @@ class Engine:
                 self.pos_host[int(slots[j])] = len(req.prompt)
         return dt
 
-    def _admit(self, new_cache, first, pl_dev, reqs, slots, page_src):
+    def _admit(self, new_cache, first, pl_dev, reqs, slots, page_src,
+               draft_rows=None):
         """Move a prefilled group into its slots IN PLACE (``index_copy_``):
-        each dense leaf (per-slot rows, rings, Mamba-2 state) takes the
-        group's rows into their slots in one pass, the paged layers'
-        page-aligned rows go into their freshly granted pool pages, and the
-        slot state vectors take the group's first token, position and
-        budget. ``page_src`` (num_pages,) is the flat (row · pages_per_row +
-        page) source of each pool page, -1 where the group writes nothing
-        (None in the dense engine)."""
+        each dense leaf (per-slot rows, rings, Mamba-2 state, and the
+        draft's rows ``draft_rows``) takes the group's rows into their slots
+        in one pass, the paged layers' page-aligned rows go into their
+        freshly granted pool pages, and the slot state vectors take the
+        group's first token, position and budget. ``page_src``
+        (num_pages,) is the flat (row · pages_per_row + page) source of
+        each pool page, -1 where the group writes nothing (None in the
+        dense engine)."""
         dev = self.device
         n = len(reqs)
         slot_dev = torch.tensor(slots, device=dev)
@@ -691,6 +810,12 @@ class Engine:
                 src = r.reshape((-1, ps) + tuple(r.shape[2:]))   # pool rows
                 pools[name].index_copy_(0, dst_dev,
                                         src.index_select(0, src_dev))
+        if draft_rows is not None:
+            for pools, rows in zip(self.draft_cache["layers"],
+                                   draft_rows["layers"]):
+                for name, r in rows.items():
+                    pools[name].index_copy_(0, slot_dev,
+                                            r[:n].to(pools[name].dtype))
 
     def _alloc_group_pages(self, Sb: int, reqs: list[Request],
                            slots: np.ndarray) -> np.ndarray:
@@ -712,8 +837,10 @@ class Engine:
 
     def _guard_limit(self) -> int:
         """Cycle budget proportional to outstanding work: every request
-        needs ≲ 1 admission cycle plus max_new/quantum decode cycles; 8× is
-        generous slack for admission backpressure."""
+        needs ≲ 1 admission cycle plus max_new/quantum decode cycles (a
+        speculative round emits at least one token, so ``decode_quantum``
+        bounds it, as in the JAX engine); 8× is generous slack for
+        admission backpressure."""
         reqs = self.pending + [r for r in self.slot_req if r is not None]
         tokens = sum(max(1, r.max_new) for r in reqs)
         return 64 + 8 * (len(reqs) + -(-tokens // self.decode_quantum))

@@ -42,9 +42,9 @@ independent of the tier that served it (``tests/test_torch_multi_engine.
 py``).
 
 ``StepReport.decoded`` counts *emitted* tokens, so a speculative tier
-(not ported yet: its ``accepted``/``proposed`` stay 0) would be measured
-at its effective tok/s; the per-tier tallies are surfaced through
-:meth:`MultiEngine.stats`.
+(an ``Engine`` with a draft) is measured at its effective tok/s, never at
+proposals; its ``accepted``/``proposed`` tallies and their ratio are
+surfaced through :meth:`MultiEngine.stats`.
 
 Fault tolerance (DESIGN.md §8): the pool survives a *sick* tier the same
 way it survives a slow one. A per-tier health state machine (healthy →
@@ -773,6 +773,11 @@ def make_multi_engine(cfg: ModelConfig, tier_kws: list[dict], *,
     default, so one dict builds the same layout in both packages). Sharing
     the parameters is what makes the tiers token-equivalent at
     ``temperature=0``, and costs one copy of the model, not N.
+
+    A big/little speculative tier rides the same mechanism: pass that
+    tier ``draft_cfg``/``draft_params``/``spec_k`` in its dict (the draft's
+    parameters on ``device``); at ``temperature=0`` its stream is the
+    plain tiers' token for token, so pool outputs stay tier-independent.
 
         meng = make_multi_engine(cfg, [
             {"name": "dense"},

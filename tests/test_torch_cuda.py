@@ -237,14 +237,14 @@ def _graph_workload(cfg):
                          decode_quantum=4)
 
 
-def _serve_counted(cfg, params, device, prompts, kw, **extra):
-    """Serve ``prompts`` (6 tokens each) at a pinned admission ratio →
-    (streams, engine, change of every wrapper's launch count)."""
+def _serve_counted(cfg, params, device, prompts, kw, max_new=6, **extra):
+    """Serve ``prompts`` (``max_new`` tokens each) at a pinned admission
+    ratio → (streams, engine, change of every wrapper's launch count)."""
     from repro_torch.serve import graphs
     eng = Engine(cfg, tree_map(lambda t: t.to(device), params),
                  device=device, **kw, **extra)
     eng.tracker.f = lambda: 0.01
-    reqs = [Request(rid=i, prompt=p, max_new=6)
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
     before = graphs.launch_counts()
     eng.run(reqs)
@@ -1395,3 +1395,125 @@ def test_pool_concurrent_tiers_on_card(dev):
     (a_s, s_s, d_s), (a_c, s_c, d_c) = runs
     assert a_s == a_c and s_s == s_c
     assert d_s == d_c and any(d_c), (d_s, d_c)
+
+
+# ------------------------------------------------- speculative decode: verify
+SPEC_K1 = 5                # verify rows a slot: spec_k 4 + 1
+
+
+@pytest.mark.parametrize("op", ["gqa_mma", "gqa_f32", "mla_wgmma"])
+def test_paged_verify_rows_match_plain(dev, op):
+    """A verify's call of the paged kernels: each slot's table repeated K
+    times and its last committed position pos0 - 1 (B·K = 40 rows at the
+    main path's 256-page table, 8 splits), the never-filled slot at pos0 0
+    passing -1: equal to the plain version, and the empty rows merged to
+    m = -1e30, l = 0, o = 0 across the splits. The tensor-core routes in
+    bf16 (mistral's group 4 at dh 128; deepseek-v2's 128 heads at R 576)
+    and the CUDA-core route in f32."""
+    from repro_torch.serve.decode import _repeat_rows
+    if op == "mla_wgmma":
+        q, pool, pt, pos = _mla_main(dev)
+        pools = (pool,)
+    else:
+        q, pk, pv, pt, pos = _gqa_main(dev)
+        pools = (pk, pv)
+        if op == "gqa_f32":
+            q, pools = q.float(), tuple(p.float() for p in pools)
+    pos0 = pos + 1                               # the empty slot: pos0 0
+    ptf, posf = _repeat_rows(pt, pos0, SPEC_K1)
+    B = pt.shape[0] * SPEC_K1
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((B,) + tuple(q.shape[1:]), generator=g, device=dev).to(
+        q.dtype)
+    if op == "mla_wgmma":
+        assert paged_ops.mla_route(q.dtype, 128, 576, 512, 16) == "wgmma"
+        kw = dict(page_size=16, kv_lora=512, scale=192 ** -0.5)
+        got = paged_ops.paged_attend_mla(q, pool, ptf, posf, 0, **kw)
+        want = paged_ref.paged_flash_decode_mla_ref(
+            q, pool.nan_to_num(), ptf, posf, 0, **kw)
+    else:
+        route = "mma" if op == "gqa_mma" else "f32"
+        assert paged_ops.gqa_route(q.dtype, 4, 128) == route
+        kw = dict(page_size=16, scale=128 ** -0.5, softcap=0.0)
+        got = paged_ops.paged_attend_gqa(q, *pools, ptf, posf, 0, **kw)
+        want = paged_ref.paged_flash_decode_gqa_ref(
+            q, *(p.nan_to_num() for p in pools), ptf, posf, 0, **kw)
+    assert paged_ops.split_plan(pt.shape[1], 16, paged_ops.GQA_PLAN if
+                                "gqa" in op else paged_ops.MLA_PLAN)[0] > 1
+    _close_partials(got, want)
+    o, m, l = got
+    empty = slice(SPEC_K1, 2 * SPEC_K1)          # MAIN_POS[1] = -1 → pos0 0
+    assert torch.equal(posf[empty], torch.full_like(posf[empty], -1))
+    assert torch.all(m[empty] == -1e30) and torch.all(l[empty] == 0) and \
+        torch.all(o[empty] == 0)
+
+
+def test_grouped_gemm_verify_stride0_prefill_path(dev):
+    """MoE verify's expert product: B·K = 40 tokens broadcast over the
+    experts with stride 0 reach the bf16 prefill path (M > DECODE_M) at
+    deepseek-v2's expert shapes, equal to the contiguous copy's product and
+    within 3e-2 of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((40, 5120), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((8, 5120, 1536), generator=g, device=dev).to(
+        torch.bfloat16) * 0.02
+    a = x.unsqueeze(0).expand(8, 40, 5120)
+    assert a.stride(0) == 0 and gg_ops.route(a.dtype, 40) == "prefill"
+    n0 = gg_ops.launches
+    got = gg_ops.grouped_gemm(a, w)
+    assert gg_ops.launches == n0 + 1
+    torch.testing.assert_close(got, gg_ops.grouped_gemm(a.contiguous(), w),
+                               rtol=0, atol=0)
+    ref = gg_ref.grouped_gemm_ref(a, w)
+    assert float((got.float() - ref.float()).abs().max() /
+                 ref.float().abs().max()) < 3e-2
+
+
+SPEC_ARCHS = ["mistral-nemo-12b", "deepseek-v2-236b", "gemma2-2b",
+              "mamba2-130m"]
+
+
+@pytest.mark.parametrize("arch", SPEC_ARCHS)
+def test_engine_spec_graphs_match_eager_and_host(dev, arch):
+    """f32 smoke speculative engines (mistral with its one-layer draft, the
+    others with an independent mistral smoke draft; spec_k 3): replayed
+    graphs (one capture per width) = the eager loop on the card = the host
+    engine = the target-only engine, greedy, with equal launch counts; and
+    sampled, graphs = eager."""
+    from repro_torch.models.draft import draft_from_target
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    if arch == "mistral-nemo-12b":
+        dcfg, dparams = draft_from_target(cfg, params, 1)
+    else:
+        dcfg = dataclasses.replace(smoke_config(get_config(
+            "mistral-nemo-12b")), param_dtype="float32")
+        dparams = init_params(dcfg, seed=7, device="cpu")
+    prompts, kw = _graph_workload(cfg)
+    n = 24                                 # more quanta than widths
+    plain, _, _ = _serve_counted(cfg, params, dev, prompts, kw, n)
+    runs = {}
+    for where, extra in (("host", dict(device="cpu")),
+                         ("eager", dict(graphs=False)), ("graphs", {})):
+        device = extra.pop("device", dev)
+        runs[where] = _serve_counted(
+            cfg, params, device, prompts, kw, n, draft_cfg=dcfg,
+            draft_params=tree_map(lambda t: t.to(device), dparams),
+            spec_k=3, **extra)
+    assert runs["graphs"][0] == runs["eager"][0] == runs["host"][0] == plain
+    g_eng, e_eng = runs["graphs"][1], runs["eager"][1]
+    assert g_eng.decode_captures == len(g_eng.widths_used)
+    assert g_eng.widths_used == e_eng.widths_used
+    assert g_eng.quanta > g_eng.decode_captures
+    assert g_eng.spec_proposed == e_eng.spec_proposed > 0
+    assert runs["graphs"][2] == runs["eager"][2] and any(runs["graphs"][2])
+    sampled = dict(temperature=0.8, top_k=50, sample_seed=3, draft_cfg=dcfg,
+                   draft_params=tree_map(lambda t: t.to(dev), dparams),
+                   spec_k=3)
+    eager, _, _ = _serve_counted(cfg, params, dev, prompts, kw, n,
+                                 graphs=False, **sampled)
+    graph, eng, _ = _serve_counted(cfg, params, dev, prompts, kw, n,
+                                   **sampled)
+    assert eng.decode_captures == len(eng.widths_used)
+    assert graph == eager

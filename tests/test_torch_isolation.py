@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, smoke_config
+from repro_torch.models.draft import draft_from_target
 from repro_torch.params import init_params
 from repro_torch.serve.engine import Engine, make_engine
 from repro_torch.serve.multi_engine import make_multi_engine
@@ -41,7 +42,7 @@ def test_engine_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.params, "
             "repro_torch.train.loop, repro_torch.launch.train, "
             "repro_torch.serve.multi_engine, repro_torch.serve.faults, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.models.draft; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -57,7 +58,14 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch):
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, params)
+    dcfg, dparams = draft_from_target(cfg, params, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params, draft_cfg=dcfg, draft_params=dparams, spec_k=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params, draft_cfg=dcfg, spec_k=2)
     assert Engine(cfg, params, device="cpu").device.type == "cpu"
+    assert Engine(cfg, params, device="cpu", draft_cfg=dcfg,
+                  draft_params=dparams, spec_k=2).spec
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_engine(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
