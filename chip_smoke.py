@@ -108,17 +108,29 @@
    window through its paged layout). Each model's weights are freed before
    the next. Every launch counts for the one kernel entry whose paths hold
    the model.
-7. Training (the flash backward and the forward that saves lse): both
-   kernels against their plain versions at the training shape (B=4,
-   T=2048, 32 heads over 8, dh=128, causal, bf16; also f32 and window +
-   softcap), timed beside the backward of ``scaled_dot_product_attention``;
-   then mistral-nemo-12b at its published width, depth cut to 8 layers,
-   trained 5 steps (batch 4 x 2048 of synthetic data through the prefetch
-   loader, bf16 params, f32 moments), with per-step loss, grad norm,
-   seconds and tokens/s, peak memory, model FLOP/s against the bf16 peak,
-   one profiled step; an f32 gradient check at full width (depth 2) of the
-   kernels against autograd through the plain versions; and the training
-   launcher at smoke size in a subprocess.
+7. Training (the flash backward and the forward that saves lse, the
+   grouped GEMM's backward products, the SSD intra-chunk under autograd):
+   both flash kernels against their plain versions at the GQA training
+   shape (B=4, T=2048, 32 heads over 8, dh=128, causal, bf16; also f32
+   and window + softcap) and at deepseek-v2's MLA shape (B=4, T=2048, 128
+   heads at (192, 128)), timed beside ``scaled_dot_product_attention`` and
+   its backward; dA = dC·Wᵀ and dW = Aᵀ·dC through ``GroupedGemm`` at
+   phi3.5-moe's and deepseek-v2's training shapes (bf16 and f32, one
+   launch a product), timed beside ``torch.bmm`` and the transposes'
+   copies; the SSD kernel at a mamba2 training layer's 64 chunk rows
+   beside its plain backward. Then four models at their published width,
+   each trained 5 steps (batch B x 2048 of synthetic data through the
+   prefetch loader, bf16 params, AdamW lr 0.15/d) with per-step loss
+   (and ``moe_aux``), grad norm, seconds and tokens/s, peak memory, model
+   FLOP/s against the bf16 peak and one profiled step, their kernels'
+   launches counted on their path, and an f32 gradient check at full
+   width of the kernels against autograd through the plain versions:
+   mistral-nemo-12b (depth 8, B 4, f32 moments; "train"), phi3.5-moe-42b
+   (depth 3, B 4, f32 moments; "train-moe"), deepseek-v2-236b (depth 2:
+   the dense layer and one MoE layer, B 4, int8 moments; "train-mla") and
+   mamba2-130m (full depth, B 8, f32 moments; "train-ssm"); and the
+   training launcher at smoke size, mistral-nemo-12b and phi3.5-moe-42b,
+   each in a subprocess.
 8. Prints report lines (``report {...}``: the f32 paged decode kernel at
    dh 256, each pool run and the speculative phase beside the card's
    name and power limit), one JSON line {"kernels": [...]} (each entry's
@@ -879,11 +891,130 @@ def flash_bwd_phase(dev) -> list[dict]:
                         "flash_attention_bwd.cu" if name.endswith("bwd")
                         else "flash_attention.cu"),
                     "replaces": "src/repro/kernels/flash_attention/" + replaces,
-                    "paths": ["train"],
+                    "paths": ["train", "train-moe"],
                     "max_abs_err": err, "tol": tol, "ms": ms,
                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib, "check": f"{chk}; times at {shape}"})
     out[0]["passes_ms"] = bwd_passes
+    return out
+
+
+def flash_mla_train_phase(dev) -> list[dict]:
+    """deepseek-v2's training attention: B=4, T=2048, H=128 at G=1, dqk
+    192, dv 128, causal, bf16, as ``mla_attention`` passes it (q and k
+    head-transposed views, v a view into the up-projection's rows). The lse
+    forward (``wgmma``) and the backward (CUDA cores: the tensor-core
+    backward takes dh = dv only) against the plain versions, each batch row
+    on its own (a row's f32 scores take 2.1 GB): lse within 1e-4, o
+    bit-equal to the serving forward, dq, dk, dv within 3e-2 of each
+    largest value. Times: kernels and the plain versions (over the four
+    rows) by CUDA events; library: ``scaled_dot_product_attention`` on
+    inputs that want a gradient and its backward through
+    ``torch.autograd.grad``."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, T, H, dqk, dv = 4, 2048, 128, 192, 128
+    dt = torch.bfloat16
+    scale = dqk ** -0.5
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((B, T, H, dqk), generator=g, device=dev).to(dt)
+    k = torch.randn((B, T, H, dqk), generator=g, device=dev).to(dt)
+    kv = torch.randn((B, T, H, 256), generator=g, device=dev).to(dt)
+    do = torch.randn((B, T, H, dv), generator=g, device=dev).to(dt)
+    qv, kv_, vv, dov = (x.permute(0, 2, 1, 3)
+                        for x in (q, k, kv[..., 128:], do))
+    kw = dict(scale=scale, causal=True)
+    o, lse = ops.attend_fwd_lse(qv, kv_, vv, **kw)
+    same = torch.equal(o, ops.attend(qv, kv_, vv, **kw))
+    got = ops.attend_bwd(qv, kv_, vv, o, lse, dov, **kw)
+
+    def rows(fn, i):
+        return fn(*(x[i:i + 1] for x in (qv, kv_, vv)), **kw)
+
+    e_l, errs = 0.0, [0.0, 0.0, 0.0]
+    for i in range(B):
+        e_l = max(e_l, float((lse[i:i + 1] - rows(
+            ref.flash_attention_fwd_lse_ref, i)[1]).abs().max()))
+        want = ref.flash_attention_bwd_ref(
+            *(x[i:i + 1] for x in (qv, kv_, vv, o, lse, dov)), **kw)
+        for j, (a, b) in enumerate(zip(got, want)):
+            errs[j] = max(errs[j], float((a[i:i + 1].float() - b.float())
+                                         .abs().max() / b.float().abs().max()))
+        del want
+    label = f"B={B} T={T} H={H} (dqk, dv)=({dqk}, {dv}) causal bf16"
+    check(same and e_l <= 1e-4, f"flash fwd lse {label}: o equals the "
+          f"serving forward {same}, max |lse - ref| {e_l:.3g} (tol 1e-4)")
+    check(max(errs) <= BF16_TOL, f"flash bwd {label}: dq, dk, dv relative "
+          f"max error {[f'{e:.3g}' for e in errs]} (tol {BF16_TOL})")
+    del got
+    torch.cuda.empty_cache()
+    pairs = _causal_pairs(T, 0) * B * H
+    b_bytes = 2 * B * T * H * (2 * dqk + 3 * dv) + 4 * B * H * T + \
+        2 * B * T * H * (2 * dqk + dv)
+    f_bytes = 2 * B * T * H * (2 * dqk + 2 * dv) + 4 * B * H * T
+    b_ops, f_ops = (6 * dqk + 4 * dv) * pairs, 2 * (dqk + dv) * pairs
+    bb = bound_ms(b_bytes, b_ops, dt)
+    fb = bound_ms(f_bytes, f_ops, dt)
+    ms_b = time_ms(lambda: ops.attend_bwd(qv, kv_, vv, o, lse, dov, **kw), 3,
+                   1)
+    passes = {}
+    for name, (ms, n) in kernels_ms(lambda: ops.attend_bwd(
+            qv, kv_, vv, o, lse, dov, **kw))[0].items():
+        key = ("dq pass" if "bwd_dq" in name else "dk/dv pass"
+               if "bwd_dkv" in name else "delta" if "delta" in name
+               else name[:40])
+        passes[key] = ms
+    plain_b = time_ms(lambda: [ref.flash_attention_bwd_ref(
+        *(x[i:i + 1] for x in (qv, kv_, vv, o, lse, dov)), **kw)
+        for i in range(B)], 1, 1)
+    ms_f = time_ms(lambda: ops.attend_fwd_lse(qv, kv_, vv, **kw), 10)
+    plain_f = time_ms(lambda: [rows(ref.flash_attention_fwd_lse_ref, i)
+                               for i in range(B)], 1, 1)
+    qc, kc, vc = (x.contiguous().requires_grad_() for x in (qv, kv_, vv))
+    sdpa = dict(is_causal=True, scale=scale)
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                           **sdpa), 10)
+    out = F.scaled_dot_product_attention(qc, kc, vc, **sdpa)
+    doc = dov.contiguous()
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        out, (qc, kc, vc), doc, retain_graph=True), 10)
+    del out, qc, kc, vc, doc
+    print(f"flash bwd {label}, one profiled call, device ms: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+    for what, ms, plain, (b_ms, b_by), lib, flops in (
+            ("bwd", ms_b, plain_b, bb, lib_b, b_ops),
+            ("fwd lse", ms_f, plain_f, fb, lib_f, f_ops)):
+        print(f"flash {what} {label}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+              f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"kernel/bound {ms / b_ms:.1f}x, kernel/sdpa {ms / lib:.1f}x")
+    del q, k, kv, do, qv, kv_, vv, dov, o, lse
+    torch.cuda.empty_cache()
+    shape = f"{label}, q/k/do head-transposed views, v a view of (.., 256)"
+    out = []
+    for name, counter, src, replaces, (ms, plain, (b_ms, b_by), lib), err, \
+            tol, chk in (
+            ("flash_attention_bwd_mla", "flash_attention_bwd",
+             "flash_attention_bwd.cu", "flash_attention_bwd.py:138",
+             (ms_b, plain_b, bb, lib_b), max(errs), BF16_TOL,
+             "dq, dk, dv against flash_attention_bwd_ref on the kernel's o "
+             "and lse, each batch row, relative to each largest value (tol "
+             "3e-2); the CUDA-core route (the tensor-core backward takes "
+             "dh = dv in {64, 128}); library: the backward of "
+             "scaled_dot_product_attention through torch.autograd.grad"),
+            ("flash_attention_fwd_lse_mla", "flash_attention_fwd_lse",
+             "flash_attention.cu", "flash_attention_bwd.py:199",
+             (ms_f, plain_f, fb, lib_f), e_l, 1e-4,
+             "lse against flash_attention_fwd_lse_ref, each batch row (tol "
+             "1e-4), o bit-equal to the serving forward; library: "
+             "scaled_dot_product_attention on inputs that want a gradient")):
+        out.append({"name": name, "counter": counter, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/" + src,
+                    "replaces": "src/repro/kernels/flash_attention/" + replaces,
+                    "paths": ["train-mla"],
+                    "max_abs_err": err, "tol": tol, "ms": ms,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib, "check": f"{chk}; times at {shape}"})
+    out[0]["passes_ms"] = passes
     return out
 
 
@@ -1037,16 +1168,95 @@ def gg_phase(dev) -> dict:
     return {"name": "grouped_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
             "replaces": "src/repro/kernels/grouped_gemm/grouped_gemm.py:34",
-            "paths": ["deepseek-v2-236b"],
+            "paths": ["deepseek-v2-236b", "train-moe", "train-mla"],
             "max_abs_err": err, "tol": BF16_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "decode": decode,
+            "decode": decode, "backward": gg_backward(dev),
             "check": "relative max error against grouped_gemm_ref, bf16 "
                      "(tol 3e-2; two calls bit-equal) and f32 (tol 1e-4): "
                      "(160,384,5120)x(160,5120,1536), (160,384,1536)x"
                      "(160,1536,5120), decode M=8 with stride-0 a, ragged "
                      "M=100; times (library: torch.bmm) at the first shape "
-                     "(decode: decode up)"}
+                     "(decode: decode up); backward: dA and dW through "
+                     "GroupedGemm at phi3.5-moe's and deepseek-v2's "
+                     "training shapes, bf16 and f32, one launch a product"}
+
+
+# The expert products' shapes in training (the up projection), at 4 x 2048
+# tokens: phi3.5-moe (16 experts of 6400, top-2, capacity 1280) and
+# deepseek-v2 (160 of 1536, top-6, capacity 384)
+GG_TRAIN_SHAPES = (("phi3.5-moe up", 16, 1280, 4096, 6400),
+                   ("deepseek-v2 up", 160, 384, 5120, 1536))
+
+
+def gg_backward(dev) -> dict:
+    """The grouped GEMM's backward products at GG_TRAIN_SHAPES through
+    ``GroupedGemm``: dA = dC·Wᵀ and dW = Aᵀ·dC against the plain version,
+    bf16 within 3e-2 and f32 within 1e-4 of the largest value, and one
+    launch a product (forward and backward: 3). Times (bf16, CUDA events):
+    each product on the kernel from its contiguous transposed operand,
+    the plain version, ``torch.bmm`` on the transposed views, and the
+    transposes' copies with their bytes."""
+    from repro_torch.kernels.grouped_gemm import ops, ref
+    res = {}
+    for name, E, M, K, N in GG_TRAIN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(E + M)
+        a32 = torch.randn((E, M, K), generator=g, device=dev)
+        w32 = torch.randn((E, K, N), generator=g, device=dev) * K ** -0.5
+        dc32 = torch.randn((E, M, N), generator=g, device=dev)
+        for dt, tol in ((torch.float32, F32_REL_TOL),
+                        (torch.bfloat16, BF16_TOL)):
+            a, w, dc = (x.to(dt, copy=True).requires_grad_(x is not dc32)
+                        for x in (a32, w32, dc32))
+            n0 = ops.launches
+            out = ops.GroupedGemm.apply(a, w)
+            da, dw = torch.autograd.grad(out, (a, w), dc)
+            n = ops.launches - n0
+            errs = []
+            for got, want in ((da, ref.grouped_gemm_ref(
+                    dc, w.detach().transpose(1, 2))), (dw, ref.grouped_gemm_ref(
+                    a.detach().transpose(1, 2), dc))):
+                errs.append(float((got.float() - want.float()).abs().max()
+                                  / want.float().abs().max()))
+            check(max(errs) <= tol and n == 3, f"grouped GEMM backward "
+                  f"{name} ({E}, {M}, {K}) x ({E}, {K}, {N}) {dt}: dA, dW "
+                  f"relative max error {[f'{e:.3g}' for e in errs]} (tol "
+                  f"{tol}); {n} launches for the forward and the two "
+                  "products (want 3)")
+            del a, w, dc, out, da, dw
+        a, w, dc = (x.to(torch.bfloat16) for x in (a32, w32, dc32))
+        del a32, w32, dc32
+        wt, at = w.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous()
+        entry = {}
+        for prod, x, y, xt, yt in (("dA", dc, wt, dc, w.transpose(1, 2)),
+                                   ("dW", at, dc, a.transpose(1, 2), dc)):
+            Mx, Kx, Nx = x.shape[1], x.shape[2], y.shape[2]
+            n_bytes = 2 * E * (Mx * Kx + Kx * Nx + Mx * Nx)
+            n_ops = 2 * E * Mx * Kx * Nx
+            b_ms, b_by = bound_ms(n_bytes, n_ops, torch.bfloat16)
+            ms = time_ms(lambda: ops.grouped_gemm(x, y), 10)
+            plain = time_ms(lambda: ref.grouped_gemm_ref(xt, yt), 3, 1)
+            lib = time_ms(lambda: torch.bmm(xt, yt), 10)
+            entry[prod] = {"shape": f"({E}, {Mx}, {Kx}) x ({E}, {Kx}, {Nx})",
+                           "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": lib}
+            print(f"grouped GEMM backward {name} {prod} = "
+                  f"{'dC·Wᵀ' if prod == 'dA' else 'Aᵀ·dC'} {entry[prod]['shape']}"
+                  f" bf16: kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f} "
+                  f"TFLOP/s), plain {plain:.4f} ms, torch.bmm {lib:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+        for what, t in (("Wᵀ", w), ("Aᵀ", a)):
+            ms = time_ms(lambda: t.transpose(1, 2).contiguous(), 10)
+            n_bytes = 2 * 2 * t.numel()
+            entry[f"copy {what}"] = {"ms": ms, "bytes": n_bytes}
+            print(f"grouped GEMM backward {name}: the contiguous copy of "
+                  f"{what} {tuple(t.shape)} bf16, {n_bytes / 1e6:.1f} MB read "
+                  f"and written: {ms:.4f} ms "
+                  f"({n_bytes / ms / 1e6:.1f} GB/s)")
+        res[name] = entry
+        del a, w, dc, wt, at
+        torch.cuda.empty_cache()
+    return res
 
 
 # -------------------------------------------------------------- tiled GEMM
@@ -1167,9 +1377,11 @@ def ssd_case(dev, G: int, Q: int, P: int, N: int, H: int = 24):
 
 
 # mamba2-130m's intra-chunk shapes (G chunk rows, Q, P, N): a 1827-2048
-# token prompt (8 rows of 256), the exact-length Q = 97, and P 72, N 40,
-# which only the CUDA-core route takes
-SSD_SHAPES = ((8, 256, 64, 128), (1, 97, 64, 128), (8, 256, 72, 40))
+# token prompt (8 rows of 256), the exact-length Q = 97, P 72, N 40, which
+# only the CUDA-core route takes, and a training step's 8 x 2048 tokens
+SSD_TRAIN = (64, 256, 64, 128)
+SSD_SHAPES = ((8, 256, 64, 128), (1, 97, 64, 128), (8, 256, 72, 40),
+              SSD_TRAIN)
 
 
 def ssd_work(G: int, Q: int, P: int, N: int, H: int = 24) -> dict:
@@ -1245,11 +1457,38 @@ def ssd_phase(dev) -> dict:
                        "plan": plan, "device_ms": ms, "event_ms": event,
                        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                        "max_err": e, "bit_equal": same})
+    # the backward (SsdIntraChunk: the plain version recomputed under
+    # autograd and differentiated) at the training shape, B and C leaves
+    # of one head expanded with stride 0 as ssd_scan passes them
+    x, cs, Bm, Cm = ssd_case(dev, *SSD_TRAIN)
+    ins = [t.detach().requires_grad_() for t in (x, cs, Bm[:, :1], Cm[:, :1])]
+    y, st = ref.ssd_intra_chunk_ref(*ins[:2], *(t.expand_as(Bm)
+                                                for t in ins[2:]))
+    dy, dst = torch.randn_like(y), torch.randn_like(st)
+    del y, st
+
+    def plain_bwd():
+        with torch.enable_grad():
+            outs = ref.ssd_intra_chunk_ref(*ins[:2], *(t.expand_as(Bm)
+                                                       for t in ins[2:]))
+            return torch.autograd.grad(outs, ins, (dy, dst))
+
+    bwd = time_ms(plain_bwd, 5, 1)
+    G, Q, P, N = SSD_TRAIN
+    train = next(x for x in shapes if (x["G"], x["Q"], x["P"], x["N"])
+                 == SSD_TRAIN)
+    train["plain_backward_ms"] = bwd
+    print(f"ssd intra-chunk G={G}x24 Q={Q} P={P} N={N} (a mamba2 training "
+          f"layer): forward device {train['device_ms']:.4f} ms, the plain "
+          f"backward (recompute + autograd) {bwd:.4f} ms, "
+          f"{bwd / train['device_ms']:.1f}x the forward")
+    del x, cs, Bm, Cm, ins, dy, dst
+    torch.cuda.empty_cache()
     main = shapes[0]
     return {"name": "ssd_intra_chunk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/ssd.py:46",
-            "paths": ["mamba2-130m"],
+            "paths": ["mamba2-130m", "train-ssm"],
             "max_abs_err": err, "tol": 1e-4, "ms": main["device_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
@@ -1258,9 +1497,10 @@ def ssd_phase(dev) -> dict:
                      "ssd_intra_chunk_ref, f32, 24 heads, stride-0 B/C: "
                      "tensor-core route (ssd_mma) at G=8 Q=256 P=64 N=128 "
                      "and G=1 Q=97, CUDA-core route (ssd_intra) at G=8 "
-                     "Q=256 P=72 N=40; two calls bit-equal on both; ms is "
-                     "the first's device time; library: none, no single "
-                     "PyTorch call computes it"}
+                     "Q=256 P=72 N=40, and the training shape G=64 Q=256 "
+                     "(its plain backward timed); two calls bit-equal on "
+                     "both; ms is the first's device time; library: none, "
+                     "no single PyTorch call computes it"}
 
 
 # ----------------------------------------------------- the paper's Fig. 5
@@ -2534,56 +2774,119 @@ def plain_attend(q, k, v, *, scale, causal=True, window=0, softcap=0.0):
     return out.permute(0, 2, 1, 3).reshape(B, Tq, Hkv, G, v.shape[-1])
 
 
-def train_phase(dev, entries) -> None:
-    """mistral-nemo-12b at its published width (d 5120, 32 heads over 8 of
-    128, FFN 14336, V 131072), depth cut 40 → 8 layers (3.52 B params: bf16
-    params and grads, f32 m and v, 42 GB), seeded random weights made on
-    the card. 5 steps of ``make_train_step`` (AdamW lr 2.93e-5, warmup 2,
-    cosine to step 5) on batch 4 x 2048 of ``SyntheticLM(V, 2048, seed=0)``
-    through ``PrefetchLoader``; counts read around those 5 steps. Then one
-    profiled step, and the f32 gradient check at full width, depth 2,
-    batch 1 x 512."""
-    from repro_torch.configs import get_config
+# Adam's first updates move every weight by ~lr, a d-wide product's output
+# by ~lr·d: lr 1e-3 (the smoke size's) diverges at d >= 2048 in the JAX
+# package and the port alike (tools/width_lr_probe.py), so the full width
+# takes lr·d = 0.15, which learns at d = 3072
+TRAIN_LR_D = 0.15
+TRAIN_STEPS = 5
+TRAIN_SEQ = 2048
+TRAIN_KERNELS = ("flash_fwd", "bwd_d", "delta_kernel", "gg_", "ssd_")
+
+
+def train_flops(cfg, B: int, S: int) -> float:
+    """Model FLOPs of one step on B x S tokens: 6 per matrix parameter a
+    token passes through (every product's weights — for the MoE experts the
+    top-k of E's share, the shared experts whole — and the unembedding; the
+    embedding is a lookup, the depthwise convs and norms are not counted),
+    plus the attention pairs (GQA 12·dh, MLA 6·(dqk + dv) per live pair and
+    head) and the SSD products (``ssd_work``'s shared-score count, x3 for
+    forward and backward). The layer recompute is not counted."""
+    from repro_torch.models.transformer import block_cfgs
+    from repro_torch.params import param_specs
+    per_token = cfg.vocab * cfg.d_model
+    for layer in param_specs(cfg)["layers"]:
+        for mod, leaves in layer.items():
+            for name, spec in (leaves.items() if isinstance(leaves, dict)
+                               else ()):
+                if len(spec.shape) < 2 or name.startswith("conv"):
+                    continue
+                n = math.prod(spec.shape)
+                if mod == "moe" and name in ("w_up", "w_gate", "w_down"):
+                    n = n * cfg.moe.top_k / cfg.moe.n_experts
+                per_token += n
+    flops = 6 * per_token * B * S
+    pairs = _causal_pairs(S, 0) * B * cfg.n_heads
+    for bc in block_cfgs(cfg):
+        if bc.mixer == "attn" and cfg.mla:
+            m = cfg.mla
+            flops += 6 * (m.nope_dim + m.rope_dim + m.v_dim) * pairs
+        elif bc.mixer == "attn":
+            flops += 12 * cfg.head_dim * pairs
+        else:
+            s = cfg.ssm
+            Q = min(s.chunk, S)
+            flops += 3 * ssd_work(B * S // Q, Q, s.head_dim, s.d_state,
+                                  cfg.d_inner // s.head_dim)["shared_ops"]
+    return flops
+
+
+@contextmanager
+def plain_versions():
+    """``models.attention.attend``, the MoE experts' grouped GEMM and
+    ``ssd_scan``'s intra-chunk op swapped for their plain versions, which
+    autograd then differentiates (the f32 gradient checks' reference)."""
+    from repro_torch.kernels.grouped_gemm import ref as gg_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.models import attention, moe
+    kernels = (attention.attend, moe.grouped_gemm_autograd,
+               ssd_ops.intra_chunk_autograd)
+    attention.attend = plain_attend
+    moe.grouped_gemm_autograd = gg_ref.grouped_gemm_ref
+    ssd_ops.intra_chunk_autograd = ssd_ref.ssd_intra_chunk_ref
+    try:
+        yield
+    finally:
+        (attention.attend, moe.grouped_gemm_autograd,
+         ssd_ops.intra_chunk_autograd) = kernels
+
+
+def train_cell(dev, entries, cfg, where: str, path, *, B: int,
+               moments: str = "float32", check_layers: int,
+               check_tokens: int) -> None:
+    """``cfg`` (published width, its depth as given) with seeded random
+    weights made on the card: ``TRAIN_STEPS`` steps of ``make_train_step``
+    (AdamW lr 0.15/d, warmup 2, cosine to the last step, ``moments``) on
+    batch B x 2048 of ``SyntheticLM(V, 2048, seed=0)`` through
+    ``PrefetchLoader``, the launch counts set to 0 just before those steps
+    and read just after (added to ``entries`` under ``where``; every
+    kernel of ``path`` launched), then one profiled step. Held: every loss
+    finite, the first within 0.5 of ln V + 0.02²·d/2 (random logits of
+    variance 0.02²·d) plus the first step's ``moe_aux``, the mean of the
+    last two below the first. Then the f32 gradient check at full width,
+    depth ``check_layers``, batch 1 x ``check_tokens``: every leaf through
+    the kernels (moved to the host) within 1e-3 of its largest value of
+    autograd through the plain versions (:func:`plain_versions`)."""
     from repro_torch.data.loader import PrefetchLoader
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import _build
-    from repro_torch.models import attention
     from repro_torch.models.model import loss_fn
     from repro_torch.params import init_params, n_params, tree_leaves
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import init_state, make_train_step
 
-    cfg = dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=8)
-    B, S, steps = 4, 2048, 5
-    # Adam's first updates move every weight by ~lr, a d-wide product's
-    # output by ~lr·d: lr 1e-3 (the smoke size's) diverges at d >= 2048 in
-    # the JAX package and the port alike (tools/width_lr_probe.py), so the
-    # full width takes lr·d = 0.15, which learns at d = 3072
-    ocfg = OptConfig(lr=0.15 / cfg.d_model, warmup_steps=2,
-                     decay_steps=steps)
+    S, steps = TRAIN_SEQ, TRAIN_STEPS
+    ocfg = OptConfig(lr=TRAIN_LR_D / cfg.d_model, warmup_steps=2,
+                     decay_steps=steps, moments_dtype=moments)
     t0 = time.perf_counter()
     state = init_state(cfg, seed=0, ocfg=ocfg, device=dev)
     torch.cuda.synchronize()
     P = n_params(cfg)
-    print(f"train {cfg.name}, depth cut to {cfg.n_layers} layers: {P / 1e9:.3f}"
-          f" B params and f32 moments made on the card in "
+    print(f"train {cfg.name} ({where}), depth {cfg.n_layers}: {P / 1e9:.3f} B "
+          f"params and {moments} moments made on the card in "
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     loader = PrefetchLoader(SyntheticLM(cfg.vocab, S, seed=0).iterator(B),
                             device=dev)
     step_fn = make_train_step(cfg, ocfg)
-    # model FLOPs: 6 per parameter of every matrix product (the embedding
-    # table is a lookup) and token, and 12·dh per live (query, key) pair
-    # and head (attention fwd + bwd); the layer recompute is not counted
-    p_mm = P - cfg.vocab * cfg.d_model - (2 * cfg.n_layers + 1) * cfg.d_model
-    flops = (6 * p_mm * B * S
-             + 12 * cfg.head_dim * _causal_pairs(S, 0) * B * cfg.n_heads
-             * cfg.n_layers)
+    flops = train_flops(cfg, B, S)
+    peak_ops = PEAK_OPS_PER_S[torch.bfloat16]
     counters = _counters()
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, auxes, times = [], [], []
     try:
         for i in range(steps):
             batch = next(loader)
@@ -2594,20 +2897,22 @@ def train_phase(dev, entries) -> None:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t
             losses.append(loss)
+            auxes.append(float(m.get("moe_aux", 0.0)))
             times.append(dt)
-            print(f"  step {i + 1}: loss {loss:.4f}, grad norm {gn:.4f}, lr "
-                  f"{m['lr']:.2e}, {dt:.3f} s, {B * S / dt:.0f} tokens/s, "
-                  f"{flops / dt / 1e12:.1f} TFLOP/s (model FLOPs), "
-                  f"{100 * flops / dt / PEAK_OPS_PER_S[torch.bfloat16]:.1f} "
+            print(f"  step {i + 1}: loss {loss:.4f}"
+                  + (f" (moe_aux {auxes[-1]:.5f})" if "moe_aux" in m else "")
+                  + f", grad norm {gn:.4f}, lr {m['lr']:.2e}, {dt:.3f} s, "
+                  f"{B * S / dt:.0f} tokens/s, {flops / dt / 1e12:.1f} "
+                  f"TFLOP/s (model FLOPs), {100 * flops / dt / peak_ops:.1f} "
                   "% of 989 TFLOP/s")
         launches = {n: getattr(mod, attr)
                     for n, (mod, attr) in counters.items()}
         peak = torch.cuda.max_memory_allocated() / 2**30
         steady = sum(times[1:]) / (steps - 1)
-        print(f"train: peak memory {peak:.2f} GiB; steps 2-{steps} mean "
-              f"{steady:.3f} s, {B * S / steady:.0f} tokens/s, model FLOP/s "
-              f"{100 * flops / steady / PEAK_OPS_PER_S[torch.bfloat16]:.1f} "
-              f"% of the bf16 peak; launches {launches}")
+        print(f"train {where}: peak memory {peak:.2f} GiB; steps 2-{steps} "
+              f"mean {steady:.3f} s, {B * S / steady:.0f} tokens/s, model "
+              f"FLOP/s {100 * flops / steady / peak_ops:.1f} % of the bf16 "
+              f"peak ({flops / 1e12:.2f} TFLOP a step); launches {launches}")
         with device_profile(cpu=True) as prof:
             batch = next(loader)
             torch.cuda.synchronize()
@@ -2619,62 +2924,120 @@ def train_phase(dev, entries) -> None:
     finally:
         loader.close()
     busy, n, by_name = device_time(prof)
-    print(f"profile: one train step (profiler on): wall {wall:.3f} s, device "
-          f"busy {busy / 1e6:.3f} s ({busy / 1e4 / wall:.1f} %), {n} kernels")
+    print(f"profile: one {where} step (profiler on): wall {wall:.3f} s, "
+          f"device busy {busy / 1e6:.3f} s ({busy / 1e4 / wall:.1f} %), {n} "
+          "kernels")
     print_top(by_name)
-    print("  attention kernels of the step: " + ", ".join(
+    print(f"  hand-written kernels of the {where} step: " + ", ".join(
         f"{_build.kernel_label(name)} {us / 1e3:.3f} ms ({k}x)"
         for name, (us, k) in sorted(by_name.items())
-        if "flash_fwd" in name or "bwd_d" in name))
-    first = math.log(cfg.vocab) + 0.02 ** 2 * cfg.d_model / 2
-    check(all(math.isfinite(x) for x in losses), f"train: every loss is "
-          f"finite {[round(x, 4) for x in losses]}")
-    check(abs(losses[0] - first) < 0.5, f"train: first loss {losses[0]:.4f} "
-          f"within 0.5 of ln V + 0.02²·d/2 = {first:.4f} (random logits of "
-          "variance 0.02²·d)")
-    check(sum(losses[-2:]) / 2 < losses[0], "train: the mean of the last two "
-          f"losses {sum(losses[-2:]) / 2:.4f} is below the first")
-    _add_launches(entries, launches, "train",
-                  ("flash_attention_fwd_lse", "flash_attention_bwd"))
+        if any(s in name for s in TRAIN_KERNELS)))
+    first = math.log(cfg.vocab) + 0.02 ** 2 * cfg.d_model / 2 + auxes[0]
+    check(all(math.isfinite(x) for x in losses), f"train {where}: every "
+          f"loss is finite {[round(x, 4) for x in losses]}")
+    check(abs(losses[0] - first) < 0.5, f"train {where}: first loss "
+          f"{losses[0]:.4f} within 0.5 of ln V + 0.02²·d/2 + moe_aux = "
+          f"{first:.4f} (random logits of variance 0.02²·d)")
+    check(sum(losses[-2:]) / 2 < losses[0], f"train {where}: the mean of "
+          f"the last two losses {sum(losses[-2:]) / 2:.4f} is below the "
+          "first")
+    _add_launches(entries, launches, where, path)
     del state, m, batch, prof
     torch.cuda.empty_cache()
 
-    cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
+    cfg32 = dataclasses.replace(cfg, n_layers=check_layers,
+                                param_dtype="float32")
     params = init_params(cfg32, seed=0, device=dev)
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     g = torch.Generator(device=dev).manual_seed(0)
-    toks = torch.randint(0, cfg32.vocab, (1, 513), generator=g, device=dev)
+    toks = torch.randint(0, cfg32.vocab, (1, check_tokens + 1), generator=g,
+                         device=dev)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
-             "mask": torch.ones((1, 512), device=dev)}
-    grads = torch.autograd.grad(loss_fn(cfg32, params, batch)[0], leaves)
-    kernel_attend = attention.attend
-    attention.attend = plain_attend
-    try:
+             "mask": torch.ones((1, check_tokens), device=dev)}
+    grads = [x.cpu() for x in torch.autograd.grad(
+        loss_fn(cfg32, params, batch)[0], leaves)]
+    with plain_versions():
         want = torch.autograd.grad(loss_fn(cfg32, params, batch)[0], leaves)
-    finally:
-        attention.attend = kernel_attend
-    rel = max(float((a - b).abs().max() / b.abs().max())
-              for a, b in zip(grads, want))
-    check(rel < 1e-3, f"train f32 at full width, depth 2, batch 1 x 512: "
-          f"every gradient leaf through the kernels within {rel:.3g} of its "
-          "largest value of autograd through the plain versions (tol 1e-3)")
-    del params, grads, want
+    rel, finite = 0.0, True
+    for a, b in zip(grads, want):
+        b = b.cpu()
+        finite &= bool(torch.isfinite(a).all() and torch.isfinite(b).all())
+        rel = max(rel, float((a - b).abs().max() / b.abs().max()))
+    check(finite and rel < 1e-3, f"train {where} f32 at full width, depth "
+          f"{check_layers}, batch 1 x {check_tokens}: every gradient leaf "
+          f"finite ({finite}) and through the kernels within {rel:.3g} of "
+          "its largest value of autograd through the plain versions (tol "
+          "1e-3)")
+    del params, leaves, grads, want
     torch.cuda.empty_cache()
 
 
+def train_phase(dev, entries) -> None:
+    """mistral-nemo-12b at its published width (d 5120, 32 heads over 8 of
+    128, FFN 14336, V 131072), depth cut 40 → 8 layers (3.52 B params: bf16
+    params and grads, f32 m and v, 42 GB), batch 4 x 2048; the f32 check at
+    depth 2, batch 1 x 512 (:func:`train_cell`)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("mistral-nemo-12b"), n_layers=8)
+    train_cell(dev, entries, cfg, "train",
+               ("flash_attention_fwd_lse", "flash_attention_bwd"), B=4,
+               check_layers=2, check_tokens=512)
+
+
+def train_moe_phase(dev, entries) -> None:
+    """phi3.5-moe-42b at its published width (d 4096, 32 heads over 8 of
+    128, 16 experts of 6400, top-2, V 32064), depth cut 32 → 3 layers
+    (4.164 B params: bf16 params and grads, f32 m and v, 46.5 GiB), batch
+    4 x 2048 (expert capacity 1280); the f32 check at depth 2, batch
+    1 x 512."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("phi3.5-moe-42b-a6.6b"), n_layers=3)
+    train_cell(dev, entries, cfg, "train-moe",
+               ("flash_attention_fwd_lse", "flash_attention_bwd",
+                "grouped_gemm"), B=4, check_layers=2, check_tokens=512)
+
+
+def train_mla_phase(dev, entries) -> None:
+    """deepseek-v2-236b at its published width (d 5120, MLA with 128 heads
+    at (192, 128), V 102400), depth cut 60 → 2 layers: the dense first
+    layer (FFN 12288) and one MoE layer (160 experts of 1536, top-6, 2
+    shared); 5.359 B params, int8 moments (29.9 GiB of state; f32 moments
+    would take 59.9 GiB), batch 4 x 2048 (expert capacity 384); the f32
+    check at depth 2, batch 1 x 256."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), n_layers=2)
+    train_cell(dev, entries, cfg, "train-mla",
+               ("flash_attention_fwd_lse_mla", "flash_attention_bwd_mla",
+                "grouped_gemm"), B=4, moments="int8", check_layers=2,
+               check_tokens=256)
+
+
+def train_ssm_phase(dev, entries) -> None:
+    """mamba2-130m at its published width and depth (24 SSD layers, d 768,
+    24 heads of 64, state 128, chunk 256; 0.129 B params, f32 moments),
+    batch 8 x 2048 (64 chunk rows a layer); the f32 check at full depth,
+    batch 1 x 512."""
+    from repro_torch.configs import get_config
+    cfg = get_config("mamba2-130m")
+    train_cell(dev, entries, cfg, "train-ssm", ("ssd_intra_chunk",), B=8,
+               check_layers=cfg.n_layers, check_tokens=512)
+
+
 def launcher_phase() -> None:
-    """The training launcher at smoke size, in its own process."""
+    """The training launcher at smoke size, each run in its own process:
+    mistral-nemo-12b and phi3.5-moe-42b."""
     root = Path(__file__).resolve().parent
-    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "mistral-nemo-12b", "--steps", "3"]
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
-    t = time.perf_counter()
-    run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
-                         text=True, timeout=600)
-    print(run.stdout[-2000:] + run.stderr[-2000:])
-    check(run.returncode == 0 and "done: 3 steps" in run.stdout,
-          f"launcher {' '.join(cmd[1:])} exits {run.returncode} in "
-          f"{time.perf_counter() - t:.1f} s")
+    for arch in ("mistral-nemo-12b", "phi3.5-moe-42b-a6.6b"):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               arch, "--steps", "3"]
+        t = time.perf_counter()
+        run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                             text=True, timeout=600)
+        print(run.stdout[-2000:] + run.stderr[-2000:])
+        check(run.returncode == 0 and "done: 3 steps" in run.stdout,
+              f"launcher {' '.join(cmd[1:])} exits {run.returncode} in "
+              f"{time.perf_counter() - t:.1f} s")
 
 
 def main() -> int:
@@ -2705,7 +3068,8 @@ def main() -> int:
     sass = sass_phase()
     entries = [paged_phase(dev), paged256_phase(dev), flash_phase(dev),
                flash256_phase(dev), flash80_phase(dev),
-               *flash_bwd_phase(dev), mla_phase(dev), gg_phase(dev),
+               *flash_bwd_phase(dev), *flash_mla_train_phase(dev),
+               mla_phase(dev), gg_phase(dev),
                gemm_phase(dev), ssd_phase(dev)]
     for e in entries:
         if e["name"] in sass:
@@ -2720,13 +3084,17 @@ def main() -> int:
     gemma2_phase(dev, entries)
     danube_phase(dev, entries)
     train_phase(dev, entries)
+    train_moe_phase(dev, entries)
+    train_mla_phase(dev, entries)
+    train_ssm_phase(dev, entries)
     launcher_phase()
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(x for x in (
-            "passes_ms", "mla", "decode", "chunks", "n4096", "paged",
+            "passes_ms", "mla", "decode", "backward", "chunks", "n4096",
+            "paged",
             "ssd", "sass", "sdpa_gathered_ms", "verify_rows_err",
             "kernel_route")
             if x in e)}

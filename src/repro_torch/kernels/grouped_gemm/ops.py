@@ -8,6 +8,10 @@ without a copy); ``w`` is contiguous. ``launches`` counts kernel launches,
 those of CUDA graph replays too: ``serve/graphs.py`` records the count's
 change during a capture (taking it back: a capture launches nothing) and
 adds it at every replay.
+
+:class:`GroupedGemm` is the product under autograd: its backward takes
+dA = dC·Wᵀ and dW = Aᵀ·dC per expert through the same kernel (two more
+launches a product), with Wᵀ and Aᵀ as contiguous copies.
 """
 from __future__ import annotations
 
@@ -101,3 +105,47 @@ def grouped_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(lib, err, "grouped_gemm")
     _launches.bump(__name__, "launches")
     return out
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """x (E, M, N) with zero rows appended up to ``rows``."""
+    if x.shape[1] == rows:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], rows - x.shape[1],
+                                      x.shape[2]))], dim=1)
+
+
+class GroupedGemm(torch.autograd.Function):
+    """:func:`grouped_gemm` with its gradients, each a grouped GEMM on the
+    kernel: dA (E, M, K) = dC · Wᵀ and dW (E, K, N) = Aᵀ · dC, the
+    transposed operands as contiguous copies. In dW the sum runs over the
+    M rows (an expert's capacity); for bf16, whose kernel takes sums of a
+    multiple of 8, Aᵀ gets zero columns and dC zero rows up to one, which
+    adds nothing."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        return grouped_gemm(a, w)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, w = ctx.saved_tensors
+        dc = dc.contiguous()
+        da = dw = None
+        if ctx.needs_input_grad[0]:
+            da = grouped_gemm(dc, w.transpose(1, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            M = a.shape[1]
+            rows = -(-M // 8) * 8 if a.dtype == torch.bfloat16 else M
+            at = _pad_rows(a, rows).transpose(1, 2).contiguous()
+            dw = grouped_gemm(at, _pad_rows(dc, rows))
+        return da, dw
+
+
+def grouped_gemm_autograd(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`grouped_gemm`, through :class:`GroupedGemm` when an operand
+    wants a gradient."""
+    if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
+        return GroupedGemm.apply(a, w)
+    return grouped_gemm(a, w)

@@ -17,6 +17,10 @@ multiples of 8, on 16-byte aligned rows (mamba2: P 64, N 128), and "f32"
 calls that launched a kernel, ``route_launches`` the same by route. A
 CUDA graph's replay adds to ``launches`` what its capture recorded
 (``serve/graphs.py``); ``route_launches`` counts eager calls only.
+
+:class:`SsdIntraChunk` is the op under autograd: the kernel forward and a
+backward through the plain version, recomputed (no TPU kernel computes
+this backward; JAX differentiates the einsums of its ``ssd_scan``).
 """
 from __future__ import annotations
 
@@ -192,3 +196,37 @@ def intra_chunk(x, cs, B, C):
     with _launches.lock:
         route_launches[route] += 1
     return y, st
+
+
+class SsdIntraChunk(torch.autograd.Function):
+    """:func:`intra_chunk` with gradients: the forward launches the kernel
+    (on the card), the backward recomputes ``ref.ssd_intra_chunk_ref``
+    under autograd and differentiates it. Gradients come back shaped as the
+    inputs, per head: for B and C given with stride 0 over the heads,
+    autograd's expand then sums them over the heads."""
+
+    @staticmethod
+    def forward(ctx, x, cs, B, C):
+        ctx.save_for_backward(x, cs, B, C)
+        return intra_chunk(x, cs, B, C)
+
+    @staticmethod
+    def backward(ctx, dy, dst):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wants = [t for t in ins if t.requires_grad]
+        with torch.enable_grad():
+            outs = ref.ssd_intra_chunk_ref(*ins)
+            pairs = [(o, g) for o, g in zip(outs, (dy, dst)) if g is not None]
+            got = iter(torch.autograd.grad([o for o, _ in pairs],
+                                           wants, [g for _, g in pairs]))
+        return tuple(next(got) if t.requires_grad else None for t in ins)
+
+
+def intra_chunk_autograd(x, cs, B, C):
+    """:func:`intra_chunk`, through :class:`SsdIntraChunk` when an input
+    wants a gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in
+                                       (x, cs, B, C)):
+        return SsdIntraChunk.apply(x, cs, B, C)
+    return intra_chunk(x, cs, B, C)

@@ -18,7 +18,11 @@ def ssd_intra_chunk_ref(x, cs, B, C):
     Q = x.shape[2]
     seg = cs[..., :, None] - cs[..., None, :]          # cs[t] - cs[s]
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    L = torch.where(tri, torch.exp(seg), torch.zeros((), device=x.device))
+    # masked before the exp: above the diagonal cs[t] - cs[s] > 0 grows with
+    # the chunk and overflows exp, and a select after it would still send
+    # 0 · inf = NaN into the gradient (the backward differentiates this)
+    L = torch.exp(torch.where(tri, seg, torch.tensor(float("-inf"),
+                                                     device=x.device)))
     att = torch.einsum("ghtn,ghsn->ghts", C, B) * L
     y = torch.einsum("ghts,ghsp->ghtp", att, x)
     decay_end = torch.exp(cs[..., -1:] - cs)           # (G,H,Q)

@@ -5,6 +5,10 @@
         [--compression int8] [--moments int8] [--ckpt-dir DIR] \
         [--device cpu]
 
+Any arch the port trains (``check_trainable``): the GQA decoders, and
+``phi3.5-moe-42b-a6.6b`` (MoE), ``deepseek-v2-236b`` (MLA + MoE) and
+``mamba2-130m`` (Mamba-2); an MoE model's rows print its ``moe_aux``.
+
 ``--smoke`` is always on, as in the JAX launcher: it trains the
 family-preserving reduction of the arch (``smoke_config``). Without
 ``--ckpt-dir`` the checkpoints go to a temporary directory that is removed
@@ -53,7 +57,8 @@ def main(argv=None) -> None:
 
     def log(step, row):
         if step % max(1, args.steps // 20) == 0:
-            print(f"step {step:5d} loss {row['loss']:.4f} "
+            aux = f" aux {row['moe_aux']:.4f}" if "moe_aux" in row else ""
+            print(f"step {step:5d} loss {row['loss']:.4f}{aux} "
                   f"|g| {row['grad_norm']:.3f} lr {row['lr']:.2e} "
                   f"{row['tokens'] / row['dt']:.0f} tok/s", flush=True)
 

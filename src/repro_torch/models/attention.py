@@ -1,4 +1,4 @@
-"""GQA and MLA projections, prefill attention and the GQA training block
+"""GQA and MLA projections, prefill attention and the training blocks
 (``repro/models/attention.py``).
 
 ``attend`` keeps the contract of the JAX ``attend_chunked`` (causal,
@@ -105,3 +105,43 @@ def mla_queries(cfg: ModelConfig, p, x: torch.Tensor, positions):
     qn, qr = q[..., :m.nope_dim], q[..., m.nope_dim:]
     cos, sin = rope_tables(positions, m.rope_dim, cfg.rope_theta)
     return qn, apply_rope(qr, cos, sin)
+
+
+def mla_qkv(cfg: ModelConfig, p, x: torch.Tensor, positions):
+    """MLA in the expanded form: the latents up-projected to full heads.
+    x (B,S,D) → q (B,S,H,1,nope+rope) (G = 1), k (B,S,H,nope+rope) (k_rope
+    broadcast over the heads), v (B,S,H,v) (a view of the up-projection),
+    and the cache pair c_kv (B,S,kv_lora), k_rope (B,S,1,rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    qn, qr = mla_queries(cfg, p, x, positions)
+    c_kv, k_r = mla_latents(cfg, p, x, positions)
+    kv = (c_kv @ p["wukv"].reshape(m.kv_lora, -1)).view(
+        B, S, H, m.nope_dim + m.v_dim)
+    kn, v = kv[..., :m.nope_dim], kv[..., m.nope_dim:]
+    k = torch.cat([kn, k_r.expand(B, S, H, m.rope_dim).to(kn.dtype)], dim=-1)
+    q = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]
+    return q, k, v, c_kv, k_r
+
+
+def mla_attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
+                  positions) -> torch.Tensor:
+    """The training MLA block with no cache (JAX ``mla_attention``): the
+    expanded heads through :func:`attend` at G = 1, scale (nope +
+    rope)^-0.5, then the out-projection. x (B,S,D) → (B,S,D)."""
+    m = cfg.mla
+    B, S, D = x.shape
+    q, k, v, _, _ = mla_qkv(cfg, p, x, positions)
+    out = attend(q, k, v, scale=(m.nope_dim + m.rope_dim) ** -0.5,
+                 causal=True, window=window, softcap=cfg.attn_softcap)
+    return out.reshape(B, S, -1) @ p["wo"].reshape(-1, D)
+
+
+def attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
+              positions) -> torch.Tensor:
+    """The training attention block of a layer: MLA or GQA (JAX
+    ``attention`` on one device, where the context-parallel branch never
+    applies)."""
+    fn = mla_attention if cfg.mla else gqa_attention
+    return fn(cfg, p, x, window=window, positions=positions)

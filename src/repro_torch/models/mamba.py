@@ -3,7 +3,8 @@
 The sequence is split into chunks; within a chunk the SSD quadratic form is
 the hand-written intra-chunk kernel (``kernels/ssd``), and a Python loop over
 chunks carries the SSM state across them, as JAX's ``lax.scan`` does (linear
-in T, bounded memory). Single-token decode (``mamba2_step``) carries
+in T, bounded memory); the mixer trains through it (``mamba_mixer``).
+Single-token decode (``mamba2_step``) carries
 (conv_state, ssm_state): an O(1)-state decoder. Mamba-1 (selective scan)
 is not ported.
 """
@@ -15,7 +16,6 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import rmsnorm
-from repro_torch.params import ParamSpec
 
 F32 = torch.float32
 
@@ -53,7 +53,9 @@ def ssd_scan(xh, dt_a, Bm, Cm, chunk: int):
 
     xh (B,S,H,P) [dt already folded in], dt_a (B,S,H) [= dt·A, negative],
     Bm/Cm (B,S,N). Returns y (B,S,H,P) and final state (B,H,P,N), f32.
-    The intra-chunk part is ``kernels/ssd/ops.py::intra_chunk``.
+    The intra-chunk part is ``kernels/ssd/ops.py::intra_chunk`` (under
+    autograd :class:`~repro_torch.kernels.ssd.ops.SsdIntraChunk`); the
+    chunk loop builds new tensors only, so the scan trains.
     """
     B, S, H, Pd = xh.shape
     N = Bm.shape[-1]
@@ -75,7 +77,7 @@ def ssd_scan(xh, dt_a, Bm, Cm, chunk: int):
     cs = torch.cumsum(ac, dim=1)                       # (B·nc,Q,H) inclusive
     # intra-chunk (quadratic in Q) on the kernel: heads as the second grid
     # dim, B and C shared by all heads (stride 0)
-    y_diag, states = ssd_ops.intra_chunk(
+    y_diag, states = ssd_ops.intra_chunk_autograd(
         xc.permute(0, 2, 1, 3), cs.permute(0, 2, 1),
         Bc[:, None].expand(-1, H, -1, -1), Cc[:, None].expand(-1, H, -1, -1))
     y_diag = y_diag.permute(0, 2, 1, 3).reshape(B, nc, Q, H, Pd)
@@ -129,6 +131,14 @@ def mamba2_mixer(cfg: ModelConfig, p, x, return_state: bool = False):
     return out, state
 
 
+def mamba_mixer(cfg: ModelConfig, p, x):
+    """The training mixer (``repro/models/mamba.py::mamba_mixer``): Mamba-2,
+    x (B,S,D) → (B,S,D); Mamba-1 is not ported."""
+    if cfg.ssm.version != 2:
+        raise NotImplementedError(f"{cfg.name}: Mamba-1 is not ported")
+    return mamba2_mixer(cfg, p, x)
+
+
 def mamba2_step(cfg: ModelConfig, p, xt, state):
     """Decode step. xt (B,D); state dict with conv_{x,B,C} + ssm (B,H,P,N)
     → (out (B,D), new state)."""
@@ -159,6 +169,7 @@ def mamba2_step(cfg: ModelConfig, p, xt, state):
 def mamba2_state_defs(cfg: ModelConfig, batch: int):
     """Per-slot decode state: conv tails in the parameter dtype, the SSM
     state (batch, H, P, N) in f32."""
+    from repro_torch.params import ParamSpec    # params imports the stack
     s = cfg.ssm
     C = cfg.d_inner
     H, Pd = C // s.head_dim, s.head_dim

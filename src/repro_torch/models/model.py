@@ -12,8 +12,9 @@ from repro_torch.models import transformer
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Mean next-token cross-entropy over the batch's mask, and metrics
-    (``ce``, ``tokens``, ``loss``). Only trainable families
+    """Mean next-token cross-entropy over the batch's mask (plus an MoE
+    model's load-balancing loss), and metrics (``ce``, ``tokens``,
+    ``loss``, and ``moe_aux`` for MoE). Only trainable families
     (:func:`transformer.check_trainable`)."""
     transformer.check_trainable(cfg)
     return transformer.lm_loss(cfg, params, batch)

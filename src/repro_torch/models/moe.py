@@ -8,8 +8,13 @@ renormalized gates, a stable sort by expert, a fixed capacity ``Ce`` per
 expert over EVERY row of the (padded) batch, Switch-style dropping past it.
 
 The expert products (up, gate, down) go through the hand-written grouped
-GEMM (``kernels/grouped_gemm``), one launch per product; the router and the
-shared experts are plain ``torch.matmul``, as XLA computes them in JAX.
+GEMM (``kernels/grouped_gemm``), one launch per product, and under
+autograd through :class:`~repro_torch.kernels.grouped_gemm.ops.GroupedGemm`
+(two more launches a product in the backward); the router and the shared
+experts are plain ``torch.matmul``, as XLA computes them in JAX. The
+dispatch and combine are index writes that autograd differentiates, and
+the routing is a pure function of the block's input, so a layer's
+checkpoint recompute routes every token as its forward did.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
+from repro_torch.kernels.grouped_gemm.ops import grouped_gemm_autograd
 from repro_torch.models.layers import gate_fn, matmul_f32
 
 F32 = torch.float32
@@ -34,9 +39,9 @@ def _route(cfg: ModelConfig, p, xf: torch.Tensor):
 
 def _experts(cfg: ModelConfig, p, buf: torch.Tensor) -> torch.Tensor:
     """buf (E, M, D) → (E, M, D): the gated expert FFN, three grouped GEMMs."""
-    h = grouped_gemm(buf, p["w_up"])
-    h = gate_fn(cfg.act)(grouped_gemm(buf, p["w_gate"])) * h
-    return grouped_gemm(h, p["w_down"])
+    h = grouped_gemm_autograd(buf, p["w_up"])
+    h = gate_fn(cfg.act)(grouped_gemm_autograd(buf, p["w_gate"])) * h
+    return grouped_gemm_autograd(h, p["w_down"])
 
 
 def _shared(cfg: ModelConfig, p, xf: torch.Tensor) -> torch.Tensor:
@@ -111,3 +116,14 @@ def moe_decode(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     if m.n_shared:
         out = out + _shared(cfg, p, x)
     return out
+
+
+def aux_loss_from_stats(cfg: ModelConfig, stats: torch.Tensor) -> torch.Tensor:
+    """The load-balancing loss of router stats (2, E), or (n, 2, E) averaged
+    over n: aux_weight · E · Σ mean_prob · frac, with no gradient through
+    the slot fractions (JAX ``stop_gradient``)."""
+    m = cfg.moe
+    if stats.dim() == 3:
+        stats = stats.mean(0)
+    return m.aux_weight * m.n_experts * torch.sum(stats[0]
+                                                  * stats[1].detach())

@@ -6,7 +6,8 @@ and scans over stacked parameters. The port runs layers in a Python loop
 over an unstacked list; ``layer_schedule`` stays so that a JAX parameter
 tree can be unstacked in layer order (``params.params_from_numpy``). The
 training stack (``block_apply`` … ``lm_loss``) checkpoints every layer, as
-the JAX scan body's ``jax.checkpoint``.
+the JAX scan body's ``jax.checkpoint``, and sums the MoE router stats of
+the layers into the load-balancing loss.
 """
 from __future__ import annotations
 
@@ -16,9 +17,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import gqa_attention
+from repro_torch.models.attention import attention
 from repro_torch.models.layers import (chunked_ce_loss, embed, is_gated,
                                        mlp, rmsnorm)
+from repro_torch.models.mamba import mamba_mixer
+from repro_torch.models.moe import aux_loss_from_stats, moe_block
+
+F32 = torch.float32
 
 
 @dataclass(frozen=True)
@@ -124,68 +129,90 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains decoders whose every layer is GQA attention (full or
-    sliding window: training keeps no cache) with a dense FFN, gated or not,
-    pre-norm or post-norm."""
-    check_params(cfg)
-    if cfg.ssm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM training is not ported")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA training is not ported (its JAX oracle is "
-            "red)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE training waits for a backward of the grouped "
-            "GEMM kernel")
+    """The port trains what it serves: decoders whose every layer is GQA
+    (full or sliding window: training keeps no cache) or MLA attention with
+    a dense FFN, gated or not, or a gated MoE FFN (shared experts, dense
+    first layers), pre- or post-norm; and Mamba-2 stacks. Refused, each by
+    :func:`check_supported`: Mamba-1, hybrids, windowed MLA, MoE with a
+    non-gated FFN, enc-dec and front ends."""
+    check_supported(cfg)
 
 
 # ---------------------------------------------------------------- training
 def block_apply(cfg: ModelConfig, bc: BlockCfg, p, h: torch.Tensor,
-                positions) -> torch.Tensor:
-    """One GQA + dense-FFN block, h (B,S,D) → h': pre-norm, and with
+                positions):
+    """One block, h (B,S,D) → (h', MoE router stats (2, E) f32 or None), in
+    JAX ``block_apply``'s order: pre-norm, the mixer (GQA or MLA attention,
+    or Mamba-2), the FFN (dense or MoE; none after Mamba-2), and with
     ``use_post_norm`` each branch's output normed again (``post1``,
-    ``post2``) before its residual add, as JAX ``block_apply``."""
+    ``post2``) before its residual add."""
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
-    y = gqa_attention(cfg, p["attn"], x, window=bc.window,
+    if bc.mixer == "attn":
+        y = attention(cfg, p["attn"], x, window=bc.window,
                       positions=positions)
+    else:
+        y = mamba_mixer(cfg, p["mamba"], x)
     if cfg.use_post_norm:
         y = rmsnorm(y, p["post1"], cfg.norm_eps)
     h = h + y
-    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-    y = mlp(cfg, p["mlp"], x)
-    if cfg.use_post_norm:
-        y = rmsnorm(y, p["post2"], cfg.norm_eps)
-    return h + y
+    stats = None
+    if bc.ffn != "none":
+        x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+        if bc.ffn == "moe":
+            y, stats = moe_block(cfg, p["moe"], x)
+        else:
+            y = mlp(cfg, p["mlp"], x)
+        if cfg.use_post_norm:
+            y = rmsnorm(y, p["post2"], cfg.norm_eps)
+        h = h + y
+    return h, stats
 
 
-def apply_stack(cfg: ModelConfig, layers, h: torch.Tensor,
-                positions) -> torch.Tensor:
+def apply_stack(cfg: ModelConfig, layers, h: torch.Tensor, positions):
     """Every layer in order, each under activation checkpointing when a
-    gradient is wanted (only the layer inputs stay alive)."""
+    gradient is wanted (only the layer inputs stay alive; the recompute
+    routes as the forward did). → (h, the MoE stats summed over the layers,
+    a dense layer of an MoE model adding zeros, as JAX's scan; None without
+    MoE)."""
+    total = None
     for bc, p in zip(block_cfgs(cfg), layers):
         if torch.is_grad_enabled():
-            h = checkpoint(block_apply, cfg, bc, p, h, positions,
-                           use_reentrant=False)
+            h, stats = checkpoint(block_apply, cfg, bc, p, h, positions,
+                                  use_reentrant=False)
         else:
-            h = block_apply(cfg, bc, p, h, positions)
-    return h
+            h, stats = block_apply(cfg, bc, p, h, positions)
+        if stats is not None:
+            total = stats if total is None else total + stats
+    if total is None and cfg.moe is not None:
+        total = torch.zeros((2, cfg.moe.n_experts), dtype=F32,
+                            device=h.device)
+    return h, total
 
 
-def lm_hidden(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B,S) → final hidden states (B,S,D)."""
+def lm_hidden(cfg: ModelConfig, params, tokens: torch.Tensor):
+    """tokens (B,S) → (final hidden states (B,S,D), summed MoE stats or
+    None)."""
     h = embed(cfg, params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h = apply_stack(cfg, params["layers"], h, positions)
-    return rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    h, stats = apply_stack(cfg, params["layers"], h, positions)
+    return rmsnorm(h, params["final_norm"], cfg.norm_eps), stats
 
 
 def lm_loss(cfg: ModelConfig, params, batch):
     """batch: tokens/targets (B,S) int, mask (B,S) f32 → (loss, metrics)
-    with ``ce``, ``tokens`` and ``loss`` (0-d f32 tensors)."""
-    h = lm_hidden(cfg, params, batch["tokens"])
+    with ``ce``, ``tokens``, ``loss`` and for MoE models ``moe_aux`` (0-d
+    f32 tensors): loss = ce + the load-balancing loss of the stats averaged
+    over the MoE layers (JAX ``lm_loss``)."""
+    h, stats = lm_hidden(cfg, params, batch["tokens"])
     sum_l, sum_c = chunked_ce_loss(cfg, params["embed"], params["unembed"],
                                    h, batch["targets"], batch["mask"])
     ce = sum_l / torch.clamp(sum_c, min=1.0)
-    return ce, {"ce": ce, "tokens": sum_c, "loss": ce}
+    metrics = {"ce": ce, "tokens": sum_c}
+    loss = ce
+    if cfg.moe is not None:
+        n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+        aux = aux_loss_from_stats(cfg, stats / max(n_moe, 1))
+        metrics["moe_aux"] = aux
+        loss = loss + aux
+    metrics["loss"] = loss
+    return loss, metrics

@@ -21,8 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import (attend, gqa_project, mla_latents,
-                                          mla_queries)
+from repro_torch.models.attention import attend, gqa_project, mla_qkv
 from repro_torch.models.layers import embed, logits_fn, mlp, rmsnorm
 from repro_torch.models.mamba import mamba2_mixer
 from repro_torch.models.moe import moe_block
@@ -103,17 +102,11 @@ def mla_prefill(cfg: ModelConfig, p, x, *, positions, seq_len_cache: int):
     parameter dtype."""
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
-    qn, qr = mla_queries(cfg, p, x, positions)
-    c_kv, k_r = mla_latents(cfg, p, x, positions)
-    kv = (c_kv @ p["wukv"].reshape(m.kv_lora, -1)).view(
-        B, S, H, m.nope_dim + m.v_dim)
-    kn, v = kv[..., :m.nope_dim], kv[..., m.nope_dim:]
-    k = torch.cat([kn, k_r.expand(B, S, H, m.rope_dim).to(kn.dtype)], dim=-1)
-    q = torch.cat([qn, qr], dim=-1)[:, :, :, None, :]          # G = 1
+    q, k, v, c_kv, k_r = mla_qkv(cfg, p, x, positions)
     out = attend(q, k, v, scale=(m.nope_dim + m.rope_dim) ** -0.5,
                  causal=True)
-    o = out.reshape(B, S, H * m.v_dim) @ p["wo"].reshape(-1, cfg.d_model)
+    o = out.reshape(B, S, cfg.n_heads * m.v_dim) @ \
+        p["wo"].reshape(-1, cfg.d_model)
     ckv = torch.cat([c_kv, k_r[:, :, 0, :]], dim=-1)
     return o, {"ckv": _pad_to(ckv, seq_len_cache).to(cfg.pdtype)}
 

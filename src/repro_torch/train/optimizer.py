@@ -6,8 +6,9 @@ Moments are f32 whatever the parameter dtype, or int8 ``m`` (absmax per
 last axis) with bf16 ``v``; the update math runs in f32 and is cast back to
 the parameter dtype. Decay applies to leaves with ndim >= 2; eps is added
 outside the square root. Unlike the JAX functions, these update the
-parameters and f32 moments in place (where that keeps the operation
-order), so a step holds a few f32 temporaries of one leaf at a time.
+parameters and moments in place (where that keeps the operation order),
+rows of a leaf at a time, so a step holds a few f32 temporaries of at most
+~``UPDATE_CHUNK`` elements.
 """
 from __future__ import annotations
 
@@ -105,16 +106,45 @@ def clip_by_global_norm(grads, max_norm: float):
     return grads, gn
 
 
+# rows of a leaf that one pass of the update covers: its f32 temporaries
+# (the gradient, both moments, the update) stay near 2^26 elements, 256 MB
+# each, however large the leaf (deepseek-v2's expert stacks: 1.26 G)
+UPDATE_CHUNK = 1 << 26
+
+
+def _rows(st, sl):
+    """The rows ``sl`` of a moment leaf, int8 (q and its row scales) or
+    not: views, so stores into them update the leaf."""
+    if is_quantized(st):
+        return {"q": st["q"][sl], "s": st["s"][sl]}
+    return st[sl]
+
+
+def _store(st, x32) -> None:
+    """Write the f32 moment ``x32`` into its leaf (rows) as encoded: int8
+    with fresh per-row scales, bf16, or nothing for f32 (``x32`` is the
+    leaf, updated in place by :func:`decode_moment`'s caller)."""
+    if is_quantized(st):
+        q = _quantize_moment(x32)
+        st["q"].copy_(q["q"])
+        st["s"].copy_(q["s"])
+    elif st.dtype != F32:
+        st.copy_(x32)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, m, v, step: int, ocfg: OptConfig):
     """One AdamW step; ``step`` is the previous count (0-based). Updates
-    ``params`` and f32 moments in place. → (params, m, v, lr)."""
+    ``params`` and the moments in place, a leaf's rows (dim 0) at a time in
+    passes of at most ~``UPDATE_CHUNK`` elements (the update is elementwise
+    and int8 scales are per row, so the passes change no value).
+    → (params, m, v, lr)."""
     lr = schedule(ocfg, step)
     t = step + 1
     bc1 = 1 - ocfg.b1 ** t
     bc2 = 1 - ocfg.b2 ** t
 
-    def upd(p, g, m_st, v_st):
+    def upd(p, g, m_st, v_st, decay: bool):
         g32 = g.to(F32)
         m_n = decode_moment(m_st).mul_(ocfg.b1).add_(g32, alpha=1 - ocfg.b1)
         v_n = decode_moment(v_st).mul_(ocfg.b2).add_(
@@ -123,20 +153,21 @@ def adamw_update(params, grads, m, v, step: int, ocfg: OptConfig):
         denom = torch.div(v_n, bc2).sqrt_().add_(ocfg.eps)
         u = torch.div(m_n, bc1).div_(denom)
         del denom
-        if p.dim() >= 2:                 # decoupled decay on matrices only
+        if decay:                        # decoupled decay on matrices only
             u.add_(p.to(F32) * ocfg.weight_decay)
         if p.dtype == F32:
             p.sub_(u.mul_(lr))
         else:
             p.copy_(p.to(F32).sub_(u.mul_(lr)))
-        return encode_moment(m_n, p, ocfg, "m"), encode_moment(v_n, p, ocfg,
-                                                               "v")
+        _store(m_st, m_n)
+        _store(v_st, v_n)
 
     flat_m = tree_leaves(m, is_leaf=is_quantized)
     flat_v = tree_leaves(v, is_leaf=is_quantized)
-    out = [upd(p, g, m_, v_) for p, g, m_, v_ in
-           zip(tree_leaves(params), tree_leaves(grads), flat_m, flat_v)]
-    it_m, it_v = iter(o[0] for o in out), iter(o[1] for o in out)
-    new_m = tree_map(lambda _: next(it_m), m, is_leaf=is_quantized)
-    new_v = tree_map(lambda _: next(it_v), v, is_leaf=is_quantized)
-    return params, new_m, new_v, lr
+    for p, g, m_, v_ in zip(tree_leaves(params), tree_leaves(grads), flat_m,
+                            flat_v):
+        rows = max(1, UPDATE_CHUNK // p[0].numel())
+        for r0 in range(0, p.shape[0], rows):
+            sl = slice(r0, r0 + rows)
+            upd(p[sl], g[sl], _rows(m_, sl), _rows(v_, sl), p.dim() >= 2)
+    return params, m, v, lr

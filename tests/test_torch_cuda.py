@@ -1210,16 +1210,23 @@ def test_attend_autograd_on_card_matches_plain_autograd(dev, dtype):
         assert a.dtype == dtype and _rel(a, b) < TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_train_step_on_card_matches_host(dev, dtype):
-    """One smoke-config train step on the card (the lse forward twice per
-    layer: the step and its remat recompute; the backward once) against the
-    same step on the host (plain versions). f32: loss to 1e-5 relative,
-    params to 2.5·lr at most and 1e-6 in the median; bf16: the loss to the
-    bf16 logits tolerance."""
+@pytest.mark.parametrize("arch,dtype", [
+    ("mistral-nemo-12b", "float32"), ("mistral-nemo-12b", "bfloat16"),
+    ("phi3.5-moe-42b-a6.6b", "float32"), ("deepseek-v2-236b", "float32"),
+    ("mamba2-130m", "float32")])
+def test_train_step_on_card_matches_host(dev, arch, dtype):
+    """One smoke-config train step on the card against the same step on the
+    host (plain versions). Launches: the lse forward twice per attention
+    layer (the step and its remat recompute) and the backward once; the
+    grouped GEMM 12 times per MoE layer (3 products, each in the forward,
+    the recompute and twice in the backward); the SSD kernel twice per
+    Mamba-2 layer (its backward runs the plain version). f32: loss to 1e-5
+    relative, params to 2.5·lr at most and 1e-6 in the median; bf16: the
+    loss to the bf16 logits tolerance."""
+    from repro_torch.models.transformer import block_cfgs
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import make_state, make_train_step
-    cfg = dataclasses.replace(smoke_config(get_config("mistral-nemo-12b")),
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
                               param_dtype=dtype)
     params = init_params(cfg, seed=0, device="cpu")
     toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab,
@@ -1227,19 +1234,26 @@ def test_train_step_on_card_matches_host(dev, dtype):
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
              "mask": torch.ones((4, 64))}
     ocfg = OptConfig(lr=1e-3, warmup_steps=0)
+    counts = ((flash_ops, "lse_launches"), (flash_ops, "bwd_launches"),
+              (gg_ops, "launches"), (ssd_ops, "launches"))
     out = {}
     for device in ("cpu", dev):
         state = make_state(tree_map(lambda x: x.to(device, copy=True), params),
                            ocfg)
-        n = (flash_ops.lse_launches, flash_ops.bwd_launches)
+        n = [getattr(mod, name) for mod, name in counts]
         state, m = make_train_step(cfg, ocfg)(
             state, {k: x.to(device) for k, x in batch.items()})
-        launched = (flash_ops.lse_launches - n[0],
-                    flash_ops.bwd_launches - n[1])
+        launched = tuple(getattr(mod, name) - n0
+                         for (mod, name), n0 in zip(counts, n))
         out[str(device)] = (float(m["loss"]), tree_leaves(state["params"]),
                             launched)
     (l_h, p_h, n_h), (l_d, p_d, n_d) = out["cpu"], out[str(dev)]
-    assert n_h == (0, 0) and n_d == (2 * cfg.n_layers, cfg.n_layers)
+    bcs = block_cfgs(cfg)
+    attn = sum(bc.mixer == "attn" for bc in bcs)
+    moe = sum(bc.ffn == "moe" for bc in bcs)
+    ssm = sum(bc.mixer == "mamba" for bc in bcs)
+    assert n_h == (0, 0, 0, 0)
+    assert n_d == (2 * attn, attn, 12 * moe, 2 * ssm)
     if dtype == "float32":
         assert abs(l_d - l_h) <= 1e-5 * l_h
         diff = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
@@ -1248,6 +1262,65 @@ def test_train_step_on_card_matches_host(dev, dtype):
         assert float(diff.median()) < 1e-6
     else:
         assert abs(l_d - l_h) <= 3e-2 * l_h
+
+
+# ------------------------------------------- backwards of the training path
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,K,N", [(4, 13, 64, 48), (3, 100, 256, 128),
+                                     (2, 40, 128, 64)])
+def test_grouped_gemm_backward_matches_plain(dev, dtype, E, M, K, N):
+    """``GroupedGemm``: dA = dC·Wᵀ and dW = Aᵀ·dC on the kernel, one launch
+    a product (dW's sum over M padded with zero rows to a multiple of 8 in
+    bf16: M 13 and 100), against autograd through the plain version."""
+    g = torch.Generator(device=dev).manual_seed(M)
+    a = torch.randn((E, M, K), generator=g, device=dev).to(dtype)
+    w = (torch.randn((E, K, N), generator=g, device=dev) * K ** -0.5).to(dtype)
+    dc = torch.randn((E, M, N), generator=g, device=dev).to(dtype)
+    a1, w1 = a.clone().requires_grad_(), w.clone().requires_grad_()
+    n0 = gg_ops.launches
+    out = gg_ops.GroupedGemm.apply(a1, w1)
+    assert gg_ops.launches == n0 + 1
+    da, dw = torch.autograd.grad(out, (a1, w1), dc)
+    assert gg_ops.launches == n0 + 3
+    a2, w2 = a.clone().requires_grad_(), w.clone().requires_grad_()
+    want = torch.autograd.grad(gg_ref.grouped_gemm_ref(a2, w2), (a2, w2), dc)
+    for got, ref in zip((da, dw), want):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert _rel(got, ref) < TOL[dtype]
+    n0 = gg_ops.launches
+    da_only, = torch.autograd.grad(gg_ops.GroupedGemm.apply(a1, w), a1, dc)
+    assert gg_ops.launches == n0 + 2 and torch.equal(da_only, da)
+
+
+@pytest.mark.parametrize("P,N,route", [(64, 128, "mma"), (16, 32, "mma"),
+                                       (72, 40, "f32")])
+def test_ssd_intra_chunk_grads_on_card(dev, P, N, route):
+    """``SsdIntraChunk``: the forward launches the kernel once (y and st as
+    the plain version's), the backward (the plain version recomputed) gives
+    autograd's gradients through the plain version, B and C shared by the
+    heads with stride 0 (their gradients summed over the heads)."""
+    G, H, Q = 3, 4, 64
+    x, cs, B, C = _ssd_case(dev, G, H, Q, P, N, seed=P)
+    leaves = [t.detach().requires_grad_() for t in (x, cs, B[:, :1], C[:, :1])]
+
+    def args():
+        return (*leaves[:2], *(t.expand(G, H, Q, N) for t in leaves[2:]))
+
+    xa, _, ba, ca = args()
+    assert ssd_ops.route_of(xa, ba, ca) == route
+    n0 = ssd_ops.launches
+    y, st = ssd_ops.intra_chunk_autograd(*args())
+    assert ssd_ops.launches == n0 + 1
+    g = torch.Generator(device=dev).manual_seed(1)
+    dy = torch.randn(y.shape, generator=g, device=dev)
+    dst = torch.randn(st.shape, generator=g, device=dev)
+    got = torch.autograd.grad((y, st), leaves, (dy, dst))
+    assert ssd_ops.launches == n0 + 1
+    yr, str_ = ssd_ref.ssd_intra_chunk_ref(*args())
+    assert _rel(y, yr) < 1e-4 and _rel(st, str_) < 1e-4
+    want = torch.autograd.grad((yr, str_), leaves, (dy, dst))
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel(a, b) < 1e-5
 
 
 # ------------------------------------- CUDA-core paged GQA above dh 128

@@ -42,7 +42,8 @@ def test_engine_import_pulls_in_no_jax():
     code = ("import sys, repro_torch.serve.engine, repro_torch.params, "
             "repro_torch.train.loop, repro_torch.launch.train, "
             "repro_torch.serve.multi_engine, repro_torch.serve.faults, "
-            "repro_torch.launch.serve, repro_torch.models.draft; "
+            "repro_torch.launch.serve, repro_torch.models.draft, "
+            "repro_torch.examples.train_lm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -197,7 +197,7 @@ def test_sliding_window_ring_equivalence(ctx, dtype):
                                        rtol=ATOL, atol=ATOL)
         else:
             assert _rel(logits.numpy(), jlogits) < REL
-    h = lm_hidden(tcfg, tp, torch.from_numpy(toks))
+    h, _ = lm_hidden(tcfg, tp, torch.from_numpy(toks))
     ref = logits_fn(tcfg, tp["embed"], tp["unembed"], h[:, -1])
     assert _rel(logits.numpy(), ref.detach().numpy()) < REL
 

@@ -178,18 +178,32 @@ def test_microbatches_accumulate_the_same_update():
 
 
 def test_check_trainable_refuses_what_is_not_ported():
+    """The port trains every family it serves (GQA, MLA, gated MoE with
+    shared experts and dense first layers, Mamba-2); it refuses, each with
+    its own message, Mamba-1, hybrids, sliding-window MLA, MoE with a
+    non-gated FFN, enc-dec and front ends."""
     _, tcfg = _cfgs("float32")
     ttr.check_trainable(dataclasses.replace(tcfg, sliding_window=16))
-    for arch, msg in (("deepseek-v2-236b", "MLA"),
-                      ("phi3.5-moe-42b-a6.6b", "grouped"),
-                      ("mamba2-130m", "SSM")):
+    for arch in ("deepseek-v2-236b", "phi3.5-moe-42b-a6.6b", "mamba2-130m"):
         cfg = tconfigs.smoke_config(tconfigs.get_config(arch))
+        ttr.check_trainable(cfg)
+        make_train_step(cfg, OptConfig())
+    ssm = tconfigs.smoke_config(tconfigs.get_config("mamba2-130m"))
+    mla = tconfigs.smoke_config(tconfigs.get_config("deepseek-v2-236b"))
+    moe = tconfigs.smoke_config(tconfigs.get_config("phi3.5-moe-42b-a6.6b"))
+    for cfg, msg in (
+            (dataclasses.replace(ssm, ssm=dataclasses.replace(
+                ssm.ssm, version=1)), "Mamba-1"),
+            (dataclasses.replace(ssm, family="hybrid", ssm=dataclasses.replace(
+                ssm.ssm, attn_period=2)), "hybrid"),
+            (dataclasses.replace(mla, sliding_window=16), "sliding-window MLA"),
+            (dataclasses.replace(moe, act="relu2"), "MoE with a non-gated"),
+            (dataclasses.replace(tcfg, enc_dec=True), "enc-dec"),
+            (dataclasses.replace(tcfg, frontend="vision"), "front-end")):
         with pytest.raises(NotImplementedError, match=msg):
             ttr.check_trainable(cfg)
         with pytest.raises(NotImplementedError, match=msg):
             make_train_step(cfg, OptConfig())
-    with pytest.raises(NotImplementedError):
-        ttr.check_trainable(dataclasses.replace(tcfg, frontend="vision"))
 
 
 # ------------------------------------------------------- optimizer pieces
@@ -208,6 +222,32 @@ def test_adamw_matches_reference():
     want = w - lr * (upd + ocfg.weight_decay * w)
     np.testing.assert_allclose(new_p["w"].numpy(), want, rtol=1e-5,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("moments", ["float32", "int8"])
+def test_adamw_rows_at_a_time_equal_one_pass(monkeypatch, moments):
+    """The update in passes of a few rows (``UPDATE_CHUNK``) gives the
+    params and moments of one pass over each leaf, bit for bit: the update
+    is elementwise and the int8 scales are per row."""
+    from repro_torch.train import optimizer
+    ocfg = OptConfig(lr=1e-2, warmup_steps=0, moments_dtype=moments)
+    g = torch.Generator().manual_seed(0)
+    shapes = {"w": (6, 5, 160), "b": (37,), "e": (7, 700)}
+    outs = []
+    for chunk in (1 << 26, 700):
+        monkeypatch.setattr(optimizer, "UPDATE_CHUNK", chunk)
+        g.manual_seed(0)
+        p = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+        mom = init_moments(p, ocfg)
+        for step in range(3):
+            grads = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+            p, m, v, _ = adamw_update(p, grads, mom["m"], mom["v"], step,
+                                      ocfg)
+            mom = {"m": m, "v": v}
+        outs.append(tree_leaves((p, mom)))
+    assert optimizer.is_quantized(mom["m"]["e"]) == (moments == "int8")
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def test_schedule_warmup_cosine():
