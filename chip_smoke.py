@@ -16,11 +16,14 @@
    shapes (paged GQA decode at mistral's dh 128 and gemma2-2b's dh 256 with
    softcap 50, the latter also in f32 on the CUDA cores, paged MLA decode, flash prefill at GQA and MLA head dims, at
    gemma2-2b's dh 256 (window 4096, softcap 50) and h2o-danube-1.8b's dh
-   80, the grouped expert GEMM in bf16 and f32, the tiled GEMM on the hbb
+   80, the grouped expert GEMM in bf16 and f32 (and at jamba-v0.1-52b's
+   expert shapes in bf16), the tiled GEMM on the hbb
    path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16 at
    each shape's plan, with the Table 2 sweep of bn, the SSD intra-chunk at
-   mamba2-130m's shapes; the flash forward and the bf16 grouped GEMM also
-   bit-equal over two calls; attention outputs row by row against the
+   mamba2-130m's shapes, the Mamba-1 selective scan at jamba's prefill
+   shapes (B 1 and 8, S 2000, C 8192, N 16, a nonzero h0); the flash
+   forward, the bf16 grouped GEMM, the SSD kernel and the selective scan
+   also bit-equal over two calls; attention outputs row by row against the
    largest value of the row, a softcap with queries scaled so that the
    scores pass it and the kernel without it shown to miss), and times
    kernel, plain version and the
@@ -91,7 +94,15 @@
    decode check and the verify/commit check (paged MLA, MoE) with depth
    cut to 2 layers; and for mamba2-130m at its published width and depth
    (exact-length prefill through the SSD kernel, per-slot state), with
-   the f32 checks at full depth (the verify's staged states).
+   the f32 checks at full depth (the verify's staged states); and for
+   jamba-v0.1-52b (Mamba-1 + attention + MoE) at full width with depth
+   cut to 8 layers (one whole period: 7 Mamba-1 layers, attention at slot
+   4, MoE on the odd slots), the mistral workload through the paged
+   engine (graphs twice, eager once, no kernel's plain version called on
+   the card, both grouped-GEMM paths launched, the longest prompt's
+   prefill group and a quantum profiled) and once through the dense
+   engine (its streams reported beside the paged engine's), with the f32
+   prefill → decode check at depth 8 through both layouts.
 6. nemotron-4-15b (non-gated squared-ReLU FFN, paged engine, the mistral
    workload), gemma2-2b (paged engine at max_len 8192: 13 global layers in
    the pool, 13 window-4096 rings, post-norm, softcaps; 8 prompts of
@@ -511,13 +522,15 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
 def paged_phase(dev) -> dict:
     """mistral-nemo-12b's decode shape: Hkv=8, G=4, dh=128, a 4096-key
     table; checked at softcap 0 and 30 (scores to ~±100) and at the spec
-    path's verify rows (B·K = 40), timed at 0. Its launches are mistral's
-    and nemotron-4-15b's (dh 128)."""
+    path's verify rows (B·K = 40), timed at 0. Its launches are mistral's,
+    nemotron-4-15b's and jamba-v0.1-52b's (dh 128; jamba's one attention
+    layer of 8 has the same Hkv, G and dh)."""
     return paged_gqa_entry(dev, name="paged_attention_gqa", hkv=8, grp=4,
                            dh=128, max_len=4096, caps=((0.0, 1), (30.0, 25)),
                            cap=0.0, pos_head=[4095, 0, 15, 16],
                            paths=["mistral-nemo-12b", "nemotron-4-15b",
-                                  "pool", "spec"], verify=True)
+                                  "pool", "spec", "jamba-v0.1-52b"],
+                           verify=True)
 
 
 def paged256_phase(dev) -> dict:
@@ -622,7 +635,7 @@ def flash_phase(dev) -> dict:
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:92",
             "paths": ["mistral-nemo-12b", "deepseek-v2-236b",
-                      "nemotron-4-15b", "pool", "spec"],
+                      "nemotron-4-15b", "pool", "spec", "jamba-v0.1-52b"],
             "max_abs_err": err, "tol": ROW_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "mla": mla,
@@ -1168,10 +1181,12 @@ def gg_phase(dev) -> dict:
     return {"name": "grouped_gemm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
             "replaces": "src/repro/kernels/grouped_gemm/grouped_gemm.py:34",
-            "paths": ["deepseek-v2-236b", "train-moe", "train-mla"],
+            "paths": ["deepseek-v2-236b", "train-moe", "train-mla",
+                      "jamba-v0.1-52b"],
             "max_abs_err": err, "tol": BF16_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "decode": decode, "backward": gg_backward(dev),
+            "jamba": gg_jamba(dev),
             "check": "relative max error against grouped_gemm_ref, bf16 "
                      "(tol 3e-2; two calls bit-equal) and f32 (tol 1e-4): "
                      "(160,384,5120)x(160,5120,1536), (160,384,1536)x"
@@ -1179,7 +1194,67 @@ def gg_phase(dev) -> dict:
                      "M=100; times (library: torch.bmm) at the first shape "
                      "(decode: decode up); backward: dA and dW through "
                      "GroupedGemm at phi3.5-moe's and deepseek-v2's "
-                     "training shapes, bf16 and f32, one launch a product"}
+                     "training shapes, bf16 and f32, one launch a product; "
+                     "jamba: jamba-v0.1-52b's expert products (bf16, tol "
+                     "3e-2), prefill at a 2000-token row's capacity and "
+                     "decode at 8 slots"}
+
+
+# jamba-v0.1-52b's expert products: 16 experts, d 4096, expert hidden 14336;
+# a 2000-token exact-length prefill row routes top-2 with capacity factor
+# 1.25, so Ce = ceil(2000 * 2 * 1.25 / 16) = 313 rows an expert; decode runs
+# every expert on the 8 slots' tokens (moe_decode), a stride-0 broadcast
+GG_JAMBA_SHAPES = (("prefill up", 313, 4096, 14336, False),
+                   ("prefill down", 313, 14336, 4096, False),
+                   ("decode up", 8, 4096, 14336, True),
+                   ("decode down", 8, 14336, 4096, False))
+
+
+def gg_jamba(dev) -> list[dict]:
+    """The grouped GEMM at GG_JAMBA_SHAPES in bf16: relative max error
+    against the plain version (tol 3e-2), the route it takes, one launch a
+    call; event ms of kernel, plain version and torch.bmm beside the
+    bound."""
+    from repro_torch.kernels.grouped_gemm import ops, ref
+    E, out = 16, []
+    for name, M, K, N, bcast in GG_JAMBA_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(M + K)
+        if bcast:
+            a = torch.randn((M, K), generator=g, device=dev).to(
+                torch.bfloat16).unsqueeze(0).expand(E, M, K)
+        else:
+            a = torch.randn((E, M, K), generator=g, device=dev).to(
+                torch.bfloat16)
+        w = (torch.randn((E, K, N), generator=g, device=dev) * K ** -0.5).to(
+            torch.bfloat16)
+        n0 = ops.launches
+        got = ops.grouped_gemm(a, w)
+        one = ops.launches == n0 + 1
+        want = ref.grouped_gemm_ref(a, w)
+        e = float((got.float() - want.float()).abs().max()
+                  / want.float().abs().max())
+        route = ops.route(torch.bfloat16, M)
+        check(e <= BF16_TOL and one and route == name.split()[0],
+              f"grouped GEMM ({route}) jamba {name} ({E}, {M}, {K}) x ({E}, "
+              f"{K}, {N}) bf16: relative max error {e:.3g} (tol "
+              f"{BF16_TOL}), one launch {one}")
+        del got, want
+        n_bytes = ((M * K if bcast else E * M * K) + E * K * N + E * M * N) * 2
+        n_ops = 2 * E * M * K * N
+        b_ms, b_by = bound_ms(n_bytes, n_ops, torch.bfloat16)
+        ms = time_ms(lambda: ops.grouped_gemm(a, w), 10)
+        plain = time_ms(lambda: ref.grouped_gemm_ref(a, w), 2, 1)
+        lib = time_ms(lambda: torch.bmm(a, w), 10)
+        print(f"grouped GEMM jamba {name} E={E} M={M} K={K} N={N} bf16 "
+              f"({route}): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"torch.bmm {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{n_bytes / ms / 1e6:.1f} GB/s")
+        out.append({"shape": f"{name} ({E}, {M}, {K}) x ({E}, {K}, {N})",
+                    "route": route, "rel_err": e, "ms": ms, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
+        del a, w
+        torch.cuda.empty_cache()
+    return out
 
 
 # The expert products' shapes in training (the up projection), at 4 x 2048
@@ -1503,6 +1578,94 @@ def ssd_phase(dev) -> dict:
                      "no single PyTorch call computes it"}
 
 
+# ------------------------------------------------- Mamba-1 selective scan
+# jamba-v0.1-52b's prefill scan (B rows, S steps, C = d_inner, N = d_state):
+# one exact-length row of the workload's longest prompt, and eight
+SCAN_SHAPES = ((1, 2000, 8192, 16), (8, 2000, 8192, 16))
+
+
+def scan_work(B: int, S: int, C: int, N: int) -> dict:
+    """What one call must move and compute: x, dt and y at 4 B per (t, c),
+    Bm and Cm at 4 B per (t, n), A, h0 and h_last once; per (t, c, n) dt·A,
+    its exp, the decay's FMA, (dt·x)·B and y's FMA (7 f32 operations), per
+    (t, c) dt·x."""
+    return {"bytes": 4 * (3 * B * S * C + 2 * B * S * N + C * N
+                          + 2 * B * C * N),
+            "ops": B * S * C * (7 * N + 1)}
+
+
+def selective_scan_phase(dev) -> dict:
+    """The Mamba-1 selective scan at SCAN_SHAPES (x, Bm, Cm and a nonzero
+    h0 unit normal, dt a softplus, A = -exp of N(0, 1/4)): y and h_last
+    each within 1e-4 of the plain version's largest value (f32: the kernel
+    walks the steps in order, the plain version combines them by a
+    log-step scan within JAX's chunks of 256), two calls bit-equal, one
+    launch a call; event ms of kernel and plain version beside the bound
+    (bytes at 3.35 TB/s, operations at the f32 rate). No PyTorch call
+    computes a selective scan: library none."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.selective_scan import ops, ref
+    regs = _build.ptxas_stats("selective_scan")
+    check(len(regs) == 8 and all(
+        r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+        for r in regs.values()), f"selective_scan: 8 instances (N = 8..64), "
+          f"no spills (ptxas {regs})")
+    err, shapes = 0.0, []
+    for B, S, C, N in SCAN_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(B)
+
+        def t(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        x = t(B, S, C)
+        dt = F.softplus(t(B, S, C) - 1.0)
+        A = -torch.exp(0.5 * t(C, N))
+        args = (x, dt, A, t(B, S, N), t(B, S, N), t(B, C, N))
+        n0 = ops.launches
+        y, h = ops.selective_scan(*args, 256)
+        one = ops.launches == n0 + 1
+        y2, h2 = ops.selective_scan(*args, 256)
+        same = torch.equal(y, y2) and torch.equal(h, h2)
+        yr, hr = ref.selective_scan_ref(*args, 256)
+        e_abs = max(float((y - yr).abs().max()), float((h - hr).abs().max()))
+        e = max(float((y - yr).abs().max() / yr.abs().max()),
+                float((h - hr).abs().max() / hr.abs().max()))
+        err = max(err, e_abs)
+        check(e <= 1e-4 and same and one, f"selective scan B={B} S={S} "
+              f"C={C} N={N}: relative max error of y and h_last {e:.3g} (tol"
+              f" 1e-4), two calls bit-equal {same}, one launch {one}")
+        del y, h, y2, h2, yr, hr
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: ops.selective_scan(*args, 256), 10)
+        plain = time_ms(lambda: ref.selective_scan_ref(*args, 256), 2, 1)
+        w = scan_work(B, S, C, N)
+        b_ms, b_by = bound_ms(w["bytes"], w["ops"], torch.float32)
+        print(f"selective scan B={B} S={S} C={C} N={N}: kernel {ms:.4f} ms "
+              f"({w['bytes'] / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by}: {w['bytes'] / 1e6:.1f} MB, "
+              f"{w['ops'] / 1e9:.2f} GFLOP f32), library none")
+        shapes.append({"B": B, "S": S, "C": C, "N": N, "ms": ms,
+                       "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                       "max_abs_err": e_abs, "rel_err": e, "bit_equal": same})
+        del x, dt, A, args
+        torch.cuda.empty_cache()
+    main = shapes[0]
+    return {"name": "selective_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+            "replaces": "src/repro/models/mamba.py:295 (no TPU kernel: "
+                        "mamba1_mixer's associative_scan in XLA)",
+            "paths": ["jamba-v0.1-52b"],
+            "max_abs_err": err, "tol": 1e-4, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "scan": shapes,
+            "check": "y and h_last against selective_scan_ref, f32, each "
+                     "within 1e-4 of the reference's largest value, nonzero "
+                     "h0, B=1 and B=8 at S=2000 C=8192 N=16; two calls "
+                     "bit-equal; ms is B=1's event time; library: none, no "
+                     "PyTorch call computes a selective scan"}
+
+
 # ----------------------------------------------------- the paper's Fig. 5
 def hbb_phase(dev, entries) -> None:
     """HBB ``parallel_for`` over the rows of C = A @ B (f32): the card's
@@ -1565,6 +1728,7 @@ def _counters() -> dict:
     from repro_torch.kernels.gemm import ops as gemm_ops
     from repro_torch.kernels.grouped_gemm import ops as gg_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.ssd import ops as ssd_ops
     return {"paged_attention_gqa": (paged_ops, "launches"),
             "flash_attention_fwd": (flash_ops, "launches"),
@@ -1573,7 +1737,8 @@ def _counters() -> dict:
             "paged_attention_mla": (paged_ops, "mla_launches"),
             "grouped_gemm": (gg_ops, "launches"),
             "gemm": (gemm_ops, "launches"),
-            "ssd_intra_chunk": (ssd_ops, "launches")}
+            "ssd_intra_chunk": (ssd_ops, "launches"),
+            "selective_scan": (scan_ops, "launches")}
 
 
 def serve_run(eng, cfg, lens, prompts, max_new: int):
@@ -2439,6 +2604,133 @@ def mamba_phase(dev, entries) -> None:
     torch.cuda.empty_cache()
 
 
+@contextmanager
+def plain_calls():
+    """Counts of the calls of every kernel's plain version (each function
+    ``*_ref`` of the kernels' ``ref.py`` modules, which the wrappers call)
+    that were given a tensor on the card, by name, over the block."""
+    import importlib
+    calls: Counter = Counter()
+    saved = []
+    for kernel in ("flash_attention", "gemm", "grouped_gemm",
+                   "paged_attention", "selective_scan", "ssd"):
+        mod = importlib.import_module(f"repro_torch.kernels.{kernel}.ref")
+        for name in [n for n in vars(mod) if n.endswith("_ref")]:
+            fn = getattr(mod, name)
+
+            def counted(*a, _fn=fn, _name=f"{kernel}.{name}", **kw):
+                if any(isinstance(x, torch.Tensor) and x.is_cuda
+                       for x in (*a, *kw.values())):
+                    calls[_name] += 1
+                return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+JAMBA_DEPTH = 8
+
+
+def jamba_phase(dev, entries) -> None:
+    """jamba-v0.1-52b at its published width (d 4096, 32 heads over 8 of
+    128 without RoPE, Mamba-1 with d_inner 8192, N 16, conv 4 and dt rank
+    256, 16 experts top-2 of 14336 on the odd layers and dense SwiGLU FFNs
+    of 14336 on the even ones, vocab 65536), depth cut to 8 layers: one
+    whole period of its schedule (7 Mamba-1 layers, attention at slot 4),
+    13.30 B params. Exact-length prefill groups run the selective scan,
+    the flash forward and the grouped GEMM's prefill path; decode runs
+    paged GQA on the attention layer, the grouped GEMM's decode path and
+    the Mamba-1 step in plain torch, each quantum one CUDA graph. The mistral
+    workload through the paged engine twice with graphs (no plain version
+    called on the card), profiled (the longest prompt's prefill group and
+    a quantum), once eagerly (the same streams; both grouped-GEMM paths
+    launched) and once through the dense engine (streams reported beside
+    the paged engine's); then at f32 (capacity factor raised so no token
+    is dropped), prefill(S) + decode ≡ prefill(S + 1) through the paged and
+    the dense layout."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grouped_gemm import ops as gg_ops
+    from repro_torch.serve.engine import Engine
+
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"),
+                              n_layers=JAMBA_DEPTH)
+    params = _make_params(cfg, dev)
+    kw = dict(max_slots=8, max_len=4096, page_size=16, decode_quantum=8)
+    eng = Engine(cfg, params, device=dev, **kw)
+    eng.tracker.f = lambda: PINNED_F
+    check(not eng.pad_safe and eng.kinds == ["dense"] * 4 + ["paged"]
+          + ["dense"] * 3, f"{cfg.name}: exact-length prefill (pad_safe "
+          f"{eng.pad_safe}); the attention layer paged, the Mamba-1 layers' "
+          f"state per slot ({eng.kinds})")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 2001, 12)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    with plain_calls() as plain:
+        streams = serve_twice(eng, cfg, lens, prompts, 32,
+                              ["flash_attention_fwd", "paged_attention_gqa",
+                               "grouped_gemm", "selective_scan"], entries)
+    check(not plain, f"{cfg.name}: no plain version ran on the card in the "
+          f"two graph runs ({dict(plain)})")
+    prefill_profile(cfg, params, prompts[int(np.argmax(lens))], dev,
+                    "selective_scan")
+    profile_phase(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    before = dict(gg_ops.route_launches)
+    with plain_calls() as plain:
+        serve_eager(cfg, params, dev, lens, prompts, 32, streams,
+                    pinned_f=PINNED_F, **kw)
+    routes = {r: n - before[r] for r, n in gg_ops.route_launches.items()}
+    check(routes["prefill"] > 0 and routes["decode"] > 0 and
+          routes["f32"] == 0 and not plain, f"{cfg.name} (eager): the "
+          f"grouped GEMM's prefill and decode paths both launched "
+          f"({routes}), no plain version on the card ({dict(plain)})")
+    dense = Engine(cfg, params, device=dev, paged=False, **kw)
+    dense.tracker.f = lambda: PINNED_F
+    reqs, _ = serve_run(dense, cfg, lens, prompts, 32)
+    check(all(r.done and len(r.out) == 32 for r in reqs) and
+          all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          f"{cfg.name} (dense engine): every request finished with 32 "
+          "in-vocabulary tokens")
+    diverge = [next((i for i, (a, b) in enumerate(zip(r.out, s))
+                     if a != b), None) for r, s in zip(reqs, streams)]
+    same = sum(d is None for d in diverge)
+    print("report " + json.dumps({
+        "report": f"{cfg.name} dense engine against the paged engine, bf16",
+        "streams_equal": same, "streams": len(reqs),
+        "first_divergence": diverge,
+        "why": "the dense engine's attention layer decodes in plain torch "
+               "(f32 einsum over dense rows) and the paged engine's "
+               "through the paged GQA kernel (bf16 products, f32 sums): "
+               "their logits differ by rounding, and a near-tied argmax of "
+               "random weights can flip",
+        "card": CARD}))
+    del dense, reqs, params
+    torch.cuda.empty_cache()
+    m = cfg.moe
+    cf = m.n_experts / m.top_k
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                moe=dataclasses.replace(m,
+                                                        capacity_factor=cf))
+    print(f"f32 check: capacity_factor raised from {m.capacity_factor} to "
+          f"{cf:.4g} so that no token is dropped at prefill (Ce >= tokens); "
+          "decode never drops")
+    params32 = _make_params(cfg32, dev)
+    for paged in (True, False):
+        rel = prefill_decode_rel(cfg32, params32, dev, paged=paged)
+        check(rel < 1e-3, f"{cfg.name} full width f32, depth "
+              f"{JAMBA_DEPTH} ({'paged' if paged else 'dense'} layout): "
+              f"prefill(S) + decode ≡ prefill(S+1), relative max error "
+              f"{rel:.3g} (tol 1e-3)")
+    del params32
+    torch.cuda.empty_cache()
+
+
 def device_time(prof):
     """Device kernels of a profile, its lead-in left out: (busy µs as the
     union of their intervals, kernel count, {name: [µs, count]}). Counts
@@ -2528,14 +2820,21 @@ def profile_phase(eng, cfg, max_new: int = 64, drain: bool = True) -> dict:
     return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "kernels": n}
 
 
-def prefill_profile(cfg, params, prompt, dev) -> dict:
+# kernel of a prefill profile → the substring of its device kernels' names
+PREFILL_KERNELS = {"ssd_intra_chunk": "ssd_",
+                   "selective_scan": "selective_scan"}
+
+
+def prefill_profile(cfg, params, prompt, dev,
+                    kernel: str = "ssd_intra_chunk") -> dict:
     """One exact-length prefill group under torch.profiler: the engine's
     call for a group of one prompt (prompt_len, page_size 16), after one
-    unprofiled run of it. Prints its wall time, the device busy share, the
-    SSD kernel's device ms and launches (one a Mamba-2 layer) and the
-    kernels by device time."""
-    from repro_torch.kernels.ssd import ops as ssd_ops
+    unprofiled run of it. Prints its wall time, the device busy share,
+    ``kernel``'s device ms and launches (one a Mamba layer: the SSD kernel
+    for Mamba-2, the selective scan for Mamba-1) and the kernels by device
+    time."""
     from repro_torch.serve.prefill import prefill
+    mod, attr = _counters()[kernel]
     toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
     pl = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
 
@@ -2544,25 +2843,26 @@ def prefill_profile(cfg, params, prompt, dev) -> dict:
 
     run()
     torch.cuda.synchronize()
-    n0 = ssd_ops.launches
+    n0 = getattr(mod, attr)
     with device_profile(cpu=True) as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    launches = ssd_ops.launches - n0
+    launches = getattr(mod, attr) - n0
     busy, n, by_name = device_time(prof)
-    ssd_us = sum(us for name, (us, _) in by_name.items() if "ssd_" in name)
+    k_us = sum(us for name, (us, _) in by_name.items()
+               if PREFILL_KERNELS[kernel] in name)
     rows = -(-len(prompt) // cfg.ssm.chunk)
     print(f"profile: one {cfg.name} prefill group (1 x {len(prompt)} tokens,"
           f" {rows} chunk rows of {cfg.ssm.chunk}, {cfg.n_layers} layers, "
           f"profiler on): wall {wall * 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.3f} ms ({busy / 1e4 / wall:.1f} %), {n} kernels; "
-          f"SSD kernel {ssd_us / 1e3:.3f} ms device over {launches} launches"
-          f" ({100 * ssd_us / busy:.1f} % of busy)")
+          f"{kernel} kernel {k_us / 1e3:.3f} ms device over {launches} "
+          f"launches ({100 * k_us / busy:.1f} % of busy)")
     print_top(by_name, 15)
     return {"wall_ms": wall * 1e3, "busy_ms": busy / 1e3, "kernels": n,
-            "ssd_ms": ssd_us / 1e3, "ssd_launches": launches}
+            "kernel_ms": k_us / 1e3, "kernel_launches": launches}
 
 
 def prefilled_cache(cfg, params, dev, S: int, extra: int = 1,
@@ -3070,7 +3370,7 @@ def main() -> int:
                flash256_phase(dev), flash80_phase(dev),
                *flash_bwd_phase(dev), *flash_mla_train_phase(dev),
                mla_phase(dev), gg_phase(dev),
-               gemm_phase(dev), ssd_phase(dev)]
+               gemm_phase(dev), ssd_phase(dev), selective_scan_phase(dev)]
     for e in entries:
         if e["name"] in sass:
             e["sass"] = sass[e["name"]]
@@ -3080,6 +3380,9 @@ def main() -> int:
     serve_phase(dev, entries)
     deepseek_phase(dev, entries)
     mamba_phase(dev, entries)
+    t1 = time.perf_counter()
+    jamba_phase(dev, entries)
+    print(f"jamba phase {time.perf_counter() - t1:.1f} s")
     nemotron_phase(dev, entries)
     gemma2_phase(dev, entries)
     danube_phase(dev, entries)
@@ -3094,7 +3397,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(x for x in (
             "passes_ms", "mla", "decode", "backward", "chunks", "n4096",
-            "paged",
+            "paged", "jamba", "scan",
             "ssd", "sass", "sdpa_gathered_ms", "verify_rows_err",
             "kernel_route")
             if x in e)}

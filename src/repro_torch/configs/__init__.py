@@ -8,6 +8,7 @@ from repro_torch.configs import (  # noqa: F401
     deepseek_v2_236b,
     gemma2_2b,
     h2o_danube_18b,
+    jamba_v01_52b,
     mamba2_130m,
     mistral_nemo_12b,
     nemotron4_15b,

@@ -22,7 +22,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 NAMES = ("flash_attention", "flash_attention_bwd", "gemm", "grouped_gemm",
-         "paged_attention", "ssd")
+         "paged_attention", "selective_scan", "ssd")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

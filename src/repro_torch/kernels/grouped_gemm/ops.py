@@ -7,7 +7,8 @@ On CUDA tensors it launches the hand-written kernel
 without a copy); ``w`` is contiguous. ``launches`` counts kernel launches,
 those of CUDA graph replays too: ``serve/graphs.py`` records the count's
 change during a capture (taking it back: a capture launches nothing) and
-adds it at every replay.
+adds it at every replay. ``route_launches`` counts the wrapper's calls by
+route (:func:`route`), a capture's too and a replay's not.
 
 :class:`GroupedGemm` is the product under autograd: its backward takes
 dA = dC·Wᵀ and dW = Aᵀ·dC per expert through the same kernel (two more
@@ -23,6 +24,7 @@ from repro_torch.kernels import _build, _launches
 from repro_torch.kernels.grouped_gemm import ref
 
 launches = 0
+route_launches = {"f32": 0, "prefill": 0, "decode": 0}
 
 SMEM_LIMIT = 232448      # shared memory one block may opt into on an H100
 # The bf16 paths' tiles (csrc/grouped_gemm.cu): rows x columns of out per
@@ -97,13 +99,16 @@ def grouped_gemm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _lib()
+    path = route(a.dtype, M)
     err = lib.grouped_gemm(
-        a.device.index or 0, _DTYPES[a.dtype], _ROUTES[route(a.dtype, M)],
+        a.device.index or 0, _DTYPES[a.dtype], _ROUTES[path],
         _build.ptr(a), _build.ptr(w),
         _build.ptr(out), a.stride(0), a.stride(1), E, M, K, N,
         _build.stream(a.device))
     _build.check(lib, err, "grouped_gemm")
     _launches.bump(__name__, "launches")
+    with _launches.lock:
+        route_launches[path] += 1
     return out
 
 

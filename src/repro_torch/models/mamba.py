@@ -1,12 +1,19 @@
-"""Mamba-2 mixer (the SSD half of ``repro/models/mamba.py``).
+"""Mamba mixers (``repro/models/mamba.py``): Mamba-2 (SSD) and Mamba-1
+(selective scan, Jamba).
 
-The sequence is split into chunks; within a chunk the SSD quadratic form is
-the hand-written intra-chunk kernel (``kernels/ssd``), and a Python loop over
-chunks carries the SSM state across them, as JAX's ``lax.scan`` does (linear
-in T, bounded memory); the mixer trains through it (``mamba_mixer``).
-Single-token decode (``mamba2_step``) carries
-(conv_state, ssm_state): an O(1)-state decoder. Mamba-1 (selective scan)
-is not ported.
+Mamba-2: the sequence is split into chunks; within a chunk the SSD
+quadratic form is the hand-written intra-chunk kernel (``kernels/ssd``),
+and a Python loop over chunks carries the SSM state across them, as JAX's
+``lax.scan`` does (linear in T, bounded memory); the mixer trains through
+it (``mamba_mixer``). Mamba-1: the recurrence over the whole sequence is
+the hand-written selective scan (``kernels/selective_scan``), which keeps
+the (C, N) state of a row in registers and walks the steps in order; the
+projections, the causal conv, the D skip and the ``silu(z)`` gate are
+plain torch around it, as in JAX. Single-token decode (``mamba2_step``,
+``mamba1_step``) carries (conv_state, ssm_state): an O(1)-state decoder.
+``mamba_mixer``, ``mamba_step`` and ``mamba_state_defs`` dispatch by
+``cfg.ssm.version``. Mamba-1 does not train: the selective scan has no
+backward yet (``transformer.check_trainable`` refuses it).
 """
 from __future__ import annotations
 
@@ -14,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models.layers import rmsnorm
 
@@ -131,14 +139,6 @@ def mamba2_mixer(cfg: ModelConfig, p, x, return_state: bool = False):
     return out, state
 
 
-def mamba_mixer(cfg: ModelConfig, p, x):
-    """The training mixer (``repro/models/mamba.py::mamba_mixer``): Mamba-2,
-    x (B,S,D) → (B,S,D); Mamba-1 is not ported."""
-    if cfg.ssm.version != 2:
-        raise NotImplementedError(f"{cfg.name}: Mamba-1 is not ported")
-    return mamba2_mixer(cfg, p, x)
-
-
 def mamba2_step(cfg: ModelConfig, p, xt, state):
     """Decode step. xt (B,D); state dict with conv_{x,B,C} + ssm (B,H,P,N)
     → (out (B,D), new state)."""
@@ -180,3 +180,97 @@ def mamba2_state_defs(cfg: ModelConfig, batch: int):
         "conv_C": ParamSpec((batch, K, s.d_state), cfg.pdtype, "zeros"),
         "ssm": ParamSpec((batch, H, Pd, s.d_state), F32, "zeros"),
     }
+
+
+# ------------------------------------------------------------------ mamba1
+def _mamba1_inputs(cfg, p, x):
+    """The input projections. x (B,S,D) → z, xs (B,S,C)."""
+    return x @ p["wz"], x @ p["wx"]
+
+
+def _mamba1_ssm_params(cfg, p, xs):
+    """xs: post-conv (B,S,C) → dt (B,S,C) f32, Bm/Cm (B,S,N) f32."""
+    N = cfg.ssm.d_state
+    dt_rank = p["w_dt"].shape[0]
+    bcdt = xs @ p["w_bcdt"]
+    dt_r, Bm, Cm = (bcdt[..., :dt_rank], bcdt[..., dt_rank:dt_rank + N],
+                    bcdt[..., dt_rank + N:])
+    dt = (dt_r @ p["w_dt"]).to(F32)
+    dt = F.softplus(dt + p["dt_bias"])
+    return dt, Bm.to(F32), Cm.to(F32)
+
+
+def mamba1_mixer(cfg: ModelConfig, p, x, return_state: bool = False):
+    """x (B,S,D) → (B,S,D) (full prefill) through the selective scan; with
+    ``return_state`` also the decode state {conv_x (pre-conv tail, pdtype),
+    ssm (B,C,N) f32}."""
+    s = cfg.ssm
+    B, S, D = x.shape
+    C, N = cfg.d_inner, s.d_state
+    z, xs = _mamba1_inputs(cfg, p, x)
+    xs_pre = xs
+    xs = F.silu(causal_conv(xs, p["conv_x"], p["conv_x_b"]))
+    dt, Bm, Cm = _mamba1_ssm_params(cfg, p, xs)
+    A = -torch.exp(p["A_log"].to(F32))                      # (C,N)
+    xs32 = xs.to(F32)
+    h0 = torch.zeros((B, C, N), dtype=F32, device=x.device)
+    y, h_last = scan_ops.selective_scan(
+        xs32.contiguous(), dt.contiguous(), A.contiguous(),
+        Bm.contiguous(), Cm.contiguous(), h0, s.chunk)
+    y = y + p["D_skip"] * xs32
+    y = y.to(x.dtype) * F.silu(z)
+    out = y @ p["wo"]
+    if not return_state:
+        return out
+    # the conv tail: the last K pre-conv inputs, zeros before the prompt
+    K = s.d_conv - 1
+    tail = F.pad(xs_pre[:, max(S - K, 0):, :], (0, 0, max(K - S, 0), 0))
+    return out, {"conv_x": tail.to(cfg.pdtype), "ssm": h_last}
+
+
+def mamba1_step(cfg: ModelConfig, p, xt, state):
+    """Decode step in plain torch. xt (B,D); state: conv_x (B,K-1,C), ssm
+    (B,C,N) f32 → (out (B,D), new state)."""
+    z, xs = _mamba1_inputs(cfg, p, xt)
+    st_x, xs = conv_step(state["conv_x"], xs, p["conv_x"], p["conv_x_b"])
+    xs = F.silu(xs)
+    dt, Bm, Cm = _mamba1_ssm_params(cfg, p, xs)              # (B,C),(B,N)
+    A = -torch.exp(p["A_log"].to(F32))
+    da = torch.exp(dt[..., None] * A)                        # (B,C,N)
+    h = state["ssm"] * da + (dt * xs.to(F32))[..., None] * Bm[:, None, :]
+    y = torch.einsum("bcn,bn->bc", h, Cm)
+    y = y + p["D_skip"] * xs.to(F32)
+    y = y.to(xt.dtype) * F.silu(z)
+    out = y @ p["wo"]
+    return out, {"conv_x": st_x, "ssm": h}
+
+
+def mamba1_state_defs(cfg: ModelConfig, batch: int):
+    """Per-slot decode state: the conv tail (batch, d_conv - 1, C) in the
+    parameter dtype, the SSM state (batch, C, N) in f32."""
+    from repro_torch.params import ParamSpec    # params imports the stack
+    s = cfg.ssm
+    C, N = cfg.d_inner, s.d_state
+    return {"conv_x": ParamSpec((batch, s.d_conv - 1, C), cfg.pdtype,
+                                "zeros"),
+            "ssm": ParamSpec((batch, C, N), F32, "zeros")}
+
+
+# ---------------------------------------------------------------- dispatch
+def mamba_mixer(cfg: ModelConfig, p, x, return_state: bool = False):
+    """The mixer of ``cfg.ssm.version``: x (B,S,D) → (B,S,D) (and the
+    decode state with ``return_state``)."""
+    fn = mamba2_mixer if cfg.ssm.version == 2 else mamba1_mixer
+    return fn(cfg, p, x, return_state=return_state)
+
+
+def mamba_step(cfg: ModelConfig, p, xt, state):
+    """The decode step of ``cfg.ssm.version``."""
+    fn = mamba2_step if cfg.ssm.version == 2 else mamba1_step
+    return fn(cfg, p, xt, state)
+
+
+def mamba_state_defs(cfg: ModelConfig, batch: int):
+    """The per-slot decode state of ``cfg.ssm.version``."""
+    fn = mamba2_state_defs if cfg.ssm.version == 2 else mamba1_state_defs
+    return fn(cfg, batch)

@@ -82,25 +82,19 @@ def layer_schedule(cfg: ModelConfig) -> tuple[Segment, ...]:
 
 def check_params(cfg: ModelConfig) -> None:
     """The families whose parameters the port lays out: decoders whose
-    every layer is attention (GQA or MLA) with a dense FFN (gated swiglu or
+    attention layers (GQA or MLA) each have a dense FFN (gated swiglu or
     geglu, or non-gated relu2 or gelu) or a gated MoE FFN, pre-norm or
-    sandwich post-norm (gemma2), or a Mamba-2 (SSD) mixer with no FFN."""
+    sandwich post-norm (gemma2), and Mamba stacks (Mamba-2 SSD or Mamba-1
+    selective scan, pre-norm), with or without an FFN after each mixer,
+    alone or interleaved with attention (jamba)."""
     if cfg.enc_dec or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: enc-dec and front-end models are not ported")
-    if cfg.ssm is not None:
-        if cfg.ssm.version != 2:
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba-1 (selective scan) is not ported; the "
-                "port serves Mamba-2 (SSD)")
-        if cfg.ssm.attn_period:
-            raise NotImplementedError(
-                f"{cfg.name}: hybrid SSM/attention models are not ported")
+    if cfg.ssm is not None and cfg.ssm.version not in (1, 2):
+        raise NotImplementedError(
+            f"{cfg.name}: SSM version {cfg.ssm.version} is not ported "
+            "(Mamba-1 and Mamba-2 are)")
     for i, bc in enumerate(block_cfgs(cfg)):
-        if bc.mixer == "mamba" and bc.ffn != "none":
-            raise NotImplementedError(
-                f"{cfg.name} layer {i} is {bc}; Mamba-2 blocks with an FFN "
-                "are not ported")
         if bc.mixer == "attn" and bc.ffn == "none":
             raise NotImplementedError(
                 f"{cfg.name} layer {i} is {bc}; attention layers without "
@@ -115,13 +109,14 @@ def check_params(cfg: ModelConfig) -> None:
             f"{cfg.name}: MoE with a non-gated FFN is not ported")
     if cfg.use_post_norm and cfg.ssm is not None:
         raise NotImplementedError(
-            f"{cfg.name}: post-norm Mamba-2 blocks are not ported")
+            f"{cfg.name}: post-norm Mamba blocks are not ported")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves the families of :func:`check_params`; full-attention
     layers keep their K/V in the page pool (or dense rows), sliding-window
-    layers in per-slot rings (GQA only: the port has no windowed MLA)."""
+    layers in per-slot rings (GQA only: the port has no windowed MLA),
+    Mamba layers their state per slot."""
     check_params(cfg)
     if cfg.mla is not None and any(bc.window for bc in block_cfgs(cfg)):
         raise NotImplementedError(
@@ -129,12 +124,27 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains what it serves: decoders whose every layer is GQA
-    (full or sliding window: training keeps no cache) or MLA attention with
-    a dense FFN, gated or not, or a gated MoE FFN (shared experts, dense
-    first layers), pre- or post-norm; and Mamba-2 stacks. Refused, each by
-    :func:`check_supported`: Mamba-1, hybrids, windowed MLA, MoE with a
-    non-gated FFN, enc-dec and front ends."""
+    """The port trains decoders whose every layer is GQA (full or sliding
+    window: training keeps no cache) or MLA attention with a dense FFN,
+    gated or not, or a gated MoE FFN (shared experts, dense first layers),
+    pre- or post-norm; and Mamba-2 stacks without an FFN. Refused: Mamba-1
+    (the selective scan has no backward yet), hybrids, Mamba blocks with
+    an FFN, and everything :func:`check_supported` refuses (windowed MLA,
+    MoE with a non-gated FFN, enc-dec and front ends)."""
+    if cfg.ssm is not None:
+        if cfg.ssm.version != 2:
+            raise NotImplementedError(
+                f"{cfg.name}: training Mamba-1 (selective scan) is not "
+                "ported; the port serves it and trains Mamba-2 (SSD)")
+        if cfg.ssm.attn_period:
+            raise NotImplementedError(
+                f"{cfg.name}: training hybrid SSM/attention models is not "
+                "ported")
+        if any(bc.mixer == "mamba" and bc.ffn != "none"
+               for bc in block_cfgs(cfg)):
+            raise NotImplementedError(
+                f"{cfg.name}: training Mamba blocks with an FFN is not "
+                "ported")
     check_supported(cfg)
 
 
@@ -143,8 +153,8 @@ def block_apply(cfg: ModelConfig, bc: BlockCfg, p, h: torch.Tensor,
                 positions):
     """One block, h (B,S,D) → (h', MoE router stats (2, E) f32 or None), in
     JAX ``block_apply``'s order: pre-norm, the mixer (GQA or MLA attention,
-    or Mamba-2), the FFN (dense or MoE; none after Mamba-2), and with
-    ``use_post_norm`` each branch's output normed again (``post1``,
+    or Mamba-1 or -2), the FFN (dense or MoE, where the block has one), and
+    with ``use_post_norm`` each branch's output normed again (``post1``,
     ``post2``) before its residual add."""
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "attn":

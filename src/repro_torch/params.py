@@ -10,9 +10,9 @@ the expert stacks (``w_up`` (E,D,F) …), the embedding (V,D), the
 unembedding (D,V), f32 norm weights and router — but holds the blocks as a
 plain list ``layers`` in layer order instead of stacked scan segments:
 
-    {"embed": {"table"}, "layers": [{"norm1", "attn": {...}, ["post1",]
-     "norm2", "mlp" or "moe": {...}[, "post2"]}, ...], "final_norm",
-     "unembed": {"w"} (empty with tied embeddings)}
+    {"embed": {"table"}, "layers": [{"norm1", "attn" or "mamba": {...},
+     ["post1",] ["norm2", "mlp" or "moe": {...}][, "post2"]}, ...],
+     "final_norm", "unembed": {"w"} (empty with tied embeddings)}
 """
 from __future__ import annotations
 
@@ -66,9 +66,12 @@ def param_specs(cfg: ModelConfig):
     or MLA attention (``mla_defs``), a dense MLP of the block's width
     (``layers.py::mlp_defs``: ``w_gate`` only when gated) or the MoE tree
     (``moe.py::moe_defs``), the post-norms of a post-norm model
-    (``transformer.py::block_defs``), or a
-    Mamba-2 mixer (``mamba.py::mamba2_defs``: A_log, D_skip and dt_bias in
-    f32, zeros for A_log, dt_bias and the conv biases, ones for D_skip)."""
+    (``transformer.py::block_defs``), or a Mamba mixer followed by the
+    block's FFN, if it has one: Mamba-2 (``mamba.py::mamba2_defs``) or
+    Mamba-1 (``mamba1_defs``: the x/z projections, the conv, ``w_bcdt``
+    (C, dt_rank + 2N) and ``w_dt`` (dt_rank, C) with dt_rank = ceil(d/16),
+    A_log (C, N)); A_log, D_skip and dt_bias in f32, zeros for A_log,
+    dt_bias and the conv biases, ones for D_skip, conv weights at 0.1."""
     check_params(cfg)
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pdt = cfg.pdtype
@@ -110,6 +113,18 @@ def param_specs(cfg: ModelConfig):
     def mamba():
         s = cfg.ssm
         C, N, K = cfg.d_inner, s.d_state, s.d_conv
+        if s.version == 1:
+            r = max(1, -(-D // 16))                 # dt_rank = ceil(d / 16)
+            return {"wz": ParamSpec((D, C), pdt),
+                    "wx": ParamSpec((D, C), pdt),
+                    "conv_x": ParamSpec((K, C), pdt, scale=0.1),
+                    "conv_x_b": ParamSpec((C,), pdt, "zeros"),
+                    "w_bcdt": ParamSpec((C, r + 2 * N), pdt),
+                    "w_dt": ParamSpec((r, C), pdt),
+                    "dt_bias": ParamSpec((C,), F32, "zeros"),
+                    "A_log": ParamSpec((C, N), F32, "zeros"),
+                    "D_skip": ParamSpec((C,), F32, "ones"),
+                    "wo": ParamSpec((C, D), pdt, scale=out_scale)}
         H = C // s.head_dim
         return {"wz": ParamSpec((D, C), pdt), "wx": ParamSpec((D, C), pdt),
                 "wB": ParamSpec((D, N), pdt), "wC": ParamSpec((D, N), pdt),
@@ -134,13 +149,16 @@ def param_specs(cfg: ModelConfig):
         return d
 
     def layer(bc):
-        if bc.mixer == "mamba":
-            return {"norm1": norm(D), "mamba": mamba()}
-        ffn = {"moe": moe()} if bc.ffn == "moe" else {"mlp": mlp(bc.d_ff)}
-        post = ({"post1": norm(D), "post2": norm(D)} if cfg.use_post_norm
-                else {})
-        return {"norm1": norm(D), "attn": attn(), "norm2": norm(D), **ffn,
-                **post}
+        d = {"norm1": norm(D)}
+        d.update({"mamba": mamba()} if bc.mixer == "mamba" else
+                 {"attn": attn()})
+        if bc.ffn != "none":
+            d["norm2"] = norm(D)
+            d.update({"moe": moe()} if bc.ffn == "moe" else
+                     {"mlp": mlp(bc.d_ff)})
+        if cfg.use_post_norm:
+            d.update({"post1": norm(D), "post2": norm(D)})
+        return d
 
     return {
         "embed": {"table": ParamSpec((cfg.vocab, D), pdt)},
@@ -184,8 +202,9 @@ def _from_numpy(a, device) -> torch.Tensor:
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Carry a JAX parameter tree (``materialize(model_defs(cfg), key)``,
     leaves as numpy or array-likes) across. Its ``blocks`` — one entry per
-    scan segment, leaves with a leading repeat axis — are unstacked into
-    ``layers`` in layer order."""
+    scan segment (jamba: one 8-slot pattern of Mamba-1 and attention
+    mixers, dense and MoE FFNs), leaves with a leading repeat axis — are
+    unstacked into ``layers`` in layer order."""
     device = resolve_device(device)
     specs = param_specs(cfg)
     layers = []

@@ -1,6 +1,7 @@
 """Single-token decode and the fused decode quantum
 (``repro/serve/decode.py``: GQA attention, full or sliding-window, or MLA,
-with a dense or MoE FFN, pre- or post-norm, or Mamba-2 mixers, on one
+with a dense or MoE FFN, pre- or post-norm, or Mamba-1 or Mamba-2 mixers
+with or without an FFN, alone or interleaved with attention, on one
 device).
 
 A full-attention layer of a paged engine writes the new token's K/V (GQA)
@@ -14,14 +15,15 @@ writes its row in place at ``pos`` (a ring at ``pos mod Sc``,
 with an einsum (no TPU kernel computes it): a ring slot j holds position
 ``p_j = pos - ((pos - j) mod Sc)``, live while ``p_j > pos - window``. MLA
 decodes in the latent space with the absorbed weights: the cache row is
-both key and value (MQA-style, dim kv_lora + rope). A Mamba-2 layer steps
-its per-slot state (``mamba2_step``) for every slot, active or not, as JAX
-does: a slot's state is overwritten by the admit that next fills it.
+both key and value (MQA-style, dim kv_lora + rope). A Mamba layer steps
+its per-slot state (``mamba_step``, plain torch) for every slot, active or
+not, as JAX does: a slot's state is overwritten by the admit that next
+fills it.
 
 ``decode_loop`` runs a quantum of ``num_steps`` tokens as a Python loop
 whose state (tokens, positions, masks, cache) never leaves the device; it
 is the functional reference. ``decode_quantum`` runs the same loop and
-writes the carry, the Mamba-2 states and the packed result back into the
+writes the carry, the Mamba states and the packed result back into the
 tensors it was given, so a CUDA graph of it (``serve/graphs.py``) reads
 and writes the same storage at every replay; the engine reads the packed
 result back once per quantum. Per-step constants (the rope tables, the
@@ -52,7 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models.layers import (apply_rope, embed, logits_fn, mlp,
                                        rmsnorm, rope_tables)
-from repro_torch.models.mamba import mamba2_step
+from repro_torch.models.mamba import mamba_step
 from repro_torch.models.moe import moe_decode
 from repro_torch.models.transformer import BlockCfg, block_cfgs
 
@@ -235,7 +237,7 @@ def _uses_pool(bc: BlockCfg, page_table) -> bool:
 def step_consts(cfg: ModelConfig, cache, pos,
                 page_table) -> Optional[StepConsts]:
     """The per-step constants of a model's attention layers, or None when
-    it has none (Mamba-2): one rope width (MLA's rope dims, else the head
+    it has none (a pure Mamba stack): one rope width (MLA's rope dims, else the head
     dim), one page size (every pool is the engine's), and one
     :func:`_dense_rows` per shape of dense rows."""
     attn = [(bc, c) for bc, c in zip(block_cfgs(cfg), cache["layers"])
@@ -322,31 +324,34 @@ def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
                  page_table, consts: StepConsts):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "mamba":
-        y, new_state = mamba2_step(cfg, p["mamba"], x, cache)
-        return h + y, new_state                # Mamba-2 blocks have no FFN
-    # only full-attention layers are paged; rings keep dense buffers
-    pt = page_table if _uses_pool(bc, page_table) else None
-    if cfg.mla:
-        y, new_cache = mla_decode(cfg, p["attn"], x, cache, pos, pt, consts)
+        y, new_cache = mamba_step(cfg, p["mamba"], x, cache)
     else:
-        y, new_cache = gqa_decode(cfg, p["attn"], x, cache, pos, bc.window,
-                                  pt, consts)
+        # only full-attention layers are paged; rings keep dense buffers
+        pt = page_table if _uses_pool(bc, page_table) else None
+        if cfg.mla:
+            y, new_cache = mla_decode(cfg, p["attn"], x, cache, pos, pt,
+                                      consts)
+        else:
+            y, new_cache = gqa_decode(cfg, p["attn"], x, cache, pos,
+                                      bc.window, pt, consts)
     if cfg.use_post_norm:
         y = rmsnorm(y, p["post1"], cfg.norm_eps)
     h = h + y
-    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-    y = moe_decode(cfg, p["moe"], x) if bc.ffn == "moe" else \
-        mlp(cfg, p["mlp"], x)
-    if cfg.use_post_norm:
-        y = rmsnorm(y, p["post2"], cfg.norm_eps)
-    return h + y, new_cache
+    if bc.ffn != "none":
+        x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+        y = moe_decode(cfg, p["moe"], x) if bc.ffn == "moe" else \
+            mlp(cfg, p["mlp"], x)
+        if cfg.use_post_norm:
+            y = rmsnorm(y, p["post2"], cfg.norm_eps)
+        h = h + y
+    return h, new_cache
 
 
 # ------------------------------------------------------------- decode step
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
                 page_table=None):
     """tokens (B,), pos (B,) int32 → (logits (B,V) f32, cache). The page
-    pools and dense rows of ``cache`` are updated in place; Mamba-2 states
+    pools and dense rows of ``cache`` are updated in place; Mamba states
     are replaced. ``page_table`` (B,T) int32 addresses the pools of a paged
     cache; None for the dense engine's."""
     h = embed(cfg, params["embed"], tokens)
@@ -449,7 +454,7 @@ def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
                    eos_id: int, max_len: int, temperature: float = 0.0,
                    top_k: int = 0, top_p: float = 0.0, generator=None):
     """:func:`decode_loop` IN PLACE: the carry goes back into ``tokens``,
-    ``pos``, ``active`` and ``remaining``, each Mamba-2 layer's new state
+    ``pos``, ``active`` and ``remaining``, each Mamba layer's new state
     into the state tensors of ``cache`` (the page pools are written in
     place as the loop runs), and the packed result (:func:`_pack`) into
     ``packed`` (2·num_steps + 1, B) int32. Every tensor it reads or writes
@@ -463,7 +468,7 @@ def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
     new_cache, new_tokens, new_pos, new_active, new_remaining = carry
     for layer, new in zip(cache["layers"], new_cache["layers"]):
         for name, t in new.items():
-            if t is not layer[name]:           # Mamba-2 state; pools alias
+            if t is not layer[name]:           # Mamba state; pools alias
                 layer[name].copy_(t)
     packed.copy_(_pack(new_active, toks, msks))
     for dst, src in ((tokens, new_tokens), (pos, new_pos),
@@ -684,38 +689,44 @@ def mla_verify(cfg: ModelConfig, p, x, cache, pos0, page_table,
 def block_verify(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos0,
                  page_table, consts: VerifyConsts):
     """h (B,K,D) → (h', staged). Attention layers stage their K new rows;
-    a Mamba-2 layer steps ``mamba2_step`` over the K inputs in order (a
-    state scan is serial: verify batches only the attention and FFN work)
-    and stages the K states, leaves (K, B, …)."""
+    a Mamba layer steps ``mamba_step`` over the K inputs in order (a state
+    scan is serial: verify batches only the attention and FFN work) and
+    stages the K states, leaves (K, B, …). The engine takes no Mamba-1
+    target (``Engine._check_spec``)."""
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "mamba":
         ys, states = [], []
         state = cache
         for j in range(x.shape[1]):
-            y, state = mamba2_step(cfg, p["mamba"], x[:, j], state)
+            y, state = mamba_step(cfg, p["mamba"], x[:, j], state)
             ys.append(y)
             states.append(state)
         staged = {name: torch.stack([s[name] for s in states])
                   for name in cache}
-        return h + torch.stack(ys, 1), staged   # Mamba-2 blocks have no FFN
-    pt = page_table if _uses_pool(bc, page_table) else None
-    if cfg.mla:
-        y, staged = mla_verify(cfg, p["attn"], x, cache, pos0, pt, consts)
+        y = torch.stack(ys, 1)
     else:
-        y, staged = gqa_verify(cfg, p["attn"], x, cache, pos0, bc.window, pt,
-                               consts)
+        pt = page_table if _uses_pool(bc, page_table) else None
+        if cfg.mla:
+            y, staged = mla_verify(cfg, p["attn"], x, cache, pos0, pt,
+                                   consts)
+        else:
+            y, staged = gqa_verify(cfg, p["attn"], x, cache, pos0, bc.window,
+                                   pt, consts)
     if cfg.use_post_norm:
         y = rmsnorm(y, p["post1"], cfg.norm_eps)
     h = h + y
-    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-    if bc.ffn == "moe":
-        B, K, D = x.shape
-        y = moe_decode(cfg, p["moe"], x.reshape(B * K, D)).reshape(B, K, D)
-    else:
-        y = mlp(cfg, p["mlp"], x)
-    if cfg.use_post_norm:
-        y = rmsnorm(y, p["post2"], cfg.norm_eps)
-    return h + y, staged
+    if bc.ffn != "none":
+        x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+        if bc.ffn == "moe":
+            B, K, D = x.shape
+            y = moe_decode(cfg, p["moe"], x.reshape(B * K, D)).reshape(B, K,
+                                                                      D)
+        else:
+            y = mlp(cfg, p["mlp"], x)
+        if cfg.use_post_norm:
+            y = rmsnorm(y, p["post2"], cfg.norm_eps)
+        h = h + y
+    return h, staged
 
 
 def decode_verify(cfg: ModelConfig, params, cache, tokens, pos0,

@@ -10,10 +10,11 @@ latent pool for MLA), addressed through a per-slot page table kept by a
 host-side free-list allocator. In the dense engine (``paged=False``, the
 JAX engine's default) every attention layer keeps ``max_len`` rows per
 slot and reads no page table. Either way sliding-window layers keep a ring
-per slot and Mamba-2 layers their state, and every such dense row is
-written into its slot at admit (``_admit``). A Mamba-2 state scan would
-absorb pad tokens, so such models (``pad_safe`` False) prefill in
-exact-length groups of the smallest power-of-2 batch. The engine does not
+per slot and Mamba layers their state, and every such dense row is
+written into its slot at admit (``_admit``). A Mamba state scan would
+absorb pad tokens, so such models (``pad_safe`` False: Mamba-2 stacks and
+hybrids such as jamba) prefill in exact-length groups of the smallest
+power-of-2 batch. The engine does not
 otherwise depend on the model family. Decode runs ``decode_quantum`` tokens
 per cycle with every piece of state on the device and exactly one
 device-to-host read per quantum (``_host_fetch``). On the card each quantum
@@ -297,7 +298,7 @@ class Engine:
         self.prefill_batch = prefill_batch or max_slots
         self.min_bucket = min_bucket
         # padded buckets are only sound when every mixer is attention: a
-        # Mamba-2 state scan would absorb the pad tokens
+        # Mamba state scan would absorb the pad tokens
         self.pad_safe = all(bc.mixer == "attn" for bc in block_cfgs(cfg))
         self.paged = bool(paged)
         self.stream = None
@@ -318,7 +319,8 @@ class Engine:
         with ``spec_k >= 1``, decoder-only, full attention with no window
         (its rows are written optimistically, sound only where validity is
         ``gpos <= pos`` on a dense cache), the target's vocab, and ``spec_k
-        + 1`` verify rows inside the target's smallest window."""
+        + 1`` verify rows inside the target's smallest window. A Mamba-1
+        target is not ported."""
         self.spec = draft_cfg is not None
         if spec_k and not self.spec:
             raise ValueError("spec_k requires a draft_cfg")
@@ -329,6 +331,10 @@ class Engine:
         self.spec_proposed = 0
         if not self.spec:
             return
+        if cfg.ssm is not None and cfg.ssm.version == 1:
+            raise NotImplementedError(
+                f"{cfg.name}: speculative decode with a Mamba-1 target is "
+                "not ported")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1 with a draft, got "
                              f"{spec_k}")
@@ -776,7 +782,7 @@ class Engine:
     def _admit(self, new_cache, first, pl_dev, reqs, slots, page_src,
                draft_rows=None):
         """Move a prefilled group into its slots IN PLACE (``index_copy_``):
-        each dense leaf (per-slot rows, rings, Mamba-2 state, and the
+        each dense leaf (per-slot rows, rings, Mamba state, and the
         draft's rows ``draft_rows``) takes the group's rows into their slots
         in one pass, the paged layers' page-aligned rows go into their
         freshly granted pool pages, and the slot state vectors take the

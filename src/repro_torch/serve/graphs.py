@@ -49,13 +49,15 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.grouped_gemm import ops as gg_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 
 # (module, name) of every kernel wrapper's launch count
 COUNTERS = ((paged_ops, "launches"), (paged_ops, "mla_launches"),
             (gg_ops, "launches"), (flash_ops, "launches"),
             (flash_ops, "lse_launches"), (flash_ops, "bwd_launches"),
-            (gemm_ops, "launches"), (ssd_ops, "launches"))
+            (gemm_ops, "launches"), (ssd_ops, "launches"),
+            (scan_ops, "launches"))
 
 
 def launch_counts() -> tuple[int, ...]:

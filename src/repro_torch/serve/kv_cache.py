@@ -1,5 +1,5 @@
 """Decode-cache layouts (``repro/serve/kv_cache.py``): dense per-slot rows,
-sliding-window rings, page pools and per-slot Mamba-2 state.
+sliding-window rings, page pools and per-slot Mamba state.
 
 Dense engine (``cache_defs``): every attention layer keeps per-slot rows
 ``(max_slots, Sc, Hkv, dh)`` K and V for GQA, ``{"ckv": (max_slots, Sc,
@@ -14,16 +14,19 @@ through the engine's per-slot page table; page 0 is the allocator's
 reserved trash page. Ring layers keep their dense per-slot rings beside
 the pools: they are already bounded per slot.
 
-Either way a Mamba-2 layer keeps its O(1) state densely per slot:
+Either way a Mamba layer keeps its O(1) state densely per slot: Mamba-2
 ``conv_x``/``conv_B``/``conv_C`` ``(max_slots, d_conv - 1, ·)`` in the
-parameter dtype and ``ssm`` ``(max_slots, H, P, N)`` in f32.
+parameter dtype and ``ssm`` ``(max_slots, H, P, N)`` in f32; Mamba-1
+``conv_x`` ``(max_slots, d_conv - 1, C)`` and ``ssm`` ``(max_slots, C,
+N)`` in f32. In a hybrid (jamba) the attention layers keep their K/V in
+the pool (or dense rows) beside their Mamba neighbours' state.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.mamba import mamba2_state_defs
+from repro_torch.models.mamba import mamba_state_defs
 from repro_torch.models.transformer import BlockCfg, block_cfgs, check_supported
 from repro_torch.params import ParamSpec, tree_map
 
@@ -38,9 +41,9 @@ def attn_cache_len(window: int, seq_len: int) -> int:
 def block_cache_defs(cfg: ModelConfig, bc: BlockCfg, batch: int,
                      seq_len: int):
     """Dense cache defs of one layer for ``batch`` slots of ``seq_len``
-    tokens: rows (or a ring) for attention, the state for Mamba-2."""
+    tokens: rows (or a ring) for attention, the state for a Mamba layer."""
     if bc.mixer == "mamba":
-        return mamba2_state_defs(cfg, batch)
+        return mamba_state_defs(cfg, batch)
     Sc = attn_cache_len(bc.window, seq_len)
     if cfg.mla:
         R = cfg.mla.kv_lora + cfg.mla.rope_dim
@@ -70,14 +73,14 @@ def page_pool_defs(cfg: ModelConfig, num_pages: int, page_size: int):
 
 def _is_pooled(bc: BlockCfg) -> bool:
     """Full-attention mixers go through the page pool; ring (sliding-window)
-    and Mamba-2 layers keep their dense / O(1) per-slot layouts."""
+    and Mamba layers keep their dense / O(1) per-slot layouts."""
     return bc.mixer == "attn" and not bc.window
 
 
 def paged_cache_defs(cfg: ModelConfig, *, num_pages: int, page_size: int,
                      max_slots: int, max_len: int):
     """Cache defs per layer: a page pool for full attention, else the dense
-    per-slot ring or Mamba-2 state of ``max_slots`` slots of ``max_len``
+    per-slot ring or Mamba state of ``max_slots`` slots of ``max_len``
     tokens."""
     check_supported(cfg)
     return {"layers": [page_pool_defs(cfg, num_pages, page_size)

@@ -1,6 +1,7 @@
 """Prefill: full forward pass that also builds the cache rows
 (``repro/serve/prefill.py``: GQA attention, full or sliding-window, or MLA,
-with a dense or MoE FFN, pre- or post-norm, or Mamba-2 mixers).
+with a dense or MoE FFN, pre- or post-norm, or Mamba-1 or Mamba-2 mixers,
+with or without an FFN after them, alone or interleaved with attention).
 
 Bucketed serving path: prompts are right-padded to a power-of-2 length
 bucket and prefilled batched with an explicit per-row ``prompt_len``.
@@ -12,8 +13,9 @@ GQA, ``(B, …, kv_lora + rope)`` for MLA, ready for the paged engine's
 admit scatter into its pools. A sliding-window layer's rows are its ring,
 ``attn_cache_len(window, max_len)`` slots with position p at slot p mod
 Sc, packed per row so that pad positions never enter it (``_ring_pack_pl``).
-A Mamba-2 layer returns its decode state instead
-(``mamba2_mixer(return_state=True)``); its scan would absorb pad tokens, so
+A Mamba layer returns its decode state instead
+(``mamba_mixer(return_state=True)``: the SSD kernel for Mamba-2, the
+selective scan kernel for Mamba-1); its scan would absorb pad tokens, so
 the engine prefills such models in exact-length groups.
 """
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attend, gqa_project, mla_qkv
 from repro_torch.models.layers import embed, logits_fn, mlp, rmsnorm
-from repro_torch.models.mamba import mamba2_mixer
+from repro_torch.models.mamba import mamba_mixer
 from repro_torch.models.moe import moe_block
 from repro_torch.models.transformer import BlockCfg, block_cfgs
 from repro_torch.serve.kv_cache import attn_cache_len
@@ -116,39 +118,42 @@ def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
                   prompt_len=None, page_size: int | None = None):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "mamba":
-        y, cache = mamba2_mixer(cfg, p["mamba"], x, return_state=True)
-        return h + y, cache                    # Mamba-2 blocks have no FFN
-    if page_size and not bc.window:
-        # paged engine: full-attention rows sized by the bucket, rounded up
-        # to whole pages (the admit copies them into pool pages)
-        Sc = -(-seq_len // page_size) * page_size
+        y, cache = mamba_mixer(cfg, p["mamba"], x, return_state=True)
     else:
-        Sc = attn_cache_len(bc.window, max_len or seq_len)
-    if cfg.mla:
-        y, cache = mla_prefill(cfg, p["attn"], x, positions=positions,
-                               seq_len_cache=Sc)
-    else:
-        y, cache = gqa_prefill(cfg, p["attn"], x, window=bc.window,
-                               positions=positions, seq_len_cache=Sc,
-                               prompt_len=prompt_len)
+        if page_size and not bc.window:
+            # paged engine: full-attention rows sized by the bucket, rounded
+            # up to whole pages (the admit copies them into pool pages)
+            Sc = -(-seq_len // page_size) * page_size
+        else:
+            Sc = attn_cache_len(bc.window, max_len or seq_len)
+        if cfg.mla:
+            y, cache = mla_prefill(cfg, p["attn"], x, positions=positions,
+                                   seq_len_cache=Sc)
+        else:
+            y, cache = gqa_prefill(cfg, p["attn"], x, window=bc.window,
+                                   positions=positions, seq_len_cache=Sc,
+                                   prompt_len=prompt_len)
     if cfg.use_post_norm:
         y = rmsnorm(y, p["post1"], cfg.norm_eps)
     h = h + y
-    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-    if bc.ffn == "moe":
-        y, _ = moe_block(cfg, p["moe"], x)
-    else:
-        y = mlp(cfg, p["mlp"], x)
-    if cfg.use_post_norm:
-        y = rmsnorm(y, p["post2"], cfg.norm_eps)
-    return h + y, cache
+    if bc.ffn != "none":
+        x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+        if bc.ffn == "moe":
+            y, _ = moe_block(cfg, p["moe"], x)
+        else:
+            y = mlp(cfg, p["mlp"], x)
+        if cfg.use_post_norm:
+            y = rmsnorm(y, p["post2"], cfg.norm_eps)
+        h = h + y
+    return h, cache
 
 
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             max_len: int | None = None, prompt_len: torch.Tensor | None = None,
             page_size: int | None = None):
     """tokens (B,S) → (last-token logits (B,V) f32, {"layers": [{"k","v"},
-    {"ckv"} or the Mamba-2 state {"conv_x", "conv_B", "conv_C", "ssm"}]}).
+    {"ckv"} or the Mamba state ({"conv_x", "conv_B", "conv_C", "ssm"} for
+    Mamba-2, {"conv_x", "ssm"} for Mamba-1)]}).
 
     ``prompt_len`` (B,) marks right-padded rows: logits are gathered at
     prompt_len-1 per row, and ring caches are packed per row. ``max_len``

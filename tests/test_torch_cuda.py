@@ -21,6 +21,8 @@ from repro_torch.kernels.grouped_gemm import ops as gg_ops
 from repro_torch.kernels.grouped_gemm import ref as gg_ref
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.kernels.paged_attention import ref as paged_ref
+from repro_torch.kernels.selective_scan import ops as scan_ops
+from repro_torch.kernels.selective_scan import ref as scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.params import init_params, tree_leaves, tree_map
@@ -201,7 +203,7 @@ def test_bf16_prefill_decode_on_card_match_host(dev):
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-236b",
                                   "phi3.5-moe-42b-a6.6b", "mamba2-130m",
-                                  "nemotron-4-15b"])
+                                  "nemotron-4-15b", "jamba-v0.1-52b"])
 def test_engine_on_card_matches_host(dev, arch):
     """The paged engine on the card (every kernel of the model's path) gives
     the greedy streams of the same engine on the host (plain versions), in
@@ -256,7 +258,8 @@ def _serve_counted(cfg, params, device, prompts, kw, max_new=6, **extra):
 
 
 @pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-236b",
-                                  "phi3.5-moe-42b-a6.6b", "mamba2-130m"])
+                                  "phi3.5-moe-42b-a6.6b", "mamba2-130m",
+                                  "jamba-v0.1-52b"])
 def test_engine_graphs_match_eager_and_host(dev, arch):
     """f32 smoke model: the engine's replayed CUDA graphs (one capture per
     live page-table width) give the streams of its eager loop on the card
@@ -1039,6 +1042,85 @@ def test_ssd_scan_on_card_matches_host(dev):
     assert ssd_ops.launches == n0 + 1
     assert _rel(yd.cpu(), y) < TOL[torch.float32]
     assert _rel(hd.cpu(), h) < TOL[torch.float32]
+
+
+# ------------------------------------------------ Mamba-1 selective scan
+def _scan_case(dev, B, S, C, N, seed=0):
+    """x, dt, A, Bm, Cm and a nonzero h0 on the card, f32, as the Mamba-1
+    mixer passes them (dt > 0 from a softplus, A = -exp(·) < 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    dt = torch.nn.functional.softplus(t(B, S, C) - 1.0)
+    A = -torch.exp(0.5 * t(C, N))
+    return t(B, S, C), dt, A, t(B, S, N), t(B, S, N), t(B, C, N)
+
+
+@pytest.mark.parametrize("B,S,C,N", [(1, 37, 40, 16), (2, 100, 256, 8),
+                                     (3, 65, 70, 24), (8, 300, 128, 64),
+                                     (1, 1, 33, 16), (2, 2000, 512, 16)])
+def test_selective_scan_kernel_matches_plain(dev, B, S, C, N):
+    """S off the kernel's 32-step tile, C off its 32-channel blocks, N from
+    8 to 64 (1 to 8 state entries a lane), a nonzero h0; one launch a
+    call."""
+    ins = _scan_case(dev, B, S, C, N, seed=S + N)
+    n0 = scan_ops.launches
+    y, h = scan_ops.selective_scan(*ins, 256)
+    assert scan_ops.launches == n0 + 1
+    assert y.shape == (B, S, C) and h.shape == (B, C, N)
+    yr, hr = scan_ref.selective_scan_ref(*ins, 256)
+    assert _rel(y, yr) < TOL[torch.float32]
+    assert _rel(h, hr) < TOL[torch.float32]
+
+
+def test_selective_scan_kernel_bit_equal_calls(dev):
+    """Each channel's steps run in order in one block: two calls give the
+    same bits."""
+    ins = _scan_case(dev, 2, 300, 256, 16)
+    y1, h1 = scan_ops.selective_scan(*ins, 256)
+    y2, h2 = scan_ops.selective_scan(*ins, 256)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_selective_scan_raises_instead_of_falling_back(dev):
+    """On the card the wrapper launches the kernel or raises: a state it
+    does not take, bf16, a strided operand, a gradient wanted; nothing is
+    launched and the plain version is not run."""
+    x, dt, A, Bm, Cm, h0 = _scan_case(dev, 2, 40, 64, 16)
+    n0 = scan_ops.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        scan_ops.selective_scan(x, dt, *(t[..., :12].contiguous()
+                                         for t in (A, Bm, Cm, h0)), 16)
+    with pytest.raises(ValueError, match="float32"):
+        scan_ops.selective_scan(x.to(torch.bfloat16), dt, A, Bm, Cm, h0, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        scan_ops.selective_scan(x.transpose(0, 1).contiguous().transpose(
+            0, 1), dt, A, Bm, Cm, h0, 16)
+    with pytest.raises(NotImplementedError, match="backward"):
+        scan_ops.selective_scan(x.requires_grad_(), dt, A, Bm, Cm, h0, 16)
+    assert scan_ops.launches == n0
+
+
+def test_mamba1_mixer_on_card_matches_host(dev):
+    """jamba smoke's Mamba-1 mixer (f32) with its decode state, through
+    the kernel on the card against the plain version on the host, at a
+    prompt of three chunks and a ragged tail."""
+    from repro_torch.models.mamba import mamba1_mixer
+    cfg = dataclasses.replace(smoke_config(get_config("jamba-v0.1-52b")),
+                              param_dtype="float32")
+    p = init_params(cfg, seed=0, device="cpu")["layers"][0]["mamba"]
+    x = torch.randn((2, 3 * cfg.ssm.chunk + 5, cfg.d_model),
+                    generator=torch.Generator().manual_seed(0))
+    out, state = mamba1_mixer(cfg, p, x, return_state=True)
+    n0 = scan_ops.launches
+    outd, stated = mamba1_mixer(cfg, tree_map(lambda t: t.to(dev), p),
+                                x.to(dev), return_state=True)
+    assert scan_ops.launches == n0 + 1
+    assert _rel(outd.cpu(), out) < TOL[torch.float32]
+    for name in ("conv_x", "ssm"):
+        assert _rel(stated[name].cpu(), state[name]) < TOL[torch.float32]
 
 
 # ------------------------------------------- flash backward and forward lse
