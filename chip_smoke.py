@@ -15,8 +15,10 @@
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (paged GQA decode at mistral's dh 128 and gemma2-2b's dh 256 with
    softcap 50, the latter also in f32 on the CUDA cores, paged MLA decode, flash prefill at GQA and MLA head dims, at
-   gemma2-2b's dh 256 (window 4096, softcap 50) and h2o-danube-1.8b's dh
-   80, the grouped expert GEMM in bf16 and f32 (and at jamba-v0.1-52b's
+   gemma2-2b's dh 256 (window 4096, softcap 50), h2o-danube-1.8b's dh
+   80 and whisper-large-v3's encoder (20 heads over 20, dh 64, no mask,
+   T 1500 and 448, on the wgmma route), the grouped expert GEMM in bf16
+   and f32 (and at jamba-v0.1-52b's
    expert shapes in bf16), the tiled GEMM on the hbb
    path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16 at
    each shape's plan, with the Table 2 sweep of bn, the SSD intra-chunk at
@@ -116,7 +118,22 @@
    its paged layout; f32 at depth 2 held, past the window for gemma2 and
    danube, gemma2's through its dense and its paged layout, the latter on
    the CUDA-core kernel at dh 256; gemma2's verify/commit check past the
-   window through its paged layout). Each model's weights are freed before
+   window through its paged layout). Then whisper-large-v3 at published
+   width and depth (32 + 32 layers) through ``prefill_step_fn`` and
+   ``serve_step_fn``: 8 requests of 1500 stub frames encoded (the flash
+   forward once an encoder layer on the wgmma route, no other kernel, no
+   plain version on the card), a 4-token decoder prompt and 124 greedy
+   steps (self and cross attention in plain torch), a profiled step and
+   its cross attentions' device ms, and at f32 with depth cut to 2 + 2, 8
+   steps held within 1e-3 of ``decode_hidden``; and internvl2-26b at
+   published width and depth (48 layers, the 3200 → 6144 front-end
+   projection): the mistral workload as text through the paged engine
+   (graphs twice, a profiled quantum, eager once), 4 image requests (256
+   patch positions + 16-512 text tokens, ``prefill(frontend_embed)`` into
+   the paged layout and 32 greedy ``decode_step``s: the flash forward
+   once a layer a prefill, paged GQA once a layer a step), and prefill(S,
+   fe) + decode against prefill(S + 1, fe), reported in bf16 and held at
+   f32 with depth cut to 2 (1e-3). Each model's weights are freed before
    the next. Every launch counts for the one kernel entry whose paths hold
    the model.
 7. Training (the flash backward and the forward that saves lse, the
@@ -398,6 +415,64 @@ def check_verify_rows(what: str, attend, plain, table, pos, q_row, dt,
     return float((got.float() - want.float()).abs().max())
 
 
+def paged_gqa_inputs(dev, *, hkv: int, grp: int, dh: int, max_len: int,
+                     pos_head: list, dt) -> tuple:
+    """Seeded inputs of a paged GQA decode at B=8, 16-token pages, a
+    ``max_len``-key table: (q in f32, pools k and v in ``dt``, table, pos,
+    pos as numpy), pos led by ``pos_head`` and the rest drawn."""
+    B, ps = 8, 16
+    T = max_len // ps
+    N = 1 + B * T
+    rng = np.random.default_rng(0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    q32 = torch.randn((B, hkv, grp, dh), generator=g, device=dev)
+    pk = torch.randn((N, ps, hkv, dh), generator=g, device=dev).to(dt)
+    pv = torch.randn((N, ps, hkv, dh), generator=g, device=dev).to(dt)
+    table = torch.tensor(1 + rng.permutation(N - 1).reshape(B, T),
+                         dtype=torch.int32, device=dev)
+    pos_h = np.concatenate([pos_head,
+                            rng.integers(1, max_len, B - len(pos_head))])
+    pos = torch.tensor(pos_h, dtype=torch.int32, device=dev)
+    return q32, pk, pv, table, pos, pos_h
+
+
+def hold_paged_gqa(inputs, *, grp: int, dh: int, caps: tuple, dt) -> float:
+    """Paged GQA decode on ``inputs`` (:func:`paged_gqa_inputs`) held
+    against the plain version for each (softcap, gain) of ``caps`` (see
+    :func:`paged_gqa_entry`): o/l each row within 1e-3 of its largest, m
+    and l within 1e-3; with a softcap and a gain the kernel without the
+    softcap must miss. Returns max |o/l - ref|."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    q32, pk, pv, table, pos, _ = inputs
+    err = 0.0
+    for softcap, gain in caps:
+        qg = (q32 * gain).to(dt)
+        kw = dict(page_size=pk.shape[1], scale=dh ** -0.5)
+        o, m, l = ops.paged_attend_gqa(qg, pk, pv, table, pos, 0,
+                                       softcap=softcap, **kw)
+        o_r, m_r, l_r = ref.paged_flash_decode_gqa_ref(
+            qg, pk, pv, table, pos, 0, softcap=softcap, **kw)
+        want = o_r / l_r[..., None]
+        e = row_err(o / l[..., None], want)
+        e_m = float((m - m_r).abs().max())
+        e_l = float(((l - l_r).abs() / l_r).max())
+        err = max(err, float((o / l[..., None] - want).abs().max()))
+        check(e <= 1e-3 and e_m <= 1e-3 and e_l <= 1e-3,
+              f"paged decode ({ops.gqa_route(dt, grp, dh)}) dh={dh} G={grp} "
+              f"softcap={softcap} q x {gain}: "
+              f"|o/l - ref| {e:.3g} of the row's largest, |m - ref| "
+              f"{e_m:.3g}, rel |l - ref| {e_l:.3g} (tol 1e-3)")
+        if softcap and gain > 1:
+            o0, _, l0 = ops.paged_attend_gqa(qg, pk, pv, table, pos, 0,
+                                             softcap=0.0, **kw)
+            e0 = row_err(o0 / l0[..., None], want)
+            check(e0 > 1e-3, f"paged decode dh={dh} softcap={softcap} q x "
+                  f"{gain}: the kernel without the softcap misses the "
+                  f"reference by {e0:.3g} of a row's largest (> tol 1e-3): "
+                  "the scores reach the cap")
+    return err
+
+
 def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
                     max_len: int, caps: tuple, cap: float, pos_head: list,
                     paths: list, dt=torch.bfloat16,
@@ -416,45 +491,13 @@ def paged_gqa_entry(dev, *, name: str, hkv: int, grp: int, dh: int,
     from repro_torch.kernels.paged_attention import ops, ref
     B, ps = 8, 16
     T = max_len // ps
-    N = 1 + B * T
-    rng = np.random.default_rng(0)
     esz = torch.finfo(dt).bits // 8
-    g = torch.Generator(device=dev).manual_seed(0)
-    q32 = torch.randn((B, hkv, grp, dh), generator=g, device=dev)
+    inputs = paged_gqa_inputs(dev, hkv=hkv, grp=grp, dh=dh, max_len=max_len,
+                              pos_head=pos_head, dt=dt)
+    q32, pk, pv, table, pos, pos_h = inputs
     q = q32.to(dt)
-    pk = torch.randn((N, ps, hkv, dh), generator=g, device=dev).to(dt)
-    pv = torch.randn((N, ps, hkv, dh), generator=g, device=dev).to(dt)
-    table = torch.tensor(1 + rng.permutation(N - 1).reshape(B, T),
-                         dtype=torch.int32, device=dev)
-    pos_h = np.concatenate([pos_head,
-                            rng.integers(1, max_len, B - len(pos_head))])
-    pos = torch.tensor(pos_h, dtype=torch.int32, device=dev)
     scale = dh ** -0.5
-    err = 0.0
-    for softcap, gain in caps:
-        qg = (q32 * gain).to(dt)
-        kw = dict(page_size=ps, scale=scale)
-        o, m, l = ops.paged_attend_gqa(qg, pk, pv, table, pos, 0,
-                                       softcap=softcap, **kw)
-        o_r, m_r, l_r = ref.paged_flash_decode_gqa_ref(
-            qg, pk, pv, table, pos, 0, softcap=softcap, **kw)
-        want = o_r / l_r[..., None]
-        e = row_err(o / l[..., None], want)
-        e_m = float((m - m_r).abs().max())
-        e_l = float(((l - l_r).abs() / l_r).max())
-        err = max(err, float((o / l[..., None] - want).abs().max()))
-        check(e <= 1e-3 and e_m <= 1e-3 and e_l <= 1e-3,
-              f"paged decode dh={dh} G={grp} softcap={softcap} q x {gain}: "
-              f"|o/l - ref| {e:.3g} of the row's largest, |m - ref| "
-              f"{e_m:.3g}, rel |l - ref| {e_l:.3g} (tol 1e-3)")
-        if softcap and gain > 1:
-            o0, _, l0 = ops.paged_attend_gqa(qg, pk, pv, table, pos, 0,
-                                             softcap=0.0, **kw)
-            e0 = row_err(o0 / l0[..., None], want)
-            check(e0 > 1e-3, f"paged decode dh={dh} softcap={softcap} q x "
-                  f"{gain}: the kernel without the softcap misses the "
-                  f"reference by {e0:.3g} of a row's largest (> tol 1e-3): "
-                  "the scores reach the cap")
+    err = hold_paged_gqa(inputs, grp=grp, dh=dh, caps=caps, dt=dt)
     keys = int((pos_h + 1).sum())               # positions ≤ pos per slot
     n_bytes = (q.numel() * esz + 2 * keys * hkv * dh * esz
                + 4 * int(sum(-(-(p + 1) // ps) for p in pos_h)) + 4 * B
@@ -523,14 +566,27 @@ def paged_phase(dev) -> dict:
     """mistral-nemo-12b's decode shape: Hkv=8, G=4, dh=128, a 4096-key
     table; checked at softcap 0 and 30 (scores to ~±100) and at the spec
     path's verify rows (B·K = 40), timed at 0. Its launches are mistral's,
-    nemotron-4-15b's and jamba-v0.1-52b's (dh 128; jamba's one attention
-    layer of 8 has the same Hkv, G and dh)."""
-    return paged_gqa_entry(dev, name="paged_attention_gqa", hkv=8, grp=4,
-                           dh=128, max_len=4096, caps=((0.0, 1), (30.0, 25)),
-                           cap=0.0, pos_head=[4095, 0, 15, 16],
-                           paths=["mistral-nemo-12b", "nemotron-4-15b",
-                                  "pool", "spec", "jamba-v0.1-52b"],
-                           verify=True)
+    nemotron-4-15b's, jamba-v0.1-52b's and internvl2-26b's (dh 128;
+    jamba's one attention layer of 8 has the same Hkv, G and dh;
+    nemotron's and internvl2's G is 6, held beside it at the same table,
+    softcaps and gains, not timed)."""
+    caps, pos_head = ((0.0, 1), (30.0, 25)), [4095, 0, 15, 16]
+    e = paged_gqa_entry(dev, name="paged_attention_gqa", hkv=8, grp=4,
+                        dh=128, max_len=4096, caps=caps, cap=0.0,
+                        pos_head=pos_head,
+                        paths=["mistral-nemo-12b", "nemotron-4-15b", "pool",
+                               "spec", "jamba-v0.1-52b", "internvl2-26b",
+                               "internvl2-26b images"],
+                        verify=True)
+    # nemotron's and internvl2's G 6: held the same way, not timed
+    e["g6_err"] = hold_paged_gqa(
+        paged_gqa_inputs(dev, hkv=8, grp=6, dh=128, max_len=4096,
+                         pos_head=pos_head, dt=torch.bfloat16),
+        grp=6, dh=128, caps=caps, dt=torch.bfloat16)
+    e["max_abs_err"] = max(e["max_abs_err"], e["g6_err"])
+    e["check"] += ("; and the same checks at G=6 (nemotron's and "
+                   "internvl2's), not timed")
+    return e
 
 
 def paged256_phase(dev) -> dict:
@@ -566,7 +622,8 @@ def paged256_f32_report(dev) -> dict:
 
 # ------------------------------------------------------------ flash prefill
 def flash_phase(dev) -> dict:
-    """GQA prefill shapes of mistral-nemo-12b (B=8, H=32, Hkv=8, dh=128) and
+    """GQA prefill shapes of mistral-nemo-12b (B=8, H=32, Hkv=8, dh=128),
+    of nemotron-4-15b and internvl2-26b (H=48, Hkv=8: held, not timed) and
     the MLA prefill shape of deepseek-v2-236b (H=128, G=1, q/k dim 192 =
     nope 128 + rope 64, v dim 128, v a strided slice as prefill passes
     it). Each output row within ``ROW_TOL`` of its largest value of the f32
@@ -629,13 +686,28 @@ def flash_phase(dev) -> dict:
                    "bound_by": b_by, "library_ms": lib}
         del q, k, v, qv, kv, vv
         torch.cuda.empty_cache()
+    # nemotron's and internvl2's prefill, H 48 over 8 (G 6): held, not timed
+    for B, T in ((8, 1024), (1, 783)):
+        g = torch.Generator(device=dev).manual_seed(T + 6)
+        qv, kv, vv = (torch.randn((B, T, h, 128), generator=g, device=dev)
+                      .to(dt).permute(0, 2, 1, 3) for h in (48, 8, 8))
+        kw = dict(scale=128 ** -0.5, causal=True, window=0, softcap=0.0)
+        route = ops.fwd_route(dt, 128, 128, ops._aligned(qv, kv, vv))
+        check(route == "wgmma", f"flash B={B} H=48 Hkv=8 dh=128 T={T}: the "
+              f"(B, T, heads, d) views take the wgmma route ({route})")
+        err = max(err, check_flash(ops, ref, qv, kv, vv, kw, 1,
+                                   f"flash ({route}) B={B} H=48 Hkv=8 "
+                                   f"dh=dv=128 T={T} causal"))
+        del qv, kv, vv
+        torch.cuda.empty_cache()
     ms, plain, b_ms, b_by, lib = main
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/"
                         "flash_attention.py:92",
             "paths": ["mistral-nemo-12b", "deepseek-v2-236b",
-                      "nemotron-4-15b", "pool", "spec", "jamba-v0.1-52b"],
+                      "nemotron-4-15b", "pool", "spec", "jamba-v0.1-52b",
+                      "internvl2-26b", "internvl2-26b images"],
             "max_abs_err": err, "tol": ROW_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "mla": mla,
@@ -645,7 +717,9 @@ def flash_phase(dev) -> dict:
                      "causal, window 256 + softcap 30 with q x 20 (the "
                      "kernel without its softcap must miss), ragged "
                      "T=1000; dh=64 T=1024 causal; B=8 H=128 dqk=192 "
-                     "dv=128 T=1024 causal; two calls bit-equal at each; "
+                     "dv=128 T=1024 causal; H=48 Hkv=8 dh=128 causal at "
+                     "B=8 T=1024 and B=1 T=783 (wgmma route, not timed); "
+                     "two calls bit-equal at each; "
                      "times at B=8 H=32 T=1024 causal (mla: the MLA shape)"}
 
 
@@ -775,6 +849,65 @@ def flash80_phase(dev) -> dict:
         cases=((2, 4096, 4096, 0.0, 1), (1, 8192, 4096, 0.0, 1),
                (2, 1000, 300, 0.0, 1)),
         paths=["h2o-danube-1.8b"])
+
+
+def flash_whisper_phase(dev) -> dict:
+    """whisper-large-v3's encoder attention: 20 heads over 20 (G 1), dh =
+    dv = 64, no mask (``causal=False``), T 1500 (23 key tiles of 64 and a
+    ragged 28) and 448, the (B, T, 20, 64) projections as head-transposed
+    views; the wgmma route. Each case held by :func:`check_flash`; B 8, T
+    1500 (the served shape) timed beside the plain version and
+    ``scaled_dot_product_attention`` with no mask. Its launches are
+    whisper's encoder's, one a layer."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    dt, H, d = torch.bfloat16, 20, 64
+    err, timed = 0.0, None
+    for B, T in ((8, 1500), (2, 448), (2, 1500)):
+        g = torch.Generator(device=dev).manual_seed(T + B)
+        q, k, v = (torch.randn((B, T, H, d), generator=g, device=dev).to(dt)
+                   for _ in range(3))
+        qv, kv, vv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+        kw = dict(scale=d ** -0.5, causal=False, window=0, softcap=0.0)
+        route = ops.fwd_route(dt, d, d, ops._aligned(qv, kv, vv))
+        check(route == "wgmma", f"flash B={B} H={H} Hkv={H} dh={d} T={T} "
+              f"non-causal: the (B, T, heads, d) views take the wgmma route "
+              f"({route})")
+        err = max(err, check_flash(ops, ref, qv, kv, vv, kw, 1,
+                                   f"flash ({route}) B={B} H={H} Hkv={H} "
+                                   f"dh=dv={d} T={T} non-causal"))
+        if timed is None:
+            n_ops = 4 * d * T * T * B * H
+            n_bytes = 2 * B * T * 4 * H * d
+            b_ms, b_by = bound_ms(n_bytes, n_ops, dt)
+            ms = time_ms(lambda: ops.attend(qv, kv, vv, **kw), 10)
+            plain = time_ms(lambda: ref.flash_attention_ref(qv, kv, vv,
+                                                            **kw), 2, 1)
+            qc, kc, vc = qv.contiguous(), kv.contiguous(), vv.contiguous()
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, scale=d ** -0.5), 10)
+            del qc, kc, vc
+            print(f"flash ({route}) B={B} H={H} Hkv={H} dh=dv={d} T={T} "
+                  f"non-causal: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"sdpa (no mask) {lib:.4f} ms, bound {b_ms:.4f} ms "
+                  f"({b_by}), {n_ops / ms / 1e9:.2f} TFLOP/s")
+            timed = (ms, plain, b_ms, b_by, lib, route)
+        del q, k, v, qv, kv, vv
+        torch.cuda.empty_cache()
+    ms, plain, b_ms, b_by, lib, route = timed
+    return {"name": "flash_attention_fwd_whisper", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/"
+                        "flash_attention.py:92",
+            "counter": "flash_attention_fwd", "paths": ["whisper-large-v3"],
+            "kernel_route": route,
+            "max_abs_err": err, "tol": ROW_TOL, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "check": "out (bf16) against flash_attention_ref in f32, each "
+                     "row within 1e-2 of its largest value (max_abs_err is "
+                     "|out - ref|), 20 heads over 20, dh 64, non-causal, "
+                     "(B, T) in (8, 1500), (2, 448), (2, 1500); the wgmma "
+                     "route; two calls bit-equal; times at B=8 T=1500; "
+                     "library: scaled_dot_product_attention, no mask"}
 
 
 # ------------------------------------------------ flash backward (training)
@@ -1741,6 +1874,14 @@ def _counters() -> dict:
             "selective_scan": (scan_ops, "launches")}
 
 
+def _zero_counts() -> dict:
+    """Every wrapper's launch count set to 0 → ``_counters()``."""
+    counters = _counters()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    return counters
+
+
 def serve_run(eng, cfg, lens, prompts, max_new: int):
     """Serve the workload once through ``eng`` with every wrapper's launch
     count set to 0 just before and read just after → (requests, launch
@@ -1751,7 +1892,6 @@ def serve_run(eng, cfg, lens, prompts, max_new: int):
     and their seconds, the width buckets and peak memory. Checks that the
     page pool is whole after the run."""
     from repro_torch.serve.engine import Request
-    counters = _counters()
     reqs = [Request(rid=i, prompt=p, max_new=max_new)
             for i, p in enumerate(prompts)]
     torch.cuda.reset_peak_memory_stats()
@@ -1761,8 +1901,7 @@ def serve_run(eng, cfg, lens, prompts, max_new: int):
     q0, g0, c0 = eng.quanta, eng.prefill_groups, eng.decode_captures
     cs0 = eng.graphs.capture_seconds if eng.graphs else 0.0
     w0 = Counter(eng.widths_used)
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    counters = _zero_counts()
     t = time.perf_counter()
     eng.run(reqs)
     torch.cuda.synchronize()
@@ -1969,11 +2108,9 @@ def pool_run(meng, cfg, prompts, what: str, healthy: bool = True):
     ``healthy`` no health transition, and every tier's slots empty and its
     page pool whole."""
     from repro_torch.serve.engine import Request
-    counters = _counters()
     reqs = [Request(rid=i, prompt=p, max_new=POOL_MAX_NEW)
             for i, p in enumerate(prompts)]
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    counters = _zero_counts()
     t = time.perf_counter()
     meng.run(reqs)
     torch.cuda.synchronize()
@@ -2865,26 +3002,13 @@ def prefill_profile(cfg, params, prompt, dev,
             "kernel_ms": k_us / 1e3, "kernel_launches": launches}
 
 
-def prefilled_cache(cfg, params, dev, S: int, extra: int = 1,
-                    paged: bool = True):
-    """Tokens (1, S + extra) from seed 1 and the cache of their prefill(S)
-    → (tokens, cache, page table). ``paged``: the paged engine's layout,
-    pooled layers getting their prefill rows as pages 1.. of a pool of
-    ceil((S + extra) / 16) pages of 16 (table (1, T)); else the dense
-    engine's (per-slot rows, table None). Ring layers (rings of
-    min(window, S + 16) slots) and Mamba-2 layers carry their rows and
-    state either way."""
+def pooled_rows(cfg, rows, S: int, extra: int, dev):
+    """The prefill rows of one prompt of S tokens (``prefill(...,
+    page_size=16)``) in the paged engine's layout → (cache, page table):
+    pooled layers' rows as pages 1.. of a pool of ceil((S + extra) / 16)
+    pages of 16 (table (1, T)); ring and Mamba layers as they are."""
     from repro_torch.serve.kv_cache import cache_kinds
-    from repro_torch.serve.prefill import prefill
     ps = 16
-    g = torch.Generator(device=dev).manual_seed(1)
-    toks = torch.randint(0, cfg.vocab, (1, S + extra), generator=g,
-                         device=dev, dtype=torch.int32)
-    if not paged:
-        _, cache = prefill(cfg, params, toks[:, :S], max_len=S + 16)
-        return toks, cache, None
-    _, rows = prefill(cfg, params, toks[:, :S], max_len=S + 16,
-                      page_size=ps)
     n_rows = -(-S // ps)
     T = -(-(S + extra) // ps)
     layers = []
@@ -2899,18 +3023,42 @@ def prefilled_cache(cfg, params, dev, S: int, extra: int = 1,
             pool[name] = p
         layers.append(pool)
     table = torch.arange(1, 1 + T, dtype=torch.int32, device=dev)[None]
-    return toks, {"layers": layers}, table
+    return {"layers": layers}, table
+
+
+def prefilled_cache(cfg, params, dev, S: int, extra: int = 1,
+                    paged: bool = True, frontend_embed=None):
+    """Tokens (1, S + extra) from seed 1 and the cache of their prefill(S)
+    (with ``frontend_embed`` in its first positions, if given) → (tokens,
+    cache, page table). ``paged``: the paged engine's layout
+    (:func:`pooled_rows`); else the dense engine's (per-slot rows, table
+    None). Ring layers (rings of min(window, S + 16) slots) and Mamba-2
+    layers carry their rows and state either way."""
+    from repro_torch.serve.prefill import prefill
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (1, S + extra), generator=g,
+                         device=dev, dtype=torch.int32)
+    fe = dict(frontend_embed=frontend_embed)
+    if not paged:
+        _, cache = prefill(cfg, params, toks[:, :S], max_len=S + 16, **fe)
+        return toks, cache, None
+    _, rows = prefill(cfg, params, toks[:, :S], max_len=S + 16,
+                      page_size=16, **fe)
+    cache, table = pooled_rows(cfg, rows, S, extra, dev)
+    return toks, cache, table
 
 
 def prefill_decode_rel(cfg, params, dev, S: int = 100,
-                       paged: bool = True) -> float:
+                       paged: bool = True, frontend_embed=None) -> float:
     """prefill(S) + decode of token S against the last logits of
     prefill(S + 1): the relative max error (tests/test_serve.py's check),
-    in the layout of :func:`prefilled_cache`."""
+    in the layout of :func:`prefilled_cache`, with ``frontend_embed`` in
+    both prefills' first positions if given."""
     from repro_torch.serve.decode import decode_step
     from repro_torch.serve.prefill import prefill
-    toks, cache, table = prefilled_cache(cfg, params, dev, S, 1, paged)
-    ref, _ = prefill(cfg, params, toks)
+    toks, cache, table = prefilled_cache(cfg, params, dev, S, 1, paged,
+                                         frontend_embed)
+    ref, _ = prefill(cfg, params, toks, frontend_embed=frontend_embed)
     pos = torch.tensor([S], dtype=torch.int32, device=dev)
     got, _ = decode_step(cfg, params, cache, toks[:, S], pos, table)
     check(bool(torch.isfinite(got).all()), "decode logits are finite")
@@ -3061,6 +3209,287 @@ def danube_phase(dev, entries) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------- whisper-large-v3 and internvl2-26b
+WHISPER_REQUESTS, WHISPER_FRAMES = 8, 1500
+WHISPER_PROMPT, WHISPER_STEPS = 4, 124      # decoder prompt, greedy steps
+INTERNVL2_IMAGES, INTERNVL2_IMAGE_STEPS = 4, 32
+
+
+@contextmanager
+def flash_routes():
+    """The route of every flash forward call over the block, in order (the
+    wrapper's ``fwd_route`` recorded)."""
+    from repro_torch.kernels.flash_attention import ops
+    routes, fn = [], ops.fwd_route
+
+    def recorded(*a, **kw):
+        routes.append(fn(*a, **kw))
+        return routes[-1]
+
+    ops.fwd_route = recorded
+    try:
+        yield routes
+    finally:
+        ops.fwd_route = fn
+
+
+def whisper_phase(dev, entries) -> None:
+    """whisper-large-v3 at its published width and depth (32 encoder and 32
+    decoder layers, d 1280, 20 heads of 64, gelu FFN 5120, vocab 51866,
+    tied; 1.54 B params, bf16) through ``prefill_step_fn`` and
+    ``serve_step_fn``: 8 requests of 1500 stub frame embeddings (seed 0,
+    × 0.1) encoded by ``whisper_prefill`` (the flash forward, non-causal,
+    one launch an encoder layer on the wgmma route, nothing else of the
+    hand-written kernels), a 4-token decoder prompt fed through
+    ``whisper_decode_step``, then 124 greedy steps (self and cross
+    attention in plain torch). The counts are set to 0 before the prefill
+    and read after the last step. Prints prefill seconds, decode tok/s, a
+    profiled step (busy share, largest device shares) and the device ms of
+    its 32 cross attentions; then at f32 with depth cut to 2 + 2, 8 decode
+    steps held within 1e-3 of ``decode_hidden`` over the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.whisper import decode_hidden
+    from repro_torch.serve.decode import (flash_decode_gqa, serve_step_fn,
+                                          whisper_decode_step)
+    from repro_torch.serve.prefill import prefill_step_fn, whisper_prefill
+
+    cfg = get_config("whisper-large-v3")
+    params = _make_params(cfg, dev)
+    B = WHISPER_REQUESTS
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randn((B, WHISPER_FRAMES, cfg.d_model), generator=g,
+                         device=dev) * 0.1
+    prompt = torch.randint(0, cfg.vocab, (B, WHISPER_PROMPT), generator=g,
+                           device=dev)
+    positions = [torch.full((B,), t, dtype=torch.int32, device=dev)
+                 for t in range(WHISPER_PROMPT + WHISPER_STEPS + 1)]
+    prefill, step = prefill_step_fn(cfg), serve_step_fn(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _zero_counts()
+    with flash_routes() as routes, plain_calls() as plain:
+        t0 = time.perf_counter()
+        enc, cache = prefill(params, frames)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(WHISPER_PROMPT):
+            logits, cache = step(params, cache, prompt[:, t], positions[t])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out = []
+        for t in range(WHISPER_PROMPT, WHISPER_PROMPT + WHISPER_STEPS):
+            tok = logits.argmax(-1)
+            out.append(tok)
+            logits, cache = step(params, cache, tok, positions[t])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    toks = torch.stack(out, 1)
+    check(tuple(enc.shape) == (B, WHISPER_FRAMES, cfg.d_model) and
+          bool(torch.isfinite(enc).all()) and
+          bool(torch.isfinite(logits).all()), f"{cfg.name}: encoder states "
+          f"{tuple(enc.shape)} and the last logits finite")
+    check(bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+          f"{cfg.name}: {WHISPER_STEPS} greedy tokens a request, all in the "
+          "vocabulary")
+    check(launches["flash_attention_fwd"] == cfg.n_enc_layers and
+          routes == ["wgmma"] * cfg.n_enc_layers and
+          sum(launches.values()) == cfg.n_enc_layers and not plain,
+          f"{cfg.name}: the flash forward launched once an encoder layer "
+          f"on the wgmma route ({launches['flash_attention_fwd']} launches, "
+          f"routes {Counter(routes)}), no other hand-written kernel "
+          f"({launches}) and no plain version on the card ({dict(plain)})")
+    _add_launches(entries, launches, cfg.name,
+                  ["flash_attention_fwd_whisper"])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    whisper_prefill(cfg, params, frames)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t
+    dec_s = t3 - t2
+    print(f"serve {cfg.name}: {B} requests of {WHISPER_FRAMES} frames: "
+          f"prefill (encoder + cross K/V of {cfg.n_layers} layers) "
+          f"{t1 - t0:.3f} s, again {warm:.3f} s; decoder prompt of "
+          f"{WHISPER_PROMPT} in {t2 - t1:.3f} s; {WHISPER_STEPS} greedy "
+          f"steps in {dec_s:.3f} s ({B * WHISPER_STEPS / dec_s:.1f} tok/s, "
+          f"{1e3 * dec_s / WHISPER_STEPS:.2f} ms a step); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{launches}")
+    pos = positions[-1]
+    with device_profile(cpu=True) as prof:
+        t = time.perf_counter()
+        step(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    busy, n, by_name = device_time(prof)
+    print(f"profile {cfg.name}: one decode step ({B} rows, {WHISPER_FRAMES}"
+          f" encoder rows, profiler on): wall {wall * 1e3:.1f} ms, device "
+          f"busy {busy / 1e3:.3f} ms ({busy / 1e4 / wall:.1f} %), {n} "
+          "kernels")
+    print_top(by_name)
+    live = (None, torch.ones((B, WHISPER_FRAMES), dtype=torch.bool,
+                             device=dev))
+    q = torch.randn((B, cfg.n_kv_heads, 1, cfg.head_dim), generator=g,
+                    device=dev).to(cfg.pdtype)
+
+    def cross():
+        for c in cache["dec_layers"]:
+            flash_decode_gqa(q, None, None, c["xk"], c["xv"], pos,
+                             scale=cfg.head_dim ** -0.5, softcap=0.0,
+                             rows=live, update=False)
+
+    cross_ms = sum(ms for ms, _ in kernels_ms(cross)[0].values())
+    print("report " + json.dumps({
+        "report": f"{cfg.name} serve, bf16, full width and depth",
+        "requests": B, "frames": WHISPER_FRAMES,
+        "prefill_s": t1 - t0, "prefill_again_s": warm,
+        "decode_tok_s": B * WHISPER_STEPS / dec_s,
+        "step_ms": 1e3 * dec_s / WHISPER_STEPS, "step_wall_ms": wall * 1e3,
+        "step_busy_ms": busy / 1e3, "step_busy_share": busy / 1e6 / wall,
+        "step_kernels": n, "cross_attention_device_ms": cross_ms,
+        "cross_attention_share_of_busy": cross_ms / (busy / 1e3),
+        "encoder_flash": {k: e[k] for e in entries
+                          if e["name"] == "flash_attention_fwd_whisper"
+                          for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "launches")},
+        "card": CARD}))
+    del params, cache, enc, frames
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2,
+                                param_dtype="float32")
+    params32 = _make_params(cfg32, dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.randn((2, WHISPER_FRAMES, cfg.d_model), generator=g,
+                         device=dev) * 0.1
+    toks = torch.randint(0, cfg.vocab, (2, 8), generator=g, device=dev)
+    enc, cache = whisper_prefill(cfg32, params32, frames)
+    ref = decode_hidden(cfg32, params32, toks, enc) @ \
+        params32["embed"]["table"].T
+    rel = 0.0
+    for t in range(toks.shape[1]):
+        got, cache = whisper_decode_step(cfg32, params32, cache, toks[:, t],
+                                         positions[t][:2])
+        rel = max(rel, float((got - ref[:, t]).abs().max() /
+                             ref[:, t].abs().max()))
+    check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 + 2: 8 "
+          f"steps of whisper_decode_step ≡ decode_hidden over the same "
+          f"tokens, relative max error {rel:.3g} (tol 1e-3)")
+    del params32, cache, enc, frames
+    torch.cuda.empty_cache()
+
+
+def image_requests(cfg, params, dev, entries) -> None:
+    """``INTERNVL2_IMAGES`` image requests: 256 patch positions (stub
+    patch embeddings, seeded, × 0.1) and 16–512 text tokens (numpy seed 2),
+    each ``prefill(frontend_embed)`` into the paged layout (pages of 16,
+    :func:`pooled_rows`) and ``INTERNVL2_IMAGE_STEPS`` greedy
+    ``decode_step``s through its page table. The counts are set to 0
+    before the first and read after the last: the flash forward once a
+    layer a prefill, paged GQA once a layer a step."""
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.prefill import prefill
+    F, steps = cfg.frontend_tokens, INTERNVL2_IMAGE_STEPS
+    rng = np.random.default_rng(2)
+    text = rng.integers(16, 513, INTERNVL2_IMAGES)
+    torch.cuda.synchronize()
+    counters = _zero_counts()
+    pre_s = dec_s = 0.0
+    ok = True
+    with plain_calls() as plain:
+        for i, n in enumerate(text):
+            S = F + int(n)
+            toks = np.zeros((1, S), np.int32)     # pad ids under the patches
+            toks[0, F:] = rng.integers(0, cfg.vocab, n)
+            toks = torch.from_numpy(toks).to(dev)
+            g = torch.Generator(device=dev).manual_seed(10 + i)
+            fe = torch.randn((1, F, cfg.frontend_dim), generator=g,
+                             device=dev) * 0.1
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, rows = prefill(cfg, params, toks, page_size=16,
+                                   frontend_embed=fe)
+            torch.cuda.synchronize()
+            pre_s += time.perf_counter() - t
+            cache, table = pooled_rows(cfg, rows, S, steps, dev)
+            out = [logits.argmax(-1)]
+            t = time.perf_counter()
+            for j in range(steps):
+                pos = torch.full((1,), S + j, dtype=torch.int32, device=dev)
+                logits, cache = decode_step(cfg, params, cache, out[-1], pos,
+                                            table)
+                out.append(logits.argmax(-1))
+            torch.cuda.synchronize()
+            dec_s += time.perf_counter() - t
+            out = torch.cat(out)
+            ok &= bool(torch.isfinite(logits).all()) and \
+                bool(((out >= 0) & (out < cfg.vocab)).all())
+            del cache, rows
+    launches = {n: getattr(mod, attr) for n, (mod, attr) in counters.items()}
+    L = cfg.n_layers
+    check(ok, f"{cfg.name} images: finite logits, {steps + 1} in-vocabulary "
+          "tokens a request")
+    check(launches["flash_attention_fwd"] == L * INTERNVL2_IMAGES and
+          launches["paged_attention_gqa"] == L * steps * INTERNVL2_IMAGES
+          and not plain, f"{cfg.name} images: the flash forward once a "
+          f"layer a prefill and paged GQA once a layer a step ({launches}), "
+          f"no plain version on the card ({dict(plain)})")
+    _add_launches(entries, launches, f"{cfg.name} images",
+                  ["flash_attention_fwd", "paged_attention_gqa"])
+    print(f"serve {cfg.name} images: {INTERNVL2_IMAGES} requests of {F} "
+          f"patch positions + {text.tolist()} text tokens: prefill "
+          f"{pre_s:.3f} s ({int((F + text).sum()) / pre_s:.1f} prompt "
+          f"tok/s), {steps} greedy decode steps each in {dec_s:.3f} s "
+          f"({INTERNVL2_IMAGES * steps / dec_s:.1f} tok/s, one request at a "
+          f"time); launches {launches}")
+
+
+def internvl2_phase(dev, entries) -> None:
+    """internvl2-26b at its published width and depth (48 layers, d 6144,
+    48 heads over 8 of 128, SwiGLU 16384, vocab 92553, the 3200 → 6144
+    front-end projection; 19.9 B params, 39.8 GB in bf16). Text traffic
+    (the mistral workload's 12 lengths, internvl2's vocabulary) through the
+    paged engine twice with graphs, a profiled quantum, once eagerly (the
+    same streams); then :func:`image_requests`; prefill(S, fe) + paged
+    decode against prefill(S + 1, fe) reported in bf16 and held at f32
+    with depth cut to 2 layers (1e-3)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import Engine
+
+    cfg = get_config("internvl2-26b")
+    params = _make_params(cfg, dev)
+    kw = dict(max_slots=8, max_len=4096, page_size=16, decode_quantum=8)
+    eng = Engine(cfg, params, device=dev, **kw)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 2001, 12)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    streams = serve_twice(eng, cfg, lens, prompts, 32,
+                          ["flash_attention_fwd", "paged_attention_gqa"],
+                          entries)
+    profile_phase(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    serve_eager(cfg, params, dev, lens, prompts, 32, streams, **kw)
+    image_requests(cfg, params, dev, entries)
+    S = cfg.frontend_tokens + 44
+    g = torch.Generator(device=dev).manual_seed(3)
+    fe = torch.randn((1, cfg.frontend_tokens, cfg.frontend_dim),
+                     generator=g, device=dev) * 0.1
+    rel = prefill_decode_rel(cfg, params, dev, S=S, frontend_embed=fe)
+    print(f"{cfg.name} full width bf16, 48 layers: prefill(S, fe) + paged "
+          f"decode vs prefill(S+1, fe), S {S}, relative max error {rel:.3g} "
+          "(reported, not held: bf16 rounding through 48 random layers)")
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
+    params32 = _make_params(cfg32, dev)
+    rel = prefill_decode_rel(cfg32, params32, dev, S=S, frontend_embed=fe)
+    check(rel < 1e-3, f"{cfg.name} full width f32, depth cut to 2 layers: "
+          f"prefill(S, fe) + paged decode ≡ prefill(S+1, fe), S {S}, "
+          f"relative max error {rel:.3g} (tol 1e-3)")
+    del params32
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ training
 def plain_attend(q, k, v, *, scale, causal=True, window=0, softcap=0.0):
     """``models.attention.attend`` through the plain forward: autograd then
@@ -3182,9 +3611,7 @@ def train_cell(dev, entries, cfg, where: str, path, *, B: int,
     step_fn = make_train_step(cfg, ocfg)
     flops = train_flops(cfg, B, S)
     peak_ops = PEAK_OPS_PER_S[torch.bfloat16]
-    counters = _counters()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    counters = _zero_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, auxes, times = [], [], []
     try:
@@ -3368,6 +3795,7 @@ def main() -> int:
     sass = sass_phase()
     entries = [paged_phase(dev), paged256_phase(dev), flash_phase(dev),
                flash256_phase(dev), flash80_phase(dev),
+               flash_whisper_phase(dev),
                *flash_bwd_phase(dev), *flash_mla_train_phase(dev),
                mla_phase(dev), gg_phase(dev),
                gemm_phase(dev), ssd_phase(dev), selective_scan_phase(dev)]
@@ -3386,6 +3814,12 @@ def main() -> int:
     nemotron_phase(dev, entries)
     gemma2_phase(dev, entries)
     danube_phase(dev, entries)
+    t1 = time.perf_counter()
+    whisper_phase(dev, entries)
+    print(f"whisper phase {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    internvl2_phase(dev, entries)
+    print(f"internvl2 phase {time.perf_counter() - t1:.1f} s")
     train_phase(dev, entries)
     train_moe_phase(dev, entries)
     train_mla_phase(dev, entries)

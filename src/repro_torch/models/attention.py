@@ -1,5 +1,5 @@
-"""GQA and MLA projections, prefill attention and the training blocks
-(``repro/models/attention.py``).
+"""GQA and MLA projections, prefill attention, the training blocks and
+cross attention (``repro/models/attention.py``).
 
 ``attend`` keeps the contract of the JAX ``attend_chunked`` (causal,
 sliding window, softcap; q (B,Tq,Hkv,G,dh), k (B,Tk,Hkv,dh), v
@@ -74,12 +74,13 @@ def attend(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
 
 
 def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
-                  positions) -> torch.Tensor:
-    """The training GQA block with no cache: project, causal attention,
-    out-project. x (B,S,D) → (B,S,D)."""
+                  positions, causal: bool = True) -> torch.Tensor:
+    """The GQA block with no cache (training, whisper's encoder and
+    decoder): project, attention (causal unless told), out-project. x
+    (B,S,D) → (B,S,D)."""
     B, S, D = x.shape
     q, k, v = gqa_project(cfg, p, x, positions)
-    out = attend(q, k, v, scale=cfg.head_dim ** -0.5, causal=True,
+    out = attend(q, k, v, scale=cfg.head_dim ** -0.5, causal=causal,
                  window=window, softcap=cfg.attn_softcap)
     return out.reshape(B, S, -1) @ p["wo"].reshape(-1, D)
 
@@ -139,9 +140,36 @@ def mla_attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
 
 
 def attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
-              positions) -> torch.Tensor:
-    """The training attention block of a layer: MLA or GQA (JAX
-    ``attention`` on one device, where the context-parallel branch never
-    applies)."""
-    fn = mla_attention if cfg.mla else gqa_attention
-    return fn(cfg, p, x, window=window, positions=positions)
+              positions, causal: bool = True) -> torch.Tensor:
+    """The attention block of a layer with no cache: MLA (causal) or GQA
+    (JAX ``attention`` on one device, where the context-parallel branch
+    never applies)."""
+    if cfg.mla:
+        return mla_attention(cfg, p, x, window=window, positions=positions)
+    return gqa_attention(cfg, p, x, window=window, positions=positions,
+                         causal=causal)
+
+
+# --------------------------------------------------------- cross attention
+def cross_kv(cfg: ModelConfig, p, enc_out: torch.Tensor):
+    """The cross attention's K and V of the encoder states: enc_out
+    (B,Se,D) → k, v (B,Se,Hkv,dh), plain GEMMs as JAX's einsums."""
+    B, Se, D = enc_out.shape
+    k = (enc_out @ p["wk"].reshape(D, -1)).view(B, Se, cfg.n_kv_heads,
+                                                cfg.head_dim)
+    v = (enc_out @ p["wv"].reshape(D, -1)).view(B, Se, cfg.n_kv_heads,
+                                                cfg.head_dim)
+    return k, v
+
+
+def cross_attention(cfg: ModelConfig, p, x: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Decoder states x (B,Td,D) over precomputed encoder K/V (B,Te,Hkv,dh):
+    project q, attention with no mask (the flash forward at ``causal=False``
+    on the card), out-project → (B,Td,D)."""
+    B, Td, D = x.shape
+    G = cfg.n_heads // cfg.n_kv_heads
+    q = (x @ p["wq"].reshape(D, -1)).view(B, Td, cfg.n_kv_heads, G,
+                                          cfg.head_dim)
+    out = attend(q, k, v, scale=cfg.head_dim ** -0.5, causal=False)
+    return out.reshape(B, Td, -1) @ p["wo"].reshape(-1, D)

@@ -81,11 +81,21 @@ def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
 
 
 # -------------------------------------------------------------- embedding
-def embed(cfg: ModelConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (…) int → (…, D) in the parameter dtype."""
+def embed(cfg: ModelConfig, p, tokens: torch.Tensor,
+          frontend_embed: torch.Tensor | None = None) -> torch.Tensor:
+    """tokens (…) int → (…, D) in the parameter dtype, times sqrt(d) with
+    ``embed_scale``. A front end (VLM): ``frontend_embed`` (B, F,
+    frontend_dim) is projected by ``frontend_proj`` in the parameter dtype
+    (and scaled alike), and replaces the first F positions of tokens (B, S)
+    (the tokens there are a pad id)."""
     h = p["table"][tokens].to(cfg.pdtype)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    if frontend_embed is not None:
+        fe = frontend_embed.to(cfg.pdtype) @ p["frontend_proj"]
+        if cfg.embed_scale:
+            fe = fe * torch.tensor(cfg.d_model ** 0.5, dtype=fe.dtype)
+        h = torch.cat([fe, h[:, fe.shape[1]:]], dim=1)
     return h
 
 

@@ -86,10 +86,9 @@ def check_params(cfg: ModelConfig) -> None:
     geglu, or non-gated relu2 or gelu) or a gated MoE FFN, pre-norm or
     sandwich post-norm (gemma2), and Mamba stacks (Mamba-2 SSD or Mamba-1
     selective scan, pre-norm), with or without an FFN after each mixer,
-    alone or interleaved with attention (jamba)."""
-    if cfg.enc_dec or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec and front-end models are not ported")
+    alone or interleaved with attention (jamba); a decoder may have a stub
+    front end (internvl2: projected patch embeddings); and the whisper
+    encoder-decoder (whisper, ``params.param_specs``)."""
     if cfg.ssm is not None and cfg.ssm.version not in (1, 2):
         raise NotImplementedError(
             f"{cfg.name}: SSM version {cfg.ssm.version} is not ported "
@@ -113,11 +112,20 @@ def check_params(cfg: ModelConfig) -> None:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the families of :func:`check_params`; full-attention
-    layers keep their K/V in the page pool (or dense rows), sliding-window
-    layers in per-slot rings (GQA only: the port has no windowed MLA),
-    Mamba layers their state per slot."""
+    """The decoder serving path (prefill, decode and the engine) takes the
+    decoders of :func:`check_params`, a front end's as text (its
+    ``prefill`` takes the front-end embeddings); full-attention layers keep
+    their K/V in the page pool (or dense rows), sliding-window layers in
+    per-slot rings (GQA only: the port has no windowed MLA), Mamba layers
+    their state per slot. An encoder-decoder serves through
+    ``serve/prefill.py::whisper_prefill`` and
+    ``serve/decode.py::whisper_decode_step`` instead (JAX's engine asserts
+    the same)."""
     check_params(cfg)
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: enc-dec serving uses whisper_decode_step "
+            "(with whisper_prefill), not the decoder engine")
     if cfg.mla is not None and any(bc.window for bc in block_cfgs(cfg)):
         raise NotImplementedError(
             f"{cfg.name}: sliding-window MLA layers are not ported")
@@ -129,8 +137,17 @@ def check_trainable(cfg: ModelConfig) -> None:
     gated or not, or a gated MoE FFN (shared experts, dense first layers),
     pre- or post-norm; and Mamba-2 stacks without an FFN. Refused: Mamba-1
     (the selective scan has no backward yet), hybrids, Mamba blocks with
-    an FFN, and everything :func:`check_supported` refuses (windowed MLA,
-    MoE with a non-gated FFN, enc-dec and front ends)."""
+    an FFN, encoder-decoders and front ends (the port serves both), and
+    everything :func:`check_supported` refuses (windowed MLA, MoE with a
+    non-gated FFN)."""
+    if cfg.enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: training enc-dec models is not ported; the port "
+            "serves them (whisper_prefill, whisper_decode_step)")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: training front-end models is not ported; the port "
+            "serves them (prefill with frontend_embed, the engine as text)")
     if cfg.ssm is not None:
         if cfg.ssm.version != 2:
             raise NotImplementedError(
@@ -199,10 +216,12 @@ def apply_stack(cfg: ModelConfig, layers, h: torch.Tensor, positions):
     return h, total
 
 
-def lm_hidden(cfg: ModelConfig, params, tokens: torch.Tensor):
+def lm_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
+              frontend_embed: torch.Tensor | None = None):
     """tokens (B,S) → (final hidden states (B,S,D), summed MoE stats or
-    None)."""
-    h = embed(cfg, params["embed"], tokens)
+    None). ``frontend_embed`` (B,F,frontend_dim) replaces the first F
+    positions (``layers.embed``)."""
+    h = embed(cfg, params["embed"], tokens, frontend_embed)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     h, stats = apply_stack(cfg, params["layers"], h, positions)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps), stats

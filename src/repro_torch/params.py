@@ -71,7 +71,9 @@ def param_specs(cfg: ModelConfig):
     Mamba-1 (``mamba1_defs``: the x/z projections, the conv, ``w_bcdt``
     (C, dt_rank + 2N) and ``w_dt`` (dt_rank, C) with dt_rank = ceil(d/16),
     A_log (C, N)); A_log, D_skip and dt_bias in f32, zeros for A_log,
-    dt_bias and the conv biases, ones for D_skip, conv weights at 0.1."""
+    dt_bias and the conv biases, ones for D_skip, conv weights at 0.1.
+    A front end adds ``embed.frontend_proj`` (``layers.py::embed_defs``);
+    an encoder-decoder has whisper's tree (the module docstring)."""
     check_params(cfg)
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     pdt = cfg.pdtype
@@ -160,8 +162,24 @@ def param_specs(cfg: ModelConfig):
             d.update({"post1": norm(D), "post2": norm(D)})
         return d
 
+    if cfg.enc_dec:
+        # whisper.py::encdec_defs: the decoder positions at scale 0.01, the
+        # cross attention with GQA's shapes and scales, the unembedding tied
+        enc = {"norm1": norm(D), "attn": attn(), "norm2": norm(D),
+               "mlp": mlp(cfg.d_ff)}
+        dec = {"norm1": norm(D), "self_attn": attn(), "norm_x": norm(D),
+               "cross": attn(), "norm2": norm(D), "mlp": mlp(cfg.d_ff)}
+        return {"embed": {"table": ParamSpec((cfg.vocab, D), pdt)},
+                "dec_pos": ParamSpec((cfg.max_decoder_len, D), pdt,
+                                     scale=0.01),
+                "enc_layers": [enc] * cfg.n_enc_layers, "enc_norm": norm(D),
+                "dec_layers": [dec] * cfg.n_layers, "dec_norm": norm(D),
+                "unembed": {}}
+    emb = {"table": ParamSpec((cfg.vocab, D), pdt)}
+    if cfg.frontend != "none" and cfg.frontend_dim:
+        emb["frontend_proj"] = ParamSpec((cfg.frontend_dim, D), pdt)
     return {
-        "embed": {"table": ParamSpec((cfg.vocab, D), pdt)},
+        "embed": emb,
         "layers": [layer(bc) for bc in block_cfgs(cfg)],
         "final_norm": norm(D),
         "unembed": ({} if cfg.tie_embeddings
@@ -199,22 +217,36 @@ def _from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _unstack(stacked, n: int) -> list:
+    """A subtree whose leaves carry a leading axis of ``n`` → ``n`` subtrees
+    of one entry each."""
+    return [tree_map(lambda a, r=r: np.asarray(a)[r], stacked)
+            for r in range(n)]
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
     """Carry a JAX parameter tree (``materialize(model_defs(cfg), key)``,
     leaves as numpy or array-likes) across. Its ``blocks`` — one entry per
     scan segment (jamba: one 8-slot pattern of Mamba-1 and attention
     mixers, dense and MoE FFNs), leaves with a leading repeat axis — are
-    unstacked into ``layers`` in layer order."""
+    unstacked into ``layers`` in layer order; an encoder-decoder's stacked
+    ``enc_blocks`` and ``dec_blocks`` into ``enc_layers`` and
+    ``dec_layers``."""
     device = resolve_device(device)
     specs = param_specs(cfg)
-    layers = []
-    for seg, seg_tree in zip(layer_schedule(cfg), tree["blocks"]):
-        for r in range(seg.repeat):
-            for j in range(len(seg.pattern)):
-                layers.append(tree_map(lambda a, r=r: np.asarray(a)[r],
-                                       seg_tree[f"s{j}"]))
-    flat = {"embed": tree["embed"], "layers": layers,
-            "final_norm": tree["final_norm"], "unembed": tree["unembed"]}
+    if cfg.enc_dec:
+        flat = {k: tree[k] for k in ("embed", "dec_pos", "enc_norm",
+                                     "dec_norm", "unembed")}
+        flat["enc_layers"] = _unstack(tree["enc_blocks"], cfg.n_enc_layers)
+        flat["dec_layers"] = _unstack(tree["dec_blocks"], cfg.n_layers)
+    else:
+        layers = []
+        for seg, seg_tree in zip(layer_schedule(cfg), tree["blocks"]):
+            slots = [_unstack(seg_tree[f"s{j}"], seg.repeat)
+                     for j in range(len(seg.pattern))]
+            layers += [s[r] for r in range(seg.repeat) for s in slots]
+        flat = {"embed": tree["embed"], "layers": layers,
+                "final_norm": tree["final_norm"], "unembed": tree["unembed"]}
     out = tree_map(lambda a: _from_numpy(a, device), flat)
     got = tree_map(lambda t: (tuple(t.shape), t.dtype), out)
     want = tree_map(lambda s: (s.shape, s.dtype), specs)

@@ -43,6 +43,13 @@ distributions) and the commit of the accepted prefix (``decode_commit``).
 ``spec_decode_quantum`` the same loop in place, one CUDA graph per width
 like ``decode_quantum``. ``plan_resume`` is the tier pool's retry law
 (``serve/multi_engine.py``).
+
+An encoder-decoder (whisper) steps through ``whisper_decode_step``: each
+decoder layer writes its self row at ``pos`` into dense rows of
+``max_decoder_len`` (a ``pos`` past them writes nothing) and attends over
+them and over the prefilled cross K/V, both in plain torch as JAX's
+einsum (no TPU kernel computes either). ``serve_step_fn`` dispatches
+between it and ``decode_step``, as JAX's.
 """
 from __future__ import annotations
 
@@ -363,6 +370,52 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(cfg, params["embed"], params["unembed"], h)
     return logits, {"layers": layers}
+
+
+# ---------------------------------------------------- whisper decode step
+def whisper_decode_step(cfg: ModelConfig, params, cache, tokens, pos):
+    """tokens (B,), pos (B,) int → (logits (B,V) f32, cache): one decoder
+    step against each layer's self rows (written in place at ``pos``; a
+    ``pos`` at or past ``max_decoder_len`` writes nothing and every row is
+    live) and its prefilled cross K/V (every encoder row live, nothing
+    written); ``dec_pos`` is read at ``pos`` clipped to its rows."""
+    B = tokens.shape[0]
+    H, Hkv, dh, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    h = params["embed"]["table"][tokens].to(cfg.pdtype) + \
+        params["dec_pos"][pos.long().clamp(0, cfg.max_decoder_len - 1)]
+    first = cache["dec_layers"][0]
+    S, Se = first["k"].shape[1], first["xk"].shape[1]
+    consts = StepConsts(None, None, {(S, 0): _dense_rows(pos, S, 0)})
+    cross_rows = (None, torch.ones((B, Se), dtype=torch.bool,
+                                   device=h.device))
+    layers = []
+    for p, c in zip(params["dec_layers"], cache["dec_layers"]):
+        x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+        o, sc = gqa_decode(cfg, p["self_attn"], x, c, pos, 0, None, consts)
+        h = h + o
+        x = rmsnorm(h, p["norm_x"], cfg.norm_eps)
+        q = (x @ p["cross"]["wq"].reshape(D, -1)).view(B, Hkv, H // Hkv, dh)
+        o, _, _ = flash_decode_gqa(q, None, None, c["xk"], c["xv"], pos,
+                                   scale=dh ** -0.5, softcap=0.0,
+                                   rows=cross_rows, update=False)
+        h = h + o.reshape(B, -1) @ p["cross"]["wo"].reshape(-1, D)
+        x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+        h = h + mlp(cfg, p["mlp"], x[:, None])[:, 0]
+        layers.append({**sc, "xk": c["xk"], "xv": c["xv"]})
+    h = rmsnorm(h, params["dec_norm"], cfg.norm_eps)
+    logits = logits_fn(cfg, params["embed"], params["unembed"], h)
+    return logits, {"dec_layers": layers}
+
+
+def serve_step_fn(cfg: ModelConfig):
+    """The decode entry of ``cfg``: ``step(params, cache, tokens, pos)`` →
+    :func:`whisper_decode_step` for an encoder-decoder, else
+    :func:`decode_step` on a dense cache."""
+    fn = whisper_decode_step if cfg.enc_dec else decode_step
+
+    def step(params, cache, tokens, pos):
+        return fn(cfg, params, cache, tokens, pos)
+    return step
 
 
 # ------------------------------------------------------ fused decode loop

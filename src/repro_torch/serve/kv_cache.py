@@ -20,6 +20,11 @@ parameter dtype and ``ssm`` ``(max_slots, H, P, N)`` in f32; Mamba-1
 ``conv_x`` ``(max_slots, d_conv - 1, C)`` and ``ssm`` ``(max_slots, C,
 N)`` in f32. In a hybrid (jamba) the attention layers keep their K/V in
 the pool (or dense rows) beside their Mamba neighbours' state.
+
+Encoder-decoder (``encdec_cache_defs``, whisper): each decoder layer keeps
+dense self rows ``k``/``v`` (batch, max_decoder_len, Hkv, dh) and the
+cross K/V ``xk``/``xv`` (batch, enc_len, Hkv, dh) over the encoder frames,
+written once by ``whisper_prefill``.
 """
 from __future__ import annotations
 
@@ -95,6 +100,18 @@ def cache_kinds(cfg: ModelConfig, *, paged: bool = True) -> list[str]:
     per slot)."""
     return ["paged" if paged and _is_pooled(bc) else "dense"
             for bc in block_cfgs(cfg)]
+
+
+def encdec_cache_defs(cfg: ModelConfig, batch: int, enc_len: int):
+    """Whisper's cache defs, a list over the decoder layers: self rows of
+    ``max_decoder_len`` and cross K/V over ``enc_len`` encoder frames, in
+    the parameter dtype (one device: no padding to a model axis)."""
+    def rows(n):
+        return ParamSpec((batch, n, cfg.n_kv_heads, cfg.head_dim),
+                         cfg.pdtype, "zeros")
+    slot = {"k": rows(cfg.max_decoder_len), "v": rows(cfg.max_decoder_len),
+            "xk": rows(enc_len), "xv": rows(enc_len)}
+    return {"dec_layers": [slot] * cfg.n_layers}
 
 
 def make_cache(defs, device) -> dict:

@@ -17,17 +17,26 @@ A Mamba layer returns its decode state instead
 (``mamba_mixer(return_state=True)``: the SSD kernel for Mamba-2, the
 selective scan kernel for Mamba-1); its scan would absorb pad tokens, so
 the engine prefills such models in exact-length groups.
+
+A front end (internvl2): ``prefill(frontend_embed=)`` replaces the first F
+positions of every row with the projected patch embeddings, whatever its
+``prompt_len``; a prompt shorter than F is refused. An encoder-decoder
+(whisper): ``whisper_prefill`` encodes the frames and computes every
+decoder layer's cross K/V once, beside zero self rows.
+``prefill_step_fn`` dispatches between the two, as JAX's.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attend, gqa_project, mla_qkv
+from repro_torch.models.attention import (attend, cross_kv, gqa_project,
+                                         mla_qkv)
 from repro_torch.models.layers import embed, logits_fn, mlp, rmsnorm
 from repro_torch.models.mamba import mamba_mixer
 from repro_torch.models.moe import moe_block
 from repro_torch.models.transformer import BlockCfg, block_cfgs
+from repro_torch.models.whisper import encode
 from repro_torch.serve.kv_cache import attn_cache_len
 
 
@@ -148,9 +157,25 @@ def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
     return h, cache
 
 
+def _check_frontend(frontend_embed, S: int, prompt_len) -> None:
+    """A front end's F patch positions must lie inside the prompt. Shorter
+    tokens (S < F) raise the TypeError JAX's prefill raises there (its
+    shapes do not broadcast); with ``prompt_len`` a row shorter than F
+    raises a ValueError (JAX computes it, its logits gathered at a patch
+    position)."""
+    F = frontend_embed.shape[1]
+    if S < F:
+        raise TypeError(f"{S} tokens cannot hold the {F} front-end "
+                        "positions")
+    if prompt_len is not None and bool((prompt_len < F).any()):
+        raise ValueError(f"prompt_len {prompt_len.tolist()} below the {F} "
+                         "front-end positions")
+
+
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             max_len: int | None = None, prompt_len: torch.Tensor | None = None,
-            page_size: int | None = None):
+            page_size: int | None = None,
+            frontend_embed: torch.Tensor | None = None):
     """tokens (B,S) → (last-token logits (B,V) f32, {"layers": [{"k","v"},
     {"ckv"} or the Mamba state ({"conv_x", "conv_B", "conv_C", "ssm"} for
     Mamba-2, {"conv_x", "ssm"} for Mamba-1)]}).
@@ -159,9 +184,13 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     prompt_len-1 per row, and ring caches are packed per row. ``max_len``
     (default S) sizes full-attention rows and the rings; ``page_size``
     sizes full-attention rows by the bucket (page-aligned) instead.
+    ``frontend_embed`` (B,F,frontend_dim) replaces the first F positions
+    of every row (:func:`_check_frontend`).
     """
     S = tokens.shape[1]
-    h = embed(cfg, params["embed"], tokens)
+    if frontend_embed is not None:
+        _check_frontend(frontend_embed, S, prompt_len)
+    h = embed(cfg, params["embed"], tokens, frontend_embed)
     positions = torch.arange(S, device=tokens.device)
     caches = []
     for bc, p in zip(block_cfgs(cfg), params["layers"]):
@@ -176,3 +205,34 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
         last = h[torch.arange(h.shape[0], device=h.device), idx]
     logits = logits_fn(cfg, params["embed"], params["unembed"], last)
     return logits, {"layers": caches}
+
+
+def whisper_prefill(cfg: ModelConfig, params, frames: torch.Tensor):
+    """Encode ``frames`` (B, Se, D) and build the decoder's cache →
+    (enc_out (B, Se, D), {"dec_layers": [{"k", "v": zero self rows (B,
+    max_decoder_len, Hkv, dh), "xk", "xv": the layer's cross K/V (B, Se,
+    Hkv, dh)}, ...]}): the cross K/V of every decoder layer computed once."""
+    enc_out = encode(cfg, params, frames)
+    B = frames.shape[0]
+    layers = []
+    for p in params["dec_layers"]:
+        xk, xv = cross_kv(cfg, p["cross"], enc_out)
+        rows = xk.new_zeros((B, cfg.max_decoder_len, cfg.n_kv_heads,
+                             cfg.head_dim))
+        layers.append({"k": rows, "v": torch.zeros_like(rows), "xk": xk,
+                       "xv": xv})
+    return enc_out, {"dec_layers": layers}
+
+
+def prefill_step_fn(cfg: ModelConfig):
+    """The prefill entry of ``cfg``: ``step(params, frames)`` →
+    :func:`whisper_prefill` for an encoder-decoder, else ``step(params,
+    tokens, frontend_embed=None)`` → :func:`prefill`."""
+    if cfg.enc_dec:
+        def step(params, frames):
+            return whisper_prefill(cfg, params, frames)
+        return step
+
+    def step(params, tokens, frontend_embed=None):
+        return prefill(cfg, params, tokens, frontend_embed=frontend_embed)
+    return step

@@ -568,7 +568,8 @@ def _close_partials(got, want):
 
 @pytest.mark.parametrize("softcap", [0.0, 30.0])
 @pytest.mark.parametrize("base", [0, 8])
-@pytest.mark.parametrize("grp,dh", [(4, 128), (8, 64), (1, 128), (2, 256)])
+@pytest.mark.parametrize("grp,dh", [(4, 128), (6, 128), (8, 64), (1, 128),
+                                    (2, 256)])
 def test_paged_gqa_mma_main_shape(dev, softcap, base, grp, dh):
     """The tensor-core route at the main path's table (256 pages of 16, 8
     splits) against the plain version: 4095 keys across every split, an
@@ -730,6 +731,7 @@ def _fwd_views(dev, B, T, H, Hk, dh, dv, seed, mla=False):
 @pytest.mark.parametrize("T", [129, 640, 1000, 2048])
 @pytest.mark.parametrize("H,Hk,dh,dv,mla", [(8, 2, 64, 64, False),
                                             (8, 2, 128, 128, False),
+                                            (12, 2, 128, 128, False),
                                             (4, 4, 192, 128, True),
                                             (8, 4, 256, 256, False)])
 @pytest.mark.parametrize("causal,window,softcap", [
@@ -1672,3 +1674,120 @@ def test_engine_spec_graphs_match_eager_and_host(dev, arch):
                                    **sampled)
     assert eng.decode_captures == len(eng.widths_used)
     assert graph == eager
+
+
+# ------------------------------ whisper and internvl2 (enc-dec, front end)
+@pytest.mark.parametrize("T", [448, 1500])
+def test_flash_wgmma_noncausal_mha_dh64(dev, T):
+    """whisper's encoder attention: 20 heads over 20 (one query head a kv
+    head), dh 64, no mask, a ragged last key tile at 1500, the (B, T, 20,
+    64) projections as views: the wgmma route, one launch, within 3e-2 of
+    the plain version, two calls bit-equal."""
+    q, k, v = _fwd_views(dev, 2, T, 20, 20, 64, 64, seed=T)
+    assert flash_ops._aligned(q, k, v)
+    assert flash_ops.fwd_route(q.dtype, 64, 64, True) == "wgmma"
+    kw = dict(scale=64 ** -0.5, causal=False)
+    n0 = flash_ops.launches
+    got = flash_ops.attend(q, k, v, **kw)
+    assert flash_ops.launches == n0 + 1
+    assert torch.equal(got, flash_ops.attend(q, k, v, **kw))
+    want = flash_ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
+def _whisper_smoke():
+    cfg = dataclasses.replace(smoke_config(get_config("whisper-large-v3")),
+                              param_dtype="float32")
+    return cfg, init_params(cfg, seed=0, device="cpu")
+
+
+def test_whisper_prefill_on_card_matches_host(dev):
+    """whisper smoke (f32): the encoder states and every layer's cross K/V
+    of ``whisper_prefill`` on the card (the flash forward, non-causal)
+    against the host's plain versions."""
+    from repro_torch.serve.prefill import whisper_prefill
+    cfg, params = _whisper_smoke()
+    fr = torch.randn((2, 40, cfg.d_model),
+                     generator=torch.Generator().manual_seed(1)) * 0.1
+    enc, cache = whisper_prefill(cfg, params, fr)
+    n0 = flash_ops.launches
+    encd, cached = whisper_prefill(cfg, tree_map(lambda t: t.to(dev), params),
+                                   fr.to(dev))
+    assert flash_ops.launches == n0 + cfg.n_enc_layers
+    assert _rel(encd.cpu(), enc) < TOL[torch.float32]
+    for c, cd in zip(cache["dec_layers"], cached["dec_layers"]):
+        for name in ("xk", "xv"):
+            assert _rel(cd[name].cpu(), c[name]) < TOL[torch.float32]
+
+
+def test_whisper_decode_step_on_card_matches_host(dev):
+    """whisper smoke (f32): 20 greedy ``whisper_decode_step``s on the card
+    (past ``max_decoder_len``) give the host's tokens, each step's logits
+    within 1e-4."""
+    from repro_torch.serve.decode import whisper_decode_step
+    from repro_torch.serve.prefill import whisper_prefill
+    cfg, params = _whisper_smoke()
+    fr = torch.randn((2, 40, cfg.d_model),
+                     generator=torch.Generator().manual_seed(2)) * 0.1
+    runs = []
+    for device in ("cpu", dev):
+        p = tree_map(lambda t: t.to(device), params)
+        _, cache = whisper_prefill(cfg, p, fr.to(device))
+        tok = torch.tensor([1, 7], device=device)
+        logits = []
+        for t in range(20):
+            lg, cache = whisper_decode_step(cfg, p, cache, tok,
+                                            torch.full((2,), t,
+                                                       device=device))
+            tok = lg.argmax(-1)
+            logits.append(lg.cpu())
+        runs.append(logits)
+    for a, b in zip(*runs):
+        assert _rel(b, a) < TOL[torch.float32]
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+
+
+def test_internvl2_prefill_with_frontend_on_card_matches_host(dev):
+    """internvl2 smoke: ``prefill(frontend_embed)`` on the card (the flash
+    forward) against the host, exact-length in f32 (1e-4) and bucketed
+    with ``prompt_len`` in bf16 (3e-2 of the largest logit)."""
+    from repro_torch.serve.prefill import prefill
+    for dtype, pl in (("float32", None), ("bfloat16", [12, 32])):
+        cfg = dataclasses.replace(smoke_config(get_config("internvl2-26b")),
+                                  param_dtype=dtype)
+        params = init_params(cfg, seed=0, device="cpu")
+        g = torch.Generator().manual_seed(3)
+        toks = torch.randint(0, cfg.vocab, (2, 32), generator=g)
+        fe = torch.randn((2, cfg.frontend_tokens, cfg.frontend_dim),
+                         generator=g) * 0.1
+        kw = {} if pl is None else dict(prompt_len=torch.tensor(pl),
+                                        page_size=8)
+        want, cache = prefill(cfg, params, toks, frontend_embed=fe, **kw)
+        n0 = flash_ops.launches
+        got, cached = prefill(cfg, tree_map(lambda t: t.to(dev), params),
+                              toks.to(dev), frontend_embed=fe.to(dev),
+                              **{n: t.to(dev) if torch.is_tensor(t) else t
+                                 for n, t in kw.items()})
+        assert flash_ops.launches == n0 + cfg.n_layers
+        assert _rel(got.cpu(), want) < TOL[cfg.pdtype]
+        if dtype == "float32":
+            for c, cd in zip(cache["layers"], cached["layers"]):
+                assert _rel(cd["k"].cpu(), c["k"]) < TOL[torch.float32]
+
+
+def test_serve_launcher_internvl2_on_card(dev):
+    """``python -m repro_torch.launch.serve --arch internvl2-26b`` serves
+    the smoke config on the card (its default device) and exits 0."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "internvl2-26b", "--requests", "4", "--max-new", "4"],
+        env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("served 4 requests"), out.stdout

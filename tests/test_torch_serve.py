@@ -250,8 +250,12 @@ def test_engine_validation(small_engine_args):
         eng.submit(teng.Request(rid=1, prompt=[]))
     with pytest.raises(ValueError):
         bucket_len(65, max_bucket=64)
-    with pytest.raises(NotImplementedError):
-        teng.Engine(dataclasses.replace(tcfg, frontend="vision"), tp,
+    # a front end's model is served as text; an encoder-decoder is refused
+    # as by the JAX engine, which names whisper_decode_step
+    assert teng.Engine(dataclasses.replace(tcfg, frontend="vision"), tp,
+                       device="cpu").cfg.frontend == "vision"
+    with pytest.raises(NotImplementedError, match="whisper_decode_step"):
+        teng.Engine(dataclasses.replace(tcfg, enc_dec=True), tp,
                     device="cpu")
 
 
