@@ -23,7 +23,11 @@
    path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16 at
    each shape's plan, with the Table 2 sweep of bn, the SSD intra-chunk at
    mamba2-130m's shapes, the Mamba-1 selective scan at jamba's prefill
-   shapes (B 1 and 8, S 2000, C 8192, N 16, a nonzero h0); the flash
+   shapes (B 1 and 8, S 2000, C 8192, N 16, a nonzero h0; its training
+   instance, which also saves the state entering each 32-step tile, bit
+   for bit the same), the scan's backward at jamba's training layer (B 2,
+   S 2048, C 8192, N 16, nonzero h0 and dh_last) against the plain reverse
+   recurrence and against autograd through the plain forward; the flash
    forward, the bf16 grouped GEMM, the SSD kernel and the selective scan
    also bit-equal over two calls; attention outputs row by row against the
    largest value of the row, a softcap with queries scaled so that the
@@ -137,26 +141,36 @@
    the next. Every launch counts for the one kernel entry whose paths hold
    the model.
 7. Training (the flash backward and the forward that saves lse, the
-   grouped GEMM's backward products, the SSD intra-chunk under autograd):
-   both flash kernels against their plain versions at the GQA training
-   shape (B=4, T=2048, 32 heads over 8, dh=128, causal, bf16; also f32
-   and window + softcap) and at deepseek-v2's MLA shape (B=4, T=2048, 128
-   heads at (192, 128)), timed beside ``scaled_dot_product_attention`` and
-   its backward; dA = dC·Wᵀ and dW = Aᵀ·dC through ``GroupedGemm`` at
-   phi3.5-moe's and deepseek-v2's training shapes (bf16 and f32, one
-   launch a product), timed beside ``torch.bmm`` and the transposes'
-   copies; the SSD kernel at a mamba2 training layer's 64 chunk rows
-   beside its plain backward. Then four models at their published width,
+   grouped GEMM's backward products, the SSD intra-chunk under autograd,
+   the selective scan's backward): both flash kernels against their plain
+   versions at the GQA training shape (B=4, T=2048, 32 heads over 8,
+   dh=128, causal, bf16; also f32 and window + softcap), at deepseek-v2's
+   MLA shape (B=4, T=2048, 128 heads at (192, 128)), at whisper's encoder,
+   decoder and cross shapes (G 1, dh 64; non-causal, causal, Tq 448 over
+   Tk 1500) and internvl2's G 6, each call's route recorded, timed beside
+   ``scaled_dot_product_attention`` and its backward; dA = dC·Wᵀ and dW =
+   Aᵀ·dC through ``GroupedGemm`` at phi3.5-moe's, deepseek-v2's and
+   jamba's (up and down) training shapes (bf16 and f32, one launch a
+   product), timed beside ``torch.bmm`` and the transposes' copies; the
+   SSD kernel at a mamba2 training layer's 64 chunk rows beside its plain
+   backward. Then seven models at their published width,
    each trained 5 steps (batch B x 2048 of synthetic data through the
-   prefetch loader, bf16 params, AdamW lr 0.15/d) with per-step loss
-   (and ``moe_aux``), grad norm, seconds and tokens/s, peak memory, model
+   prefetch loader, bf16 params, AdamW lr 0.15/d, whisper 0.0375/d) with
+   per-step loss (and ``moe_aux``), grad norm, seconds and tokens/s, peak memory, model
    FLOP/s against the bf16 peak and one profiled step, their kernels'
    launches counted on their path, and an f32 gradient check at full
    width of the kernels against autograd through the plain versions:
    mistral-nemo-12b (depth 8, B 4, f32 moments; "train"), phi3.5-moe-42b
    (depth 3, B 4, f32 moments; "train-moe"), deepseek-v2-236b (depth 2:
-   the dense layer and one MoE layer, B 4, int8 moments; "train-mla") and
-   mamba2-130m (full depth, B 8, f32 moments; "train-ssm"); and the
+   the dense layer and one MoE layer, B 4, int8 moments; "train-mla"),
+   mamba2-130m (full depth, B 8, f32 moments; "train-ssm"),
+   jamba-v0.1-52b (depth 5: Mamba-1 + dense, + MoE, + dense, + MoE,
+   attention + dense, B 2, int8 moments; "train-hybrid"; f32 check at
+   depth 2), whisper-large-v3 (full depth, 8 x 1500 stub frames and 448
+   decoder tokens, f32 moments; "train-encdec"; f32 check at 2 + 2
+   layers, 512 frames, 64 tokens) and internvl2-26b (depth 8, B 4, 256
+   front-end positions, f32 moments; "train-vlm"; f32 check at depth 2
+   with the front end); and the
    training launcher at smoke size, mistral-nemo-12b and phi3.5-moe-42b,
    each in a subprocess.
 8. Prints report lines (``report {...}``: the f32 paged decode kernel at
@@ -229,12 +243,15 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 PROFILE_PAD_S = 0.02
 # On one H100 host every profile from a minute into the run lost its first
 # kernel record (a 20-call profile saw 19 launches, a one-kernel profile
-# none); on another one profile lost 3 of 21; most hosts lose none. So each
-# profile starts with a lead-in kernel (``torch.cuda._sleep``'s spin kernel)
-# that no reading counts: it takes a lost first record, and a profile
-# without it is known to have lost records (``kernels_ms`` profiles again,
-# at most ``PROFILE_ATTEMPTS`` times).
+# none); on another one profile lost 3 of 21; most hosts lose none; on
+# another, many profiles lost their first two records (a one-launch lead-in
+# and a 20-call profile's first launch, three times running). So each
+# profile starts with LEAD_IN_KERNELS lead-in kernels (``torch.cuda._sleep``'s
+# spin kernel) that no reading counts: they take lost first records, and a
+# profile with none of them left is known to have lost records
+# (``kernels_ms`` profiles again, at most ``PROFILE_ATTEMPTS`` times).
 LEAD_IN = "spin_kernel"
+LEAD_IN_KERNELS = 4
 LEAD_INS = {"profiles": 0, "lost": 0}
 PROFILE_ATTEMPTS = 3
 
@@ -242,13 +259,14 @@ PROFILE_ATTEMPTS = 3
 @contextmanager
 def device_profile(cpu: bool = False):
     """torch.profiler over the block (CUDA, and CPU with ``cpu``), idle for
-    ``PROFILE_PAD_S`` and a lead-in kernel (``LEAD_IN``) before it and,
-    after a synchronize, idle after it."""
+    ``PROFILE_PAD_S`` and ``LEAD_IN_KERNELS`` lead-in kernels (``LEAD_IN``)
+    before it and, after a synchronize, idle after it."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     with profile(activities=acts) as prof:
         time.sleep(PROFILE_PAD_S)
-        torch.cuda._sleep(1000)
+        for _ in range(LEAD_IN_KERNELS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
         yield prof
         torch.cuda.synchronize()
@@ -277,7 +295,7 @@ def kernels_ms(fn, calls: int = 1) -> tuple[dict[str, list], dict]:
         by_name = device_time(prof)[2]
         if LEAD_INS["lost"] == lost:
             break
-        print(f"profile {attempt} of {calls} calls lost its lead-in kernel "
+        print(f"profile {attempt} of {calls} calls lost its lead-in kernels "
               f"(it saw {sum(n for _, n in by_name.values())} kernels)")
     counted = {n: (c - n0[n]) / calls for n, c in counts().items()}
     return ({k: [us / 1e3 / calls, n / calls]
@@ -333,9 +351,11 @@ def sass_phase() -> dict[str, dict]:
     instructions in the built SASS (``cuobjdump -sass``) and ptxas's
     registers and spills. A count of 0 fails."""
     from repro_torch.kernels import _build
+    libs = {lib for lib, _ in WGMMA_KERNELS.values()}
+    sass = {lib: _build.sass_counts(lib) for lib in libs}
     out = {}
     for entry, (lib, kernels) in WGMMA_KERNELS.items():
-        counts, regs = _build.sass_counts(lib), _build.ptxas_stats(lib)
+        counts, regs = sass[lib], _build.ptxas_stats(lib)
         out[entry] = {}
         for k, ops in kernels.items():
             c, r = counts.get(k, {}), regs.get(k, {})
@@ -1037,7 +1057,8 @@ def flash_bwd_phase(dev) -> list[dict]:
                         "flash_attention_bwd.cu" if name.endswith("bwd")
                         else "flash_attention.cu"),
                     "replaces": "src/repro/kernels/flash_attention/" + replaces,
-                    "paths": ["train", "train-moe"],
+                    "paths": ["train", "train-moe", "train-hybrid",
+                              "train-vlm"],
                     "max_abs_err": err, "tol": tol, "ms": ms,
                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib, "check": f"{chk}; times at {shape}"})
@@ -1162,6 +1183,129 @@ def flash_mla_train_phase(dev) -> list[dict]:
                     "library_ms": lib, "check": f"{chk}; times at {shape}"})
     out[0]["passes_ms"] = passes
     return out
+
+
+# the flash backward and lse forward at the shapes of the new training
+# cells: whisper's encoder (non-causal), decoder self (causal) and cross
+# attention (non-causal, Tq != Tk) at G 1, dh 64; internvl2's G 6, dh 128
+FLASH_TRAIN_SHAPES = (  # name, B, Tq, Tk, H, Hk, dh, causal
+    ("whisper encoder", 8, 1500, 1500, 20, 20, 64, False),
+    ("whisper decoder self", 8, 448, 448, 20, 20, 64, True),
+    ("whisper cross", 8, 448, 1500, 20, 20, 64, False),
+    ("internvl2", 4, 2048, 2048, 48, 8, 128, True))
+
+
+def flash_train_case(dev, name, B, Tq, Tk, H, Hk, dh, causal) -> dict:
+    """One shape of FLASH_TRAIN_SHAPES, bf16, q/k/v/do head-transposed
+    views of (B, T, heads, dh) as ``attend`` passes them: the lse forward
+    on ``wgmma`` (o bit-equal to the serving forward, lse within 1e-4 of
+    ``flash_attention_fwd_lse_ref``) and the backward on ``mma`` (dq, dk, dv
+    within 3e-2 of each largest value of ``flash_attention_bwd_ref`` on the
+    kernel's o and lse, two calls bit-equal), each call's route recorded;
+    CUDA-event ms of both kernels, their plain versions and
+    ``scaled_dot_product_attention`` (forward on inputs that want a
+    gradient; backward through ``torch.autograd.grad``), and the bounds."""
+    from repro_torch.kernels.flash_attention import ops, ref
+    dt = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(Tq + Tk + H)
+    q, do = (torch.randn((B, Tq, H, dh), generator=g, device=dev).to(dt)
+             .permute(0, 2, 1, 3) for _ in range(2))
+    k, v = (torch.randn((B, Tk, Hk, dh), generator=g, device=dev).to(dt)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    kw = dict(scale=dh ** -0.5, causal=causal)
+    with flash_routes() as fwd_r, flash_routes("bwd_route") as bwd_r:
+        o, lse = ops.attend_fwd_lse(q, k, v, **kw)
+        got = ops.attend_bwd(q, k, v, o, lse, do, **kw)
+        again = ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    same_o = torch.equal(o, ops.attend(q, k, v, **kw))
+    bit = all(torch.equal(a, b) for a, b in zip(got, again))
+    _, lse_r = ref.flash_attention_fwd_lse_ref(q, k, v, **kw)
+    e_l = float((lse - lse_r).abs().max())
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    errs = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            for a, b in zip(got, want)]
+    del lse_r, want, again
+    label = (f"{name} (B={B} Tq={Tq} Tk={Tk} H={H} Hkv={Hk} dh={dh} "
+             f"{'causal' if causal else 'non-causal'} bf16)")
+    check(fwd_r == ["wgmma"] and bwd_r == ["mma", "mma"] and same_o and
+          e_l <= 1e-4 and max(errs) <= BF16_TOL and bit,
+          f"flash train {label}: routes fwd {fwd_r} bwd {bwd_r} (want "
+          f"wgmma, mma); o equals the serving forward {same_o}; max |lse - "
+          f"ref| {e_l:.3g} (tol 1e-4); dq, dk, dv relative max error "
+          f"{[f'{e:.3g}' for e in errs]} (tol {BF16_TOL}); two backward "
+          f"calls bit-equal {bit}")
+    pairs = _causal_pairs(Tq, 0) * B * H if causal else B * H * Tq * Tk
+    e = 2
+    b_bytes = (e * B * (3 * Tq * H * dh + 2 * Tk * Hk * dh) + 4 * B * H * Tq
+               + e * B * (Tq * H * dh + 2 * Tk * Hk * dh))
+    f_bytes = e * B * (2 * Tq * H * dh + 2 * Tk * Hk * dh) + 4 * B * H * Tq
+    res = {"shape": label, "routes": {"fwd": fwd_r, "bwd": bwd_r[0]},
+           "err_lse": e_l, "err_bwd": max(errs)}
+    ms_b = time_ms(lambda: ops.attend_bwd(q, k, v, o, lse, do, **kw), 10)
+    ms_f = time_ms(lambda: ops.attend_fwd_lse(q, k, v, **kw), 10)
+    plain_b = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, **kw), 2, 1)
+    plain_f = time_ms(lambda: ref.flash_attention_fwd_lse_ref(
+        q, k, v, **kw), 2, 1)
+    qc, kc, vc = (x.contiguous().requires_grad_() for x in (q, k, v))
+    sdpa = dict(is_causal=causal, scale=dh ** -0.5, enable_gqa=H != Hk)
+    lib_f = time_ms(lambda: F.scaled_dot_product_attention(
+        qc, kc, vc, **sdpa), 10)
+    out = F.scaled_dot_product_attention(qc, kc, vc, **sdpa)
+    doc = do.contiguous()
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        out, (qc, kc, vc), doc, retain_graph=True), 10)
+    for what, ms, plain, n_bytes, flops, lib in (
+            ("bwd", ms_b, plain_b, b_bytes, 10 * dh * pairs, lib_b),
+            ("fwd_lse", ms_f, plain_f, f_bytes, 4 * dh * pairs, lib_f)):
+        b_ms, b_by = bound_ms(n_bytes, flops, dt)
+        res[what] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib}
+        print(f"flash {what} {label}: kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain:.4f} ms, "
+              f"sdpa {lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"kernel/bound {ms / b_ms:.1f}x, kernel/sdpa {ms / lib:.1f}x")
+    del q, k, v, do, o, lse, got, qc, kc, vc, out, doc
+    torch.cuda.empty_cache()
+    return res
+
+
+def flash_train_shapes_phase(dev) -> tuple[list[dict], dict]:
+    """:func:`flash_train_case` at every FLASH_TRAIN_SHAPES → (the kernel
+    entries of whisper's head dim, 64: ``flash_attention_bwd_whisper`` and
+    ``flash_attention_fwd_lse_whisper``, timed at the encoder's shape with
+    all three shapes listed; internvl2's G 6 result, which ``main`` adds to
+    the dh-128 entries of :func:`flash_bwd_phase`)."""
+    cases = [flash_train_case(dev, *shape) for shape in FLASH_TRAIN_SHAPES]
+    whisper, g6 = cases[:3], cases[3]
+    out = []
+    for name, counter, src, replaces, key, err_key, tol, chk in (
+            ("flash_attention_bwd_whisper", "flash_attention_bwd",
+             "flash_attention_bwd.cu", "flash_attention_bwd.py:138", "bwd",
+             "err_bwd", BF16_TOL,
+             "dq, dk, dv against flash_attention_bwd_ref on the kernel's o "
+             "and lse, relative to each largest value (tol 3e-2), at "
+             "whisper's encoder, decoder self and cross shapes on the mma "
+             "route, two calls bit-equal; library: the backward of "
+             "scaled_dot_product_attention through torch.autograd.grad"),
+            ("flash_attention_fwd_lse_whisper", "flash_attention_fwd_lse",
+             "flash_attention.cu", "flash_attention_bwd.py:199", "fwd_lse",
+             "err_lse", 1e-4,
+             "lse against flash_attention_fwd_lse_ref (tol 1e-4), o "
+             "bit-equal to the serving forward, the same three shapes on "
+             "the wgmma route; library: scaled_dot_product_attention on "
+             "inputs that want a gradient")):
+        main = whisper[0][key]
+        out.append({"name": name, "counter": counter, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/" + src,
+                    "replaces": "src/repro/kernels/flash_attention/" + replaces,
+                    "paths": ["train-encdec"],
+                    "max_abs_err": max(c[err_key] for c in whisper),
+                    "tol": tol, **main,
+                    "shapes": [{"shape": c["shape"], **c[key]}
+                               for c in whisper],
+                    "check": f"{chk}; times at {whisper[0]['shape']}"})
+    return out, g6
 
 
 # ------------------------------------------------------- paged MLA decode
@@ -1315,7 +1459,7 @@ def gg_phase(dev) -> dict:
             "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
             "replaces": "src/repro/kernels/grouped_gemm/grouped_gemm.py:34",
             "paths": ["deepseek-v2-236b", "train-moe", "train-mla",
-                      "jamba-v0.1-52b"],
+                      "jamba-v0.1-52b", "train-hybrid"],
             "max_abs_err": err, "tol": BF16_TOL, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "decode": decode, "backward": gg_backward(dev),
@@ -1393,8 +1537,12 @@ def gg_jamba(dev) -> list[dict]:
 # The expert products' shapes in training (the up projection), at 4 x 2048
 # tokens: phi3.5-moe (16 experts of 6400, top-2, capacity 1280) and
 # deepseek-v2 (160 of 1536, top-6, capacity 384)
+# (name, E, M, K, N); jamba's M is the capacity of 2 x 2048 tokens at top-2
+# and factor 1.25 (models/moe.py)
 GG_TRAIN_SHAPES = (("phi3.5-moe up", 16, 1280, 4096, 6400),
-                   ("deepseek-v2 up", 160, 384, 5120, 1536))
+                   ("deepseek-v2 up", 160, 384, 5120, 1536),
+                   ("jamba up", 16, 640, 4096, 14336),
+                   ("jamba down", 16, 640, 14336, 4096))
 
 
 def gg_backward(dev) -> dict:
@@ -1727,22 +1875,47 @@ def scan_work(B: int, S: int, C: int, N: int) -> dict:
             "ops": B * S * C * (7 * N + 1)}
 
 
+def scan_bwd_work(B: int, S: int, C: int, N: int) -> dict:
+    """What one backward call must move and compute. Bytes: x, dt, dy read
+    and dx, ddt written at 4 B per (t, c); Bm, Cm read and dB, dC written
+    at 4 B per (t, n); the saved states hs (one (C, N) state per 32 steps),
+    dh_last read and dh0 written per (c, n) and row; A read and dA written
+    once. Operations per (t, c, n), f32: the recompute of the state (dt·A,
+    its exp, (dt·x)·B, the decay's FMA: 5) and the reverse step (dt·A and
+    its exp again, g += C·dy, h·dy, (dt·x)·g, Σ B·g, a·h_{t-1}·g, dA's FMA,
+    Σ A·w, g·a: 15), and the sums of dB and dC over the channels (2): 22;
+    per (t, c) dx, ddt and dt·x (4). The two exps a (t, c, n) run on the
+    special-function units, which the f32 rate does not count apart."""
+    K = -(-S // 32)
+    return {"bytes": 4 * (5 * B * S * C + 4 * B * S * N + B * K * C * N
+                          + 2 * B * C * N + 2 * C * N),
+            "ops": B * S * C * (22 * N + 4),
+            "exps": 2 * B * S * C * N}
+
+
 def selective_scan_phase(dev) -> dict:
     """The Mamba-1 selective scan at SCAN_SHAPES (x, Bm, Cm and a nonzero
     h0 unit normal, dt a softplus, A = -exp of N(0, 1/4)): y and h_last
     each within 1e-4 of the plain version's largest value (f32: the kernel
     walks the steps in order, the plain version combines them by a
     log-step scan within JAX's chunks of 256), two calls bit-equal, one
-    launch a call; event ms of kernel and plain version beside the bound
-    (bytes at 3.35 TB/s, operations at the f32 rate). No PyTorch call
-    computes a selective scan: library none."""
+    launch a call; the training forward (the instance that also saves the
+    state entering each 32-step tile) gives the same y and h_last bit for
+    bit, h0 as its first state and the rest within 1e-4 of the plain
+    version's tile states; event ms of kernel and plain version beside
+    the bound (bytes at 3.35 TB/s, operations at the f32 rate). No PyTorch
+    call computes a selective scan: library none."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.selective_scan import ops, ref
     regs = _build.ptxas_stats("selective_scan")
-    check(len(regs) == 8 and all(
-        r.get("spill_stores") == 0 and r.get("spill_loads") == 0
-        for r in regs.values()), f"selective_scan: 8 instances (N = 8..64), "
-          f"no spills (ptxas {regs})")
+    kinds = Counter(k.split("<")[0] for k in regs)
+    check(kinds == {"selective_scan_kernel": 16,
+                    "selective_scan_bwd_kernel": 8, "sum_parts_kernel": 1}
+          and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                  for r in regs.values()),
+          f"selective_scan: 8 forward instances (N = 8..64) each for "
+          f"serving and for training, 8 backward instances and the sum of "
+          f"the partials, no spills (ptxas {regs})")
     err, shapes = 0.0, []
     for B, S, C, N in SCAN_SHAPES:
         g = torch.Generator(device=dev).manual_seed(B)
@@ -1767,7 +1940,16 @@ def selective_scan_phase(dev) -> dict:
         check(e <= 1e-4 and same and one, f"selective scan B={B} S={S} "
               f"C={C} N={N}: relative max error of y and h_last {e:.3g} (tol"
               f" 1e-4), two calls bit-equal {same}, one launch {one}")
-        del y, h, y2, h2, yr, hr
+        y2, h2, hs = ops.scan_forward(*args, 256, save=True)
+        _, _, hs_r = ref.selective_scan_ref(*args, 256, tile=ref.TILE)
+        e_s = float((hs - hs_r).abs().max() / hs_r.abs().max())
+        same_s = torch.equal(y, y2) and torch.equal(h, h2) and \
+            torch.equal(hs[:, 0], args[5])
+        check(e_s <= 1e-4 and same_s, f"selective scan B={B} S={S} C={C} "
+              f"N={N}, the training forward: y, h_last and h0 bit-equal to "
+              f"the serving forward's {same_s}, tile states within {e_s:.3g}"
+              f" of the plain version's largest (tol 1e-4)")
+        del y, h, y2, h2, yr, hr, hs, hs_r
         torch.cuda.empty_cache()
         ms = time_ms(lambda: ops.selective_scan(*args, 256), 10)
         plain = time_ms(lambda: ref.selective_scan_ref(*args, 256), 2, 1)
@@ -1787,7 +1969,7 @@ def selective_scan_phase(dev) -> dict:
             "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
             "replaces": "src/repro/models/mamba.py:295 (no TPU kernel: "
                         "mamba1_mixer's associative_scan in XLA)",
-            "paths": ["jamba-v0.1-52b"],
+            "paths": ["jamba-v0.1-52b", "train-hybrid"],
             "max_abs_err": err, "tol": 1e-4, "ms": main["ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None,
@@ -1797,6 +1979,117 @@ def selective_scan_phase(dev) -> dict:
                      "h0, B=1 and B=8 at S=2000 C=8192 N=16; two calls "
                      "bit-equal; ms is B=1's event time; library: none, no "
                      "PyTorch call computes a selective scan"}
+
+
+SCAN_TRAIN = (2, 2048, 8192, 16)      # jamba's Mamba-1 layer at B 2 x 2048
+
+
+def scan_backward_phase(dev) -> dict:
+    """The selective scan's backward at jamba's training layer (SCAN_TRAIN;
+    inputs as :func:`selective_scan_phase`'s, a nonzero h0 and a nonzero
+    dh_last): the training forward's saved states, then dx, ddt, dA, dB, dC
+    and dh0 of the backward kernel each within 1e-4 of its largest value of
+    ``selective_scan_bwd_ref`` on the same states and within 1e-3 of
+    autograd through ``selective_scan_ref`` (JAX's chunk 256; one batch row
+    at a time, dA summed over them), two calls bit-equal, and per call one
+    reverse walk and one sum of the partials in the profile (one count on
+    the wrapper); event ms of the backward and of its plain version beside
+    the bound (:func:`scan_bwd_work`), and of the training forward beside
+    the serving one. No PyTorch call computes a selective scan's backward:
+    library none."""
+    from repro_torch.kernels.selective_scan import ops, ref
+    B, S, C, N = SCAN_TRAIN
+    g = torch.Generator(device=dev).manual_seed(S + N)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = t(B, S, C)
+    dt = F.softplus(t(B, S, C) - 1.0)
+    A = -torch.exp(0.5 * t(C, N))
+    ins = (x, dt, A, t(B, S, N), t(B, S, N), t(B, C, N))
+    dy, dh = t(B, S, C), t(B, C, N)
+    _, _, hs = ops.scan_forward(*ins, 256, save=True)
+    names = ("dx", "ddt", "dA", "dB", "dC", "dh0")
+    got = ops.selective_scan_bwd(*ins[:5], hs, dy, dh)
+    again = ops.selective_scan_bwd(*ins[:5], hs, dy, dh)
+    bit = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    want = ref.selective_scan_bwd_ref(*ins[:5], hs, dy, dh)
+    e_ref = {n: float((a - b).abs().max() / b.abs().max())
+             for n, a, b in zip(names, got, want)}
+    e_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    del want
+    torch.cuda.empty_cache()
+    parts = []
+    for b in range(B):
+        leaves = [v.clone().requires_grad_() for v in (
+            x[b:b + 1], dt[b:b + 1], A, ins[3][b:b + 1], ins[4][b:b + 1],
+            ins[5][b:b + 1])]
+        parts.append(torch.autograd.grad(
+            ref.selective_scan_ref(*leaves, 256), leaves,
+            (dy[b:b + 1], dh[b:b + 1])))
+        del leaves
+        torch.cuda.empty_cache()
+    oracle = [torch.cat([p[i] for p in parts]) for i in (0, 1)] + \
+        [parts[0][2] + parts[1][2]] + \
+        [torch.cat([p[i] for p in parts]) for i in (3, 4, 5)]
+    e_auto = {n: float((a - b).abs().max() / b.abs().max())
+              for n, a, b in zip(names, got, oracle)}
+    del parts, oracle
+    torch.cuda.empty_cache()
+    by_name, counted = kernels_ms(lambda: ops.selective_scan_bwd(
+        *ins[:5], hs, dy, dh))
+    walk = [v for k, v in by_name.items() if "selective_scan_bwd" in k]
+    sums = [v for k, v in by_name.items() if "sum_parts" in k]
+    launches_ok = len(walk) == 1 and walk[0][1] == 1 and len(sums) == 1 \
+        and sums[0][1] == 1 and counted["selective_scan_bwd"] == 1
+    check(max(e_ref.values()) <= 1e-4 and max(e_auto.values()) <= 1e-3 and
+          bit and launches_ok,
+          f"selective scan backward B={B} S={S} C={C} N={N}: relative max "
+          f"error against selective_scan_bwd_ref "
+          f"{ {k: f'{v:.3g}' for k, v in e_ref.items()} } (tol 1e-4), "
+          f"against autograd through selective_scan_ref "
+          f"{ {k: f'{v:.3g}' for k, v in e_auto.items()} } (tol 1e-3); two "
+          f"calls bit-equal {bit}; a call's kernels {by_name} and wrapper "
+          f"count {counted['selective_scan_bwd']} (want one reverse walk, "
+          "one sum and one count)")
+    ms = time_ms(lambda: ops.selective_scan_bwd(*ins[:5], hs, dy, dh), 10)
+    plain = time_ms(lambda: ref.selective_scan_bwd_ref(*ins[:5], hs, dy, dh),
+                    1, 1)
+    fwd = time_ms(lambda: ops.scan_forward(*ins, 256), 10)
+    fwd_save = time_ms(lambda: ops.scan_forward(*ins, 256, save=True), 10)
+    w = scan_bwd_work(B, S, C, N)
+    b_ms, b_by = bound_ms(w["bytes"], w["ops"], torch.float32)
+    device_ms = {k: v[0] for k, v in by_name.items()}
+    print(f"selective scan backward B={B} S={S} C={C} N={N}: kernel {ms:.4f}"
+          f" ms ({w['bytes'] / ms / 1e6:.1f} GB/s; device ms "
+          f"{ {k: round(v, 4) for k, v in device_ms.items()} }), plain "
+          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+          f"{w['bytes'] / 1e6:.1f} MB, {w['ops'] / 1e9:.2f} GFLOP f32, of "
+          f"them {w['exps'] / 1e9:.2f} G exp), kernel/bound "
+          f"{ms / b_ms:.1f}x; forward {fwd:.4f} ms serving, {fwd_save:.4f} "
+          "ms saving the tile states; library none")
+    del x, dt, A, ins, dy, dh, hs, got
+    torch.cuda.empty_cache()
+    return {"name": "selective_scan_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+            "replaces": "src/repro/models/mamba.py:295 (no TPU kernel: JAX "
+                        "differentiates mamba1_mixer's associative_scan in "
+                        "XLA)",
+            "paths": ["train-hybrid"],
+            "max_abs_err": e_abs, "tol": 1e-4, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "scan_bwd": {"err_ref": e_ref, "err_autograd": e_auto,
+                         "bit_equal": bit, "device_ms": device_ms,
+                         "fwd_ms": fwd, "fwd_save_ms": fwd_save},
+            "check": f"dx, ddt, dA, dB, dC, dh0 against "
+                     f"selective_scan_bwd_ref on the kernel's saved states "
+                     f"(tol 1e-4) and autograd through selective_scan_ref "
+                     f"(tol 1e-3), each relative to its largest value, f32, "
+                     f"B={B} S={S} C={C} N={N}, nonzero h0 and dh_last; two "
+                     f"calls bit-equal; library: none, no PyTorch call "
+                     f"computes a selective scan's backward"}
 
 
 # ----------------------------------------------------- the paper's Fig. 5
@@ -1871,7 +2164,8 @@ def _counters() -> dict:
             "grouped_gemm": (gg_ops, "launches"),
             "gemm": (gemm_ops, "launches"),
             "ssd_intra_chunk": (ssd_ops, "launches"),
-            "selective_scan": (scan_ops, "launches")}
+            "selective_scan": (scan_ops, "launches"),
+            "selective_scan_bwd": (scan_ops, "bwd_launches")}
 
 
 def _zero_counts() -> dict:
@@ -2871,7 +3165,8 @@ def jamba_phase(dev, entries) -> None:
 def device_time(prof):
     """Device kernels of a profile, its lead-in left out: (busy µs as the
     union of their intervals, kernel count, {name: [µs, count]}). Counts
-    the profiles whose lead-in the profiler lost in ``LEAD_INS``."""
+    the profiles whose every lead-in kernel the profiler lost in
+    ``LEAD_INS``."""
     from torch.autograd import DeviceType
     # device activity only; "Command Buffer Full" marks a full launch queue
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -3216,21 +3511,22 @@ INTERNVL2_IMAGES, INTERNVL2_IMAGE_STEPS = 4, 32
 
 
 @contextmanager
-def flash_routes():
-    """The route of every flash forward call over the block, in order (the
-    wrapper's ``fwd_route`` recorded)."""
+def flash_routes(which: str = "fwd_route"):
+    """The route of every flash forward call (``which="bwd_route"``: every
+    backward call) over the block, in order (the wrapper's ``fwd_route`` or
+    ``bwd_route`` recorded)."""
     from repro_torch.kernels.flash_attention import ops
-    routes, fn = [], ops.fwd_route
+    routes, fn = [], getattr(ops, which)
 
     def recorded(*a, **kw):
         routes.append(fn(*a, **kw))
         return routes[-1]
 
-    ops.fwd_route = recorded
+    setattr(ops, which, recorded)
     try:
         yield routes
     finally:
-        ops.fwd_route = fn
+        setattr(ops, which, fn)
 
 
 def whisper_phase(dev, entries) -> None:
@@ -3510,31 +3806,61 @@ def plain_attend(q, k, v, *, scale, causal=True, window=0, softcap=0.0):
 TRAIN_LR_D = 0.15
 TRAIN_STEPS = 5
 TRAIN_SEQ = 2048
-TRAIN_KERNELS = ("flash_fwd", "bwd_d", "delta_kernel", "gg_", "ssd_")
+TRAIN_KERNELS = ("flash_fwd", "bwd_d", "delta_kernel", "gg_", "ssd_",
+                 "selective_scan", "sum_parts")
 
 
-def train_flops(cfg, B: int, S: int) -> float:
+def _matrix_params(layer, cfg) -> float:
+    """Matrix parameters a token passes through in one layer's spec tree:
+    every product's weights (the MoE experts' top-k of E's share, shared
+    experts whole), not the depthwise convs, norms or biases."""
+    n_tok = 0.0
+    for mod, leaves in layer.items():
+        for name, spec in (leaves.items() if isinstance(leaves, dict)
+                           else ()):
+            if len(spec.shape) < 2 or name.startswith("conv"):
+                continue
+            n = math.prod(spec.shape)
+            if mod == "moe" and name in ("w_up", "w_gate", "w_down"):
+                n = n * cfg.moe.top_k / cfg.moe.n_experts
+            n_tok += n
+    return n_tok
+
+
+def train_flops(cfg, B: int, S: int, frames: int = 0) -> float:
     """Model FLOPs of one step on B x S tokens: 6 per matrix parameter a
-    token passes through (every product's weights — for the MoE experts the
-    top-k of E's share, the shared experts whole — and the unembedding; the
-    embedding is a lookup, the depthwise convs and norms are not counted),
-    plus the attention pairs (GQA 12·dh, MLA 6·(dqk + dv) per live pair and
-    head) and the SSD products (``ssd_work``'s shared-score count, x3 for
-    forward and backward). The layer recompute is not counted."""
+    token passes through (:func:`_matrix_params`, and the unembedding; the
+    embedding is a lookup), plus the attention pairs (GQA 12·dh, MLA
+    6·(dqk + dv) per live pair and head), the SSD products
+    (``ssd_work``'s shared-score count) and the Mamba-1 scan
+    (``scan_work``'s operations), each x3 for forward and backward; a front
+    end's projection over its min(frontend_tokens, S // 2) positions. An
+    encoder-decoder (S decoder tokens, ``frames`` encoder positions): the
+    encoder's layers and each decoder layer's cross K/V projections per
+    frame, the decoder's other products and the unembedding per decoder
+    token, the encoder's B·H·frames² pairs, the decoder's causal pairs and
+    B·H·S·frames cross pairs. The layer recompute is not counted."""
     from repro_torch.models.transformer import block_cfgs
     from repro_torch.params import param_specs
-    per_token = cfg.vocab * cfg.d_model
-    for layer in param_specs(cfg)["layers"]:
-        for mod, leaves in layer.items():
-            for name, spec in (leaves.items() if isinstance(leaves, dict)
-                               else ()):
-                if len(spec.shape) < 2 or name.startswith("conv"):
-                    continue
-                n = math.prod(spec.shape)
-                if mod == "moe" and name in ("w_up", "w_gate", "w_down"):
-                    n = n * cfg.moe.top_k / cfg.moe.n_experts
-                per_token += n
+    specs = param_specs(cfg)
+    if cfg.enc_dec:
+        dec = _matrix_params(specs["dec_layers"][0], cfg)
+        cross_kv = sum(math.prod(specs["dec_layers"][0]["cross"][w].shape)
+                       for w in ("wk", "wv"))
+        per_frame = cfg.n_enc_layers * _matrix_params(
+            specs["enc_layers"][0], cfg) + cfg.n_layers * cross_kv
+        per_token = cfg.vocab * cfg.d_model + cfg.n_layers * (dec - cross_kv)
+        pairs = cfg.n_heads * B * (
+            cfg.n_enc_layers * frames * frames
+            + cfg.n_layers * (_causal_pairs(S, 0) + S * frames))
+        return 6 * (per_frame * B * frames + per_token * B * S) + \
+            12 * cfg.head_dim * pairs
+    per_token = cfg.vocab * cfg.d_model + sum(
+        _matrix_params(layer, cfg) for layer in specs["layers"])
     flops = 6 * per_token * B * S
+    if cfg.frontend != "none":
+        flops += 6 * cfg.frontend_dim * cfg.d_model * B * min(
+            cfg.frontend_tokens, S // 2)
     pairs = _causal_pairs(S, 0) * B * cfg.n_heads
     for bc in block_cfgs(cfg):
         if bc.mixer == "attn" and cfg.mla:
@@ -3542,6 +3868,8 @@ def train_flops(cfg, B: int, S: int) -> float:
             flops += 6 * (m.nope_dim + m.rope_dim + m.v_dim) * pairs
         elif bc.mixer == "attn":
             flops += 12 * cfg.head_dim * pairs
+        elif cfg.ssm.version == 1:
+            flops += 3 * scan_work(B, S, cfg.d_inner, cfg.ssm.d_state)["ops"]
         else:
             s = cfg.ssm
             Q = min(s.chunk, S)
@@ -3552,41 +3880,74 @@ def train_flops(cfg, B: int, S: int) -> float:
 
 @contextmanager
 def plain_versions():
-    """``models.attention.attend``, the MoE experts' grouped GEMM and
-    ``ssd_scan``'s intra-chunk op swapped for their plain versions, which
-    autograd then differentiates (the f32 gradient checks' reference)."""
+    """``models.attention.attend``, the MoE experts' grouped GEMM,
+    ``ssd_scan``'s intra-chunk op and the Mamba-1 selective scan swapped
+    for their plain versions, which autograd then differentiates (the f32
+    gradient checks' reference)."""
     from repro_torch.kernels.grouped_gemm import ref as gg_ref
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan import ref as scan_ref
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.models import attention, moe
     kernels = (attention.attend, moe.grouped_gemm_autograd,
-               ssd_ops.intra_chunk_autograd)
+               ssd_ops.intra_chunk_autograd, scan_ops.selective_scan)
     attention.attend = plain_attend
     moe.grouped_gemm_autograd = gg_ref.grouped_gemm_ref
     ssd_ops.intra_chunk_autograd = ssd_ref.ssd_intra_chunk_ref
+    scan_ops.selective_scan = scan_ref.selective_scan_ref
     try:
         yield
     finally:
         (attention.attend, moe.grouped_gemm_autograd,
-         ssd_ops.intra_chunk_autograd) = kernels
+         ssd_ops.intra_chunk_autograd, scan_ops.selective_scan) = kernels
+
+
+def whisper_frames(n: int):
+    """A batch's ``extra`` for whisper: n stub frames (B, n, d) of
+    N(0, 0.1²) a row (JAX ``synth_batch``'s), made on the card."""
+    def add(cfg, batch, g):
+        batch["frames"] = torch.randn(
+            (batch["tokens"].shape[0], n, cfg.d_model), generator=g,
+            device=g.device) * 0.1
+        return batch
+    return add
+
+
+def vlm_patches(cfg, batch, g):
+    """A batch's ``extra`` for a front end: min(frontend_tokens, S // 2)
+    embeddings (B, ft, frontend_dim) of N(0, 0.1²) made on the card, the
+    mask zero on their positions (JAX ``synth_batch``'s)."""
+    B, S = batch["tokens"].shape
+    ft = min(cfg.frontend_tokens, S // 2)
+    batch["frontend_embed"] = torch.randn(
+        (B, ft, cfg.frontend_dim), generator=g, device=g.device) * 0.1
+    batch["mask"] = batch["mask"].clone()
+    batch["mask"][:, :ft] = 0.0
+    return batch
 
 
 def train_cell(dev, entries, cfg, where: str, path, *, B: int,
                moments: str = "float32", check_layers: int,
-               check_tokens: int) -> None:
+               check_tokens: int, seq: int = TRAIN_SEQ, extra=None,
+               check_extra=None, check_over=None,
+               lr_d: float = TRAIN_LR_D) -> None:
     """``cfg`` (published width, its depth as given) with seeded random
     weights made on the card: ``TRAIN_STEPS`` steps of ``make_train_step``
-    (AdamW lr 0.15/d, warmup 2, cosine to the last step, ``moments``) on
-    batch B x 2048 of ``SyntheticLM(V, 2048, seed=0)`` through
-    ``PrefetchLoader``, the launch counts set to 0 just before those steps
-    and read just after (added to ``entries`` under ``where``; every
-    kernel of ``path`` launched), then one profiled step. Held: every loss
-    finite, the first within 0.5 of ln V + 0.02²·d/2 (random logits of
-    variance 0.02²·d) plus the first step's ``moe_aux``, the mean of the
-    last two below the first. Then the f32 gradient check at full width,
-    depth ``check_layers``, batch 1 x ``check_tokens``: every leaf through
-    the kernels (moved to the host) within 1e-3 of its largest value of
-    autograd through the plain versions (:func:`plain_versions`)."""
+    (AdamW lr ``lr_d``/d, warmup 2, cosine to the last step, ``moments``) on
+    batch B x ``seq`` of ``SyntheticLM(V, seq, seed=0)`` through
+    ``PrefetchLoader`` (``extra(cfg, batch, generator)`` adds what the loss
+    wants beyond tokens: whisper's frames, a front end's embeddings), the
+    launch counts set to 0 just before those steps and read just after
+    (added to ``entries`` under ``where``; every kernel of ``path``
+    launched), then one profiled step. Held: every loss finite, the first
+    within 0.5 of ln V + 0.02²·d/2 (random logits of variance 0.02²·d)
+    plus the first step's ``moe_aux``, the mean of the last two below the
+    first. Then the f32 gradient check at full width, depth
+    ``check_layers`` (and ``check_over``'s other fields), batch 1 x
+    ``check_tokens`` (and ``check_extra``): every leaf through the kernels
+    (moved to the host) within 1e-3 of its largest value of autograd
+    through the plain versions (:func:`plain_versions`)."""
     from repro_torch.data.loader import PrefetchLoader
     from repro_torch.data.synthetic import SyntheticLM
     from repro_torch.kernels import _build
@@ -3595,28 +3956,38 @@ def train_cell(dev, entries, cfg, where: str, path, *, B: int,
     from repro_torch.train.optimizer import OptConfig
     from repro_torch.train.step import init_state, make_train_step
 
-    S, steps = TRAIN_SEQ, TRAIN_STEPS
-    ocfg = OptConfig(lr=TRAIN_LR_D / cfg.d_model, warmup_steps=2,
+    S, steps = seq, TRAIN_STEPS
+    frames = 0
+    ocfg = OptConfig(lr=lr_d / cfg.d_model, warmup_steps=2,
                      decay_steps=steps, moments_dtype=moments)
     t0 = time.perf_counter()
     state = init_state(cfg, seed=0, ocfg=ocfg, device=dev)
     torch.cuda.synchronize()
     P = n_params(cfg)
-    print(f"train {cfg.name} ({where}), depth {cfg.n_layers}: {P / 1e9:.3f} B "
-          f"params and {moments} moments made on the card in "
+    print(f"train {cfg.name} ({where}), depth {cfg.n_layers}, lr "
+          f"{ocfg.lr:.3g}: {P / 1e9:.3f} B params and {moments} moments made "
+          f"on the card in "
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     loader = PrefetchLoader(SyntheticLM(cfg.vocab, S, seed=0).iterator(B),
                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def next_batch():
+        batch = next(loader)
+        return extra(cfg, batch, gen) if extra else batch
+
+    if cfg.enc_dec:
+        frames = next_batch()["frames"].shape[1]
     step_fn = make_train_step(cfg, ocfg)
-    flops = train_flops(cfg, B, S)
+    flops = train_flops(cfg, B, S, frames)
     peak_ops = PEAK_OPS_PER_S[torch.bfloat16]
     counters = _zero_counts()
     torch.cuda.reset_peak_memory_stats()
     losses, auxes, times = [], [], []
     try:
         for i in range(steps):
-            batch = next(loader)
+            batch = next_batch()
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, m = step_fn(state, batch)
@@ -3629,7 +4000,9 @@ def train_cell(dev, entries, cfg, where: str, path, *, B: int,
             print(f"  step {i + 1}: loss {loss:.4f}"
                   + (f" (moe_aux {auxes[-1]:.5f})" if "moe_aux" in m else "")
                   + f", grad norm {gn:.4f}, lr {m['lr']:.2e}, {dt:.3f} s, "
-                  f"{B * S / dt:.0f} tokens/s, {flops / dt / 1e12:.1f} "
+                  f"{B * S / dt:.0f} tokens/s"
+                  + (f" ({B * frames / dt:.0f} frames/s)" if frames else "")
+                  + f", {flops / dt / 1e12:.1f} "
                   f"TFLOP/s (model FLOPs), {100 * flops / dt / peak_ops:.1f} "
                   "% of 989 TFLOP/s")
         launches = {n: getattr(mod, attr)
@@ -3637,11 +4010,13 @@ def train_cell(dev, entries, cfg, where: str, path, *, B: int,
         peak = torch.cuda.max_memory_allocated() / 2**30
         steady = sum(times[1:]) / (steps - 1)
         print(f"train {where}: peak memory {peak:.2f} GiB; steps 2-{steps} "
-              f"mean {steady:.3f} s, {B * S / steady:.0f} tokens/s, model "
+              f"mean {steady:.3f} s, {B * S / steady:.0f} tokens/s"
+              + (f" ({B * frames / steady:.0f} frames/s)" if frames else "")
+              + ", model "
               f"FLOP/s {100 * flops / steady / peak_ops:.1f} % of the bf16 "
               f"peak ({flops / 1e12:.2f} TFLOP a step); launches {launches}")
         with device_profile(cpu=True) as prof:
-            batch = next(loader)
+            batch = next_batch()
             torch.cuda.synchronize()
             t = time.perf_counter()
             state, m = step_fn(state, batch)
@@ -3673,7 +4048,7 @@ def train_cell(dev, entries, cfg, where: str, path, *, B: int,
     torch.cuda.empty_cache()
 
     cfg32 = dataclasses.replace(cfg, n_layers=check_layers,
-                                param_dtype="float32")
+                                param_dtype="float32", **(check_over or {}))
     params = init_params(cfg32, seed=0, device=dev)
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     g = torch.Generator(device=dev).manual_seed(0)
@@ -3681,6 +4056,8 @@ def train_cell(dev, entries, cfg, where: str, path, *, B: int,
                          device=dev)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
              "mask": torch.ones((1, check_tokens), device=dev)}
+    if check_extra:
+        batch = check_extra(cfg32, batch, g)
     grads = [x.cpu() for x in torch.autograd.grad(
         loss_fn(cfg32, params, batch)[0], leaves)]
     with plain_versions():
@@ -3690,8 +4067,10 @@ def train_cell(dev, entries, cfg, where: str, path, *, B: int,
         b = b.cpu()
         finite &= bool(torch.isfinite(a).all() and torch.isfinite(b).all())
         rel = max(rel, float((a - b).abs().max() / b.abs().max()))
+    more = sorted(set(batch) - {"tokens", "targets", "mask"})
     check(finite and rel < 1e-3, f"train {where} f32 at full width, depth "
-          f"{check_layers}, batch 1 x {check_tokens}: every gradient leaf "
+          f"{check_layers} {check_over or ''}, batch 1 x {check_tokens}"
+          f"{f' and {more}' if more else ''}: every gradient leaf "
           f"finite ({finite}) and through the kernels within {rel:.3g} of "
           "its largest value of autograd through the plain versions (tol "
           "1e-3)")
@@ -3750,6 +4129,59 @@ def train_ssm_phase(dev, entries) -> None:
                check_layers=cfg.n_layers, check_tokens=512)
 
 
+def train_hybrid_phase(dev, entries) -> None:
+    """jamba-v0.1-52b at its published width (d 4096, Mamba-1 with d_inner
+    8192 and state 16, attention at slot 4 of a period of 8 (32 heads over
+    8 of 128), 16 experts of 14336 top-2 on odd slots, dense FFNs of 14336
+    on even ones, V 65536), depth cut 32 → 5 layers, slots 0-4: Mamba +
+    dense, Mamba + MoE, Mamba + dense, Mamba + MoE, attention + dense, so
+    that every layer kind of the period trains (7.166 B params, int8
+    moments), batch 2 x 2048 (expert capacity 640); the f32 check at depth
+    2 (Mamba + dense, Mamba + MoE), batch 1 x 512."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=5)
+    train_cell(dev, entries, cfg, "train-hybrid",
+               ("selective_scan", "selective_scan_bwd",
+                "flash_attention_fwd_lse", "flash_attention_bwd",
+                "grouped_gemm"), B=2, moments="int8", check_layers=2,
+               check_tokens=512)
+
+
+def train_encdec_phase(dev, entries) -> None:
+    """whisper-large-v3 at its published width and depth (32 encoder and 32
+    decoder layers, d 1280, 20 heads of 64, FFN 5120, V 51866; 1.535 B
+    params, f32 moments): batch 8 of 1500 stub frames and 448 decoder
+    tokens of ``SyntheticLM``; the f32 check at 2 + 2 layers, 1 x 512
+    frames and 64 decoder tokens. The flash kernels run at G 1, dh 64:
+    non-causal in the encoder and the cross attention, causal in the
+    decoder. lr·d is a quarter of the other cells' (lr 2.93e-5, the
+    mistral cell's own): the 64-layer stack at lr·d 0.15 (1.17e-4) rose
+    after the warmup (loss 11.06 → 13.12, grad norm 74 → 285)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-large-v3")
+    train_cell(dev, entries, cfg, "train-encdec",
+               ("flash_attention_fwd_lse_whisper",
+                "flash_attention_bwd_whisper"), B=8, seq=cfg.max_decoder_len,
+               extra=whisper_frames(1500), check_layers=2, check_tokens=64,
+               check_extra=whisper_frames(512),
+               check_over=dict(n_enc_layers=2), lr_d=TRAIN_LR_D / 4)
+
+
+def train_vlm_phase(dev, entries) -> None:
+    """internvl2-26b at its published width (d 6144, 48 heads over 8 of
+    128, FFN 16384, V 92553, the 3200 → 6144 front-end projection), depth
+    cut 48 → 8 layers (4.278 B params, f32 moments), batch 4 x 2048 with
+    256 front-end positions of 3200-wide embeddings a row and the mask zero
+    there; the f32 check at depth 2, batch 1 x 512 with its 256 front-end
+    positions."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("internvl2-26b"), n_layers=8)
+    train_cell(dev, entries, cfg, "train-vlm",
+               ("flash_attention_fwd_lse", "flash_attention_bwd"), B=4,
+               extra=vlm_patches, check_layers=2, check_tokens=512,
+               check_extra=vlm_patches)
+
+
 def launcher_phase() -> None:
     """The training launcher at smoke size, each run in its own process:
     mistral-nemo-12b and phi3.5-moe-42b."""
@@ -3792,52 +4224,57 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}")
-    sass = sass_phase()
-    entries = [paged_phase(dev), paged256_phase(dev), flash_phase(dev),
-               flash256_phase(dev), flash80_phase(dev),
-               flash_whisper_phase(dev),
-               *flash_bwd_phase(dev), *flash_mla_train_phase(dev),
-               mla_phase(dev), gg_phase(dev),
-               gemm_phase(dev), ssd_phase(dev), selective_scan_phase(dev)]
+    def timed(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+        return out
+
+    sass = timed(sass_phase)
+    entries = [timed(paged_phase, dev), timed(paged256_phase, dev),
+               timed(flash_phase, dev), timed(flash256_phase, dev),
+               timed(flash80_phase, dev), timed(flash_whisper_phase, dev),
+               *timed(flash_bwd_phase, dev),
+               *timed(flash_mla_train_phase, dev)]
+    whisper_flash, g6 = timed(flash_train_shapes_phase, dev)
+    for e in entries:
+        key = {"flash_attention_bwd": "bwd",
+               "flash_attention_fwd_lse": "fwd_lse"}.get(e["name"])
+        if key:
+            e["g6"] = {"shape": g6["shape"], "routes": g6["routes"],
+                       **g6[key]}
+            e["max_abs_err"] = max(e["max_abs_err"], g6[
+                "err_bwd" if key == "bwd" else "err_lse"])
+    entries += [*whisper_flash, timed(mla_phase, dev), timed(gg_phase, dev),
+                timed(gemm_phase, dev), timed(ssd_phase, dev),
+                timed(selective_scan_phase, dev),
+                timed(scan_backward_phase, dev)]
     for e in entries:
         if e["name"] in sass:
             e["sass"] = sass[e["name"]]
-    paged256_f32_report(dev)
+    timed(paged256_f32_report, dev)
     torch.cuda.empty_cache()
-    hbb_phase(dev, entries)
-    serve_phase(dev, entries)
-    deepseek_phase(dev, entries)
-    mamba_phase(dev, entries)
-    t1 = time.perf_counter()
-    jamba_phase(dev, entries)
-    print(f"jamba phase {time.perf_counter() - t1:.1f} s")
-    nemotron_phase(dev, entries)
-    gemma2_phase(dev, entries)
-    danube_phase(dev, entries)
-    t1 = time.perf_counter()
-    whisper_phase(dev, entries)
-    print(f"whisper phase {time.perf_counter() - t1:.1f} s")
-    t1 = time.perf_counter()
-    internvl2_phase(dev, entries)
-    print(f"internvl2 phase {time.perf_counter() - t1:.1f} s")
-    train_phase(dev, entries)
-    train_moe_phase(dev, entries)
-    train_mla_phase(dev, entries)
-    train_ssm_phase(dev, entries)
-    launcher_phase()
+    for phase in (hbb_phase, serve_phase, deepseek_phase, mamba_phase,
+                  jamba_phase, nemotron_phase, gemma2_phase, danube_phase,
+                  whisper_phase, internvl2_phase, train_phase,
+                  train_moe_phase, train_mla_phase, train_ssm_phase,
+                  train_hybrid_phase, train_encdec_phase, train_vlm_phase):
+        timed(phase, dev, entries)
+    timed(launcher_phase)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "check")
     print(json.dumps({"kernels": [
         {k: e[k] for k in keys + tuple(x for x in (
             "passes_ms", "mla", "decode", "backward", "chunks", "n4096",
-            "paged", "jamba", "scan",
+            "paged", "jamba", "scan", "scan_bwd", "g6", "shapes",
             "ssd", "sass", "sdpa_gathered_ms", "verify_rows_err",
             "kernel_route")
             if x in e)}
         for e in entries]}))
     print(smi)
-    print(f"profiles whose lead-in kernel the profiler lost: "
+    print(f"profiles whose lead-in kernels the profiler lost: "
           f"{LEAD_INS['lost']} of {LEAD_INS['profiles']}")
     print(f"total {time.perf_counter() - t0:.1f} s")
     if FAILURES:

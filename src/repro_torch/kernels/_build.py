@@ -119,15 +119,15 @@ def sass_counts(name: str) -> dict[str, dict[str, int]]:
                          text=True, check=True).stdout
     counts: dict[str, dict[str, int]] = {}
     cur = None
+    ops = re.compile(r"\b(" + "|".join(SASS_OPCODES) + r")\b")
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             cur = counts.setdefault(m.group(1),
                                     dict.fromkeys(SASS_OPCODES, 0))
         elif cur is not None:
-            for op in SASS_OPCODES:
-                if re.search(rf"\b{op}\b", line):
-                    cur[op] += 1
+            for op in set(ops.findall(line)):      # lines holding each op
+                cur[op] += 1
     labels = _labels(counts)
     return {labels[k]: c for k, c in counts.items()}
 

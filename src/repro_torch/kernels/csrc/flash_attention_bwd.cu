@@ -799,13 +799,18 @@ bool mma_ok(const void* p, Strides s) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do and the three grads).
+// route: 1 = the mma.sync passes (bf16, dh = dv in {64, 128}, every pointer
+// and stride of q, k, v, do and the grads a multiple of 8 elements; any
+// other call is refused), 0 = the CUDA-core passes (the wrapper's
+// bwd_route).
 // lse (the forward's) and delta (scratch) are contiguous (B, H, Tq)
 // float32. Strides are in elements; the last dim of every tensor is
 // contiguous. Three launches: delta, the dq pass, the dk/dv pass. Returns
 // the CUDA error of the first launch that failed (0 = success).
 int flash_attention_bwd(
-    int device, int dtype, const void* q, const void* k, const void* v,
-    const void* o, const void* dout, const void* lse, void* delta, void* dq,
+    int device, int dtype, int route, const void* q, const void* k,
+    const void* v, const void* o, const void* dout, const void* lse,
+    void* delta, void* dq,
     void* dk, void* dv, long long qsb, long long qsh, long long qst,
     long long ksb, long long ksh, long long kst, long long vsb, long long vsh,
     long long vst, long long osb, long long osh, long long ost, long long dosb,
@@ -830,7 +835,8 @@ int flash_attention_bwd(
                   mma_ok(q, a.qs) && mma_ok(k, a.ks) && mma_ok(v, a.vs) &&
                   mma_ok(dout, a.dos) && mma_ok(dq, a.dqs) &&
                   mma_ok(dk, a.dks) && mma_ok(dv, a.dvs);
-  if (tc)
+  if (route == 1 && !tc) return (int)cudaErrorInvalidValue;
+  if (route == 1)
     err = dh == 64 ? launch_mma<64>(a, st) : launch_mma<128>(a, st);
   else if (dtype == 0)
     err = launch_f32<float>(a, st);

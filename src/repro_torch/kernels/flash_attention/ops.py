@@ -39,7 +39,7 @@ _I, _LL, _F, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, \
     ctypes.c_void_p
 _FWD_ARGTYPES = [_I, _I, _I, _P, _P, _P, _P, _P, _P] + [_LL] * 12 + \
     [_I] * 7 + [_F, _I, _I, _F, _P]
-_BWD_ARGTYPES = [_I, _I] + [_P] * 10 + [_LL] * 24 + [_I] * 7 + \
+_BWD_ARGTYPES = [_I, _I, _I] + [_P] * 10 + [_LL] * 24 + [_I] * 7 + \
     [_F, _I, _I, _F, _P]
 
 
@@ -81,6 +81,17 @@ def fwd_route(dtype: torch.dtype, dh: int, dv: int, aligned: bool) -> str:
     if (dh, dv) in _WGMMA_DIMS:
         return "wgmma"
     return "mma" if (dh, dv) in _MMA_DIMS else "f32"
+
+
+def bwd_route(dtype: torch.dtype, dh: int, dv: int, aligned: bool) -> str:
+    """The backward's kernels for a call: "mma" (bf16, dh = dv in {64,
+    128}: ``mma.sync`` tensor-core passes) or "f32" (CUDA cores: f32, other
+    dims, MLA's (192, 128), or rows not 16-byte aligned). ``aligned``: every
+    pointer and stride of q, k, v, do and the three gradients is a multiple
+    of 8 elements."""
+    if dtype == torch.bfloat16 and aligned and dh == dv and dh in (64, 128):
+        return "mma"
+    return "f32"
 
 
 def _aligned(*ts) -> bool:
@@ -221,14 +232,15 @@ def attend_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = True,
     dk = _empty_like_order(k, k.shape)
     dv = _empty_like_order(v, v.shape)
     delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    route = bwd_route(q.dtype, dh, dv_dim, _aligned(q, k, v, do, dq, dk, dv))
     lib = _bwd_lib()
     err = lib.flash_attention_bwd(
-        q.device.index or 0, _DTYPES[q.dtype],
+        q.device.index or 0, _DTYPES[q.dtype], _ROUTES[route],
         *(_build.ptr(t) for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
         *(s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]),
         B, H, k.shape[1], Tq, k.shape[2], dh, dv_dim, float(scale),
         int(bool(causal)), int(window), float(softcap),
         _build.stream(q.device))
-    _build.check(lib, err, "flash_attention_bwd")
+    _build.check(lib, err, f"flash_attention_bwd ({route})")
     _launches.bump(__name__, "bwd_launches")
     return dq, dk, dv

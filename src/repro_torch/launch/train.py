@@ -5,9 +5,14 @@
         [--compression int8] [--moments int8] [--ckpt-dir DIR] \
         [--device cpu]
 
-Any arch the port trains (``check_trainable``): the GQA decoders, and
-``phi3.5-moe-42b-a6.6b`` (MoE), ``deepseek-v2-236b`` (MLA + MoE) and
-``mamba2-130m`` (Mamba-2); an MoE model's rows print its ``moe_aux``.
+Any decoder the port trains (``check_trainable``) on ``SyntheticLM``'s
+token batches: the GQA decoders, ``phi3.5-moe-42b-a6.6b`` (MoE),
+``deepseek-v2-236b`` (MLA + MoE), ``mamba2-130m`` (Mamba-2),
+``jamba-v0.1-52b`` (Mamba-1 + attention + MoE) and ``internvl2-26b`` (as
+text); an MoE model's rows print its ``moe_aux``. whisper's loss wants
+frames, which the token stream does not carry (as in the JAX launcher):
+train it through ``models.model.synth_batch`` and ``make_train_step``
+(``examples/quickstart.py``).
 
 ``--smoke`` is always on, as in the JAX launcher: it trains the
 family-preserving reduction of the arch (``smoke_config``). Without

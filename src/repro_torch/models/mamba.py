@@ -12,8 +12,10 @@ projections, the causal conv, the D skip and the ``silu(z)`` gate are
 plain torch around it, as in JAX. Single-token decode (``mamba2_step``,
 ``mamba1_step``) carries (conv_state, ssm_state): an O(1)-state decoder.
 ``mamba_mixer``, ``mamba_step`` and ``mamba_state_defs`` dispatch by
-``cfg.ssm.version``. Mamba-1 does not train: the selective scan has no
-backward yet (``transformer.check_trainable`` refuses it).
+``cfg.ssm.version``. Mamba-1 trains through the scan's autograd
+function (``selective_scan.ops.SelectiveScan``: the forward saves a state
+every 32 steps, a hand-written backward walks them in reverse); the conv,
+softplus, D skip and gate stay plain torch under autograd.
 """
 from __future__ import annotations
 
@@ -201,9 +203,10 @@ def _mamba1_ssm_params(cfg, p, xs):
 
 
 def mamba1_mixer(cfg: ModelConfig, p, x, return_state: bool = False):
-    """x (B,S,D) → (B,S,D) (full prefill) through the selective scan; with
-    ``return_state`` also the decode state {conv_x (pre-conv tail, pdtype),
-    ssm (B,C,N) f32}."""
+    """x (B,S,D) → (B,S,D) (full prefill) through the selective scan (its
+    forward alone when no gradient is wanted, else ``SelectiveScan``);
+    with ``return_state`` also the decode state {conv_x (pre-conv tail,
+    pdtype), ssm (B,C,N) f32}."""
     s = cfg.ssm
     B, S, D = x.shape
     C, N = cfg.d_inner, s.d_state

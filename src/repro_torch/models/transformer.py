@@ -132,36 +132,20 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains decoders whose every layer is GQA (full or sliding
-    window: training keeps no cache) or MLA attention with a dense FFN,
-    gated or not, or a gated MoE FFN (shared experts, dense first layers),
-    pre- or post-norm; and Mamba-2 stacks without an FFN. Refused: Mamba-1
-    (the selective scan has no backward yet), hybrids, Mamba blocks with
-    an FFN, encoder-decoders and front ends (the port serves both), and
-    everything :func:`check_supported` refuses (windowed MLA, MoE with a
-    non-gated FFN)."""
+    """The port trains every family it serves: decoders whose every layer
+    is GQA (full or sliding window: training keeps no cache) or MLA
+    attention with a dense FFN, gated or not, or a gated MoE FFN (shared
+    experts, dense first layers), pre- or post-norm; Mamba-1 and Mamba-2
+    stacks, with or without an FFN after each mixer, alone or interleaved
+    with attention (jamba); a front end (internvl2: ``lm_loss`` takes the
+    batch's ``frontend_embed``); and the whisper encoder-decoder
+    (``models/whisper.py::encdec_loss``). Refused: what
+    :func:`check_params` refuses (post-norm Mamba blocks, MoE with a
+    non-gated FFN, attention layers without an FFN) and, for decoders,
+    what :func:`check_supported` refuses (windowed MLA)."""
     if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: training enc-dec models is not ported; the port "
-            "serves them (whisper_prefill, whisper_decode_step)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: training front-end models is not ported; the port "
-            "serves them (prefill with frontend_embed, the engine as text)")
-    if cfg.ssm is not None:
-        if cfg.ssm.version != 2:
-            raise NotImplementedError(
-                f"{cfg.name}: training Mamba-1 (selective scan) is not "
-                "ported; the port serves it and trains Mamba-2 (SSD)")
-        if cfg.ssm.attn_period:
-            raise NotImplementedError(
-                f"{cfg.name}: training hybrid SSM/attention models is not "
-                "ported")
-        if any(bc.mixer == "mamba" and bc.ffn != "none"
-               for bc in block_cfgs(cfg)):
-            raise NotImplementedError(
-                f"{cfg.name}: training Mamba blocks with an FFN is not "
-                "ported")
+        check_params(cfg)
+        return
     check_supported(cfg)
 
 
@@ -228,11 +212,13 @@ def lm_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
 
 
 def lm_loss(cfg: ModelConfig, params, batch):
-    """batch: tokens/targets (B,S) int, mask (B,S) f32 → (loss, metrics)
-    with ``ce``, ``tokens``, ``loss`` and for MoE models ``moe_aux`` (0-d
-    f32 tensors): loss = ce + the load-balancing loss of the stats averaged
-    over the MoE layers (JAX ``lm_loss``)."""
-    h, stats = lm_hidden(cfg, params, batch["tokens"])
+    """batch: tokens/targets (B,S) int, mask (B,S) f32 (and a front end's
+    ``frontend_embed`` (B,F,frontend_dim)) → (loss, metrics) with ``ce``,
+    ``tokens``, ``loss`` and for MoE models ``moe_aux`` (0-d f32 tensors):
+    loss = ce + the load-balancing loss of the stats averaged over the MoE
+    layers (JAX ``lm_loss``)."""
+    h, stats = lm_hidden(cfg, params, batch["tokens"],
+                         batch.get("frontend_embed"))
     sum_l, sum_c = chunked_ce_loss(cfg, params["embed"], params["unembed"],
                                    h, batch["targets"], batch["mask"])
     ce = sum_l / torch.clamp(sum_c, min=1.0)

@@ -8,15 +8,22 @@ sinusoids and runs non-causal self attention (the flash forward at
 (``dec_pos``) and runs causal self attention, cross attention over the
 encoder states (K/V projected per layer, ``attention.cross_kv``) and the
 MLP. Norms are RMSNorm, as JAX's. The parameter tree is
-``params.param_specs``.
+``params.param_specs``. ``encdec_loss`` trains it: when a gradient is
+wanted each encoder and each decoder layer runs under activation
+checkpointing (JAX checkpoints both scan bodies), and the attention
+backward is the flash backward (non-causal in the encoder and the cross
+attention, whose dK/dV flow back through ``cross_kv`` into the encoder
+states).
 """
 from __future__ import annotations
 
 import torch
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention, cross_attention, cross_kv
-from repro_torch.models.layers import mlp, rmsnorm
+from repro_torch.models.layers import chunked_ce_loss, mlp, rmsnorm
 
 F32 = torch.float32
 
@@ -41,12 +48,35 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
         sinusoids(Se, cfg.d_model, frames.device).to(cfg.pdtype)[None]
     positions = torch.arange(Se, device=frames.device)
     for p in params["enc_layers"]:
-        x = rmsnorm(h, p["norm1"], cfg.norm_eps)
-        h = h + attention(cfg, p["attn"], x, window=0, positions=positions,
-                          causal=False)
-        x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-        h = h + mlp(cfg, p["mlp"], x)
+        h = _layer(_enc_layer, cfg, p, h, positions)
     return rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _layer(fn, cfg, p, h, *args):
+    """``fn(cfg, p, h, *args)``, under activation checkpointing when a
+    gradient is wanted (non-reentrant, as ``transformer.apply_stack``)."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, cfg, p, h, *args, use_reentrant=False)
+    return fn(cfg, p, h, *args)
+
+
+def _enc_layer(cfg, p, h, positions):
+    x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    h = h + attention(cfg, p["attn"], x, window=0, positions=positions,
+                      causal=False)
+    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    return h + mlp(cfg, p["mlp"], x)
+
+
+def _dec_layer(cfg, p, h, enc_out, positions):
+    x = rmsnorm(h, p["norm1"], cfg.norm_eps)
+    h = h + attention(cfg, p["self_attn"], x, window=0, positions=positions,
+                      causal=True)
+    x = rmsnorm(h, p["norm_x"], cfg.norm_eps)
+    k, v = cross_kv(cfg, p["cross"], enc_out)
+    h = h + cross_attention(cfg, p["cross"], x, k, v)
+    x = rmsnorm(h, p["norm2"], cfg.norm_eps)
+    return h + mlp(cfg, p["mlp"], x)
 
 
 def decode_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
@@ -59,12 +89,19 @@ def decode_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
         params["dec_pos"][None, :Td]
     positions = torch.arange(Td, device=tokens.device)
     for p in params["dec_layers"]:
-        x = rmsnorm(h, p["norm1"], cfg.norm_eps)
-        h = h + attention(cfg, p["self_attn"], x, window=0,
-                          positions=positions, causal=True)
-        x = rmsnorm(h, p["norm_x"], cfg.norm_eps)
-        k, v = cross_kv(cfg, p["cross"], enc_out)
-        h = h + cross_attention(cfg, p["cross"], x, k, v)
-        x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-        h = h + mlp(cfg, p["mlp"], x)
+        h = _layer(_dec_layer, cfg, p, h, enc_out, positions)
     return rmsnorm(h, params["dec_norm"], cfg.norm_eps)
+
+
+def encdec_loss(cfg: ModelConfig, params, batch):
+    """batch: frames (B, Se, D), tokens/targets/mask (B, Td) → (loss,
+    metrics ``ce``, ``loss``, ``tokens``): the decoder's mean next-token
+    cross-entropy over the mask, in chunks of min(512, Td) (JAX
+    ``encdec_loss``)."""
+    enc_out = encode(cfg, params, batch["frames"])
+    h = decode_hidden(cfg, params, batch["tokens"], enc_out)
+    sum_l, sum_c = chunked_ce_loss(cfg, params["embed"], params["unembed"],
+                                   h, batch["targets"], batch["mask"],
+                                   chunk=min(512, batch["tokens"].shape[1]))
+    ce = sum_l / torch.clamp(sum_c, min=1.0)
+    return ce, {"ce": ce, "loss": ce, "tokens": sum_c}

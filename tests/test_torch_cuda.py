@@ -1087,11 +1087,11 @@ def test_selective_scan_kernel_bit_equal_calls(dev):
 
 
 def test_selective_scan_raises_instead_of_falling_back(dev):
-    """On the card the wrapper launches the kernel or raises: a state it
-    does not take, bf16, a strided operand, a gradient wanted; nothing is
-    launched and the plain version is not run."""
+    """On the card the wrappers launch the kernels or raise: a state they
+    do not take, bf16, a strided operand, saved states of the wrong shape
+    for the backward; nothing is launched and no plain version is run."""
     x, dt, A, Bm, Cm, h0 = _scan_case(dev, 2, 40, 64, 16)
-    n0 = scan_ops.launches
+    n0, b0 = scan_ops.launches, scan_ops.bwd_launches
     with pytest.raises(ValueError, match="multiple of 8"):
         scan_ops.selective_scan(x, dt, *(t[..., :12].contiguous()
                                          for t in (A, Bm, Cm, h0)), 16)
@@ -1100,9 +1100,97 @@ def test_selective_scan_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="contiguous"):
         scan_ops.selective_scan(x.transpose(0, 1).contiguous().transpose(
             0, 1), dt, A, Bm, Cm, h0, 16)
-    with pytest.raises(NotImplementedError, match="backward"):
-        scan_ops.selective_scan(x.requires_grad_(), dt, A, Bm, Cm, h0, 16)
-    assert scan_ops.launches == n0
+    with pytest.raises(ValueError, match="hs must be"):
+        scan_ops.selective_scan_bwd(x, dt, A, Bm, Cm, h0[:, None], x, h0)
+    assert (scan_ops.launches, scan_ops.bwd_launches) == (n0, b0)
+
+
+SCAN_BWD_SHAPES = [(2, 77, 100, 16), (1, 300, 256, 16), (3, 65, 70, 24),
+                   (2, 130, 96, 32), (1, 70, 40, 64), (1, 1, 33, 8)]
+
+
+@pytest.mark.parametrize("B,S,C,N", SCAN_BWD_SHAPES)
+def test_selective_scan_backward_matches_both_plain_versions(dev, B, S, C,
+                                                            N):
+    """``SelectiveScan`` on the card, with a nonzero h0 and dh_last, S off
+    the 32-step tile, C off the 32-channel block and N from 8 to 64: the
+    forward that saves the tile states gives the serving forward's y and
+    h_last bit for bit (one launch), the backward (one call: the reverse
+    walk and the sums of its partials) gives dx, ddt, dA, dB, dC and dh0
+    each within 1e-4 of its largest value of ``selective_scan_bwd_ref`` on
+    the same saved states and within 1e-3 of autograd through
+    ``selective_scan_ref``, and two backward calls give the same bits."""
+    ins = _scan_case(dev, B, S, C, N, seed=S + N)
+    g = torch.Generator(device=dev).manual_seed(1)
+    dy = torch.randn((B, S, C), generator=g, device=dev)
+    dh = torch.randn((B, C, N), generator=g, device=dev)
+    leaves = [t.clone().requires_grad_() for t in ins]
+    n0, b0 = scan_ops.launches, scan_ops.bwd_launches
+    y, h = scan_ops.selective_scan(*leaves, 256)
+    assert type(y.grad_fn).__name__ == "SelectiveScanBackward"
+    assert scan_ops.launches == n0 + 1
+    y0, h0 = scan_ops.selective_scan(*ins, 256)
+    assert torch.equal(y.detach(), y0) and torch.equal(h.detach(), h0)
+    got = torch.autograd.grad((y, h), leaves, (dy, dh))
+    assert scan_ops.bwd_launches == b0 + 1
+    _, _, hs = scan_ops.scan_forward(*ins, 256, save=True)
+    assert hs.shape == (B, -(-S // 32), C, N)
+    again = scan_ops.selective_scan_bwd(*ins[:5], hs, dy, dh)
+    want = scan_ref.selective_scan_bwd_ref(*ins[:5], hs, dy, dh)
+    oracle_in = [t.clone().requires_grad_() for t in ins]
+    oracle = torch.autograd.grad(
+        scan_ref.selective_scan_ref(*oracle_in, 256), oracle_in, (dy, dh))
+    for name, a, b, w, o in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got,
+                                again, want, oracle):
+        assert torch.equal(a, b), name
+        assert _rel(a, w) < 1e-4, (name, _rel(a, w))
+        assert _rel(a, o) < 1e-3, (name, _rel(a, o))
+
+
+def test_selective_scan_backward_training_shape(dev):
+    """jamba's training layer (B 2, S 2048, C 8192, N 16): the backward
+    kernel within 1e-4 of ``selective_scan_bwd_ref`` on the kernel's saved
+    states, two calls bit-equal."""
+    ins = _scan_case(dev, 2, 2048, 8192, 16, seed=5)
+    g = torch.Generator(device=dev).manual_seed(2)
+    dy = torch.randn((2, 2048, 8192), generator=g, device=dev)
+    dh = torch.randn((2, 8192, 16), generator=g, device=dev)
+    _, _, hs = scan_ops.scan_forward(*ins, 256, save=True)
+    got = scan_ops.selective_scan_bwd(*ins[:5], hs, dy, dh)
+    again = scan_ops.selective_scan_bwd(*ins[:5], hs, dy, dh)
+    want = scan_ref.selective_scan_bwd_ref(*ins[:5], hs, dy, dh)
+    for name, a, b, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got,
+                             again, want):
+        assert torch.equal(a, b), name
+        assert _rel(a, w) < 1e-4, (name, _rel(a, w))
+
+
+def test_mamba1_mixer_grads_on_card_match_host(dev):
+    """jamba smoke's Mamba-1 mixer (f32) under autograd, through the scan
+    kernels on the card against the plain versions on the host: the output
+    and every parameter's gradient within 1e-4, one forward launch and one
+    backward call."""
+    from repro_torch.models.mamba import mamba1_mixer
+    cfg = dataclasses.replace(smoke_config(get_config("jamba-v0.1-52b")),
+                              param_dtype="float32")
+    p = init_params(cfg, seed=0, device="cpu")["layers"][0]["mamba"]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 2 * cfg.ssm.chunk + 9, cfg.d_model), generator=g)
+    dout = torch.randn(x.shape, generator=g)
+    outs = {}
+    for device in ("cpu", dev):
+        pd = {k: v.to(device).requires_grad_() for k, v in p.items()}
+        n0, b0 = scan_ops.launches, scan_ops.bwd_launches
+        out = mamba1_mixer(cfg, pd, x.to(device))
+        grads = torch.autograd.grad(out, list(pd.values()), dout.to(device))
+        outs[str(device)] = (out.detach().cpu(), [t.cpu() for t in grads],
+                             (scan_ops.launches - n0,
+                              scan_ops.bwd_launches - b0))
+    (o_h, g_h, n_h), (o_d, g_d, n_d) = outs["cpu"], outs[str(dev)]
+    assert n_h == (0, 0) and n_d == (1, 1)
+    assert _rel(o_d, o_h) < TOL[torch.float32]
+    for a, b in zip(g_d, g_h):
+        assert _rel(a, b) < TOL[torch.float32]
 
 
 def test_mamba1_mixer_on_card_matches_host(dev):
@@ -1249,6 +1337,39 @@ def test_flash_bwd_training_shape(dev):
         assert _rel(gt, w) < TOL[dt], (name, _rel(gt, w))
 
 
+FLASH_TRAIN_SHAPES = [  # name, B, Tq, Tk, H, Hk, dh, causal
+    ("whisper encoder", 8, 1500, 1500, 20, 20, 64, False),
+    ("whisper decoder self", 8, 448, 448, 20, 20, 64, True),
+    ("whisper cross", 8, 448, 1500, 20, 20, 64, False),
+    ("internvl2", 4, 2048, 2048, 48, 8, 128, True)]
+
+
+@pytest.mark.parametrize("name,B,Tq,Tk,H,Hk,dh,causal", FLASH_TRAIN_SHAPES)
+def test_flash_bwd_new_training_shapes(dev, name, B, Tq, Tk, H, Hk, dh,
+                                       causal):
+    """The flash backward at whisper's training shapes (G 1, dh 64: the
+    non-causal encoder, the causal decoder, the cross attention with Tq ≠
+    Tk) and internvl2's G 6, bf16 head-transposed views as ``attend``
+    passes them: the mma.sync route, dq, dk, dv within 3e-2 of the plain
+    version's largest value, two calls bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(Tq + Tk)
+    dt = torch.bfloat16
+    q, do = (torch.randn((B, Tq, H, dh), generator=g, device=dev).to(dt)
+             .permute(0, 2, 1, 3) for _ in range(2))
+    k, v = (torch.randn((B, Tk, Hk, dh), generator=g, device=dev).to(dt)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    assert flash_ops.bwd_route(dt, dh, dh, flash_ops._aligned(q, k, v, do)) \
+        == "mma"
+    kw = dict(scale=dh ** -0.5, causal=causal)
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+    got = flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for gname, a, b, w in zip(("dq", "dk", "dv"), got, again, want):
+        assert torch.equal(a, b), gname
+        assert _rel(a, w) < TOL[dt], (gname, _rel(a, w))
+
+
 def test_flash_bwd_rejects_bad_inputs(dev):
     q, k, v, do = _bwd_case(dev, torch.float32, 1, 2, 2, 16, 32, 32)
     o, lse = flash_ops.attend_fwd_lse(q, k, v, scale=0.2)
@@ -1348,6 +1469,58 @@ def test_train_step_on_card_matches_host(dev, arch, dtype):
         assert abs(l_d - l_h) <= 3e-2 * l_h
 
 
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-large-v3",
+                                  "internvl2-26b"])
+def test_train_step_new_families_on_card_match_host(dev, arch):
+    """One f32 smoke-config train step of the families this port trains
+    since the scan's backward (jamba: Mamba-1 + attention + MoE; whisper:
+    the encoder-decoder; internvl2: the front end) on the card against the
+    same step on the host (plain versions), on a ``synth_batch`` made on
+    the host. Launches: the lse forward twice per attention (the step and
+    its remat recompute; whisper: encoder self, decoder self and cross) and
+    the flash backward once; the scan forward twice per Mamba-1 layer and
+    its backward once; the grouped GEMM 12 times per MoE layer. Loss to
+    1e-5 relative, params to 2.5·lr at most and 1e-6 in the median."""
+    from repro_torch.models.model import synth_batch
+    from repro_torch.models.transformer import block_cfgs
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.step import make_state, make_train_step
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    batch = synth_batch(cfg, 2, 48, torch.Generator().manual_seed(0))
+    ocfg = OptConfig(lr=1e-3, warmup_steps=0)
+    counts = ((flash_ops, "lse_launches"), (flash_ops, "bwd_launches"),
+              (scan_ops, "launches"), (scan_ops, "bwd_launches"),
+              (gg_ops, "launches"))
+    out = {}
+    for device in ("cpu", dev):
+        state = make_state(tree_map(lambda x: x.to(device, copy=True), params),
+                           ocfg)
+        n = [getattr(mod, name) for mod, name in counts]
+        state, m = make_train_step(cfg, ocfg)(
+            state, {k: x.to(device) for k, x in batch.items()})
+        launched = tuple(getattr(mod, name) - n0
+                         for (mod, name), n0 in zip(counts, n))
+        out[str(device)] = (float(m["loss"]), tree_leaves(state["params"]),
+                            launched)
+    (l_h, p_h, n_h), (l_d, p_d, n_d) = out["cpu"], out[str(dev)]
+    if cfg.enc_dec:
+        attn, mamba, moe = cfg.n_enc_layers + 2 * cfg.n_layers, 0, 0
+    else:
+        bcs = block_cfgs(cfg)
+        attn = sum(bc.mixer == "attn" for bc in bcs)
+        mamba = sum(bc.mixer == "mamba" for bc in bcs)
+        moe = sum(bc.ffn == "moe" for bc in bcs)
+    assert n_h == (0, 0, 0, 0, 0)
+    assert n_d == (2 * attn, attn, 2 * mamba, mamba, 12 * moe)
+    assert abs(l_d - l_h) <= 1e-5 * l_h
+    diff = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                      for a, b in zip(p_d, p_h)])
+    assert float(diff.max()) <= 2.5 * ocfg.lr
+    assert float(diff.median()) < 1e-6
+
+
 # ------------------------------------------- backwards of the training path
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("E,M,K,N", [(4, 13, 64, 48), (3, 100, 256, 128),
@@ -1374,6 +1547,29 @@ def test_grouped_gemm_backward_matches_plain(dev, dtype, E, M, K, N):
     n0 = gg_ops.launches
     da_only, = torch.autograd.grad(gg_ops.GroupedGemm.apply(a1, w), a1, dc)
     assert gg_ops.launches == n0 + 2 and torch.equal(da_only, da)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 14336), (14336, 4096)])
+def test_grouped_gemm_backward_jamba_shapes(dev, K, N):
+    """``GroupedGemm`` in bf16 at jamba's expert products under training (16
+    experts, capacity 640 of 2 x 2048 tokens at top-2 and factor 1.25; up
+    (4096 → 14336) and down (14336 → 4096)): dA and dW within 3e-2 of the
+    plain version's largest value, one launch a product."""
+    E, M = 16, 640
+    g = torch.Generator(device=dev).manual_seed(K)
+    dt = torch.bfloat16
+    a = torch.randn((E, M, K), generator=g, device=dev).to(dt)
+    w = (torch.randn((E, K, N), generator=g, device=dev) * K ** -0.5).to(dt)
+    dc = torch.randn((E, M, N), generator=g, device=dev).to(dt)
+    a1, w1 = a.clone().requires_grad_(), w.clone().requires_grad_()
+    n0 = gg_ops.launches
+    da, dw = torch.autograd.grad(gg_ops.GroupedGemm.apply(a1, w1), (a1, w1),
+                                 dc)
+    assert gg_ops.launches == n0 + 3
+    for got, want in ((da, gg_ref.grouped_gemm_ref(dc, w.transpose(1, 2))),
+                      (dw, gg_ref.grouped_gemm_ref(a.transpose(1, 2), dc))):
+        assert got.dtype == dt and got.shape == want.shape
+        assert _rel(got, want) < TOL[dt]
 
 
 @pytest.mark.parametrize("P,N,route", [(64, 128, "mma"), (16, 32, "mma"),

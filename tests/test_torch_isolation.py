@@ -43,7 +43,8 @@ def test_engine_import_pulls_in_no_jax():
             "repro_torch.train.loop, repro_torch.launch.train, "
             "repro_torch.serve.multi_engine, repro_torch.serve.faults, "
             "repro_torch.launch.serve, repro_torch.models.draft, "
-            "repro_torch.examples.train_lm, repro_torch.models.whisper; "
+            "repro_torch.examples.train_lm, repro_torch.models.whisper, "
+            "repro_torch.examples.quickstart, repro_torch.models.model; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -279,12 +279,12 @@ def test_engine_greedy_streams_match_jax(model, auto_ctx, paged,
 
 # ------------------------------------------------------------- refusals
 def test_training_and_spec_decode_are_refused(model, monkeypatch):
-    """Training Mamba-1 and hybrids waits for a backward of the selective
-    scan; speculative decode with a Mamba-1 target is not ported. Without
-    a card the engine needs ``device="cpu"``."""
+    """Training Mamba-1 and hybrids is accepted now that the selective scan
+    has a backward (held against JAX in ``tests/test_torch_train_hybrid.py``);
+    speculative decode with a Mamba-1 target is still refused (not ported).
+    Without a card the engine needs ``device="cpu"``."""
     _, tcfg, _, tp = model
-    with pytest.raises(NotImplementedError, match="Mamba-1"):
-        ttr.check_trainable(tcfg)
+    ttr.check_trainable(tcfg)
     draft = dataclasses.replace(tconfigs.smoke_config(tconfigs.get_config(
         "mistral-nemo-12b")), param_dtype="float32")
     assert draft.vocab == tcfg.vocab

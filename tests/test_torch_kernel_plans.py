@@ -67,6 +67,27 @@ def test_fwd_route_alignment_from_views():
     assert not flash_ops._aligned(q, odd, v)
 
 
+# ----------------------------------------------------- flash backward route
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_bwd_route_every_dim(dtype, aligned):
+    """Every (dh, dv) the backward accepts: the mma.sync passes for bf16 at
+    dh = dv in {64, 128} with aligned rows (whisper's 64, the GQA models'
+    128), the CUDA cores for everything else (MLA's (192, 128) among them);
+    flash_attention_bwd.cu's own condition names the same dims, and refuses
+    route 1 where it does not hold."""
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    assert "(dh == 64 || dh == 128)" in text and "dh == dv_dim" in text
+    assert "if (route == 1 && !tc) return (int)cudaErrorInvalidValue;" in text
+    assert flash_ops._ROUTES["mma"] == 1 and flash_ops._ROUTES["f32"] == 0
+    for dh in range(1, flash_ops._MAX_BWD + 1):
+        for dv in range(1, flash_ops._MAX_BWD + 1):
+            got = flash_ops.bwd_route(dtype, dh, dv, aligned)
+            want = "mma" if dtype == torch.bfloat16 and aligned and \
+                dh == dv and dh in (64, 128) else "f32"
+            assert got == want, (dtype, dh, dv, aligned, got)
+
+
 # ------------------------------------------------- flash forward smem law
 @pytest.mark.parametrize("dh,dv", [(64, 64), (128, 128), (192, 128)])
 def test_fwd_smem_law(dh, dv):

@@ -278,28 +278,30 @@ def test_engine_admit_writes_only_the_admitted_slots(model):
 # --------------------------------------------------------------- refusals
 def test_check_supported_refuses_mamba1_hybrids_and_ffn_blocks():
     """Serving takes Mamba-1, hybrids and Mamba blocks with an FFN (jamba:
-    ``tests/test_torch_jamba.py``); training refuses each, with its own
-    message, and serving still refuses a hybrid's attention layer without
-    an FFN and post-norm Mamba blocks."""
+    ``tests/test_torch_jamba.py``), and so does training now that the
+    selective scan has a backward (``tests/test_torch_train_hybrid.py``);
+    serving and training still refuse, each with its own message, a
+    hybrid's attention layer without an FFN and post-norm Mamba blocks."""
     t = tconfigs.smoke_config(tconfigs.get_config(ARCH))
     ttr.check_supported(t)
     ttr.check_trainable(t)
     hybrid = dataclasses.replace(t, ssm=dataclasses.replace(t.ssm,
                                                             attn_period=2),
                                  family="hybrid")
-    cases = ((dict(ssm=dataclasses.replace(t.ssm, version=1)), "Mamba-1"),
-             (dict(ssm=hybrid.ssm, family="hybrid", d_ff=128), "hybrid"),
-             (dict(d_ff=128), "FFN"))
-    for bad, msg in cases:
-        cfg = dataclasses.replace(t, **bad)
+    cases = (dict(ssm=dataclasses.replace(t.ssm, version=1)),
+             dict(ssm=hybrid.ssm, family="hybrid", d_ff=128),
+             dict(d_ff=128))
+    for ok in cases:
+        cfg = dataclasses.replace(t, **ok)
         ttr.check_supported(cfg)
         teng.Engine(cfg, init_params(cfg, device="cpu"), device="cpu")
-        with pytest.raises(NotImplementedError, match=msg):
-            ttr.check_trainable(cfg)
+        ttr.check_trainable(cfg)
     for cfg, msg in ((hybrid, "without an FFN"),
                      (dataclasses.replace(t, use_post_norm=True),
                       "post-norm Mamba")):
         with pytest.raises(NotImplementedError, match=msg):
             ttr.check_supported(cfg)
+        with pytest.raises(NotImplementedError, match=msg):
+            ttr.check_trainable(cfg)
         with pytest.raises(NotImplementedError, match=msg):
             teng.Engine(cfg, None, device="cpu")

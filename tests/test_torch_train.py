@@ -179,27 +179,33 @@ def test_microbatches_accumulate_the_same_update():
 
 def test_check_trainable_refuses_what_is_not_ported():
     """The port trains every family it serves (GQA, MLA, gated MoE with
-    shared experts and dense first layers, Mamba-2); it refuses, each with
-    its own message, Mamba-1, hybrids, sliding-window MLA, MoE with a
-    non-gated FFN, enc-dec and front ends."""
+    shared experts and dense first layers, Mamba-2, and since the selective
+    scan has a backward Mamba-1, hybrids, enc-dec and front ends, each
+    accepted by ``check_trainable`` and ``make_train_step``); it refuses,
+    each with its own message, sliding-window MLA and MoE with a non-gated
+    FFN."""
     _, tcfg = _cfgs("float32")
     ttr.check_trainable(dataclasses.replace(tcfg, sliding_window=16))
-    for arch in ("deepseek-v2-236b", "phi3.5-moe-42b-a6.6b", "mamba2-130m"):
+    for arch in ("deepseek-v2-236b", "phi3.5-moe-42b-a6.6b", "mamba2-130m",
+                 "jamba-v0.1-52b", "whisper-large-v3", "internvl2-26b"):
         cfg = tconfigs.smoke_config(tconfigs.get_config(arch))
         ttr.check_trainable(cfg)
         make_train_step(cfg, OptConfig())
     ssm = tconfigs.smoke_config(tconfigs.get_config("mamba2-130m"))
     mla = tconfigs.smoke_config(tconfigs.get_config("deepseek-v2-236b"))
     moe = tconfigs.smoke_config(tconfigs.get_config("phi3.5-moe-42b-a6.6b"))
+    for cfg in (dataclasses.replace(ssm, ssm=dataclasses.replace(
+                    ssm.ssm, version=1)),
+                dataclasses.replace(ssm, family="hybrid", d_ff=128,
+                                    ssm=dataclasses.replace(
+                                        ssm.ssm, attn_period=2)),
+                dataclasses.replace(tcfg, frontend="vision",
+                                    frontend_tokens=4, frontend_dim=32)):
+        ttr.check_trainable(cfg)
+        make_train_step(cfg, OptConfig())
     for cfg, msg in (
-            (dataclasses.replace(ssm, ssm=dataclasses.replace(
-                ssm.ssm, version=1)), "Mamba-1"),
-            (dataclasses.replace(ssm, family="hybrid", ssm=dataclasses.replace(
-                ssm.ssm, attn_period=2)), "hybrid"),
             (dataclasses.replace(mla, sliding_window=16), "sliding-window MLA"),
-            (dataclasses.replace(moe, act="relu2"), "MoE with a non-gated"),
-            (dataclasses.replace(tcfg, enc_dec=True), "enc-dec"),
-            (dataclasses.replace(tcfg, frontend="vision"), "front-end")):
+            (dataclasses.replace(moe, act="relu2"), "MoE with a non-gated")):
         with pytest.raises(NotImplementedError, match=msg):
             ttr.check_trainable(cfg)
         with pytest.raises(NotImplementedError, match=msg):
