@@ -7,17 +7,20 @@
 2. Builds the hand-written kernels from this checkout (nvcc, sm_90a, one
    process per source, all started together), and prints for each kernel
    built on the tensor cores and asynchronous copies (the flash forward at
-   its four head dims, 256 included, the grouped GEMM's prefill and decode
-   paths and paged MLA decode: wgmma and TMA, HGMMA and UTMALDG; paged GQA
-   decode at dh 64, 128 and 256: mma.sync and cp.async, HMMA and LDGSTS)
-   those instructions in the SASS and its ptxas registers and spills; a
-   count of 0 fails.
+   its four instances, 256 included, dh 80 on the 128 one, the grouped
+   GEMM's prefill and decode paths and paged MLA decode: wgmma and TMA,
+   HGMMA and UTMALDG; paged GQA decode at dh 64, 128 and 256 and the flash
+   backward's passes at (64, 64), (128, 128) and (192, 128): mma.sync and
+   cp.async, HMMA and LDGSTS) those instructions in the SASS and its ptxas
+   registers and spills; a count of 0 fails, and so does a spill of the
+   (192, 128) backward passes.
 3. Holds each kernel against its plain PyTorch version at the main paths'
    shapes (paged GQA decode at mistral's dh 128 and gemma2-2b's dh 256 with
    softcap 50, the latter also in f32 on the CUDA cores, paged MLA decode, flash prefill at GQA and MLA head dims, at
    gemma2-2b's dh 256 (window 4096, softcap 50), h2o-danube-1.8b's dh
-   80 and whisper-large-v3's encoder (20 heads over 20, dh 64, no mask,
-   T 1500 and 448, on the wgmma route), the grouped expert GEMM in bf16
+   80 (the head dim zero-filled to 128) and whisper-large-v3's encoder (20
+   heads over 20, dh 64, no mask, T 1500 and 448), each on the wgmma
+   route, the grouped expert GEMM in bf16
    and f32 (and at jamba-v0.1-52b's
    expert shapes in bf16), the tiled GEMM on the hbb
    path's row chunks of a 1024² f32 GEMM and at 4096² in f32 and bf16 at
@@ -117,7 +120,9 @@
    workload), each at published width and depth: once through CUDA graphs
    and once through the eager loop (streams checked equal, one quantum of
    each profiled), a check that gemma2's and danube's decode ran past
-   position 4096, and prefill → decode against a one-token-longer prefill
+   position 4096, danube's longest prompt's prefill profiled (the flash
+   forward's device ms, one launch a layer), and prefill → decode against
+   a one-token-longer prefill
    (nemotron's bf16 at full depth reported, gemma2's held to 3e-2 through
    its paged layout; f32 at depth 2 held, past the window for gemma2 and
    danube, gemma2's through its dense and its paged layout, the latter on
@@ -145,7 +150,8 @@
    the selective scan's backward): both flash kernels against their plain
    versions at the GQA training shape (B=4, T=2048, 32 heads over 8,
    dh=128, causal, bf16; also f32 and window + softcap), at deepseek-v2's
-   MLA shape (B=4, T=2048, 128 heads at (192, 128)), at whisper's encoder,
+   MLA shape (B=4, T=2048, 128 heads at (192, 128), the backward on the
+   mma.sync passes), at whisper's encoder,
    decoder and cross shapes (G 1, dh 64; non-causal, causal, Tq 448 over
    Tk 1500) and internvl2's G 6, each call's route recorded, timed beside
    ``scaled_dot_product_attention`` and its backward; dA = dC·Wᵀ and dW =
@@ -324,6 +330,7 @@ def bound_ms(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
 # its asynchronous-copy opcode)}). wgmma + TMA: HGMMA, UTMALDG; mma.sync +
 # cp.async: HMMA, LDGSTS.
 WGMMA = ("HGMMA", "UTMALDG")
+MMA = ("HMMA", "LDGSTS")
 WGMMA_KERNELS = {
     "flash_attention_fwd": ("flash_attention", dict.fromkeys([
         "flash_fwd_wgmma<64, 64>", "flash_fwd_wgmma<128, 128>",
@@ -340,16 +347,28 @@ WGMMA_KERNELS = {
         ("HMMA", "LDGSTS"))),
     "flash_attention_fwd_dh256": ("flash_attention", {
         "flash_fwd_wgmma<256, 256>": WGMMA}),
+    # dh 80: the (128, 128) instance, the head dim zero-filled by TMA
+    "flash_attention_fwd_dh80": ("flash_attention", {
+        "flash_fwd_wgmma<128, 128>": WGMMA}),
+    "flash_attention_bwd": ("flash_attention_bwd", dict.fromkeys(
+        ["bwd_dq_mma<128, 128>", "bwd_dkv_mma<128, 128>"], MMA)),
+    "flash_attention_bwd_whisper": ("flash_attention_bwd", dict.fromkeys(
+        ["bwd_dq_mma<64, 64>", "bwd_dkv_mma<64, 64>"], MMA)),
+    "flash_attention_bwd_mla": ("flash_attention_bwd", dict.fromkeys(
+        ["bwd_dq_mma<192, 128>", "bwd_dkv_mma<192, 128>"], MMA)),
     "paged_attention_mla": ("paged_attention", dict.fromkeys([
         "paged_mla_wgmma<512>", "paged_mla_wgmma<576>"], WGMMA)),
-    "ssd_intra_chunk": ("ssd", {"ssd_mma": ("HMMA", "LDGSTS")}),
+    "ssd_intra_chunk": ("ssd", {"ssd_mma": MMA}),
 }
+# instances held to no local-memory spill (ptxas)
+NO_SPILL = ("bwd_dq_mma<192, 128>", "bwd_dkv_mma<192, 128>")
 
 
 def sass_phase() -> dict[str, dict]:
     """Per redesigned kernel: its tensor-core and asynchronous-copy
     instructions in the built SASS (``cuobjdump -sass``) and ptxas's
-    registers and spills. A count of 0 fails."""
+    registers and spills. A count of 0 fails, and so does a spill of an
+    instance in ``NO_SPILL``."""
     from repro_torch.kernels import _build
     libs = {lib for lib, _ in WGMMA_KERNELS.values()}
     sass = {lib: _build.sass_counts(lib) for lib in libs}
@@ -366,6 +385,10 @@ def sass_phase() -> dict[str, dict]:
                   f"; ptxas {r.get('registers')} registers, "
                   f"{r.get('spill_stores')} B spill stores, "
                   f"{r.get('spill_loads')} B spill loads")
+            if k in NO_SPILL:
+                check(r.get("spill_stores") == 0 == r.get("spill_loads"),
+                      f"ptxas: {k} ({lib}) spills no local memory "
+                      f"({r.get('registers')} registers)")
     return out
 
 
@@ -777,9 +800,10 @@ def _band_mask(T: int, window: int, dev):
 
 def flash_dims_entry(dev, *, name: str, H: int, Hk: int, d: int,
                      cases: tuple, paths: list) -> dict:
-    """The flash forward at head dim ``d`` (= dv): each case (B, T, window,
-    softcap, q gain) held by :func:`check_flash`; the first case also
-    timed (CUDA events) beside the plain
+    """The flash forward at head dim ``d`` (= dv) on the wgmma route
+    (checked): each case (B, T, window, softcap, q gain) held by
+    :func:`check_flash`; the first case also timed (CUDA events) beside the
+    plain
     version and ``scaled_dot_product_attention`` with the same mask (SDPA
     has no softcap: it computes the masked softmax without it)."""
     from repro_torch.kernels.flash_attention import ops, ref
@@ -794,7 +818,9 @@ def flash_dims_entry(dev, *, name: str, H: int, Hk: int, d: int,
         qv, kv, vv = (x.permute(0, 2, 1, 3) for x in (q, k, v))
         kw = dict(scale=d ** -0.5, causal=True, window=window,
                   softcap=softcap)
-        route = ops.fwd_route(dt, d, d, True)
+        route = ops.fwd_route(dt, d, d, ops._aligned(qv, kv, vv))
+        check(route == "wgmma", f"flash B={B} H={H} Hkv={Hk} dh={d} T={T}: "
+              f"the (B, T, heads, d) views take the wgmma route ({route})")
         err = max(err, check_flash(
             ops, ref, qv, kv, vv, kw, gain, f"flash ({route}) B={B} H={H} "
             f"Hkv={Hk} dh=dv={d} T={T} window={window} softcap={softcap} "
@@ -841,8 +867,9 @@ def flash_dims_entry(dev, *, name: str, H: int, Hk: int, d: int,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "check": "out (bf16) against flash_attention_ref in f32, each "
                      "row within 1e-2 of its largest value (max_abs_err is "
-                     "|out - ref|), causal, cases (B, T, window, softcap, q "
-                     "gain) " + str(list(cases)) + "; with a softcap and a "
+                     "|out - ref|), causal, the wgmma route, cases (B, T, "
+                     "window, softcap, q gain) " + str(list(cases)) +
+                     "; with a softcap and a "
                      "gain the kernel without its softcap must miss; two "
                      "calls bit-equal; times at " + shape +
                      "; library: scaled_dot_product_attention with the same "
@@ -863,7 +890,8 @@ def flash256_phase(dev) -> dict:
 
 def flash80_phase(dev) -> dict:
     """h2o-danube-1.8b's prefill: 32 heads over 8, dh = dv = 80, window
-    4096; the CUDA-core route. Its launches are danube's."""
+    4096; the wgmma route on the (128, 128) instance, the head dim
+    zero-filled to 128 in shared memory. Its launches are danube's."""
     return flash_dims_entry(
         dev, name="flash_attention_fwd_dh80", H=32, Hk=8, d=80,
         cases=((2, 4096, 4096, 0.0, 1), (1, 8192, 4096, 0.0, 1),
@@ -1070,13 +1098,14 @@ def flash_mla_train_phase(dev) -> list[dict]:
     """deepseek-v2's training attention: B=4, T=2048, H=128 at G=1, dqk
     192, dv 128, causal, bf16, as ``mla_attention`` passes it (q and k
     head-transposed views, v a view into the up-projection's rows). The lse
-    forward (``wgmma``) and the backward (CUDA cores: the tensor-core
-    backward takes dh = dv only) against the plain versions, each batch row
-    on its own (a row's f32 scores take 2.1 GB): lse within 1e-4, o
-    bit-equal to the serving forward, dq, dk, dv within 3e-2 of each
-    largest value. Times: kernels and the plain versions (over the four
-    rows) by CUDA events; library: ``scaled_dot_product_attention`` on
-    inputs that want a gradient and its backward through
+    forward (``wgmma``) and the backward (``mma``: the mma.sync passes at
+    (192, 128); both routes checked) against the plain versions, each
+    batch row on its own (a row's f32 scores take 2.1 GB): lse within
+    1e-4, o bit-equal to the serving forward, dq, dk, dv within 3e-2 of
+    each largest value, two backward calls bit-equal, one launch of each
+    pass a profiled call. Times: kernels and the plain versions (over the
+    four rows) by CUDA events; library: ``scaled_dot_product_attention``
+    on inputs that want a gradient and its backward through
     ``torch.autograd.grad``."""
     from repro_torch.kernels.flash_attention import ops, ref
     B, T, H, dqk, dv = 4, 2048, 128, 192, 128
@@ -1090,9 +1119,12 @@ def flash_mla_train_phase(dev) -> list[dict]:
     qv, kv_, vv, dov = (x.permute(0, 2, 1, 3)
                         for x in (q, k, kv[..., 128:], do))
     kw = dict(scale=scale, causal=True)
-    o, lse = ops.attend_fwd_lse(qv, kv_, vv, **kw)
+    with flash_routes() as fwd_r, flash_routes("bwd_route") as bwd_r:
+        o, lse = ops.attend_fwd_lse(qv, kv_, vv, **kw)
+        got = ops.attend_bwd(qv, kv_, vv, o, lse, dov, **kw)
     same = torch.equal(o, ops.attend(qv, kv_, vv, **kw))
-    got = ops.attend_bwd(qv, kv_, vv, o, lse, dov, **kw)
+    bit = all(torch.equal(a, b) for a, b in zip(
+        got, ops.attend_bwd(qv, kv_, vv, o, lse, dov, **kw)))
 
     def rows(fn, i):
         return fn(*(x[i:i + 1] for x in (qv, kv_, vv)), **kw)
@@ -1108,10 +1140,13 @@ def flash_mla_train_phase(dev) -> list[dict]:
                                          .abs().max() / b.float().abs().max()))
         del want
     label = f"B={B} T={T} H={H} (dqk, dv)=({dqk}, {dv}) causal bf16"
+    check(fwd_r == ["wgmma"] and bwd_r == ["mma"], f"flash {label}: routes "
+          f"fwd {fwd_r} bwd {bwd_r} (want wgmma, mma)")
     check(same and e_l <= 1e-4, f"flash fwd lse {label}: o equals the "
           f"serving forward {same}, max |lse - ref| {e_l:.3g} (tol 1e-4)")
-    check(max(errs) <= BF16_TOL, f"flash bwd {label}: dq, dk, dv relative "
-          f"max error {[f'{e:.3g}' for e in errs]} (tol {BF16_TOL})")
+    check(max(errs) <= BF16_TOL and bit, f"flash bwd {label}: dq, dk, dv "
+          f"relative max error {[f'{e:.3g}' for e in errs]} (tol "
+          f"{BF16_TOL}), two calls bit-equal {bit}")
     del got
     torch.cuda.empty_cache()
     pairs = _causal_pairs(T, 0) * B * H
@@ -1121,15 +1156,20 @@ def flash_mla_train_phase(dev) -> list[dict]:
     b_ops, f_ops = (6 * dqk + 4 * dv) * pairs, 2 * (dqk + dv) * pairs
     bb = bound_ms(b_bytes, b_ops, dt)
     fb = bound_ms(f_bytes, f_ops, dt)
-    ms_b = time_ms(lambda: ops.attend_bwd(qv, kv_, vv, o, lse, dov, **kw), 3,
-                   1)
-    passes = {}
+    ms_b = time_ms(lambda: ops.attend_bwd(qv, kv_, vv, o, lse, dov, **kw), 10)
+    from repro_torch.kernels import _build
+    passes, labels = {}, {}
     for name, (ms, n) in kernels_ms(lambda: ops.attend_bwd(
             qv, kv_, vv, o, lse, dov, **kw))[0].items():
         key = ("dq pass" if "bwd_dq" in name else "dk/dv pass"
                if "bwd_dkv" in name else "delta" if "delta" in name
                else name[:40])
         passes[key] = ms
+        labels[_build.kernel_label(name)] = n
+    want = {"bwd_dq_mma<192, 128>": 1, "bwd_dkv_mma<192, 128>": 1,
+            "delta_kernel<__nv_bfloat16>": 1}
+    check(labels == want, f"flash bwd {label}: one launch of each pass a "
+          f"call ({labels})")
     plain_b = time_ms(lambda: [ref.flash_attention_bwd_ref(
         *(x[i:i + 1] for x in (qv, kv_, vv, o, lse, dov)), **kw)
         for i in range(B)], 1, 1)
@@ -1165,9 +1205,10 @@ def flash_mla_train_phase(dev) -> list[dict]:
              (ms_b, plain_b, bb, lib_b), max(errs), BF16_TOL,
              "dq, dk, dv against flash_attention_bwd_ref on the kernel's o "
              "and lse, each batch row, relative to each largest value (tol "
-             "3e-2); the CUDA-core route (the tensor-core backward takes "
-             "dh = dv in {64, 128}); library: the backward of "
-             "scaled_dot_product_attention through torch.autograd.grad"),
+             "3e-2); the mma route (bwd_dq_mma, bwd_dkv_mma at (192, 128)), "
+             "two calls bit-equal, one launch of each pass a call; library: "
+             "the backward of scaled_dot_product_attention through "
+             "torch.autograd.grad"),
             ("flash_attention_fwd_lse_mla", "flash_attention_fwd_lse",
              "flash_attention.cu", "flash_attention_bwd.py:199",
              (ms_f, plain_f, fb, lib_f), e_l, 1e-4,
@@ -1178,6 +1219,7 @@ def flash_mla_train_phase(dev) -> list[dict]:
                     "source": "src/repro_torch/kernels/csrc/" + src,
                     "replaces": "src/repro/kernels/flash_attention/" + replaces,
                     "paths": ["train-mla"],
+                    "kernel_route": (bwd_r if "bwd" in name else fwd_r)[0],
                     "max_abs_err": err, "tol": tol, "ms": ms,
                     "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": lib, "check": f"{chk}; times at {shape}"})
@@ -3254,17 +3296,18 @@ def profile_phase(eng, cfg, max_new: int = 64, drain: bool = True) -> dict:
 
 # kernel of a prefill profile → the substring of its device kernels' names
 PREFILL_KERNELS = {"ssd_intra_chunk": "ssd_",
-                   "selective_scan": "selective_scan"}
+                   "selective_scan": "selective_scan",
+                   "flash_attention_fwd": "flash_fwd"}
 
 
 def prefill_profile(cfg, params, prompt, dev,
                     kernel: str = "ssd_intra_chunk") -> dict:
-    """One exact-length prefill group under torch.profiler: the engine's
-    call for a group of one prompt (prompt_len, page_size 16), after one
-    unprofiled run of it. Prints its wall time, the device busy share,
-    ``kernel``'s device ms and launches (one a Mamba layer: the SSD kernel
-    for Mamba-2, the selective scan for Mamba-1) and the kernels by device
-    time."""
+    """One prefill group of one prompt under torch.profiler: the engine's
+    call (prompt_len, page_size 16), after one unprofiled run of it. Prints
+    its wall time, the device busy share, ``kernel``'s device ms and
+    launches (one a Mamba layer: the SSD kernel for Mamba-2, the selective
+    scan for Mamba-1; one an attention layer: the flash forward) and the
+    kernels by device time."""
     from repro_torch.serve.prefill import prefill
     mod, attr = _counters()[kernel]
     toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
@@ -3285,9 +3328,10 @@ def prefill_profile(cfg, params, prompt, dev,
     busy, n, by_name = device_time(prof)
     k_us = sum(us for name, (us, _) in by_name.items()
                if PREFILL_KERNELS[kernel] in name)
-    rows = -(-len(prompt) // cfg.ssm.chunk)
+    rows = (f" {-(-len(prompt) // cfg.ssm.chunk)} chunk rows of "
+            f"{cfg.ssm.chunk}," if cfg.ssm else "")
     print(f"profile: one {cfg.name} prefill group (1 x {len(prompt)} tokens,"
-          f" {rows} chunk rows of {cfg.ssm.chunk}, {cfg.n_layers} layers, "
+          f"{rows} {cfg.n_layers} layers, "
           f"profiler on): wall {wall * 1e3:.1f} ms, device busy "
           f"{busy / 1e3:.3f} ms ({busy / 1e4 / wall:.1f} %), {n} kernels; "
           f"{kernel} kernel {k_us / 1e3:.3f} ms device over {launches} "
@@ -3481,7 +3525,7 @@ def danube_phase(dev, entries) -> None:
     32 heads over 8 of 80, a window of 4096 on every layer, SwiGLU 6912,
     vocab 32000; 1.83 B params) through the dense engine (``paged=False``)
     on gemma2's workload at max_len 8192: every layer a per-slot ring of
-    4096."""
+    4096; then one prefill group of the longest prompt profiled."""
     from repro_torch.configs import get_config
     cfg = get_config("h2o-danube-1.8b")
     params = _make_params(cfg, dev)
@@ -3493,6 +3537,11 @@ def danube_phase(dev, entries) -> None:
     last = max(len(p) + len(o) - 1 for p, o in zip(prompts, streams))
     check(last > cfg.sliding_window, f"{cfg.name}: decode reached position "
           f"{last} (> {cfg.sliding_window}: the rings wrap)")
+    prof = prefill_profile(cfg, params, prompts[int(np.argmax(lens))], dev,
+                           kernel="flash_attention_fwd")
+    check(prof["kernel_launches"] == cfg.n_layers, f"{cfg.name}: the "
+          f"profiled prefill launched the flash forward once a layer "
+          f"({prof['kernel_launches']})")
     del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, n_layers=2, param_dtype="float32")
@@ -4183,20 +4232,30 @@ def train_vlm_phase(dev, entries) -> None:
 
 
 def launcher_phase() -> None:
-    """The training launcher at smoke size, each run in its own process:
-    mistral-nemo-12b and phi3.5-moe-42b."""
+    """The training launcher at smoke size, each run in its own process,
+    the two at once: mistral-nemo-12b and phi3.5-moe-42b."""
     root = Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    t = time.perf_counter()
+    runs = []
     for arch in ("mistral-nemo-12b", "phi3.5-moe-42b-a6.6b"):
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
                arch, "--steps", "3"]
-        t = time.perf_counter()
-        run = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
-                             text=True, timeout=600)
-        print(run.stdout[-2000:] + run.stderr[-2000:])
-        check(run.returncode == 0 and "done: 3 steps" in run.stdout,
-              f"launcher {' '.join(cmd[1:])} exits {run.returncode} in "
-              f"{time.perf_counter() - t:.1f} s")
+        runs.append((cmd, subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    try:
+        for cmd, proc in runs:
+            out, err = proc.communicate(timeout=600)
+            print(out[-2000:] + err[-2000:])
+            check(proc.returncode == 0 and "done: 3 steps" in out,
+                  f"launcher {' '.join(cmd[1:])} exits {proc.returncode} "
+                  f"at {time.perf_counter() - t:.1f} s")
+    finally:
+        for _, proc in runs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def main() -> int:

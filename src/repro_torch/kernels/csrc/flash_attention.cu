@@ -16,9 +16,10 @@
 //
 // Three paths, one contract, chosen by flash_attention/ops.py::fwd_route.
 //
-// flash_fwd_wgmma (bf16, dh = dv in {64, 128, 256} or MLA's dh = 192 (nope
-// 128 + rope 64) with dv = 128, 16-byte aligned rows; the main path of the
-// served models and of training, gemma2-2b's prefill at 256): Hopper's warpgroup tensor-core products fed by
+// flash_fwd_wgmma (bf16, dh = dv in {64, 80, 128, 256} or MLA's dh = 192
+// (nope 128 + rope 64) with dv = 128, 16-byte aligned rows; the main path
+// of the served models and of training, gemma2-2b's prefill at 256,
+// h2o-danube-1.8b's at 80): Hopper's warpgroup tensor-core products fed by
 // TMA, in the structure of FlashAttention-3. Persistent: one block of three
 // warpgroups per SM takes work tiles (128 query rows of one batch * head)
 // in the order of a walk that keeps a group of heads' K/V in L2 and runs
@@ -42,10 +43,18 @@
 // the descriptor's transpose bit: no transposed copy. The P V products stay
 // in flight while the next tile's S products are issued behind them. Key
 // tiles outside a warpgroup's band are not computed; a block visits only
-// the tiles its rows can see. Shared memory: FwdSmem (230,472 bytes at dh
-// 128, 214,072 at 192, 197,688 at 256), one block per SM. Where it stands (PERF.md §6, on
-// an H100 at 700 W): 2.8x its operations bound at the serving shape, 2.2x
-// with lse at the training shape, 1.2-1.3x scaled_dot_product_attention.
+// the tiles its rows can see. dh = dv = 80 runs the (128, 128) instance:
+// its tensor maps give the head dim as 80, so the second 64-column box of
+// each Q, K and V row reads columns 64-79 and TMA zero-fills 80-127; the
+// zero columns add exact zeros to S and give zero output columns, which
+// the store leaves out (it writes the caller's dv columns of each row: a
+// wider store would write into the next head of a head-transposed view).
+// The padding costs 128 / 80 = 1.6x the products. Shared memory: FwdSmem
+// (230,472 bytes at dh 128 and 80, 214,072 at 192, 197,688 at 256), one
+// block per SM. Where it stands (PERF.md §6, on an H100 at 700 W): 2.8x
+// its operations bound at the serving shape, 2.2x with lse at the training
+// shape, 1.2-1.3x scaled_dot_product_attention; at dh 80 3.1x its bound
+// and 1.2x SDPA.
 // What is left: no ping-pong between the two consumers and no second S
 // tile to overlap a warpgroup's softmax with its own products (232
 // registers a thread hold one), and the output leaves by 4-byte stores,
@@ -545,16 +554,17 @@ __device__ __forceinline__ void tile_scores(float* sacc, float* mx,
 // Q and K/V while the consumers finish and write the current one. It
 // publishes the tile's index in shared memory (`tile`) before its arrival
 // on q_full; an index past the last tile ends the consumers' loop. Maps
-// over (d, T, heads, B) of q, k and v; o and lse are written from the
-// accumulators.
+// over (d, T, heads, B) of q, k and v (d the caller's head dim, zero-filled
+// to DH); o and lse are written from the accumulators, o's first dv_out
+// columns of each row (a multiple of 8, at most DV).
 template <int DH, int DV>
 __global__ void __launch_bounds__(WTHREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                Strides os, int B, int H, int group, int Tq, int Tk,
-                float scale, int causal, int window, float softcap,
+                Strides os, int dv_out, int B, int H, int group, int Tq,
+                int Tk, float scale, int causal, int window, float softcap,
                 int gsize, int* __restrict__ counter) {
   using SM = FwdSmem<DH, DV>;
   constexpr int S = SM::stages;
@@ -761,9 +771,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         __nv_bfloat16* orow = o + f.b * os.b + f.h * os.h + row * os.t;
 #pragma unroll
         for (int j = 0; j < DV / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tg) =
-              __floats2bfloat162_rn(oacc[4 * j + 2 * rr] * inv,
-                                    oacc[4 * j + 2 * rr + 1] * inv);
+          if (8 * j < dv_out)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * tg) =
+                __floats2bfloat162_rn(oacc[4 * j + 2 * rr] * inv,
+                                      oacc[4 * j + 2 * rr + 1] * inv);
         if (lse != nullptr && tg == 0)
           lse[((long long)f.b * H + f.h) * Tq + row] =
               (mrow[rr] <= NEG / 2 ? 0.f : mrow[rr] * LN2) +
@@ -773,22 +784,25 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// The instance (DH, DV) computes a call of head dims (dh, dv) <= (DH, DV):
+// the maps give the caller's dims, and TMA zero-fills the rest of each
+// tile row.
 template <int DH, int DV>
 cudaError_t launch_wgmma(int device, int* counter, const void* q,
                          const void* k, const void* v, void* o, float* lse,
                          Strides qs, Strides ks, Strides vs, Strides os,
-                         int B, int H, int Hk, int Tq, int Tk, float scale,
-                         int causal, int window, float softcap,
-                         cudaStream_t stream) {
+                         int B, int H, int Hk, int Tq, int Tk, int dh,
+                         int dv, float scale, int causal, int window,
+                         float softcap, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   const int box_q[4] = {64, WQ, 1, 1};
   const int box_kv[4] = {64, FwdSmem<DH, DV>::kn, 1, 1};
-  const long long dq[4] = {DH, Tq, H, B}, sq[3] = {qs.t, qs.h, qs.b};
-  const long long dk[4] = {DH, Tk, Hk, B}, sk[3] = {ks.t, ks.h, ks.b};
-  const long long dv[4] = {DV, Tk, Hk, B}, sv[3] = {vs.t, vs.h, vs.b};
-  cudaError_t err = make_map(&tq, q, 4, dq, sq, box_q);
-  if (err == cudaSuccess) err = make_map(&tk, k, 4, dk, sk, box_kv);
-  if (err == cudaSuccess) err = make_map(&tv, v, 4, dv, sv, box_kv);
+  const long long mq[4] = {dh, Tq, H, B}, sq[3] = {qs.t, qs.h, qs.b};
+  const long long mk[4] = {dh, Tk, Hk, B}, sk[3] = {ks.t, ks.h, ks.b};
+  const long long mv[4] = {dv, Tk, Hk, B}, sv[3] = {vs.t, vs.h, vs.b};
+  cudaError_t err = make_map(&tq, q, 4, mq, sq, box_q);
+  if (err == cudaSuccess) err = make_map(&tk, k, 4, mk, sk, box_kv);
+  if (err == cudaSuccess) err = make_map(&tv, v, 4, mv, sv, box_kv);
   if (err != cudaSuccess) return err;
   constexpr int smem = FwdSmem<DH, DV>::bytes;
   err = cudaFuncSetAttribute(flash_fwd_wgmma<DH, DV>,
@@ -802,8 +816,8 @@ cudaError_t launch_wgmma(int device, int* counter, const void* q,
   const int grid = (int)std::min<long long>(n_work, sm_count(device));
   const int gsize = std::min(B * H, std::max(1, 2 * grid / nq));
   flash_fwd_wgmma<DH, DV><<<grid, WTHREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, os, B, H, H / Hk, Tq,
-      Tk, scale, causal, window, softcap, gsize, counter);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, os, dv, B, H, H / Hk,
+      Tq, Tk, scale, causal, window, softcap, gsize, counter);
   return cudaGetLastError();
 }
 
@@ -855,7 +869,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o). route (the pure
 // function flash_attention/ops.py::fwd_route): 0 = CUDA cores, any dims;
 // 1 = mma.sync, bf16, dh = dv in {16, 32}; 2 = wgmma and TMA, bf16, (dh, dv)
-// in {(64, 64), (128, 128), (256, 256), (192, 128)}; routes 1 and 2 need
+// in {(64, 64), (80, 80), (128, 128), (256, 256), (192, 128)} ((80, 80) on
+// the (128, 128) instance, zero-filled); routes 1 and 2 need
 // 16-byte aligned rows (every pointer and stride a multiple of 8 elements).
 // Strides are in elements, the last dim of every tensor is contiguous. lse,
 // when not null, is a contiguous (B, H, Tq) float32 output. counter: route
@@ -895,14 +910,14 @@ int flash_attention_fwd(int device, int dtype, int route, const void* q,
         q, k, v, o, lse, qs, ks, vs, os, B, H, Hk, Tq, Tk, scale, causal,
         window, softcap, st);
   else if (route == 2 && dtype == 1 && aligned && counter != nullptr &&
-           ((dh == dv && (dh == 64 || dh == 128 || dh == 256)) ||
+           ((dh == dv && (dh == 64 || dh == 80 || dh == 128 || dh == 256)) ||
             (dh == 192 && dv == 128)))
     err = (dh == 64    ? launch_wgmma<64, 64>
-           : dh == 128 ? launch_wgmma<128, 128>
+           : dh <= 128 ? launch_wgmma<128, 128>     // 80: zero-filled to 128
            : dh == 256 ? launch_wgmma<256, 256>
                        : launch_wgmma<192, 128>)(   // MLA: nope + rope, v
         device, static_cast<int*>(counter), q, k, v, o, lse, qs, ks, vs, os,
-        B, H, Hk, Tq, Tk, scale, causal, window, softcap, st);
+        B, H, Hk, Tq, Tk, dh, dv, scale, causal, window, softcap, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -21,17 +21,22 @@
 // and tiles the mask kills are never visited. delta is a small first
 // kernel (one warp per row).
 //
-// What bounds it: the operations. 5 products of 2 * d flops per live
-// (query, key) pair and head (S = q k^T and dP = do v^T recomputed, then
-// dq, dk, dv): 10 * dh per pair with dh = dv; at B = 4, T = 2048 causal,
-// 32 heads, dh = 128 that is 0.35 ms at the 989 TFLOP/s bf16 rate.
+// What bounds it: the operations. 5 products per live (query, key) pair
+// and head (S = q k^T and dP = do v^T recomputed, then dq, dk, dv): 2 *
+// (3 dqk + 2 dv) flops, 10 * dh with dh = dv; at B = 4, T = 2048 causal, 32
+// heads, dh = 128 that is 0.35 ms at the 989 TFLOP/s bf16 rate, and 1.81
+// ms at MLA's 128 heads of (dqk, dv) = (192, 128).
 //
 // Two paths, one contract.
 //
-// bwd_*_mma (bf16, dh == dv in {64, 128}, 16-byte aligned rows: the
-// training path of mistral-nemo-12b): the tensor cores through mma.sync
-// m16n8k16 (bf16 in, f32 accumulate). Every tile is stored once, row-major
-// (rows padded by 8 bf16, so the 8 row addresses of an ldmatrix phase hit
+// bwd_*_mma<DQK, DV> (bf16, (dqk, dv) in {(64, 64), (128, 128), (192,
+// 128)}, 16-byte aligned rows: the training paths of the GQA models,
+// whisper and deepseek-v2's MLA): the tensor cores through mma.sync
+// m16n8k16 (bf16 in, f32 accumulate). S = Q K^T runs DQK / 16 k-steps and
+// dP = dO V^T DV / 16 (one unrolled loop over the longer, each product
+// issued where its depth reaches; at DQK = DV the same code as one loop).
+// Every tile is stored once, row-major (Q, K rows padded to DQK + 8 bf16,
+// V, dO rows to DV + 8, so the 8 row addresses of an ldmatrix phase hit
 // 32 banks), and every fragment comes from it by ldmatrix: the operands
 // that the products read transposed (K^T for dS K; Q^T and dO^T for P^T dO
 // and dS^T Q) by its .trans form. Streamed tiles arrive by 16-byte
@@ -39,24 +44,32 @@
 // tile is in flight while the current one's products run.
 // - dq pass: 4 warps of 16 query rows (64 per block). Q and dO stay in
 //   shared memory and are re-read by ldmatrix, not held in registers, so
-//   three blocks fit an SM (launch bounds cap registers at 168; 69.6 KiB of
-//   shared memory at dh 128). K and V stream in tiles of 32 keys.
+//   three blocks fit an SM at dh <= 128 (launch bounds cap registers at
+//   168; 69.6 KiB of shared memory at dh 128) and two at dqk 192, whose
+//   96 f32 dq accumulators a thread need more (86 KiB each). K and V
+//   stream in tiles of 32 keys.
 // - dk/dv pass: 8 warps of 16 keys (128 per block), so each Q/dO tile
-//   serves 128 keys; dk and dv (128 f32 registers at dh 128) stay in
-//   registers, K and V in shared memory. Q/dO tiles of 128 rows with their
-//   lse and delta stream through the ring, over every query head of the
-//   group, and are taken 32 rows at a time to bound S^T and dP^T's
-//   registers. 206 KiB of shared memory: one block of 8 warps per SM.
+//   serves 128 keys; dk and dv (DQK / 2 + DV / 2 f32 registers a thread:
+//   128 at dh 128, 160 at (192, 128)) stay in registers, K and V in shared
+//   memory. Q/dO tiles with their lse and delta stream through the ring,
+//   over every query head of the group, and are taken KvTiles::qs rows at
+//   a time to bound S^T and dP^T's registers: tiles of 128 rows taken 32 at
+//   a time at dh <= 128 (206 KiB of shared memory), of 64 rows taken 16 at
+//   a time at (192, 128) (173 KiB; two stages of 128 rows beside K and V
+//   would need 258; 32 rows a step there spill, 16 do not). One block of 8
+//   warps per SM.
 // - Blocks start with the heaviest causal tiles; a warp skips a piece of a
 //   tile that its mask kills whole.
 // p and ds are rounded to bf16 before they enter the second products, as
 // the forward rounds p before P V (so p takes the hardware exp, __expf);
-// every sum stays f32.
+// every sum stays f32. Where it stands (PERF.md §6, on an H100 at 700 W):
+// 8.1x its operations bound at dh 128 and 8.4x at (192, 128), 2.9x and
+// 3.2x scaled_dot_product_attention's backward.
 // Not yet used: wgmma, TMA.
 //
-// bwd_*_kernel (f32, and bf16 at any other head dims: dh, dv <= 256): CUDA
-// cores in f32, 32 x 32 tiles, every operand and accumulator in shared
-// memory, 256 threads.
+// bwd_*_kernel (f32, and bf16 at any other head dims, or rows not 16-byte
+// aligned: dh, dv <= 256): CUDA cores in f32, 32 x 32 tiles, every operand
+// and accumulator in shared memory, 256 threads.
 //
 // Masked scores are never exponentiated (exp above the causal diagonal
 // would overflow), and a row with no live key has p = 0 everywhere.
@@ -354,9 +367,8 @@ constexpr int DQ_ROWS = 16 * DQ_WARPS;    // query rows per block
 constexpr int DQ_KT = 32;                 // keys per K/V tile
 constexpr int KV_WARPS = 8;               // dk/dv pass: warps of 16 keys
 constexpr int KV_KEYS = 16 * KV_WARPS;    // keys per block
-constexpr int KV_QT = 128;                // query rows per Q/dO tile
-constexpr int KV_QS = 32;                 // query rows per product step
 constexpr int RING = 2;                   // cp.async stages of each ring
+constexpr size_t SMEM_MAX = 232448;       // shared memory a block may use
 
 typedef __nv_bfloat16 bf16;
 
@@ -401,35 +413,59 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src,
   }
 }
 
-template <int D>
+// Shared memory of the dq pass: Q and dO (DQ_ROWS rows), and a ring of K
+// and V tiles (DQ_KT keys); rows padded to DQK + 8 (Q, K) and DV + 8 (dO,
+// V).
+template <int DQK, int DV>
 constexpr size_t dq_smem() {
-  return sizeof(bf16) * (size_t)(D + 8) * (2 * DQ_ROWS + RING * 2 * DQ_KT);
+  return sizeof(bf16) * (size_t)(DQK + DV + 16) * (DQ_ROWS + RING * DQ_KT);
 }
 
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(bf16) * (size_t)(D + 8) * (2 * KV_KEYS + RING * 2 * KV_QT) +
-         sizeof(float) * RING * 2 * KV_QT;
+// Shared memory of the dk/dv pass with Q/dO tiles of qt rows: K and V
+// (KV_KEYS rows), a ring of Q and dO tiles, and their lse and delta.
+constexpr size_t dkv_bytes(int dqk, int dv, int qt) {
+  return sizeof(bf16) * (size_t)(dqk + dv + 16) * (KV_KEYS + RING * qt) +
+         sizeof(float) * RING * 2 * qt;
 }
+
+// The dk/dv pass's query tiles: qt rows a Q/dO tile (128, or 64 where two
+// stages of 128 do not fit beside K and V), taken qs rows a product step
+// (32, or 16 at dqk 192, where dk and dv hold 160 registers a thread).
+template <int DQK, int DV>
+struct KvTiles {
+  static constexpr int qt = dkv_bytes(DQK, DV, 128) <= SMEM_MAX ? 128 : 64;
+  static constexpr int qs = DQK > 128 ? 16 : 32;
+  static constexpr size_t bytes = dkv_bytes(DQK, DV, qt);
+};
+static_assert(KvTiles<64, 64>::qt == 128 && KvTiles<128, 128>::qt == 128 &&
+                  KvTiles<192, 128>::qt == 64,
+              "dk/dv pass query tiles");
+static_assert(dq_smem<192, 128>() <= SMEM_MAX &&
+                  KvTiles<192, 128>::bytes <= SMEM_MAX,
+              "the (192, 128) passes fit a block");
 
 // dq pass: one block per (query tile of DQ_ROWS, b * H + h), the heaviest
 // causal tiles first (blockIdx.y counts down from the last tile). Q and dO
 // sit in shared memory for the block's life and are re-read through
 // ldmatrix (no fragments held: fewer registers, more blocks per SM); K and
-// V tiles of DQ_KT keys stream through a ring of RING stages.
-template <int D>
-__global__ void __launch_bounds__(32 * DQ_WARPS, 3)
+// V tiles of DQ_KT keys stream through a ring of RING stages. Three blocks
+// an SM at dqk <= 128, two at 192 (its dq accumulators need more than 168
+// registers a thread).
+template <int DQK, int DV>
+__global__ void __launch_bounds__(32 * DQ_WARPS, DQK > 128 ? 2 : 3)
 bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ delta,
            bf16* __restrict__ dq, Strides qs, Strides ks, Strides vs,
            Strides dos, Strides dqs, int H, int group, Mask mk, float scale,
            float softcap) {
-  constexpr int P = D + 8, NT = 32 * DQ_WARPS;
+  constexpr int PQ = DQK + 8, PV = DV + 8, NT = 32 * DQ_WARPS;
+  constexpr int STAGE = DQ_KT * (PQ + PV);       // K and V tiles
+  constexpr int KSTEPS = (DQK > DV ? DQK : DV) / 16;
   extern __shared__ __align__(16) unsigned char raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(raw);       // (query, d) DQ_ROWS x P
-  bf16* Ds = Qs + DQ_ROWS * P;                   // (query, d) dO
-  bf16* ring = Ds + DQ_ROWS * P;                 // RING x {K, V} (key, d)
+  bf16* Qs = reinterpret_cast<bf16*>(raw);       // (query, d) DQ_ROWS x PQ
+  bf16* Ds = Qs + DQ_ROWS * PQ;                  // (query, d) dO, x PV
+  bf16* ring = Ds + DQ_ROWS * PV;                // RING x {K, V} (key, d)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tg = lane & 3;
@@ -445,14 +481,15 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int k_lo = (mk.key_lo(q0) / DQ_KT) * DQ_KT, k_hi = mk.key_hi(q1);
   const int n_tiles = k_hi >= k_lo ? (k_hi - k_lo) / DQ_KT + 1 : 0;
   auto load_kv = [&](int t) {
-    bf16* Kt = ring + (t % RING) * 2 * DQ_KT * P;
-    copy_tile<D, DQ_KT, NT>(Kt, kb, ks.t, k_lo + t * DQ_KT, Tk, tid);
-    copy_tile<D, DQ_KT, NT>(Kt + DQ_KT * P, vb, vs.t, k_lo + t * DQ_KT, Tk,
-                            tid);
+    bf16* Kt = ring + (t % RING) * STAGE;
+    copy_tile<DQK, DQ_KT, NT>(Kt, kb, ks.t, k_lo + t * DQ_KT, Tk, tid);
+    copy_tile<DV, DQ_KT, NT>(Kt + DQ_KT * PQ, vb, vs.t, k_lo + t * DQ_KT, Tk,
+                             tid);
   };
-  copy_tile<D, DQ_ROWS, NT>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, Tq, tid);
-  copy_tile<D, DQ_ROWS, NT>(Ds, dout + b * dos.b + h * dos.h, dos.t, q0, Tq,
-                            tid);
+  copy_tile<DQK, DQ_ROWS, NT>(Qs, q + b * qs.b + h * qs.h, qs.t, q0, Tq,
+                              tid);
+  copy_tile<DV, DQ_ROWS, NT>(Ds, dout + b * dos.b + h * dos.h, dos.t, q0, Tq,
+                             tid);
   if (n_tiles > 0) load_kv(0);
   cp_async_commit();
 
@@ -463,9 +500,9 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lr[rr] = rows[rr] < Tq ? lse[at] : 0.f;
     dl[rr] = rows[rr] < Tq ? delta[at] : 0.f;
   }
-  float acc[D / 8][4];
+  float acc[DQK / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] =
+  for (int j = 0; j < DQK / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] =
       acc[j][3] = 0.f;
 
   // lane offsets of the ldmatrix patterns (mma.cuh)
@@ -478,31 +515,37 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_commit();
     const int k0 = k_lo + t * DQ_KT;
     if (dead(mk, w0, w0 + 15, k0, k0 + DQ_KT - 1)) continue;
-    const bf16* Kt = ring + (t % RING) * 2 * DQ_KT * P;
-    const bf16* Vt = Kt + DQ_KT * P;
+    const bf16* Kt = ring + (t % RING) * STAGE;
+    const bf16* Vt = Kt + DQ_KT * PQ;
 
-    // S = Q K^T and dP = dO V^T for the warp's 16 rows
+    // S = Q K^T (DQK / 16 k-steps) and dP = dO V^T (DV / 16) for the
+    // warp's 16 rows
     float s[DQ_KT / 8][4], dp[DQ_KT / 8][4];
 #pragma unroll
     for (int j = 0; j < DQ_KT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      constexpr int NQK = DQK / 16, NV = DV / 16;
       uint32_t aq[4], ad[4];
-      const int ao = (warp * 16 + a_row) * P + kk * 16 + a_col;
-      ldsm_x4(aq, Qs + ao);
-      ldsm_x4(ad, Ds + ao);
+      const int ar = warp * 16 + a_row, ac = kk * 16 + a_col;
+      if (kk < NQK) ldsm_x4(aq, Qs + ar * PQ + ac);
+      if (kk < NV) ldsm_x4(ad, Ds + ar * PV + ac);
 #pragma unroll
       for (int jp = 0; jp < DQ_KT / 16; ++jp) {
         uint32_t bk[4], bv[4];
-        const int bo = (jp * 16 + b_row) * P + kk * 16 + b_col;
-        ldsm_x4(bk, Kt + bo);
-        ldsm_x4(bv, Vt + bo);
-        mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
-        mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
-        mma_bf16(dp[2 * jp], ad, bv[0], bv[1]);
-        mma_bf16(dp[2 * jp + 1], ad, bv[2], bv[3]);
+        const int br = jp * 16 + b_row, bc = kk * 16 + b_col;
+        if (kk < NQK) ldsm_x4(bk, Kt + br * PQ + bc);
+        if (kk < NV) ldsm_x4(bv, Vt + br * PV + bc);
+        if (kk < NQK) {
+          mma_bf16(s[2 * jp], aq, bk[0], bk[1]);
+          mma_bf16(s[2 * jp + 1], aq, bk[2], bk[3]);
+        }
+        if (kk < NV) {
+          mma_bf16(dp[2 * jp], ad, bv[0], bv[1]);
+          mma_bf16(dp[2 * jp + 1], ad, bv[2], bv[3]);
+        }
       }
     }
 #pragma unroll
@@ -524,9 +567,9 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                              pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int jp = 0; jp < D / 16; ++jp) {
+      for (int jp = 0; jp < DQK / 16; ++jp) {
         uint32_t bt[4];
-        ldsm_x4_t(bt, Kt + (kk * 16 + a_row) * P + jp * 16 + a_col);
+        ldsm_x4_t(bt, Kt + (kk * 16 + a_row) * PQ + jp * 16 + a_col);
         mma_bf16(acc[2 * jp], a, bt[0], bt[1]);
         mma_bf16(acc[2 * jp + 1], a, bt[2], bt[3]);
       }
@@ -540,7 +583,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = rows[rr];
     if (row >= Tq) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DQK / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + row * dqs.t + j * 8 + tg * 2) =
           __floats2bfloat162_rn(acc[j][2 * rr] * scale,
                                 acc[j][2 * rr + 1] * scale);
@@ -551,8 +594,8 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // tiles with the most causal queries first (blockIdx.y counts up). K and V
 // sit in shared memory for the block's life; Q and dO tiles of KV_QT rows,
 // with their lse and delta, of every query head of the group stream
-// through a ring of RING stages, each taken in steps of KV_QS rows.
-template <int D>
+// through a ring of RING stages, each taken in steps of KvTiles::qs rows.
+template <int DQK, int DV>
 __global__ void __launch_bounds__(32 * KV_WARPS, 1)
 bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -560,12 +603,16 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             bf16* __restrict__ dk, bf16* __restrict__ dv_out, Strides qs,
             Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
             int H, int Hk, int group, Mask mk, float scale, float softcap) {
-  constexpr int P = D + 8, NT = 32 * KV_WARPS;
+  constexpr int PQ = DQK + 8, PV = DV + 8, NT = 32 * KV_WARPS;
+  constexpr int KV_QT = KvTiles<DQK, DV>::qt, KV_QS = KvTiles<DQK, DV>::qs;
+  constexpr int STAGE = KV_QT * (PQ + PV);       // Q and dO tiles
+  constexpr int NQK = DQK / 16, NV = DV / 16;
+  constexpr int KSTEPS = NQK > NV ? NQK : NV;
   extern __shared__ __align__(16) unsigned char raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(raw);       // (key, d)   KV_KEYS x P
-  bf16* Vs = Ks + KV_KEYS * P;                   // (key, d)   KV_KEYS x P
-  bf16* ring = Vs + KV_KEYS * P;                 // RING x {Q, dO} (query, d)
-  float* rowf = reinterpret_cast<float*>(ring + RING * 2 * KV_QT * P);
+  bf16* Ks = reinterpret_cast<bf16*>(raw);       // (key, d)   KV_KEYS x PQ
+  bf16* Vs = Ks + KV_KEYS * PQ;                  // (key, d)   KV_KEYS x PV
+  bf16* ring = Vs + KV_KEYS * PV;                // RING x {Q, dO} (query, d)
+  float* rowf = reinterpret_cast<float*>(ring + RING * STAGE);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, tg = lane & 3;
@@ -580,25 +627,32 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_tiles = group * n_qt;              // (head, query tile) pairs
   auto load_q = [&](int t) {
     const int h = hk * group + t / n_qt, r0 = q_lo + (t % n_qt) * KV_QT;
-    bf16* Qt = ring + (t % RING) * 2 * KV_QT * P;
-    copy_tile<D, KV_QT, NT>(Qt, q + b * qs.b + h * qs.h, qs.t, r0, Tq, tid);
-    copy_tile<D, KV_QT, NT>(Qt + KV_QT * P, dout + b * dos.b + h * dos.h,
-                            dos.t, r0, Tq, tid);
+    bf16* Qt = ring + (t % RING) * STAGE;
+    copy_tile<DQK, KV_QT, NT>(Qt, q + b * qs.b + h * qs.h, qs.t, r0, Tq,
+                              tid);
+    copy_tile<DV, KV_QT, NT>(Qt + KV_QT * PQ, dout + b * dos.b + h * dos.h,
+                             dos.t, r0, Tq, tid);
     float* lt = rowf + (t % RING) * 2 * KV_QT;
     const long long lb = ((long long)b * H + h) * Tq;
     copy_rows<KV_QT, NT>(lt, lse + lb, r0, Tq, tid);
     copy_rows<KV_QT, NT>(lt + KV_QT, delta + lb, r0, Tq, tid);
   };
-  copy_tile<D, KV_KEYS, NT>(Ks, k + b * ks.b + hk * ks.h, ks.t, k0, Tk, tid);
-  copy_tile<D, KV_KEYS, NT>(Vs, v + b * vs.b + hk * vs.h, vs.t, k0, Tk, tid);
+  copy_tile<DQK, KV_KEYS, NT>(Ks, k + b * ks.b + hk * ks.h, ks.t, k0, Tk,
+                              tid);
+  copy_tile<DV, KV_KEYS, NT>(Vs, v + b * vs.b + hk * vs.h, vs.t, k0, Tk,
+                             tid);
   if (n_tiles > 0) load_q(0);
   cp_async_commit();
 
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[DQK / 8][4], dva[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DQK / 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[j][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[j][e] = 0.f;
 
   const int a_row = lane & 15, a_col = 8 * (lane >> 4);
   const int b_row = (lane & 7) + 8 * (lane >> 4), b_col = 8 * ((lane >> 3) & 1);
@@ -608,8 +662,8 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (t + 1 < n_tiles) load_q(t + 1);
     cp_async_commit();
     const int q0 = q_lo + (t % n_qt) * KV_QT;
-    const bf16* Qt = ring + (t % RING) * 2 * KV_QT * P;
-    const bf16* Dt = Qt + KV_QT * P;
+    const bf16* Qt = ring + (t % RING) * STAGE;
+    const bf16* Dt = Qt + KV_QT * PQ;
     const float* lt = rowf + (t % RING) * 2 * KV_QT;
     const float* dlt = lt + KV_QT;
 #pragma unroll 1
@@ -623,21 +677,25 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < KSTEPS; ++kk) {
         uint32_t ak[4], av[4];
-        const int ao = (kw + a_row) * P + kk * 16 + a_col;
-        ldsm_x4(ak, Ks + ao);
-        ldsm_x4(av, Vs + ao);
+        const int ar = kw + a_row, ac = kk * 16 + a_col;
+        if (kk < NQK) ldsm_x4(ak, Ks + ar * PQ + ac);
+        if (kk < NV) ldsm_x4(av, Vs + ar * PV + ac);
 #pragma unroll
         for (int jp = 0; jp < KV_QS / 16; ++jp) {
           uint32_t bq[4], bd[4];
-          const int bo = (qs0 + jp * 16 + b_row) * P + kk * 16 + b_col;
-          ldsm_x4(bq, Qt + bo);
-          ldsm_x4(bd, Dt + bo);
-          mma_bf16(st[2 * jp], ak, bq[0], bq[1]);
-          mma_bf16(st[2 * jp + 1], ak, bq[2], bq[3]);
-          mma_bf16(dpt[2 * jp], av, bd[0], bd[1]);
-          mma_bf16(dpt[2 * jp + 1], av, bd[2], bd[3]);
+          const int br = qs0 + jp * 16 + b_row, bc = kk * 16 + b_col;
+          if (kk < NQK) ldsm_x4(bq, Qt + br * PQ + bc);
+          if (kk < NV) ldsm_x4(bd, Dt + br * PV + bc);
+          if (kk < NQK) {
+            mma_bf16(st[2 * jp], ak, bq[0], bq[1]);
+            mma_bf16(st[2 * jp + 1], ak, bq[2], bq[3]);
+          }
+          if (kk < NV) {
+            mma_bf16(dpt[2 * jp], av, bd[0], bd[1]);
+            mma_bf16(dpt[2 * jp + 1], av, bd[2], bd[3]);
+          }
         }
       }
 #pragma unroll
@@ -666,15 +724,19 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
             pack_f(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
             pack_f(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
 #pragma unroll
-        for (int jp = 0; jp < D / 16; ++jp) {
+        for (int jp = 0; jp < KSTEPS; ++jp) {
           uint32_t bd[4], bq[4];
-          const int to = (qs0 + kk * 16 + a_row) * P + jp * 16 + a_col;
-          ldsm_x4_t(bd, Dt + to);
-          ldsm_x4_t(bq, Qt + to);
-          mma_bf16(dva[2 * jp], ap, bd[0], bd[1]);
-          mma_bf16(dva[2 * jp + 1], ap, bd[2], bd[3]);
-          mma_bf16(dka[2 * jp], ad, bq[0], bq[1]);
-          mma_bf16(dka[2 * jp + 1], ad, bq[2], bq[3]);
+          const int tr = qs0 + kk * 16 + a_row, tc = jp * 16 + a_col;
+          if (jp < NV) ldsm_x4_t(bd, Dt + tr * PV + tc);
+          if (jp < NQK) ldsm_x4_t(bq, Qt + tr * PQ + tc);
+          if (jp < NV) {
+            mma_bf16(dva[2 * jp], ap, bd[0], bd[1]);
+            mma_bf16(dva[2 * jp + 1], ap, bd[2], bd[3]);
+          }
+          if (jp < NQK) {
+            mma_bf16(dka[2 * jp], ad, bq[0], bq[1]);
+            mma_bf16(dka[2 * jp + 1], ad, bq[2], bq[3]);
+          }
         }
       }
     }
@@ -688,13 +750,14 @@ bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int key = keys[rr];
     if (key >= Tk) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DQK / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dkb + key * dks.t + j * 8 + tg * 2) =
           __floats2bfloat162_rn(dka[j][2 * rr] * scale,
                                 dka[j][2 * rr + 1] * scale);
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dvb + key * dvs.t + j * 8 + tg * 2) =
           __floats2bfloat162_rn(dva[j][2 * rr], dva[j][2 * rr + 1]);
-    }
   }
 }
 
@@ -718,7 +781,7 @@ cudaError_t launch_delta(const Args& a, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_mma(const Args& a, cudaStream_t st) {
   cudaError_t err = launch_delta<bf16>(a, st);
   if (err != cudaSuccess) return err;
@@ -727,24 +790,24 @@ cudaError_t launch_mma(const Args& a, cudaStream_t st) {
              *k = static_cast<const bf16*>(a.k),
              *v = static_cast<const bf16*>(a.v),
              *d = static_cast<const bf16*>(a.dout);
-  constexpr size_t dq_sm = dq_smem<D>();
-  err = cudaFuncSetAttribute(bwd_dq_mma<D>,
+  constexpr size_t dq_sm = dq_smem<DQK, DV>();
+  err = cudaFuncSetAttribute(bwd_dq_mma<DQK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dq_sm);
   if (err != cudaSuccess) return err;
-  bwd_dq_mma<D><<<dim3(a.B * a.H, (a.mk.Tq + DQ_ROWS - 1) / DQ_ROWS),
-                  32 * DQ_WARPS, dq_sm, st>>>(
+  bwd_dq_mma<DQK, DV><<<dim3(a.B * a.H, (a.mk.Tq + DQ_ROWS - 1) / DQ_ROWS),
+                        32 * DQ_WARPS, dq_sm, st>>>(
       q, k, v, d, a.lse, a.delta, static_cast<bf16*>(a.dq), a.qs, a.ks, a.vs,
       a.dos, a.dqs, a.H, G, a.mk, a.scale, a.softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr size_t dkv_sm = dkv_smem<D>();
-  err = cudaFuncSetAttribute(bwd_dkv_mma<D>,
+  constexpr size_t dkv_sm = KvTiles<DQK, DV>::bytes;
+  err = cudaFuncSetAttribute(bwd_dkv_mma<DQK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dkv_sm);
   if (err != cudaSuccess) return err;
-  bwd_dkv_mma<D><<<dim3(a.B * a.Hk, (a.mk.Tk + KV_KEYS - 1) / KV_KEYS),
-                   32 * KV_WARPS, dkv_sm, st>>>(
+  bwd_dkv_mma<DQK, DV><<<dim3(a.B * a.Hk, (a.mk.Tk + KV_KEYS - 1) / KV_KEYS),
+                         32 * KV_WARPS, dkv_sm, st>>>(
       q, k, v, d, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), a.qs, a.ks, a.vs, a.dos, a.dks, a.dvs, a.H,
       a.Hk, G, a.mk, a.scale, a.softcap);
@@ -799,10 +862,10 @@ bool mma_ok(const void* p, Strides s) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do and the three grads).
-// route: 1 = the mma.sync passes (bf16, dh = dv in {64, 128}, every pointer
-// and stride of q, k, v, do and the grads a multiple of 8 elements; any
-// other call is refused), 0 = the CUDA-core passes (the wrapper's
-// bwd_route).
+// route: 1 = the mma.sync passes (bf16, (dh, dv) in {(64, 64), (128, 128),
+// (192, 128)}, every pointer and stride of q, k, v, do and the grads a
+// multiple of 8 elements; any other call is refused), 0 = the CUDA-core
+// passes (the wrapper's bwd_route).
 // lse (the forward's) and delta (scratch) are contiguous (B, H, Tq)
 // float32. Strides are in elements; the last dim of every tensor is
 // contiguous. Three launches: delta, the dq pass, the dk/dv pass. Returns
@@ -831,13 +894,17 @@ int flash_attention_bwd(
          {dvsb, dvsh, dvst}, B, H, Hk, dh, dv_dim,
          Mask{Tq, Tk, causal, window}, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool tc = dtype == 1 && dh == dv_dim && (dh == 64 || dh == 128) &&
+  const bool tc = dtype == 1 &&
+                  ((dh == dv_dim && (dh == 64 || dh == 128)) ||
+                   (dh == 192 && dv_dim == 128)) &&
                   mma_ok(q, a.qs) && mma_ok(k, a.ks) && mma_ok(v, a.vs) &&
                   mma_ok(dout, a.dos) && mma_ok(dq, a.dqs) &&
                   mma_ok(dk, a.dks) && mma_ok(dv, a.dvs);
   if (route == 1 && !tc) return (int)cudaErrorInvalidValue;
   if (route == 1)
-    err = dh == 64 ? launch_mma<64>(a, st) : launch_mma<128>(a, st);
+    err = dh == 64    ? launch_mma<64, 64>(a, st)
+          : dh == 128 ? launch_mma<128, 128>(a, st)
+                      : launch_mma<192, 128>(a, st);   // MLA: nope + rope, v
   else if (dtype == 0)
     err = launch_f32<float>(a, st);
   else if (dtype == 1)

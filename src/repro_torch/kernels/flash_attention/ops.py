@@ -27,8 +27,15 @@ SMEM_LIMIT = 232448      # shared memory one block may opt into on an H100
 # tile and keys per K/V tile (fwd_kn: 64 at dv 256); its ring has 3 stages
 # where they fit, else 2
 WQ, WK = 128, 128
-_WGMMA_DIMS = frozenset([(64, 64), (128, 128), (192, 128), (256, 256)])
+_WGMMA_DIMS = frozenset([(64, 64), (80, 80), (128, 128), (192, 128),
+                         (256, 256)])
+# (dh, dv) computed by a larger wgmma instance, the head dim zero-filled by
+# TMA: h2o-danube-1.8b's 80 on the (128, 128) instance
+_WGMMA_PADDED = {(80, 80): (128, 128)}
 _MMA_DIMS = frozenset([(16, 16), (32, 32)])
+# the backward's mma.sync passes: (dqk, dv) of whisper, the GQA models and
+# deepseek-v2's MLA
+_BWD_MMA_DIMS = frozenset([(64, 64), (128, 128), (192, 128)])
 _ROUTES = {"f32": 0, "mma": 1, "wgmma": 2}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -49,6 +56,12 @@ def fwd_kn(dv: int) -> int:
     return 64 if dv > 128 else WK
 
 
+def wgmma_instance(dh: int, dv: int) -> tuple[int, int]:
+    """The (DH, DV) instance of the wgmma forward that computes head dims
+    (dh, dv): their own, or (128, 128) for dh = dv = 80."""
+    return _WGMMA_PADDED.get((dh, dv), (dh, dv))
+
+
 def _smem(dh: int, dv: int, stages: int) -> int:
     return 1024 + 2 * (WQ * dh + stages * fwd_kn(dv) * (dh + dv)) + \
         8 * (3 + 2 * stages)
@@ -57,25 +70,28 @@ def _smem(dh: int, dv: int, stages: int) -> int:
 def fwd_stages(dh: int, dv: int) -> int:
     """K/V tiles in flight in the wgmma forward's ring: 3 where they fit in
     the shared memory a block may use (dh <= 128), else 2 (MLA's 192, and
-    256)."""
+    256); of the instance that computes (dh, dv)."""
+    dh, dv = wgmma_instance(dh, dv)
     return 3 if _smem(dh, dv, 3) <= SMEM_LIMIT else 2
 
 
 def fwd_smem_bytes(dh: int, dv: int) -> int:
-    """Shared memory of one block of the wgmma forward: Q (WQ x dh), a ring
-    of ``fwd_stages`` K (kn x dh) and V (kn x dv) tiles in bf16 (kn =
-    :func:`fwd_kn`), full and empty mbarriers for Q and for each stage, the
-    work tile's index (8 bytes), and 1024 bytes to align the tiles to the
-    128-byte swizzle's period (FwdSmem in csrc/flash_attention.cu)."""
-    return _smem(dh, dv, fwd_stages(dh, dv))
+    """Shared memory of one block of the wgmma forward's instance for (dh,
+    dv) (:func:`wgmma_instance`): Q (WQ x DH), a ring of ``fwd_stages`` K
+    (kn x DH) and V (kn x DV) tiles in bf16 (kn = :func:`fwd_kn`), full and
+    empty mbarriers for Q and for each stage, the work tile's index (8
+    bytes), and 1024 bytes to align the tiles to the 128-byte swizzle's
+    period (FwdSmem in csrc/flash_attention.cu)."""
+    return _smem(*wgmma_instance(dh, dv), fwd_stages(dh, dv))
 
 
 def fwd_route(dtype: torch.dtype, dh: int, dv: int, aligned: bool) -> str:
     """The forward's kernel for a call: "wgmma" (bf16, (dh, dv) of the
-    served and trained models: 64, 128, 256 or MLA's (192, 128)), "mma"
-    (bf16, dh = dv in {16, 32}: test-sized models) or "f32" (CUDA cores:
-    f32, any other dims, or rows not 16-byte aligned). ``aligned``: every
-    pointer and stride of q, k, v is a multiple of 8 elements."""
+    served and trained models: 64, 80 (on the 128 instance), 128, 256 or
+    MLA's (192, 128)), "mma" (bf16, dh = dv in {16, 32}: test-sized models)
+    or "f32" (CUDA cores: f32, any other dims, or rows not 16-byte
+    aligned). ``aligned``: every pointer and stride of q, k, v is a
+    multiple of 8 elements."""
     if dtype != torch.bfloat16 or not aligned:
         return "f32"
     if (dh, dv) in _WGMMA_DIMS:
@@ -84,12 +100,12 @@ def fwd_route(dtype: torch.dtype, dh: int, dv: int, aligned: bool) -> str:
 
 
 def bwd_route(dtype: torch.dtype, dh: int, dv: int, aligned: bool) -> str:
-    """The backward's kernels for a call: "mma" (bf16, dh = dv in {64,
-    128}: ``mma.sync`` tensor-core passes) or "f32" (CUDA cores: f32, other
-    dims, MLA's (192, 128), or rows not 16-byte aligned). ``aligned``: every
-    pointer and stride of q, k, v, do and the three gradients is a multiple
-    of 8 elements."""
-    if dtype == torch.bfloat16 and aligned and dh == dv and dh in (64, 128):
+    """The backward's kernels for a call: "mma" (bf16, (dh, dv) in {(64,
+    64), (128, 128), (192, 128)}: ``mma.sync`` tensor-core passes) or "f32"
+    (CUDA cores: f32, other dims, or rows not 16-byte aligned). ``aligned``:
+    every pointer and stride of q, k, v, do and the three gradients is a
+    multiple of 8 elements."""
+    if dtype == torch.bfloat16 and aligned and (dh, dv) in _BWD_MMA_DIMS:
         return "mma"
     return "f32"
 

@@ -1370,6 +1370,116 @@ def test_flash_bwd_new_training_shapes(dev, name, B, Tq, Tk, H, Hk, dh,
         assert _rel(a, w) < TOL[dt], (gname, _rel(a, w))
 
 
+def _one_call_kernels(fn) -> dict:
+    """{kernel label: launches} on the card during one call of ``fn``,
+    from torch.profiler; a few sleep kernels first, which some hosts'
+    profilers lose in place of the first real record."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(4):
+            torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                "spin_kernel" not in e.name:
+            label = _build.kernel_label(e.name)
+            counts[label] = counts.get(label, 0) + 1
+    return counts
+
+
+@pytest.mark.parametrize("T,H,Hk,causal,window,softcap", [
+    (300, 4, 4, True, 0, 0.0), (300, 4, 4, True, 64, 0.0),
+    (300, 4, 4, True, 0, 30.0), (300, 4, 4, False, 0, 0.0),
+    (1000, 4, 4, True, 200, 0.0), (300, 4, 2, True, 0, 0.0)])
+def test_flash_bwd_mla_dims_tensor_cores(dev, T, H, Hk, causal, window,
+                                         softcap):
+    """MLA's backward shape (dqk 192 = nope 128 + rope 64, dv 128) on the
+    mma.sync route: q, k and do head-transposed views, v the tail of the
+    up-projected (nope + v) rows as ``mla_attention`` passes it (256 bytes
+    into each row, no copy); ragged T, causal with and without a window, a
+    softcap, non-causal, and a group of 2. dq, dk, dv within 3e-2 of the
+    plain version's largest value, two calls bit-equal, one launch of each
+    pass a call."""
+    g = torch.Generator(device=dev).manual_seed(T + window)
+    dt = torch.bfloat16
+
+    def t(h, d):
+        return torch.randn((2, T, h, d), generator=g, device=dev).to(dt)
+
+    q, k, up, do = t(H, 192), t(Hk, 192), t(Hk, 256), t(H, 128)
+    q, k, v, do = (x.permute(0, 2, 1, 3) for x in (q, k, up[..., 128:], do))
+    assert flash_ops.bwd_route(dt, 192, 128, flash_ops._aligned(q, k, v, do)) \
+        == "mma"
+    kw = dict(scale=192 ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+    n0 = flash_ops.bwd_launches
+    got = flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    assert flash_ops.bwd_launches == n0 + 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)))
+    want = flash_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, gt, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert gt.shape == x.shape and gt.dtype == dt, name
+        assert _rel(gt, w) < TOL[dt], (name, _rel(gt, w))
+    counts = _one_call_kernels(
+        lambda: flash_ops.attend_bwd(q, k, v, o, lse, do, **kw))
+    assert counts == {"bwd_dq_mma<192, 128>": 1, "bwd_dkv_mma<192, 128>": 1,
+                      "delta_kernel<__nv_bfloat16>": 1}, counts
+
+
+@pytest.mark.parametrize("T,window,softcap", [
+    (300, 4096, 0.0), (1000, 100, 0.0), (5000, 4096, 0.0), (300, 0, 30.0),
+    (777, 64, 50.0)])
+def test_flash_fwd_dh80_padded_wgmma(dev, monkeypatch, T, window, softcap):
+    """h2o-danube-1.8b's head dim (dh = dv = 80, 8 query heads over 2 here)
+    on the wgmma route, the head dim zero-filled to 128 in shared memory:
+    out and lse against the plain versions (q scaled so the scores pass a
+    softcap), ragged T, window 4096 and short windows. The output is a
+    view of a (B, T, H, 128) buffer full of NaN: every column past 80 of
+    each head must still be NaN after the call (the store writes the
+    caller's 80 columns of a row, not the instance's 128)."""
+    B, H, Hk, d = 2, 8, 2, 80
+    g = torch.Generator(device=dev).manual_seed(T + window)
+    dt = torch.bfloat16
+    gain = 20.0 if softcap else 1.0
+    q = (gain * torch.randn((B, T, H, d), generator=g, device=dev)).to(dt)
+    k, v = (torch.randn((B, T, Hk, d), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    q, k, v = (x.permute(0, 2, 1, 3) for x in (q, k, v))
+    assert flash_ops.fwd_route(dt, d, d, flash_ops._aligned(q, k, v)) == \
+        "wgmma"
+    kw = dict(scale=d ** -0.5, causal=True, window=window, softcap=softcap)
+    bufs = []
+
+    def nan_view(x, shape):
+        Bo, Ho, To, do = shape
+        buf = torch.full((Bo, To, Ho, 128), float("nan"), dtype=x.dtype,
+                         device=x.device)
+        bufs.append(buf)
+        return buf[..., :do].permute(0, 2, 1, 3)
+
+    monkeypatch.setattr(flash_ops, "_empty_like_order", nan_view)
+    n0 = flash_ops.launches
+    got = flash_ops.attend(q, k, v, **kw)
+    assert flash_ops.launches == n0 + 1
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+    monkeypatch.undo()
+    for buf in bufs:
+        assert torch.isnan(buf[..., 80:]).all()
+        assert not torch.isnan(buf[..., :80]).any()
+    assert torch.equal(o, got)
+    want = flash_ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+    _, lse_r = flash_ref.flash_attention_fwd_lse_ref(q, k, v, **kw)
+    torch.testing.assert_close(lse, lse_r, rtol=1e-4, atol=1e-4)
+
+
 def test_flash_bwd_rejects_bad_inputs(dev):
     q, k, v, do = _bwd_case(dev, torch.float32, 1, 2, 2, 16, 32, 32)
     o, lse = flash_ops.attend_fwd_lse(q, k, v, scale=0.2)

@@ -49,9 +49,13 @@ def _pallas(q, k, v, do, kw):
 
 
 @pytest.mark.parametrize("causal,window,softcap", CASES)
-@pytest.mark.parametrize("H,Hk", [(2, 2), (4, 2)])
-def test_plain_pair_matches_pallas_interpret(causal, window, softcap, H, Hk):
-    q, k, v, do = _inputs(0, 2, H, Hk, 128, 32, 16)
+@pytest.mark.parametrize("H,Hk,dh,dv", [
+    pytest.param(2, 2, 32, 16, id="2-2"), pytest.param(4, 2, 32, 16, id="4-2"),
+    # q/k and v head dims at MLA's 3 : 2 ratio (192, 128)
+    pytest.param(4, 2, 48, 32, id="4-2-48-32")])
+def test_plain_pair_matches_pallas_interpret(causal, window, softcap, H, Hk,
+                                             dh, dv):
+    q, k, v, do = _inputs(0, 2, H, Hk, 128, dh, dv)
     kw = dict(scale=0.2, causal=causal, window=window, softcap=softcap)
     want = _pallas(q, k, v, do, kw)
     tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))

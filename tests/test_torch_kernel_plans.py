@@ -37,7 +37,7 @@ def _constexpr(source: str, name: str) -> int:
 @pytest.mark.parametrize("aligned", [True, False])
 def test_fwd_route_every_dim(dtype, aligned):
     """Every (dh, dv) the wrapper accepts: the wgmma path for bf16 at the
-    models' dims (64, 128, 256 and MLA's (192, 128)) with aligned rows,
+    models' dims (64, 80, 128, 256 and MLA's (192, 128)) with aligned rows,
     mma.sync at dh = dv in {16, 32}, the CUDA cores for everything else."""
     assert flash_ops._MAX_DV == 256 == _constexpr("flash_attention.cu",
                                                   "MAXDV")
@@ -46,7 +46,8 @@ def test_fwd_route_every_dim(dtype, aligned):
             got = flash_ops.fwd_route(dtype, dh, dv, aligned)
             if dtype != torch.bfloat16 or not aligned:
                 want = "f32"
-            elif (dh, dv) in ((64, 64), (128, 128), (192, 128), (256, 256)):
+            elif (dh, dv) in ((64, 64), (80, 80), (128, 128), (192, 128),
+                              (256, 256)):
                 want = "wgmma"
             elif dh == dv and dh in (16, 32):
                 want = "mma"
@@ -72,37 +73,42 @@ def test_fwd_route_alignment_from_views():
 @pytest.mark.parametrize("aligned", [True, False])
 def test_bwd_route_every_dim(dtype, aligned):
     """Every (dh, dv) the backward accepts: the mma.sync passes for bf16 at
-    dh = dv in {64, 128} with aligned rows (whisper's 64, the GQA models'
-    128), the CUDA cores for everything else (MLA's (192, 128) among them);
-    flash_attention_bwd.cu's own condition names the same dims, and refuses
-    route 1 where it does not hold."""
+    (64, 64), (128, 128) and (192, 128) with aligned rows (whisper's 64,
+    the GQA models' 128, MLA's nope + rope and v), the CUDA cores for
+    everything else; flash_attention_bwd.cu's own condition names the same
+    dims, and refuses route 1 where it does not hold."""
     text = (CSRC / "flash_attention_bwd.cu").read_text()
-    assert "(dh == 64 || dh == 128)" in text and "dh == dv_dim" in text
+    assert "((dh == dv_dim && (dh == 64 || dh == 128)) ||" in text
+    assert "(dh == 192 && dv_dim == 128))" in text
     assert "if (route == 1 && !tc) return (int)cudaErrorInvalidValue;" in text
     assert flash_ops._ROUTES["mma"] == 1 and flash_ops._ROUTES["f32"] == 0
     for dh in range(1, flash_ops._MAX_BWD + 1):
         for dv in range(1, flash_ops._MAX_BWD + 1):
             got = flash_ops.bwd_route(dtype, dh, dv, aligned)
             want = "mma" if dtype == torch.bfloat16 and aligned and \
-                dh == dv and dh in (64, 128) else "f32"
+                (dh, dv) in ((64, 64), (128, 128), (192, 128)) else "f32"
             assert got == want, (dtype, dh, dv, aligned, got)
 
 
 # ------------------------------------------------- flash forward smem law
-@pytest.mark.parametrize("dh,dv", [(64, 64), (128, 128), (192, 128)])
+@pytest.mark.parametrize("dh,dv", [(64, 64), (128, 128), (192, 128),
+                                   (80, 80)])
 def test_fwd_smem_law(dh, dv):
     """The law fits a block, picks 3 stages where they fit and 2 where they
-    do not, and equals the size flash_attention.cu asserts at compile
-    time."""
+    do not, and equals the size flash_attention.cu asserts at compile time
+    for the instance that computes (dh, dv): dh = dv = 80 is the (128,
+    128) instance's."""
+    DH, DV = flash_ops.wgmma_instance(dh, dv)
+    assert (DH, DV) == ((128, 128) if dh == 80 else (dh, dv))
     n = flash_ops.fwd_smem_bytes(dh, dv)
     assert n <= LIMIT == flash_ops.SMEM_LIMIT
     stages = flash_ops.fwd_stages(dh, dv)
     assert stages in (2, 3)
-    assert (stages == 3) == (flash_ops._smem(dh, dv, 3) <= LIMIT)
-    assert n == 1024 + 2 * 128 * dh + stages * 2 * 128 * (dh + dv) + \
+    assert (stages == 3) == (flash_ops._smem(DH, DV, 3) <= LIMIT)
+    assert n == 1024 + 2 * 128 * DH + stages * 2 * 128 * (DH + DV) + \
         8 * (3 + 2 * stages)
     assert _asserted("flash_attention.cu", r"FwdSmem<\d+, \d+>::bytes")[
-        f"FwdSmem<{dh}, {dv}>::bytes"] == n
+        f"FwdSmem<{DH}, {DV}>::bytes"] == n
 
 
 def test_fwd_smem_law_dh256():
@@ -120,12 +126,22 @@ def test_fwd_smem_law_dh256():
 
 def test_fwd_tiles_match_source():
     """The tiles of the law are the source's, and the source sizes (and
-    compiles) the wgmma kernel at exactly the dims the route sends it."""
+    compiles) the wgmma kernel at exactly the instances the route's dims
+    take: each its own, and dh = dv = 80 the (128, 128) instance, whose
+    second 64-column box reaches past 80 (TMA zero-fills columns 80-127)
+    and whose launch the source dispatches for dh <= 128."""
     assert _constexpr("flash_attention.cu", "WQ") == flash_ops.WQ
     assert _constexpr("flash_attention.cu", "WK") == flash_ops.WK
     sized = {tuple(map(int, re.findall(r"\d+", k))) for k in _asserted(
         "flash_attention.cu", r"FwdSmem<\d+, \d+>::bytes")}
-    assert sized == set(flash_ops._WGMMA_DIMS)
+    assert sized == {flash_ops.wgmma_instance(*d)
+                     for d in flash_ops._WGMMA_DIMS}
+    for (dh, dv), (DH, DV) in flash_ops._WGMMA_PADDED.items():
+        assert (dh, dv) in flash_ops._WGMMA_DIMS and (DH, DV) in sized
+        assert DH - 64 < dh < DH and DV - 64 < dv < DV and dv % 8 == 0
+    text = (CSRC / "flash_attention.cu").read_text()
+    assert "(dh == 64 || dh == 80 || dh == 128 || dh == 256)" in text
+    assert ": dh <= 128 ? launch_wgmma<128, 128>" in text
 
 
 # --------------------------------------------------- grouped GEMM route

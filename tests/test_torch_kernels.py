@@ -132,6 +132,22 @@ def test_flash_plain_gqa_matches_broadcast_jax():
                                atol=F32_TOL)
 
 
+@pytest.mark.parametrize("window", [0, 48])
+def test_flash_plain_dh80_matches_pallas_interpret(window):
+    """h2o-danube-1.8b's head dim (dh = dv = 80, 4 query heads over 1 here,
+    causal, with and without a window shorter than T) against the Pallas
+    kernel in interpret mode on the pre-broadcast heads."""
+    q, k, v = _qkv(3, 1, 4, 1, 128, 80, 80)
+    kw = dict(scale=80 ** -0.5, causal=True, window=window, softcap=0.0)
+    got = flash_ops.attend(*map(torch.from_numpy, (q, k, v)), **kw)
+    jk, jv = (jnp.repeat(jnp.asarray(a), 4, axis=1) for a in (k, v))
+    want = flash_attention(jnp.asarray(q), jk, jv, bq=32, bk=32,
+                           interpret=True, **kw)
+    assert got.shape == (1, 4, 128, 80)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
 @pytest.mark.parametrize("T", [37, 100])
 def test_flash_plain_ragged_matches_jax_ref(T):
     """A length that no 512/32 block divides (the card kernel masks it)."""
