@@ -7,8 +7,10 @@ the JAX semantics exactly: router product with f32 result, softmax, top-k,
 renormalized gates, a stable sort by expert, a fixed capacity ``Ce`` per
 expert over EVERY row of the (padded) batch, Switch-style dropping past it.
 
-The expert products (up, gate, down) go through the hand-written grouped
-GEMM (``kernels/grouped_gemm``), one launch per product, and under
+The expert products (up, gate and down for a gated FFN; up and down
+around the activation for a non-gated one, as JAX's ``is_gated``
+branches) go through the hand-written grouped GEMM
+(``kernels/grouped_gemm``), one launch per product, and under
 autograd through :class:`~repro_torch.kernels.grouped_gemm.ops.GroupedGemm`
 (two more launches a product in the backward); the router and the shared
 experts are plain ``torch.matmul``, as XLA computes them in JAX. The
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.grouped_gemm.ops import grouped_gemm_autograd
-from repro_torch.models.layers import gate_fn, matmul_f32
+from repro_torch.models.layers import activation, gate_fn, is_gated, matmul_f32
 
 F32 = torch.float32
 
@@ -38,15 +40,22 @@ def _route(cfg: ModelConfig, p, xf: torch.Tensor):
 
 
 def _experts(cfg: ModelConfig, p, buf: torch.Tensor) -> torch.Tensor:
-    """buf (E, M, D) → (E, M, D): the gated expert FFN, three grouped GEMMs."""
+    """buf (E, M, D) → (E, M, D): the expert FFN, three grouped GEMMs when
+    gated, two around the activation when not."""
     h = grouped_gemm_autograd(buf, p["w_up"])
-    h = gate_fn(cfg.act)(grouped_gemm_autograd(buf, p["w_gate"])) * h
+    if is_gated(cfg.act):
+        h = gate_fn(cfg.act)(grouped_gemm_autograd(buf, p["w_gate"])) * h
+    else:
+        h = activation(cfg.act)(h)
     return grouped_gemm_autograd(h, p["w_down"])
 
 
 def _shared(cfg: ModelConfig, p, xf: torch.Tensor) -> torch.Tensor:
     hs = xf @ p["ws_up"]
-    hs = gate_fn(cfg.act)(xf @ p["ws_gate"]) * hs
+    if is_gated(cfg.act):
+        hs = gate_fn(cfg.act)(xf @ p["ws_gate"]) * hs
+    else:
+        hs = activation(cfg.act)(hs)
     return hs @ p["ws_down"]
 
 

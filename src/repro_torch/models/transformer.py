@@ -18,7 +18,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import attention
-from repro_torch.models.layers import (chunked_ce_loss, embed, is_gated,
+from repro_torch.models.layers import (chunked_ce_loss, embed,
                                        mlp, rmsnorm)
 from repro_torch.models.mamba import mamba_mixer
 from repro_torch.models.moe import aux_loss_from_stats, moe_block
@@ -81,34 +81,35 @@ def layer_schedule(cfg: ModelConfig) -> tuple[Segment, ...]:
 
 
 def check_params(cfg: ModelConfig) -> None:
-    """The families whose parameters the port lays out: decoders whose
-    attention layers (GQA or MLA) each have a dense FFN (gated swiglu or
-    geglu, or non-gated relu2 or gelu) or a gated MoE FFN, pre-norm or
-    sandwich post-norm (gemma2), and Mamba stacks (Mamba-2 SSD or Mamba-1
-    selective scan, pre-norm), with or without an FFN after each mixer,
-    alone or interleaved with attention (jamba); a decoder may have a stub
-    front end (internvl2: projected patch embeddings); and the whisper
+    """The families whose parameters the port lays out: every block the
+    JAX stack builds on one device. A decoder's layers are GQA or MLA
+    attention or a Mamba mixer (Mamba-2 SSD or Mamba-1 selective scan),
+    alone or interleaved (jamba), each followed by a dense FFN (gated
+    swiglu or geglu, or non-gated relu2 or gelu), an MoE FFN (gated or
+    not) or no FFN, pre-norm or sandwich post-norm (``post1`` after the
+    mixer, ``post2`` after the FFN); a decoder may have a stub front end
+    (internvl2: projected patch embeddings); and the whisper
     encoder-decoder (whisper, ``params.param_specs``)."""
     if cfg.ssm is not None and cfg.ssm.version not in (1, 2):
         raise NotImplementedError(
             f"{cfg.name}: SSM version {cfg.ssm.version} is not ported "
             "(Mamba-1 and Mamba-2 are)")
-    for i, bc in enumerate(block_cfgs(cfg)):
-        if bc.mixer == "attn" and bc.ffn == "none":
-            raise NotImplementedError(
-                f"{cfg.name} layer {i} is {bc}; attention layers without "
-                "an FFN are not ported")
     if any(bc.ffn != "none" for bc in block_cfgs(cfg)) and \
             cfg.act not in ("swiglu", "geglu", "relu2", "gelu"):
         raise NotImplementedError(
             f"{cfg.name}: activation {cfg.act!r} is not ported (swiglu, "
             "geglu, relu2, gelu)")
-    if cfg.moe is not None and not is_gated(cfg.act):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE with a non-gated FFN is not ported")
-    if cfg.use_post_norm and cfg.ssm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: post-norm Mamba blocks are not ported")
+
+
+# The JAX package serves windowed MLA wrongly, so the port does not serve
+# it: ``repro/serve/prefill.py::mla_prefill`` attends over the whole prompt
+# and cuts the latents to a ring of ``window`` rows, and
+# ``repro/serve/decode.py::flash_decode_mla`` writes row ``pos``, which its
+# ``_local_write`` drops once ``pos >= window``; neither applies the window.
+WINDOWED_MLA_SERVING = (
+    "sliding-window MLA is trained but not served: the JAX reference's "
+    "mla_prefill ignores the window and its flash_decode_mla stops "
+    "writing rows past it (repro/serve/prefill.py, repro/serve/decode.py)")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -116,37 +117,23 @@ def check_supported(cfg: ModelConfig) -> None:
     decoders of :func:`check_params`, a front end's as text (its
     ``prefill`` takes the front-end embeddings); full-attention layers keep
     their K/V in the page pool (or dense rows), sliding-window layers in
-    per-slot rings (GQA only: the port has no windowed MLA), Mamba layers
-    their state per slot. An encoder-decoder serves through
-    ``serve/prefill.py::whisper_prefill`` and
-    ``serve/decode.py::whisper_decode_step`` instead (JAX's engine asserts
-    the same)."""
+    per-slot rings (GQA only: windowed MLA is refused,
+    :data:`WINDOWED_MLA_SERVING`), Mamba layers their state per slot. An
+    encoder-decoder serves through ``serve/prefill.py::whisper_prefill``
+    and ``serve/decode.py::whisper_decode_step`` instead (JAX's engine
+    asserts the same)."""
     check_params(cfg)
     if cfg.enc_dec:
         raise NotImplementedError(
             f"{cfg.name}: enc-dec serving uses whisper_decode_step "
             "(with whisper_prefill), not the decoder engine")
     if cfg.mla is not None and any(bc.window for bc in block_cfgs(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window MLA layers are not ported")
+        raise NotImplementedError(f"{cfg.name}: {WINDOWED_MLA_SERVING}")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """The port trains every family it serves: decoders whose every layer
-    is GQA (full or sliding window: training keeps no cache) or MLA
-    attention with a dense FFN, gated or not, or a gated MoE FFN (shared
-    experts, dense first layers), pre- or post-norm; Mamba-1 and Mamba-2
-    stacks, with or without an FFN after each mixer, alone or interleaved
-    with attention (jamba); a front end (internvl2: ``lm_loss`` takes the
-    batch's ``frontend_embed``); and the whisper encoder-decoder
-    (``models/whisper.py::encdec_loss``). Refused: what
-    :func:`check_params` refuses (post-norm Mamba blocks, MoE with a
-    non-gated FFN, attention layers without an FFN) and, for decoders,
-    what :func:`check_supported` refuses (windowed MLA)."""
-    if cfg.enc_dec:
-        check_params(cfg)
-        return
-    check_supported(cfg)
+# The port trains every family :func:`check_params` lays out, windowed MLA
+# included (training keeps no cache); only its serving is refused.
+check_trainable = check_params
 
 
 # ---------------------------------------------------------------- training

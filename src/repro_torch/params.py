@@ -4,14 +4,16 @@
 The tree keeps the JAX layouts leaf by leaf — ``wq`` (D,H,dh), ``wk``/``wv``
 (D,Hkv,dh), ``wo`` (H,dh,D), ``w_up``/``w_gate`` (D,F; no ``w_gate`` when the
 FFN is not gated), ``w_down`` (F,D), the post-norm weights ``post1``/``post2``
-of a sandwich-norm model (gemma2),
+of a sandwich-norm model (gemma2; ``post2`` only where the block has an
+FFN),
 the MLA projections (``wdq`` (D,q_lora) … ``wukv`` (kv_lora,H,nope+v)),
-the expert stacks (``w_up`` (E,D,F) …), the embedding (V,D), the
+the expert stacks (``w_up`` (E,D,F) …; ``w_gate`` and ``ws_gate`` only
+when gated), the embedding (V,D), the
 unembedding (D,V), f32 norm weights and router — but holds the blocks as a
 plain list ``layers`` in layer order instead of stacked scan segments:
 
     {"embed": {"table"}, "layers": [{"norm1", "attn" or "mamba": {...},
-     ["post1",] ["norm2", "mlp" or "moe": {...}][, "post2"]}, ...],
+     ["post1",] ["norm2", "mlp" or "moe": {...}, ["post2"]]}, ...],
      "final_norm", "unembed": {"w"} (empty with tied embeddings)}
 """
 from __future__ import annotations
@@ -65,9 +67,11 @@ def param_specs(cfg: ModelConfig):
     layer follows its :class:`BlockCfg`: GQA (``attention.py::gqa_defs``)
     or MLA attention (``mla_defs``), a dense MLP of the block's width
     (``layers.py::mlp_defs``: ``w_gate`` only when gated) or the MoE tree
-    (``moe.py::moe_defs``), the post-norms of a post-norm model
-    (``transformer.py::block_defs``), or a Mamba mixer followed by the
-    block's FFN, if it has one: Mamba-2 (``mamba.py::mamba2_defs``) or
+    (``moe.py::moe_defs``: ``w_gate``/``ws_gate`` only when gated), the
+    post-norms of a post-norm model (``transformer.py::block_defs``:
+    ``post1`` after the mixer, ``post2`` after an FFN), or a Mamba mixer
+    followed by the block's FFN, if it has one: Mamba-2
+    (``mamba.py::mamba2_defs``) or
     Mamba-1 (``mamba1_defs``: the x/z projections, the conv, ``w_bcdt``
     (C, dt_rank + 2N) and ``w_dt`` (dt_rank, C) with dt_rank = ceil(d/16),
     A_log (C, N)); A_log, D_skip and dt_bias in f32, zeros for A_log,
@@ -103,13 +107,15 @@ def param_specs(cfg: ModelConfig):
         E, Fe = m.n_experts, m.d_expert
         d = {"router": ParamSpec((D, E), F32),
              "w_up": ParamSpec((E, D, Fe), pdt),
-             "w_down": ParamSpec((E, Fe, D), pdt, scale=out_scale),
-             "w_gate": ParamSpec((E, D, Fe), pdt)}
+             "w_down": ParamSpec((E, Fe, D), pdt, scale=out_scale)}
+        if is_gated(cfg.act):
+            d["w_gate"] = ParamSpec((E, D, Fe), pdt)
         if m.n_shared:
             Fs = m.n_shared * Fe
             d.update({"ws_up": ParamSpec((D, Fs), pdt),
-                      "ws_down": ParamSpec((Fs, D), pdt, scale=out_scale),
-                      "ws_gate": ParamSpec((D, Fs), pdt)})
+                      "ws_down": ParamSpec((Fs, D), pdt, scale=out_scale)})
+            if is_gated(cfg.act):
+                d["ws_gate"] = ParamSpec((D, Fs), pdt)
         return d
 
     def mamba():
@@ -154,12 +160,14 @@ def param_specs(cfg: ModelConfig):
         d = {"norm1": norm(D)}
         d.update({"mamba": mamba()} if bc.mixer == "mamba" else
                  {"attn": attn()})
+        if cfg.use_post_norm:
+            d["post1"] = norm(D)
         if bc.ffn != "none":
             d["norm2"] = norm(D)
             d.update({"moe": moe()} if bc.ffn == "moe" else
                      {"mlp": mlp(bc.d_ff)})
-        if cfg.use_post_norm:
-            d.update({"post1": norm(D), "post2": norm(D)})
+            if cfg.use_post_norm:
+                d["post2"] = norm(D)
         return d
 
     if cfg.enc_dec:

@@ -8,8 +8,13 @@ A full-attention layer of a paged engine writes the new token's K/V (GQA)
 or latent row (MLA) into its page pools in place (``_paged_write``), then a
 hand-written paged kernel (``kernels/paged_attention``) walks the page
 table and returns the unnormalized ``(o, m, l)`` partials, which
-``_combine`` normalizes. A layer with dense per-slot rows (every attention
-layer of the dense engine, and the sliding-window rings of either engine)
+``_combine`` normalizes. With ``paged_kernel=False`` (the gathered-view
+decode, JAX's escape hatch) the write is the same, but each slot's whole
+page table is gathered into contiguous rows (``_gathered``) and attended
+in plain torch by the dense rows' own ``_dense_attend``: no paged kernel
+and no kernel's plain version runs. A layer with dense per-slot rows
+(every attention layer of the dense engine, and the sliding-window rings
+of either engine)
 writes its row in place at ``pos`` (a ring at ``pos mod Sc``,
 ``_local_write``) and attends over the rows in plain torch, as JAX does
 with an einsum (no TPU kernel computes it): a ring slot j holds position
@@ -34,9 +39,10 @@ Speculative big/little decode: a round runs ``spec_k`` serial draft steps
 (``decode_step`` of the draft on its own dense cache), one batched target
 verify of the K = spec_k + 1 positions (``decode_verify``: the cache
 read-only; each query sees the committed history, from the paged kernels
-on B·K repeated rows or from dense rows and rings in plain torch, merged
-with the staged K×K block's partials; a Mamba-2 layer steps its state K
-times and stages the K states), the emission law (``spec_candidates``:
+on B·K repeated rows (or the gathered pages) or from dense rows and rings
+in plain torch, merged with the staged K×K block's partials; a Mamba-1 or
+Mamba-2 layer steps its state K times and stages the K states), the
+emission law (``spec_candidates``:
 greedy acceptance, or rejection sampling against the filtered
 distributions) and the commit of the accepted prefix (``decode_commit``).
 ``spec_decode_loop`` is its functional reference and
@@ -124,6 +130,16 @@ def _dense_attend(q, k, v, live, *, scale: float, softcap: float = 0.0):
     return _combine(o, m, torch.sum(p, -1))
 
 
+def _gathered(pool, page_table):
+    """The gathered view of a page pool (N, ps, …) through ``page_table``
+    (B, T): each slot's T pages as contiguous rows (B, T·ps, …), row r
+    holding logical position r (JAX ``kernels/paged_attention/ref.py::
+    _gathered``)."""
+    B, T = page_table.shape
+    g = pool[page_table.long()]                            # (B, T, ps, …)
+    return g.reshape((B, T * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
 def _page_slot(pt, pos, ps: int):
     """(page, offset) int64 (B,) where logical position ``pos`` (B,) lies
     through page table ``pt`` (B,T) of ``ps``-row pages: computed once per
@@ -177,8 +193,11 @@ def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
     (B,Hkv,G,dh), k, v), the cache written in place.
 
     With ``page_table`` (B,T) int32 the cache is the pools (N, ps, Hkv, dh)
-    and ``slot`` the write's :func:`_page_slot`: the paged kernel. Without,
-    it is dense rows (B, S, Hkv, dh), a ring of S slots with ``window``, and
+    and ``slot`` the write's :func:`_page_slot`: the paged kernel, or, when
+    ``rows`` is given (the gathered decode, :class:`StepConsts`), the
+    gathered view (:func:`_gathered`) with ``rows``' live mask through
+    :func:`_dense_attend`. Without a table it is
+    dense rows (B, S, Hkv, dh), a ring of S slots with ``window``, and
     ``rows`` the layer's :func:`_dense_rows`: plain torch, as JAX's einsum
     (``update=False`` attends without writing)."""
     if page_table is None:
@@ -186,18 +205,22 @@ def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
         if update:
             _local_write(pool_k, k_new, rel)
             _local_write(pool_v, v_new, rel)
-        out = _dense_attend(q, pool_k, pool_v, live, scale=scale,
-                            softcap=softcap)
-        return out.to(q.dtype), pool_k, pool_v
-    _check_paged_args(page_table, pos, update=update, window=window)
-    _paged_write(pool_k, k_new, page_table, pos, slot)
-    _paged_write(pool_v, v_new, page_table, pos, slot)
-    B, hkv, grp, dh = q.shape
-    o, m, l = paged_ops.paged_attend_gqa(
-        q, pool_k, pool_v, page_table, pos, 0, page_size=pool_k.shape[1],
-        scale=scale, softcap=softcap)
-    out = _combine(o.reshape(B, hkv, grp, dh), m.reshape(B, hkv, grp),
-                   l.reshape(B, hkv, grp))
+        k, v = pool_k, pool_v
+    else:
+        _check_paged_args(page_table, pos, update=update, window=window)
+        _paged_write(pool_k, k_new, page_table, pos, slot)
+        _paged_write(pool_v, v_new, page_table, pos, slot)
+        if rows is None:
+            B, hkv, grp, dh = q.shape
+            o, m, l = paged_ops.paged_attend_gqa(
+                q, pool_k, pool_v, page_table, pos, 0,
+                page_size=pool_k.shape[1], scale=scale, softcap=softcap)
+            out = _combine(o.reshape(B, hkv, grp, dh), m.reshape(B, hkv, grp),
+                           l.reshape(B, hkv, grp))
+            return out.to(q.dtype), pool_k, pool_v
+        k, v = _gathered(pool_k, page_table), _gathered(pool_v, page_table)
+        live = rows[1]
+    out = _dense_attend(q, k, v, live, scale=scale, softcap=softcap)
     return out.to(q.dtype), pool_k, pool_v
 
 
@@ -206,21 +229,25 @@ def flash_decode_mla(q_eff, new_row, pool, pos, *, kv_lora: int,
     """q_eff (B,H,R); new_row (B,R); pos (B,) int32 → (out (B,H,kv_lora),
     cache), the cache written in place. Key = the cache row, value = its
     first kv_lora dims. With ``page_table`` (B,T) int32 the cache is the
-    pool (N, ps, R), ``slot`` as in :func:`flash_decode_gqa`; without, dense
-    rows (B, S, R) and ``rows`` their :func:`_dense_rows`."""
+    pool (N, ps, R), ``slot`` and ``rows`` (the gathered view's) as in
+    :func:`flash_decode_gqa`; without, dense rows (B, S, R) and ``rows``
+    their :func:`_dense_rows`."""
     if page_table is None:
-        rel, live = rows
-        _local_write(pool, new_row, rel)
-        ckv = pool[:, :, None, :]                            # one kv head
-        out = _dense_attend(q_eff[:, None], ckv, ckv[..., :kv_lora], live,
-                            scale=scale)[:, 0]
-        return out.to(q_eff.dtype), pool
-    _check_paged_args(page_table, pos)
-    _paged_write(pool, new_row, page_table, pos, slot)
-    o, m, l = paged_ops.paged_attend_mla(
-        q_eff, pool, page_table, pos, 0, page_size=pool.shape[1],
-        kv_lora=kv_lora, scale=scale)
-    return _combine(o, m, l).to(q_eff.dtype), pool
+        _local_write(pool, new_row, rows[0])
+        ckv, live = pool, rows[1]
+    else:
+        _check_paged_args(page_table, pos)
+        _paged_write(pool, new_row, page_table, pos, slot)
+        if rows is None:
+            o, m, l = paged_ops.paged_attend_mla(
+                q_eff, pool, page_table, pos, 0, page_size=pool.shape[1],
+                kv_lora=kv_lora, scale=scale)
+            return _combine(o, m, l).to(q_eff.dtype), pool
+        ckv, live = _gathered(pool, page_table), rows[1]
+    c = ckv[:, :, None, :]                                   # one kv head
+    out = _dense_attend(q_eff[:, None], c, c[..., :kv_lora], live,
+                        scale=scale)[:, 0]
+    return out.to(q_eff.dtype), pool
 
 
 # ------------------------------------------------------- per-step constants
@@ -228,11 +255,14 @@ class StepConsts(NamedTuple):
     """What every attention layer of one decode step shares: the rope
     tables of ``pos`` (cos, sin (B, width/2) f32, None without rope), the
     page and offset the new row goes to in the pools (:func:`_page_slot`;
-    None without pooled layers), and for each (rows, window) of the dense
-    layers their :func:`_dense_rows`."""
+    None without pooled layers), for each (rows, window) of the dense
+    layers their :func:`_dense_rows`, and ``gathered``: None when the
+    paged kernels read the pools, else (``paged_kernel=False``) the
+    :func:`_dense_rows` of the pools' gathered views (T·ps rows a slot)."""
     rope: Optional[tuple]
     slot: Optional[tuple]
     dense: dict
+    gathered: Optional[tuple] = None
 
 
 def _uses_pool(bc: BlockCfg, page_table) -> bool:
@@ -241,8 +271,8 @@ def _uses_pool(bc: BlockCfg, page_table) -> bool:
     return page_table is not None and not bc.window
 
 
-def step_consts(cfg: ModelConfig, cache, pos,
-                page_table) -> Optional[StepConsts]:
+def step_consts(cfg: ModelConfig, cache, pos, page_table,
+                paged_kernel: bool = True) -> Optional[StepConsts]:
     """The per-step constants of a model's attention layers, or None when
     it has none (a pure Mamba stack): one rope width (MLA's rope dims, else the head
     dim), one page size (every pool is the engine's), and one
@@ -256,15 +286,17 @@ def step_consts(cfg: ModelConfig, cache, pos,
         rope = rope_tables(pos, cfg.mla.rope_dim, cfg.rope_theta)
     elif cfg.use_rope:
         rope = rope_tables(pos, cfg.head_dim, cfg.rope_theta)
-    slot, dense = None, {}
+    slot, dense, gathered = None, {}, None
     for bc, c in attn:
         n = next(iter(c.values())).shape[1]        # page size, or rows
         if _uses_pool(bc, page_table):
             if slot is None:
                 slot = _page_slot(page_table, pos, n)
+                if not paged_kernel:
+                    gathered = _dense_rows(pos, page_table.shape[1] * n, 0)
         elif (n, bc.window) not in dense:
             dense[(n, bc.window)] = _dense_rows(pos, n, bc.window)
-    return StepConsts(rope, slot, dense)
+    return StepConsts(rope, slot, dense, gathered)
 
 
 # --------------------------------------------------------- per-block decode
@@ -282,7 +314,7 @@ def gqa_decode(cfg: ModelConfig, p, x, cache, pos, window: int,
         q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
         k = apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
     qg = q.reshape(B, Hkv, H // Hkv, dh)
-    rows = None if page_table is not None else \
+    rows = consts.gathered if page_table is not None else \
         consts.dense[(cache["k"].shape[1], window)]
     out, ck, cv = flash_decode_gqa(
         qg, k, v, cache["k"], cache["v"], pos, scale=dh ** -0.5,
@@ -314,7 +346,7 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table,
     kr_t = x @ p["wkr"]
     kr_t = apply_rope(kr_t[:, None, None], cos[:, None], sin[:, None])[:, 0, 0]
     row = torch.cat([ckv_t, kr_t], dim=-1).to(cache["ckv"].dtype)
-    rows = None if page_table is not None else \
+    rows = consts.gathered if page_table is not None else \
         consts.dense[(cache["ckv"].shape[1], 0)]
     o_c, ckv = flash_decode_mla(q_eff, row, cache["ckv"], pos,
                                 kv_lora=m.kv_lora,
@@ -356,13 +388,14 @@ def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
 
 # ------------------------------------------------------------- decode step
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
-                page_table=None):
+                page_table=None, paged_kernel: bool = True):
     """tokens (B,), pos (B,) int32 → (logits (B,V) f32, cache). The page
     pools and dense rows of ``cache`` are updated in place; Mamba states
     are replaced. ``page_table`` (B,T) int32 addresses the pools of a paged
-    cache; None for the dense engine's."""
+    cache (read by the paged kernels, or with ``paged_kernel=False`` as
+    gathered views); None for the dense engine's."""
     h = embed(cfg, params["embed"], tokens)
-    consts = step_consts(cfg, cache, pos, page_table)
+    consts = step_consts(cfg, cache, pos, page_table, paged_kernel)
     layers = []
     for bc, p, c in zip(block_cfgs(cfg), params["layers"], cache["layers"]):
         h, c = block_decode(cfg, bc, p, c, h, pos, page_table, consts)
@@ -465,9 +498,11 @@ def _gumbel_argmax(lg, generator):
 def decode_loop(cfg: ModelConfig, params, cache, tokens, pos, active,
                 remaining, *, num_steps: int, eos_id: int, max_len: int,
                 page_table, temperature: float = 0.0, top_k: int = 0,
-                top_p: float = 0.0, generator=None):
+                top_p: float = 0.0, generator=None,
+                paged_kernel: bool = True):
     """A quantum of ``num_steps`` decode steps with on-device sampling and
-    per-slot done masking; nothing is read back to the host.
+    per-slot done masking; nothing is read back to the host
+    (``paged_kernel`` as in :func:`decode_step`).
 
     A slot emits while ``active``; it deactivates when its budget
     (``remaining``) drains, it samples ``eos_id``, or its write position
@@ -480,7 +515,7 @@ def decode_loop(cfg: ModelConfig, params, cache, tokens, pos, active,
     toks, msks = [], []
     for _ in range(num_steps):
         logits, cache = decode_step(cfg, params, cache, tokens, pos,
-                                    page_table)
+                                    page_table, paged_kernel)
         nxt = _sample_tokens(logits, generator, temperature=temperature,
                              top_k=top_k, top_p=top_p)
         toks.append(torch.where(active, nxt, -1))
@@ -505,7 +540,8 @@ def _pack(active, toks, msks):
 def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
                    remaining, page_table, packed, *, num_steps: int,
                    eos_id: int, max_len: int, temperature: float = 0.0,
-                   top_k: int = 0, top_p: float = 0.0, generator=None):
+                   top_k: int = 0, top_p: float = 0.0, generator=None,
+                   paged_kernel: bool = True):
     """:func:`decode_loop` IN PLACE: the carry goes back into ``tokens``,
     ``pos``, ``active`` and ``remaining``, each Mamba layer's new state
     into the state tensors of ``cache`` (the page pools are written in
@@ -517,7 +553,7 @@ def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
         cfg, params, cache, tokens, pos, active, remaining,
         num_steps=num_steps, eos_id=eos_id, max_len=max_len,
         page_table=page_table, temperature=temperature, top_k=top_k,
-        top_p=top_p, generator=generator)
+        top_p=top_p, generator=generator, paged_kernel=paged_kernel)
     new_cache, new_tokens, new_pos, new_active, new_remaining = carry
     for layer, new in zip(cache["layers"], new_cache["layers"]):
         for name, t in new.items():
@@ -577,14 +613,17 @@ def _verify_rows(pos0, S: int, window: int, K: int):
 class VerifyConsts(NamedTuple):
     """What every attention layer of one verify pass shares: the rope tables
     of positions ``pos0 + j`` (cos, sin (B, K, width/2) f32, None without
-    rope), and for each (rows, window) of the dense layers their
-    :func:`_verify_rows`."""
+    rope), for each (rows, window) of the dense layers their
+    :func:`_verify_rows`, and ``gathered`` as in :class:`StepConsts`: None
+    for the paged kernels, else the :func:`_verify_rows` of the pools'
+    gathered views."""
     rope: Optional[tuple]
     dense: dict
+    gathered: Optional[torch.Tensor] = None
 
 
-def verify_consts(cfg: ModelConfig, cache, pos0, K: int,
-                  page_table) -> Optional[VerifyConsts]:
+def verify_consts(cfg: ModelConfig, cache, pos0, K: int, page_table,
+                  paged_kernel: bool = True) -> Optional[VerifyConsts]:
     """The verify constants of a model's attention layers (None for a model
     without attention): :func:`step_consts` for K positions."""
     attn = [(bc, c) for bc, c in zip(block_cfgs(cfg), cache["layers"])
@@ -597,12 +636,15 @@ def verify_consts(cfg: ModelConfig, cache, pos0, K: int,
         rope = rope_tables(qpos, cfg.mla.rope_dim, cfg.rope_theta)
     elif cfg.use_rope:
         rope = rope_tables(qpos, cfg.head_dim, cfg.rope_theta)
-    dense = {}
+    dense, gathered = {}, None
     for bc, c in attn:
         n = next(iter(c.values())).shape[1]
-        if not _uses_pool(bc, page_table) and (n, bc.window) not in dense:
+        if _uses_pool(bc, page_table):
+            if not paged_kernel and gathered is None:
+                gathered = _verify_rows(pos0, page_table.shape[1] * n, 0, K)
+        elif (n, bc.window) not in dense:
             dense[(n, bc.window)] = _verify_rows(pos0, n, bc.window, K)
-    return VerifyConsts(rope, dense)
+    return VerifyConsts(rope, dense, gathered)
 
 
 def _repeat_rows(page_table, pos0, K: int):
@@ -626,8 +668,11 @@ def flash_verify_gqa(q, k_new, v_new, ck, cv, pos0, *, window: int,
 
     With ``page_table`` (B,T) int32 the cache is the pools and the history
     comes from the paged kernel on the (B·K, Hkv, G, dh) queries
-    (:func:`_repeat_rows`); without, from dense rows (a ring with
-    ``window``) in plain torch, ``valid`` their :func:`_verify_rows`. The
+    (:func:`_repeat_rows`), or, when ``valid`` is given (the gathered
+    decode, :class:`VerifyConsts`), from the gathered pages
+    (:func:`_gathered`, ``valid`` their rows ``< pos0``) in plain torch;
+    without, from dense rows (a ring with ``window``) in plain
+    torch, ``valid`` their :func:`_verify_rows`. The
     staged K×K block's partials come from a plain einsum (JAX's; no TPU
     kernel computes it) and are merged with the history's."""
     B, K, hkv, grp, dh = q.shape
@@ -641,6 +686,10 @@ def flash_verify_gqa(q, k_new, v_new, ck, cv, pos0, *, window: int,
                               "bhgkj,bjhd->bhgkd")
     if page_table is not None:
         _check_paged_args(page_table, pos0, window=window)
+        if valid is not None:         # gathered: the dense branch reads it
+            ck, cv = _gathered(ck, page_table), _gathered(cv, page_table)
+            page_table = None
+    if page_table is not None:
         ptf, posf = _repeat_rows(page_table, pos0, K)
         o, m, l = paged_ops.paged_attend_gqa(
             q.reshape(B * K, hkv, grp, dh).contiguous(), ck, cv, ptf, posf,
@@ -662,7 +711,8 @@ def flash_verify_mla(q_eff, new_rows, ckv, pos0, *, kv_lora: int,
                      scale: float, page_table=None, valid=None):
     """MLA analogue of :func:`flash_verify_gqa`: q_eff (B,K,H,R); new_rows
     (B,K,R) the staged latent rows; ckv the (N,ps,R) pool with
-    ``page_table``, else dense rows (B,S,R) and ``valid`` their
+    ``page_table`` (read by the paged kernel, or gathered when ``valid``
+    is given), else dense rows (B,S,R) and ``valid`` their
     :func:`_verify_rows` → out (B,K,H,kv_lora). Read-only; full attention
     only."""
     B, K, H, R = q_eff.shape
@@ -673,6 +723,9 @@ def flash_verify_mla(q_eff, new_rows, ckv, pos0, *, kv_lora: int,
                               rows[..., :kv_lora], "bhkj,bjr->bhkr")
     if page_table is not None:
         _check_paged_args(page_table, pos0)
+        if valid is not None:         # gathered: the dense branch reads it
+            ckv, page_table = _gathered(ckv, page_table), None
+    if page_table is not None:
         ptf, posf = _repeat_rows(page_table, pos0, K)
         o, m, l = paged_ops.paged_attend_mla(
             q_eff.reshape(B * K, H, R).contiguous(), ckv, ptf, posf, 0,
@@ -700,7 +753,7 @@ def gqa_verify(cfg: ModelConfig, p, x, cache, pos0, window: int,
         cos, sin = consts.rope                                # (B, K, dh/2)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    valid = None if page_table is not None else \
+    valid = consts.gathered if page_table is not None else \
         consts.dense[(cache["k"].shape[1], window)]
     out = flash_verify_gqa(
         q.reshape(B, K, Hkv, H // Hkv, dh), k, v, cache["k"], cache["v"],
@@ -728,7 +781,7 @@ def mla_verify(cfg: ModelConfig, p, x, cache, pos0, page_table,
     ckv_t = rmsnorm(x @ p["wdkv"], p["kv_norm"], cfg.norm_eps)
     kr_t = apply_rope((x @ p["wkr"])[:, :, None], cos, sin)[:, :, 0]
     rows = torch.cat([ckv_t, kr_t], dim=-1).to(cache["ckv"].dtype)
-    valid = None if page_table is not None else \
+    valid = consts.gathered if page_table is not None else \
         consts.dense[(cache["ckv"].shape[1], 0)]
     o_c = flash_verify_mla(q_eff, rows, cache["ckv"], pos0,
                            kv_lora=m.kv_lora,
@@ -744,8 +797,8 @@ def block_verify(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos0,
     """h (B,K,D) → (h', staged). Attention layers stage their K new rows;
     a Mamba layer steps ``mamba_step`` over the K inputs in order (a state
     scan is serial: verify batches only the attention and FFN work) and
-    stages the K states, leaves (K, B, …). The engine takes no Mamba-1
-    target (``Engine._check_spec``)."""
+    stages the K states, leaves (K, B, …): Mamba-2's conv tails and SSM
+    state, or Mamba-1's conv tail and its f32 (B, C, N) state."""
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "mamba":
         ys, states = [], []
@@ -783,16 +836,17 @@ def block_verify(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos0,
 
 
 def decode_verify(cfg: ModelConfig, params, cache, tokens, pos0,
-                  page_table=None):
+                  page_table=None, paged_kernel: bool = True):
     """The verify pass of speculative decode. tokens (B,K) = [last committed
     token, proposals g_1..g_{K-1}]; pos0 (B,) int32 the write position of
     tokens[:, 0] → (logits (B,K,V) f32, staged {"layers": [...]}).
     logits[:, j] is the target's next-token distribution after
     tokens[:, :j+1]: what K serial :func:`decode_step`s give, in one
     batched pass. The cache is read-only; :func:`decode_commit` writes the
-    accepted prefix."""
+    accepted prefix. ``paged_kernel`` as in :func:`decode_step`."""
     h = embed(cfg, params["embed"], tokens)
-    consts = verify_consts(cfg, cache, pos0, tokens.shape[1], page_table)
+    consts = verify_consts(cfg, cache, pos0, tokens.shape[1], page_table,
+                           paged_kernel)
     staged = []
     for bc, p, c in zip(block_cfgs(cfg), params["layers"], cache["layers"]):
         h, s = block_verify(cfg, bc, p, c, h, pos0, page_table, consts)
@@ -843,9 +897,10 @@ def commit_rows(cache, rows, pos0, n, *, window: int = 0, page_table=None,
 
 
 def _commit_scan_state(cache, states, n):
-    """Mamba-2 leaves, IN PLACE: ``states`` (K,B,…) are the K states staged
-    by :func:`block_verify`; each slot keeps state n-1 (n = 0: the state
-    before the verify)."""
+    """A Mamba layer's leaves, IN PLACE (Mamba-2: ``conv_x``, ``conv_B``,
+    ``conv_C``, ``ssm``; Mamba-1: ``conv_x``, ``ssm``): ``states`` (K,B,…)
+    are the K states staged by :func:`block_verify`; each slot keeps state
+    n-1 (n = 0: the state before the verify)."""
     b = torch.arange(n.shape[0], device=n.device)
     for name, c in cache.items():
         full = torch.cat([c[None], states[name].to(c.dtype)])
@@ -929,7 +984,8 @@ def spec_decode_loop(cfg: ModelConfig, draft_cfg: ModelConfig, params,
                      draft_params, cache, draft_cache, tokens, pos, active,
                      remaining, *, spec_k: int, num_steps: int, eos_id: int,
                      max_len: int, page_table=None, temperature: float = 0.0,
-                     top_k: int = 0, top_p: float = 0.0, generator=None):
+                     top_k: int = 0, top_p: float = 0.0, generator=None,
+                     paged_kernel: bool = True):
     """A speculative quantum of ``num_steps`` rounds, each ``spec_k`` serial
     draft steps and ONE batched target verify, emitting 1 to spec_k + 1
     tokens a slot; nothing is read back to the host.
@@ -949,8 +1005,9 @@ def spec_decode_loop(cfg: ModelConfig, draft_cfg: ModelConfig, params,
     dense rows (validity ``gpos <= pos``), so the next round's step at that
     position overwrites it before any query sees it. The target's cache is
     read-only in the verify; :func:`decode_commit` writes exactly the
-    accepted prefix. The pools, the dense rows and the Mamba-2 states are
-    all written in place.
+    accepted prefix. The pools, the dense rows and the Mamba states are all
+    written in place. ``paged_kernel`` as in :func:`decode_step` (the
+    draft reads no page table).
 
     Returns ((cache, draft_cache, tokens, pos, active, remaining), toks,
     msks, acc): toks/msks (num_steps, K, B) in emission order, acc
@@ -975,7 +1032,7 @@ def spec_decode_loop(cfg: ModelConfig, draft_cfg: ModelConfig, params,
         gT = torch.stack(gs, 1)                                 # (B, k)
         logits, staged = decode_verify(
             cfg, params, cache, torch.cat([tokens[:, None], gT], 1), pos,
-            page_table)
+            page_table, paged_kernel)
         if temperature:
             pp = torch.softmax(_filter_logits(logits, **fkw), -1)  # (B,K,V)
             qT = torch.stack(qs, 1)                             # (B, k, V)
@@ -1027,13 +1084,14 @@ def spec_decode_quantum(cfg: ModelConfig, draft_cfg: ModelConfig, params,
                         remaining, page_table, packed, *, spec_k: int,
                         num_steps: int, eos_id: int, max_len: int,
                         temperature: float = 0.0, top_k: int = 0,
-                        top_p: float = 0.0, generator=None):
+                        top_p: float = 0.0, generator=None,
+                        paged_kernel: bool = True):
     """:func:`spec_decode_loop` IN PLACE, as :func:`decode_quantum` is for
     :func:`decode_loop`: the carry goes back into ``tokens``, ``pos``,
     ``active`` and ``remaining``, and the packed result (:func:`_pack_spec`)
     into ``packed`` (2·num_steps·(spec_k+1) + num_steps + 1, B) int32. The
     pools, the target's and the draft's dense rows and the target's
-    Mamba-2 states are written in place as the loop runs, so a CUDA graph
+    Mamba states are written in place as the loop runs, so a CUDA graph
     of a call replays on the same storage; the values are the loop's, bit
     for bit."""
     carry, toks, msks, acc = spec_decode_loop(
@@ -1041,7 +1099,7 @@ def spec_decode_quantum(cfg: ModelConfig, draft_cfg: ModelConfig, params,
         pos, active, remaining, spec_k=spec_k, num_steps=num_steps,
         eos_id=eos_id, max_len=max_len, page_table=page_table,
         temperature=temperature, top_k=top_k, top_p=top_p,
-        generator=generator)
+        generator=generator, paged_kernel=paged_kernel)
     _, _, new_tokens, new_pos, new_active, new_remaining = carry
     packed.copy_(_pack_spec(new_active, toks, msks, acc))
     for dst, src in ((tokens, new_tokens), (pos, new_pos),

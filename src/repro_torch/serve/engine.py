@@ -38,14 +38,17 @@ the tier-facing surface of the pool, and ``step_deadline_s`` is the
 per-step budget its supervisor reads.
 
 The port has ``Engine(fast=True)``, paged (with the paged kernel, the
-port's default) and dense, with or without speculative decode
-(``draft_cfg``, ``draft_params``, ``spec_k``: a draft on a dense cache of
-its own proposes, the target verifies and commits, each quantum of rounds
-still one graph per live width and one host read); :func:`make_engine`
-builds one over fresh parameters with the JAX default ``paged=False``.
-``fast=False`` and the gathered-view decode (``paged_kernel=False``) are
-not ported. The kernels are built when an engine is constructed on
-the card, so no timed interval includes a build.
+port's default, or the gathered-view decode, ``paged_kernel=False``:
+each slot's whole page table gathered into contiguous rows and attended
+in plain torch, one graph at full table width) and dense, with or without
+speculative decode (``draft_cfg``, ``draft_params``, ``spec_k``: a draft
+on a dense cache of its own proposes, the target verifies and commits,
+each quantum of rounds still one graph per live width and one host read;
+any target the engine serves, Mamba-1 hybrids included);
+:func:`make_engine` builds one over fresh parameters with the JAX default
+``paged=False``. ``fast=False`` is not ported. The kernels are built when
+an engine is constructed on the card, so no timed interval includes a
+build.
 """
 from __future__ import annotations
 
@@ -235,7 +238,8 @@ class Engine:
                  decode_quantum: int = 8, prefill_batch: int | None = None,
                  min_bucket: int = 16, paged: bool = True,
                  page_size: int = 16, num_pages: int | None = None,
-                 temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
+                 paged_kernel: bool = True, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 0.0,
                  sample_seed: int = 0, graphs: bool | None = None,
                  draft_cfg: ModelConfig | None = None, draft_params=None,
                  spec_k: int = 0, step_deadline_s: float | None = None):
@@ -251,8 +255,11 @@ class Engine:
         table (False: dense ``max_slots × max_len`` rows, no table):
         ``page_size`` tokens per page, dividing ``max_len``; ``num_pages``
         pool size including the trash page 0 (default: every slot at full
-        ``max_len``). ``temperature`` 0 decodes greedily, > 0 samples on
-        the device with top-k / top-p truncation, from ``sample_seed``.
+        ``max_len``). ``paged_kernel`` (a bool) reads the pools through the
+        paged kernels (True) or as gathered views in plain torch (False,
+        JAX's escape hatch: the whole table, one graph). ``temperature`` 0
+        decodes greedily, > 0 samples on the device with top-k / top-p
+        truncation, from ``sample_seed``.
         ``graphs`` (default: on the card) runs each decode quantum as one
         replay of a CUDA graph per live page-table width; False runs the
         eager loop, which the CPU always does (True there raises).
@@ -294,6 +301,10 @@ class Engine:
             raise ValueError(f"top_p must be in [0, 1], got {top_p}")
         self.temperature, self.top_k = float(temperature), int(top_k)
         self.top_p = float(top_p)
+        if not isinstance(paged_kernel, bool):
+            raise ValueError(f"paged_kernel must be a bool (JAX's impl "
+                             f"strings are Pallas-only), got {paged_kernel!r}")
+        self.paged_kernel = paged_kernel
         self._check_spec(cfg, draft_cfg, spec_k)
         self.prefill_batch = prefill_batch or max_slots
         self.min_bucket = min_bucket
@@ -319,8 +330,10 @@ class Engine:
         with ``spec_k >= 1``, decoder-only, full attention with no window
         (its rows are written optimistically, sound only where validity is
         ``gpos <= pos`` on a dense cache), the target's vocab, and ``spec_k
-        + 1`` verify rows inside the target's smallest window. A Mamba-1
-        target is not ported."""
+        + 1`` verify rows inside the target's smallest window. Any target
+        the engine serves may be verified: a Mamba layer (Mamba-1 or -2)
+        steps its state over the K verify rows and stages the K states
+        (``decode.py::block_verify``)."""
         self.spec = draft_cfg is not None
         if spec_k and not self.spec:
             raise ValueError("spec_k requires a draft_cfg")
@@ -331,10 +344,6 @@ class Engine:
         self.spec_proposed = 0
         if not self.spec:
             return
-        if cfg.ssm is not None and cfg.ssm.version == 1:
-            raise NotImplementedError(
-                f"{cfg.name}: speculative decode with a Mamba-1 target is "
-                "not ported")
         if spec_k < 1:
             raise ValueError(f"spec_k must be >= 1 with a draft, got "
                              f"{spec_k}")
@@ -439,6 +448,13 @@ class Engine:
         self._prefill_gen = torch.Generator(device=dev).manual_seed(
             sample_seed + 1)
         self.graphs = DecodeGraphs(dev, self._gen) if use_graphs else None
+
+    def reserved_cache_bytes(self) -> int:
+        """Bytes of every leaf of the engine's cache, pools and dense rows,
+        rings and Mamba state (JAX ``Engine.reserved_cache_bytes``; the
+        draft's rows are not counted, as JAX's)."""
+        return sum(t.nbytes for layer in self.cache["layers"]
+                   for t in layer.values())
 
     @property
     def decode_captures(self) -> int:
@@ -570,8 +586,10 @@ class Engine:
         reads no page past a slot's ``pos`` either way; a stale ``pos``
         beyond the slice writes to the trash page (``_paged_write``). A
         model without a page pool (and the dense engine) reads no table:
-        its quanta share one width, and so one graph."""
-        if "paged" not in self.kinds:
+        its quanta share one width, and so one graph, and so does the
+        gathered-view decode (``paged_kernel=False``), which takes the
+        whole table, as JAX's."""
+        if "paged" not in self.kinds or not self.paged_kernel:
             return self.pages_per_slot if self.paged else 0
         end = max(min(int(self.pos_host[i]) + self.quantum_tokens,
                       self.max_len) for i in active_slots)
@@ -606,14 +624,16 @@ class Engine:
                 self._packed, spec_k=self.spec_k,
                 num_steps=self.decode_quantum, eos_id=self.eos_id,
                 max_len=self.max_len, temperature=self.temperature,
-                top_k=self.top_k, top_p=self.top_p, generator=self._gen)
+                top_k=self.top_k, top_p=self.top_p, generator=self._gen,
+                paged_kernel=self.paged_kernel)
             return
         decode_quantum(
             self.cfg, self.params, self.cache, self.tokens_dev, self.pos_dev,
             self.active_dev, self.remaining_dev, page_table, self._packed,
             num_steps=self.decode_quantum, eos_id=self.eos_id,
             max_len=self.max_len, temperature=self.temperature,
-            top_k=self.top_k, top_p=self.top_p, generator=self._gen)
+            top_k=self.top_k, top_p=self.top_p, generator=self._gen,
+            paged_kernel=self.paged_kernel)
 
     # ---- one engine cycle -------------------------------------------------
     def step(self) -> StepReport:

@@ -25,15 +25,22 @@ Encoder-decoder (``encdec_cache_defs``, whisper): each decoder layer keeps
 dense self rows ``k``/``v`` (batch, max_decoder_len, Hkv, dh) and the
 cross K/V ``xk``/``xv`` (batch, enc_len, Hkv, dh) over the encoder frames,
 written once by ``whisper_prefill``.
+
+Memory (JAX's helpers on one device): ``cache_bytes`` sizes the dense
+layout of any registered model (whisper's self and cross rows included),
+``page_bytes`` one page across every pooled layer; an engine's
+``reserved_cache_bytes`` is the sum of its leaves.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mamba import mamba_state_defs
 from repro_torch.models.transformer import BlockCfg, block_cfgs, check_supported
-from repro_torch.params import ParamSpec, tree_map
+from repro_torch.params import ParamSpec, tree_leaves, tree_map
 
 
 def attn_cache_len(window: int, seq_len: int) -> int:
@@ -112,6 +119,32 @@ def encdec_cache_defs(cfg: ModelConfig, batch: int, enc_len: int):
     slot = {"k": rows(cfg.max_decoder_len), "v": rows(cfg.max_decoder_len),
             "xk": rows(enc_len), "xv": rows(enc_len)}
     return {"dec_layers": [slot] * cfg.n_layers}
+
+
+def defs_bytes(defs) -> int:
+    """Bytes of the tensors a def tree describes."""
+    return sum(math.prod(d.shape) * d.dtype.itemsize
+               for d in tree_leaves(defs, is_leaf=lambda x: isinstance(
+                   x, ParamSpec)))
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, seq_len: int) -> int:
+    """Bytes of the dense decode cache of ``batch`` slots of ``seq_len``
+    tokens (JAX ``cache_bytes`` at one model shard): per-slot rows, rings
+    and Mamba state for a decoder, whisper's self rows and cross K/V over
+    ``seq_len`` encoder frames for an encoder-decoder."""
+    if cfg.enc_dec:
+        return defs_bytes(encdec_cache_defs(cfg, batch, seq_len))
+    return defs_bytes([block_cache_defs(cfg, bc, batch, seq_len)
+                       for bc in block_cfgs(cfg)])
+
+
+def page_bytes(cfg: ModelConfig, page_size: int) -> int:
+    """Bytes one page of ``page_size`` rows occupies across every pooled
+    (full-attention) layer: the allocator's granularity (JAX
+    ``page_bytes``)."""
+    return sum(defs_bytes(page_pool_defs(cfg, 1, page_size))
+               for bc in block_cfgs(cfg) if _is_pooled(bc))
 
 
 def make_cache(defs, device) -> dict:

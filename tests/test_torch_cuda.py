@@ -1933,13 +1933,14 @@ def test_grouped_gemm_verify_stride0_prefill_path(dev):
 
 
 SPEC_ARCHS = ["mistral-nemo-12b", "deepseek-v2-236b", "gemma2-2b",
-              "mamba2-130m"]
+              "mamba2-130m", "jamba-v0.1-52b"]
 
 
 @pytest.mark.parametrize("arch", SPEC_ARCHS)
 def test_engine_spec_graphs_match_eager_and_host(dev, arch):
     """f32 smoke speculative engines (mistral with its one-layer draft, the
-    others with an independent mistral smoke draft; spec_k 3): replayed
+    others with an independent mistral smoke draft; spec_k 3; jamba: a
+    Mamba-1 target, its staged states inside the captured quantum): replayed
     graphs (one capture per width) = the eager loop on the card = the host
     engine = the target-only engine, greedy, with equal launch counts; and
     sampled, graphs = eager."""
@@ -2097,3 +2098,62 @@ def test_serve_launcher_internvl2_on_card(dev):
         text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("served 4 requests"), out.stdout
+
+
+# ------------------------------- windowed MLA training; the gathered view
+@pytest.mark.parametrize("window", [64, 200])
+def test_flash_mla_window_fwd_bwd_match_plain(dev, window):
+    """Windowed MLA training's attention: q/k dim 192, v dim 128, 16 heads
+    at G = 1, causal with a window, bf16 head-transposed views. The forward
+    that saves lse (the wgmma route) and the backward (the mma.sync
+    passes at (192, 128)) against their plain versions: o within 3e-2,
+    lse within 1e-2, dq, dk, dv within 3e-2 of the plain version's largest
+    value; the window changes the result."""
+    g = torch.Generator(device=dev).manual_seed(window)
+    B, T, H, dt = 2, 700, 16, torch.bfloat16
+    q, k = (torch.randn((B, T, H, 192), generator=g, device=dev).to(dt)
+            .permute(0, 2, 1, 3) for _ in range(2))
+    v, do = (torch.randn((B, T, H, 128), generator=g, device=dev).to(dt)
+             .permute(0, 2, 1, 3) for _ in range(2))
+    al = flash_ops._aligned(q, k, v, do)
+    assert flash_ops.fwd_route(dt, 192, 128, al) == "wgmma"
+    assert flash_ops.bwd_route(dt, 192, 128, al) == "mma"
+    kw = dict(scale=192 ** -0.5, causal=True, window=window)
+    o, lse = flash_ops.attend_fwd_lse(q, k, v, **kw)
+    wo, wlse = flash_ref.flash_attention_fwd_lse_ref(q, k, v, **kw)
+    assert _rel(o, wo) < TOL[dt]
+    assert float((lse - wlse).abs().max()) < 1e-2
+    full = flash_ops.attend(q, k, v, scale=kw["scale"], causal=True)
+    assert _rel(o, full) > 0.1
+    got = flash_ops.attend_bwd(q, k, v, o, lse, do, **kw)
+    want = flash_ref.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel(a, w) < TOL[dt], (name, _rel(a, w))
+
+
+@pytest.mark.parametrize("arch", ["mistral-nemo-12b", "deepseek-v2-236b"])
+def test_engine_gather_launches_no_paged_kernel(dev, arch):
+    """The gathered-view engine (``paged_kernel=False``), f32 smoke: graphs
+    (one capture, at the full table width) = eager = the host engine = the
+    paged-kernel engine, and neither gathered run launches a paged
+    kernel."""
+    cfg = dataclasses.replace(smoke_config(get_config(arch)),
+                              param_dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    prompts, kw = _graph_workload(cfg)
+    kernel, _, k_launch = _serve_counted(cfg, params, dev, prompts, kw)
+    runs = {where: _serve_counted(cfg, params, device, prompts, kw,
+                                  paged_kernel=False, **extra)
+            for where, device, extra in (("host", "cpu", {}),
+                                         ("eager", dev, dict(graphs=False)),
+                                         ("graphs", dev, {}))}
+    assert runs["graphs"][0] == runs["eager"][0] == runs["host"][0] == kernel
+    g_eng = runs["graphs"][1]
+    assert g_eng.decode_captures == 1
+    assert set(g_eng.widths_used) == {g_eng.pages_per_slot}
+    from repro_torch.serve import graphs
+    names = [f"{mod.__name__}.{name}" for mod, name in graphs.COUNTERS]
+    paged = [i for i, n in enumerate(names) if "paged_attention" in n]
+    assert paged and any(k_launch[i] for i in paged)
+    for where in ("eager", "graphs"):
+        assert not any(runs[where][2][i] for i in paged), runs[where][2]

@@ -77,6 +77,25 @@ def _unstack(tcfg, blocks) -> list:
     return out
 
 
+def jax_params(cfg, tp):
+    """The port's parameter tree as the JAX package's: layers stacked into
+    the scan segments of ``layer_schedule`` (the inverse of
+    ``params_from_numpy``), f32 leaves. Quicker than ``prm.materialize``,
+    which traces each leaf's init (~11 s for jamba smoke)."""
+    def arr(*ts):
+        return jnp.asarray(np.stack([t.numpy() for t in ts]))
+    blocks, i = [], 0
+    for seg in layer_schedule(cfg):
+        n = len(seg.pattern)
+        blocks.append({f"s{j}": tree_map(arr, *[tp["layers"][i + r * n + j]
+                                               for r in range(seg.repeat)])
+                       for j in range(n)})
+        i += n * seg.repeat
+    flat = {k: tree_map(lambda t: jnp.asarray(t.numpy()), tp[k])
+            for k in ("embed", "final_norm", "unembed")}
+    return {**flat, "blocks": blocks}
+
+
 def _close(got, want, tol=ATOL):
     np.testing.assert_allclose(got.detach().float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
@@ -279,18 +298,20 @@ def test_engine_greedy_streams_match_jax(model, auto_ctx, paged,
 
 # ------------------------------------------------------------- refusals
 def test_training_and_spec_decode_are_refused(model, monkeypatch):
-    """Training Mamba-1 and hybrids is accepted now that the selective scan
-    has a backward (held against JAX in ``tests/test_torch_train_hybrid.py``);
-    speculative decode with a Mamba-1 target is still refused (not ported).
-    Without a card the engine needs ``device="cpu"``."""
+    """Training Mamba-1 and hybrids is accepted (held against JAX in
+    ``tests/test_torch_train_hybrid.py``), and so is speculative decode with
+    a Mamba-1 target: the engine takes an independent draft (held against
+    JAX in ``tests/test_torch_spec_mamba1.py``). Still refused:
+    ``draft_from_target`` of a hybrid schedule (as JAX's), and, without a
+    card, every entry point not given ``device="cpu"``."""
     _, tcfg, _, tp = model
     ttr.check_trainable(tcfg)
     draft = dataclasses.replace(tconfigs.smoke_config(tconfigs.get_config(
         "mistral-nemo-12b")), param_dtype="float32")
     assert draft.vocab == tcfg.vocab
-    with pytest.raises(NotImplementedError, match="Mamba-1 target"):
-        teng.Engine(tcfg, tp, device="cpu", draft_cfg=draft, spec_k=2,
-                    **ENGINE_KW)
+    eng = teng.Engine(tcfg, tp, device="cpu", draft_cfg=draft, spec_k=2,
+                      **ENGINE_KW)
+    assert eng.spec and eng.tokens_per_step == 3
     with pytest.raises(ValueError):
         draft_from_target(tcfg, tp, 1)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -277,11 +277,12 @@ def test_engine_admit_writes_only_the_admitted_slots(model):
 
 # --------------------------------------------------------------- refusals
 def test_check_supported_refuses_mamba1_hybrids_and_ffn_blocks():
-    """Serving takes Mamba-1, hybrids and Mamba blocks with an FFN (jamba:
-    ``tests/test_torch_jamba.py``), and so does training now that the
-    selective scan has a backward (``tests/test_torch_train_hybrid.py``);
-    serving and training still refuse, each with its own message, a
-    hybrid's attention layer without an FFN and post-norm Mamba blocks."""
+    """Serving and training take Mamba-1, hybrids and Mamba blocks with an
+    FFN (jamba: ``tests/test_torch_jamba.py``), and now also a hybrid's
+    attention layers without an FFN and post-norm Mamba blocks, Mamba-1 and
+    Mamba-2, with and without an FFN (held against JAX in
+    ``tests/test_torch_variants.py``): the engine builds each. An SSM
+    version other than 1 and 2 is refused, by serving and training alike."""
     t = tconfigs.smoke_config(tconfigs.get_config(ARCH))
     ttr.check_supported(t)
     ttr.check_trainable(t)
@@ -290,18 +291,18 @@ def test_check_supported_refuses_mamba1_hybrids_and_ffn_blocks():
                                  family="hybrid")
     cases = (dict(ssm=dataclasses.replace(t.ssm, version=1)),
              dict(ssm=hybrid.ssm, family="hybrid", d_ff=128),
-             dict(d_ff=128))
+             dict(d_ff=128), dict(ssm=hybrid.ssm, family="hybrid"),
+             dict(use_post_norm=True),
+             dict(use_post_norm=True, d_ff=128,
+                  ssm=dataclasses.replace(t.ssm, version=1)))
     for ok in cases:
         cfg = dataclasses.replace(t, **ok)
         ttr.check_supported(cfg)
         teng.Engine(cfg, init_params(cfg, device="cpu"), device="cpu")
         ttr.check_trainable(cfg)
-    for cfg, msg in ((hybrid, "without an FFN"),
-                     (dataclasses.replace(t, use_post_norm=True),
-                      "post-norm Mamba")):
-        with pytest.raises(NotImplementedError, match=msg):
-            ttr.check_supported(cfg)
-        with pytest.raises(NotImplementedError, match=msg):
-            ttr.check_trainable(cfg)
-        with pytest.raises(NotImplementedError, match=msg):
-            teng.Engine(cfg, None, device="cpu")
+    bad = dataclasses.replace(t, ssm=dataclasses.replace(t.ssm, version=3))
+    for check in (ttr.check_supported, ttr.check_trainable):
+        with pytest.raises(NotImplementedError, match="SSM version 3"):
+            check(bad)
+    with pytest.raises(NotImplementedError, match="SSM version 3"):
+        teng.Engine(bad, None, device="cpu")

@@ -180,13 +180,18 @@ def test_config_and_schedule_match_jax(arch, smoke):
 
 
 def test_check_supported_refuses_what_is_not_ported():
-    """An encoder-decoder (served through whisper_decode_step instead) and
-    a non-gated MoE FFN are refused; a front end is served (as text)."""
+    """An encoder-decoder (served through whisper_decode_step instead) is
+    refused; a front end is served (as text), and so is a non-gated MoE FFN
+    (held against JAX in ``tests/test_torch_variants.py``), whose expert
+    tree has no ``w_gate``."""
     t = tconfigs.smoke_config(tconfigs.get_config(PHI))
-    for bad in (dict(enc_dec=True), dict(act="relu2")):
-        with pytest.raises(NotImplementedError):
-            ttr.check_supported(dataclasses.replace(t, **bad))
+    with pytest.raises(NotImplementedError, match="whisper_decode_step"):
+        ttr.check_supported(dataclasses.replace(t, enc_dec=True))
     ttr.check_supported(dataclasses.replace(t, frontend="vision"))
+    relu2 = dataclasses.replace(t, act="relu2")
+    ttr.check_supported(relu2)
+    assert n_params(relu2) == prm.n_params(model_defs(dataclasses.replace(
+        smoke_config(all_configs()[PHI]), act="relu2")))
 
 
 # ------------------------------------------------- phi3.5-moe through serve

@@ -178,12 +178,13 @@ def test_microbatches_accumulate_the_same_update():
 
 
 def test_check_trainable_refuses_what_is_not_ported():
-    """The port trains every family it serves (GQA, MLA, gated MoE with
-    shared experts and dense first layers, Mamba-2, and since the selective
-    scan has a backward Mamba-1, hybrids, enc-dec and front ends, each
-    accepted by ``check_trainable`` and ``make_train_step``); it refuses,
-    each with its own message, sliding-window MLA and MoE with a non-gated
-    FFN."""
+    """The port trains every family it lays out (GQA, MLA, MoE gated or not
+    with shared experts and dense first layers, Mamba-2, Mamba-1, hybrids,
+    enc-dec and front ends, each accepted by ``check_trainable`` and
+    ``make_train_step``), sliding-window MLA among them, which serving
+    refuses, naming the JAX reference's fault (held against JAX in
+    ``tests/test_torch_variants.py``). Refused, each with its own message:
+    an SSM version other than 1 and 2, and an activation not ported."""
     _, tcfg = _cfgs("float32")
     ttr.check_trainable(dataclasses.replace(tcfg, sliding_window=16))
     for arch in ("deepseek-v2-236b", "phi3.5-moe-42b-a6.6b", "mamba2-130m",
@@ -194,18 +195,23 @@ def test_check_trainable_refuses_what_is_not_ported():
     ssm = tconfigs.smoke_config(tconfigs.get_config("mamba2-130m"))
     mla = tconfigs.smoke_config(tconfigs.get_config("deepseek-v2-236b"))
     moe = tconfigs.smoke_config(tconfigs.get_config("phi3.5-moe-42b-a6.6b"))
+    windowed = dataclasses.replace(mla, sliding_window=16)
     for cfg in (dataclasses.replace(ssm, ssm=dataclasses.replace(
                     ssm.ssm, version=1)),
                 dataclasses.replace(ssm, family="hybrid", d_ff=128,
                                     ssm=dataclasses.replace(
                                         ssm.ssm, attn_period=2)),
                 dataclasses.replace(tcfg, frontend="vision",
-                                    frontend_tokens=4, frontend_dim=32)):
+                                    frontend_tokens=4, frontend_dim=32),
+                windowed, dataclasses.replace(moe, act="relu2")):
         ttr.check_trainable(cfg)
         make_train_step(cfg, OptConfig())
+    with pytest.raises(NotImplementedError, match="trained but not served"):
+        ttr.check_supported(windowed)
     for cfg, msg in (
-            (dataclasses.replace(mla, sliding_window=16), "sliding-window MLA"),
-            (dataclasses.replace(moe, act="relu2"), "MoE with a non-gated")):
+            (dataclasses.replace(ssm, ssm=dataclasses.replace(
+                ssm.ssm, version=3)), "SSM version 3"),
+            (dataclasses.replace(moe, act="silu"), "activation 'silu'")):
         with pytest.raises(NotImplementedError, match=msg):
             ttr.check_trainable(cfg)
         with pytest.raises(NotImplementedError, match=msg):
