@@ -28,8 +28,10 @@
    each shape's plan, with the Table 2 sweep of bn, the SSD intra-chunk at
    mamba2-130m's shapes, the Mamba-1 selective scan at jamba's prefill
    shapes (B 1 and 8, S 2000, C 8192, N 16, a nonzero h0; its training
-   instance, which also saves the state entering each 32-step tile, bit
-   for bit the same), the scan's backward at jamba's training layer (B 2,
+   instance, which also saves the state entering each 16-step tile, bit
+   for bit the same; every scan instance unspilled and copying by
+   cp.async; its bound the largest of bytes, f32 operations and exps on
+   the special-function units), the scan's backward at jamba's training layer (B 2,
    S 2048, C 8192, N 16, nonzero h0 and dh_last) against the plain reverse
    recurrence and against autograd through the plain forward; the flash
    forward, the bf16 grouped GEMM, the SSD kernel and the selective scan
@@ -214,6 +216,7 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -1948,34 +1951,77 @@ def ssd_phase(dev) -> dict:
 # jamba-v0.1-52b's prefill scan (B rows, S steps, C = d_inner, N = d_state):
 # one exact-length row of the workload's longest prompt, and eight
 SCAN_SHAPES = ((1, 2000, 8192, 16), (8, 2000, 8192, 16))
+# exps an SM retires a clock on its special-function units (compute
+# capability 9.0; CUDA C Programming Guide, arithmetic instruction
+# throughput: exp2, log2, reciprocal, sine and cosine)
+SFU_PER_CLOCK = 16
 
 
-def scan_work(B: int, S: int, C: int, N: int) -> dict:
-    """What one call must move and compute: x, dt and y at 4 B per (t, c),
-    Bm and Cm at 4 B per (t, n), A, h0 and h_last once; per (t, c, n) dt·A,
-    its exp, the decay's FMA, (dt·x)·B and y's FMA (7 f32 operations), per
-    (t, c) dt·x."""
+def scan_work(B: int, S: int, C: int, N: int, save: bool = False) -> dict:
+    """What one forward call must move and compute: x, dt and y at 4 B per
+    (t, c), Bm and Cm at 4 B per (t, n), A, h0 and h_last once, and with
+    ``save`` the state entering each checkpoint interval (``ops.TS``
+    steps); per (t, c, n) dt·A, the decay's FMA, (dt·x)·B and y's FMA (6
+    f32 operations) and one exp, per (t, c) dt·x."""
+    from repro_torch.kernels.selective_scan import ops
+    K = -(-S // ops.TS) if save else 0
     return {"bytes": 4 * (3 * B * S * C + 2 * B * S * N + C * N
-                          + 2 * B * C * N),
-            "ops": B * S * C * (7 * N + 1)}
+                          + (2 + K) * B * C * N),
+            "ops": B * S * C * (6 * N + 1), "exps": B * S * C * N}
 
 
 def scan_bwd_work(B: int, S: int, C: int, N: int) -> dict:
     """What one backward call must move and compute. Bytes: x, dt, dy read
     and dx, ddt written at 4 B per (t, c); Bm, Cm read and dB, dC written
-    at 4 B per (t, n); the saved states hs (one (C, N) state per 32 steps),
-    dh_last read and dh0 written per (c, n) and row; A read and dA written
-    once. Operations per (t, c, n), f32: the recompute of the state (dt·A,
-    its exp, (dt·x)·B, the decay's FMA: 5) and the reverse step (dt·A and
-    its exp again, g += C·dy, h·dy, (dt·x)·g, Σ B·g, a·h_{t-1}·g, dA's FMA,
-    Σ A·w, g·a: 15), and the sums of dB and dC over the channels (2): 22;
-    per (t, c) dx, ddt and dt·x (4). The two exps a (t, c, n) run on the
-    special-function units, which the f32 rate does not count apart."""
-    K = -(-S // 32)
+    at 4 B per (t, n); the saved states hs (one (C, N) state per ``ops.TS``
+    steps), dh_last read and dh0 written per (c, n) and row; A read and dA
+    written once. Per (t, c, n): the recompute of the state (dt·A, (dt·x)·B,
+    the decay's FMA: 3 f32 operations) and its exp, kept for the reverse
+    step (g += C·dy, h·dy, (dt·x)·g, Σ B·g, a·h_{t-1}·g, dA's FMA, Σ A·w,
+    g·a: 9), and the sums of dB and dC over the channels (2): 14 operations
+    and one exp; per (t, c) dx, ddt and dt·x (4). The kernel takes one exp
+    a (t, c, n) where its sub-tile is the whole interval (N up to 16);
+    above, it recomputes sub-tiles' entering states, which this count
+    leaves out."""
+    from repro_torch.kernels.selective_scan import ops
+    K = -(-S // ops.TS)
     return {"bytes": 4 * (5 * B * S * C + 4 * B * S * N + B * K * C * N
                           + 2 * B * C * N + 2 * C * N),
-            "ops": B * S * C * (22 * N + 4),
-            "exps": 2 * B * S * C * N}
+            "ops": B * S * C * (14 * N + 4), "exps": B * S * C * N}
+
+
+@functools.cache
+def max_sm_clock_mhz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi --query-gpu=
+    clocks.max.sm`` gives it (read once)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0])
+
+
+def scan_bound(w: dict) -> tuple[float, str, str]:
+    """The least time of a scan call's work ``w``: the largest of its bytes
+    at 3.35 TB/s, its f32 operations at 67 TFLOP/s and its exps at
+    ``SFU_PER_CLOCK`` a clock on every SM at the maximum SM clock → (ms,
+    "bytes" or "operations" as the kernels line says it, and which of
+    bytes, f32 operations or exps set it)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t = {"bytes": w["bytes"] / HBM_BYTES_PER_S,
+         "f32 operations": w["ops"] / PEAK_OPS_PER_S[torch.float32],
+         "exps": w["exps"] / (SFU_PER_CLOCK * sms * max_sm_clock_mhz()
+                              * 1e6)}
+    by = max(t, key=t.get)
+    return 1e3 * t[by], "bytes" if by == "bytes" else "operations", by
+
+
+def scan_bound_text(w: dict) -> str:
+    """The printed reading of :func:`scan_bound`."""
+    ms, _, by = scan_bound(w)
+    return (f"bound {ms:.4f} ms (set by {by}: {w['bytes'] / 1e6:.1f} MB, "
+            f"{w['ops'] / 1e9:.2f} GFLOP f32, {w['exps'] / 1e9:.3f} G exp "
+            f"at {SFU_PER_CLOCK} a clock an SM, max SM clock "
+            f"{max_sm_clock_mhz():.0f} MHz)")
 
 
 def selective_scan_phase(dev) -> dict:
@@ -1985,11 +2031,13 @@ def selective_scan_phase(dev) -> dict:
     walks the steps in order, the plain version combines them by a
     log-step scan within JAX's chunks of 256), two calls bit-equal, one
     launch a call; the training forward (the instance that also saves the
-    state entering each 32-step tile) gives the same y and h_last bit for
-    bit, h0 as its first state and the rest within 1e-4 of the plain
-    version's tile states; event ms of kernel and plain version beside
-    the bound (bytes at 3.35 TB/s, operations at the f32 rate). No PyTorch
-    call computes a selective scan: library none."""
+    state entering each ``ops.TS``-step tile) gives the same y and h_last
+    bit for bit, h0 as its first state and the rest within 1e-4 of the
+    plain version's tile states; every instance built without spills and
+    bringing its inputs in by cp.async; event ms of kernel and plain
+    version beside the bound (:func:`scan_bound`: bytes at 3.35 TB/s, f32
+    operations at 67 TFLOP/s, exps on the special-function units). No
+    PyTorch call computes a selective scan: library none."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.selective_scan import ops, ref
     regs = _build.ptxas_stats("selective_scan")
@@ -2001,6 +2049,12 @@ def selective_scan_phase(dev) -> dict:
           f"selective_scan: 8 forward instances (N = 8..64) each for "
           f"serving and for training, 8 backward instances and the sum of "
           f"the partials, no spills (ptxas {regs})")
+    copies = {k: c.get("LDGSTS", 0)
+              for k, c in _build.sass_counts("selective_scan").items()
+              if k.startswith("selective_scan")}
+    check(len(copies) == 24 and all(copies.values()),
+          f"selective_scan: every forward and backward instance brings its "
+          f"inputs in by cp.async (LDGSTS lines in the SASS: {copies})")
     err, shapes = 0.0, []
     for B, S, C, N in SCAN_SHAPES:
         g = torch.Generator(device=dev).manual_seed(B)
@@ -2039,11 +2093,11 @@ def selective_scan_phase(dev) -> dict:
         ms = time_ms(lambda: ops.selective_scan(*args, 256), 10)
         plain = time_ms(lambda: ref.selective_scan_ref(*args, 256), 2, 1)
         w = scan_work(B, S, C, N)
-        b_ms, b_by = bound_ms(w["bytes"], w["ops"], torch.float32)
+        b_ms, b_by, _ = scan_bound(w)
         print(f"selective scan B={B} S={S} C={C} N={N}: kernel {ms:.4f} ms "
               f"({w['bytes'] / ms / 1e6:.1f} GB/s), plain {plain:.4f} ms, "
-              f"bound {b_ms:.4f} ms ({b_by}: {w['bytes'] / 1e6:.1f} MB, "
-              f"{w['ops'] / 1e9:.2f} GFLOP f32), library none")
+              f"{scan_bound_text(w)}, kernel/bound {ms / b_ms:.1f}x; "
+              f"library none")
         shapes.append({"B": B, "S": S, "C": C, "N": N, "ms": ms,
                        "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                        "max_abs_err": e_abs, "rel_err": e, "bit_equal": same})
@@ -2146,16 +2200,18 @@ def scan_backward_phase(dev) -> dict:
     fwd = time_ms(lambda: ops.scan_forward(*ins, 256), 10)
     fwd_save = time_ms(lambda: ops.scan_forward(*ins, 256, save=True), 10)
     w = scan_bwd_work(B, S, C, N)
-    b_ms, b_by = bound_ms(w["bytes"], w["ops"], torch.float32)
+    b_ms, b_by, _ = scan_bound(w)
+    w_save = scan_work(B, S, C, N, save=True)
+    save_bound = scan_bound(w_save)[0]
     device_ms = {k: v[0] for k, v in by_name.items()}
     print(f"selective scan backward B={B} S={S} C={C} N={N}: kernel {ms:.4f}"
           f" ms ({w['bytes'] / ms / 1e6:.1f} GB/s; device ms "
           f"{ {k: round(v, 4) for k, v in device_ms.items()} }), plain "
-          f"{plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
-          f"{w['bytes'] / 1e6:.1f} MB, {w['ops'] / 1e9:.2f} GFLOP f32, of "
-          f"them {w['exps'] / 1e9:.2f} G exp), kernel/bound "
+          f"{plain:.4f} ms, {scan_bound_text(w)}, kernel/bound "
           f"{ms / b_ms:.1f}x; forward {fwd:.4f} ms serving, {fwd_save:.4f} "
-          "ms saving the tile states; library none")
+          f"ms saving the tile states (every {ops.TS} steps; "
+          f"{scan_bound_text(w_save)}, kernel/bound "
+          f"{fwd_save / save_bound:.1f}x); library none")
     del x, dt, A, ins, dy, dh, hs, got
     torch.cuda.empty_cache()
     return {"name": "selective_scan_bwd", "route": "cuda",
@@ -2168,7 +2224,8 @@ def scan_backward_phase(dev) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "scan_bwd": {"err_ref": e_ref, "err_autograd": e_auto,
                          "bit_equal": bit, "device_ms": device_ms,
-                         "fwd_ms": fwd, "fwd_save_ms": fwd_save},
+                         "fwd_ms": fwd, "fwd_save_ms": fwd_save,
+                         "fwd_save_bound_ms": save_bound},
             "check": f"dx, ddt, dA, dB, dC, dh0 against "
                      f"selective_scan_bwd_ref on the kernel's saved states "
                      f"(tol 1e-4) and autograd through selective_scan_ref "

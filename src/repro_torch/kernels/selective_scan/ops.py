@@ -6,15 +6,18 @@ On CUDA tensors it launches hand-written kernels
 ``ref.py`` run only for tensors on the CPU. No TPU kernel computes this:
 JAX runs it as an ``associative_scan`` inside a ``lax.scan`` over chunks
 (``repro/models/mamba.py::mamba1_mixer``) and differentiates that. The
-forward kernel keeps the state in registers and walks the steps in order,
-so ``chunk`` (the plain version's chunking, JAX's) does not change what it
-computes. When an input wants a gradient, :func:`selective_scan` runs
+forward kernel keeps each channel's state in the registers of
+``flanes(N)`` lanes and walks the steps in order, one ``ex2`` a state entry and step,
+its inputs brought in by a ring of ``cp.async`` tiles; ``chunk`` (the
+plain version's chunking, JAX's) does not change what it computes. When
+an input wants a gradient, :func:`selective_scan` runs
 :class:`SelectiveScan`: the forward also saves the state entering each
 tile of ``TS`` steps, and the backward kernel walks the tiles from last to
-first, recomputing each tile's states from the saved one. ``launches``
-counts forward launches, ``bwd_launches`` backward calls (each the reverse
-walk and the sum of its partials); a CUDA graph replay adds what its
-capture recorded (``serve/graphs.py``).
+first, recomputing each tile's states and decays from the saved state by
+the forward's code and keeping them in registers for the reverse walk.
+``launches`` counts forward launches, ``bwd_launches`` backward calls
+(each the reverse walk and the sum of its partials); a CUDA graph replay
+adds what its capture recorded (``serve/graphs.py``).
 """
 from __future__ import annotations
 
@@ -28,11 +31,50 @@ from repro_torch.kernels.selective_scan import ref
 launches = 0
 bwd_launches = 0
 
-# csrc/selective_scan.cu: lanes of one channel, each holding N / LANES
-# entries of its state; the widest state it takes; channels of a block (the
-# backward writes one dB and dC partial per block); steps of a tile (the
-# forward saves the state entering each)
-LANES, N_MAX, CPB, TS = 8, 64, 32, ref.TILE
+# csrc/selective_scan.cu: N is a multiple of NMUL up to N_MAX; steps of a
+# tile (the forward saves the state entering each); the forward's threads
+# of a block and tiles in flight; the backward's lanes of a pair of
+# channels, channels of a block (it writes one dB and dC partial per
+# block) and intervals' inputs in shared memory
+NMUL, N_MAX, TS = 8, 64, ref.TILE
+FTHREADS, FSTAGES = 128, 4
+BLANES, BCPB, BBUF = 8, 64, 3
+SMEM_LIMIT = 232448        # bytes of shared memory a block may use (H100)
+
+
+def flanes(N: int) -> int:
+    """The forward's lanes of one channel at state width N, each holding
+    N / flanes(N) entries (csrc ``flanes``)."""
+    return 2 if N <= 32 else 4
+
+
+def fcpb(N: int) -> int:
+    """The forward's channels of a block at state width N."""
+    return FTHREADS // flanes(N)
+
+
+def fwd_smem_bytes(N: int) -> int:
+    """The forward's dynamic shared memory at state width N: its ring of
+    x, dt, B and C tiles and two y tiles (csrc ``fwd_smem_bytes``)."""
+    return 4 * (FSTAGES * (2 * TS * fcpb(N) + 2 * TS * N) + 2 * TS * fcpb(N))
+
+
+def sub_steps(entries: int) -> int:
+    """Steps whose states and decays a backward lane holding ``entries``
+    state entries keeps in registers (csrc ``sub_steps``): the whole
+    interval up to 4 entries, then a half, a quarter, an eighth."""
+    return TS if entries <= 4 else TS // 2 if entries <= 6 else \
+        TS // 4 if entries <= 10 else TS // 8
+
+
+def bwd_smem_bytes(N: int) -> int:
+    """The backward's dynamic shared memory at state width N: ``BBUF``
+    buffers of an interval's inputs and saved states, two each of its dx
+    and ddt and of a sub-tile's dB and dC terms, a pair of channels a row
+    (csrc ``bwd_smem_bytes``)."""
+    inputs = 3 * TS * BCPB + 2 * TS * N + BCPB * N
+    return 4 * (BBUF * inputs + 4 * TS * BCPB +
+                2 * sub_steps(2 * N // BLANES) * BCPB * N)
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 
@@ -63,9 +105,15 @@ def _check(x, dt, A, Bm, Cm, h0) -> None:
                          "device")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the selective scan's operands must be contiguous")
-    if N % LANES or not LANES <= N <= N_MAX:
+    if N % NMUL or not NMUL <= N <= N_MAX:
         raise ValueError(f"the selective scan kernel takes a state of a "
-                         f"multiple of {LANES} up to {N_MAX}, not {N}")
+                         f"multiple of {NMUL} up to {N_MAX}, not {N}")
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    kernels' vector loads and cp.async copies want it)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _on_card(x) -> bool:
@@ -85,6 +133,7 @@ def scan_forward(x, dt, A, Bm, Cm, h0, chunk: int, save: bool = False):
         return ref.selective_scan_ref(x, dt, A, Bm, Cm, h0, chunk,
                                       tile=TS if save else 0)
     _check(x, dt, A, Bm, Cm, h0)
+    x, dt, A, Bm, Cm, h0 = map(_aligned, (x, dt, A, Bm, Cm, h0))
     B, S, C = x.shape
     N = A.shape[-1]
     y = torch.empty_like(x)
@@ -127,6 +176,8 @@ def selective_scan_bwd(x, dt, A, Bm, Cm, hs, dy, dh_last):
     if dy.shape != x.shape or dy.dtype != torch.float32 or \
             dy.device != x.device:
         raise ValueError(f"dy must be f32 {tuple(x.shape)} on {x.device}")
+    x, dt, A, Bm, Cm, hs, dy, dh_last = map(_aligned, (
+        x, dt, A, Bm, Cm, hs, dy, dh_last))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
     dA = torch.empty((C, N), **f32)
@@ -134,7 +185,7 @@ def selective_scan_bwd(x, dt, A, Bm, Cm, hs, dy, dh_last):
     dh0 = torch.empty((B, C, N), **f32)
     if x.numel() == 0:
         return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_(), dh0.copy_(dh_last)
-    ncb = -(-C // CPB)
+    ncb = -(-C // BCPB)
     dA_part = torch.empty((B, C, N), **f32)
     dB_part = torch.empty((B, ncb, S, N), **f32)
     dC_part = torch.empty((B, ncb, S, N), **f32)

@@ -9,10 +9,11 @@ The tail is padded to a whole chunk as JAX pads it: zero x and dt give
 decay exp(0) = 1 and input 0, exact no-op steps.
 
 The backward (``selective_scan_bwd_ref``, the CPU path of
-``ops.SelectiveScan``) is the kernel's reverse recurrence over the states
+``ops.SelectiveScan``) is the kernels' reverse recurrence over the states
 saved every ``TILE`` steps: each tile, last to first, recomputes its
-states from the saved one and walks its steps in reverse. Autograd
-through ``selective_scan_ref`` is the independent oracle of both.
+states and decays from the saved state and walks its steps in reverse
+with those decays, as the backward kernel does. Autograd through
+``selective_scan_ref`` is the independent oracle of both.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 F32 = torch.float32
-TILE = 32          # steps between the states the forward saves (csrc TS)
+TILE = 16          # steps between the states the forward saves (csrc TS)
 
 
 def _work_dtype(x) -> torch.dtype:

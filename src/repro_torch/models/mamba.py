@@ -14,8 +14,8 @@ plain torch around it, as in JAX. Single-token decode (``mamba2_step``,
 ``mamba_mixer``, ``mamba_step`` and ``mamba_state_defs`` dispatch by
 ``cfg.ssm.version``. Mamba-1 trains through the scan's autograd
 function (``selective_scan.ops.SelectiveScan``: the forward saves a state
-every 32 steps, a hand-written backward walks them in reverse); the conv,
-softplus, D skip and gate stay plain torch under autograd.
+every ``ops.TS`` steps, a hand-written backward walks them in reverse);
+the conv, softplus, D skip and gate stay plain torch under autograd.
 """
 from __future__ import annotations
 

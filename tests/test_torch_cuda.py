@@ -1062,11 +1062,15 @@ def _scan_case(dev, B, S, C, N, seed=0):
 
 @pytest.mark.parametrize("B,S,C,N", [(1, 37, 40, 16), (2, 100, 256, 8),
                                      (3, 65, 70, 24), (8, 300, 128, 64),
-                                     (1, 1, 33, 16), (2, 2000, 512, 16)])
+                                     (1, 1, 33, 16), (2, 2000, 512, 16),
+                                     (1, 7, 32, 16), (2, 17, 96, 32),
+                                     (8, 53, 100, 16), (1, 16, 64, 40),
+                                     (3, 48, 36, 48), (1, 33, 4, 56)])
 def test_selective_scan_kernel_matches_plain(dev, B, S, C, N):
-    """S off the kernel's 32-step tile, C off its 32-channel blocks, N from
-    8 to 64 (1 to 8 state entries a lane), a nonzero h0; one launch a
-    call."""
+    """S of one step, below one 16-step tile, just past one and several
+    off the boundary; C off the forward's 32-channel blocks and not a
+    multiple of 4 (4-byte copies); N from 8 to 64 (2 to 16 state entries a
+    lane); B up to 8; a nonzero h0; one launch a call."""
     ins = _scan_case(dev, B, S, C, N, seed=S + N)
     n0 = scan_ops.launches
     y, h = scan_ops.selective_scan(*ins, 256)
@@ -1084,6 +1088,32 @@ def test_selective_scan_kernel_bit_equal_calls(dev):
     y1, h1 = scan_ops.selective_scan(*ins, 256)
     y2, h2 = scan_ops.selective_scan(*ins, 256)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+def test_selective_scan_unaligned_operands(dev):
+    """Operands whose data is not 16-byte aligned (a contiguous view one
+    float into its storage) give what aligned copies of them give, forward
+    and backward."""
+    B, S, C, N = 2, 40, 64, 16
+    ins = _scan_case(dev, B, S, C, N, seed=9)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=dev)
+        v = flat[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 != 0 and v.is_contiguous()
+        return v
+
+    y, h, hs = scan_ops.scan_forward(*ins, 256, save=True)
+    y2, h2, hs2 = scan_ops.scan_forward(*map(shifted, ins), 256, save=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2) and torch.equal(hs, hs2)
+    g = torch.Generator(device=dev).manual_seed(3)
+    dy = torch.randn((B, S, C), generator=g, device=dev)
+    dh = torch.randn((B, C, N), generator=g, device=dev)
+    got = scan_ops.selective_scan_bwd(*ins[:5], hs, dy, dh)
+    again = scan_ops.selective_scan_bwd(*map(shifted, (*ins[:5], hs, dy, dh)))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 def test_selective_scan_raises_instead_of_falling_back(dev):
@@ -1106,14 +1136,18 @@ def test_selective_scan_raises_instead_of_falling_back(dev):
 
 
 SCAN_BWD_SHAPES = [(2, 77, 100, 16), (1, 300, 256, 16), (3, 65, 70, 24),
-                   (2, 130, 96, 32), (1, 70, 40, 64), (1, 1, 33, 8)]
+                   (2, 130, 96, 32), (1, 70, 40, 64), (1, 1, 33, 8),
+                   (1, 7, 64, 16), (2, 17, 130, 16), (8, 53, 64, 16),
+                   (1, 40, 72, 40), (2, 33, 128, 48), (1, 20, 36, 56)]
 
 
 @pytest.mark.parametrize("B,S,C,N", SCAN_BWD_SHAPES)
 def test_selective_scan_backward_matches_both_plain_versions(dev, B, S, C,
                                                             N):
-    """``SelectiveScan`` on the card, with a nonzero h0 and dh_last, S off
-    the 32-step tile, C off the 32-channel block and N from 8 to 64: the
+    """``SelectiveScan`` on the card, with a nonzero h0 and dh_last, S of
+    one step, below one 16-step interval, just past one and several off the
+    boundary, C off the 64-channel block (and not a multiple of 4), N from
+    8 to 64 (every sub-tile length) and B up to 8: the
     forward that saves the tile states gives the serving forward's y and
     h_last bit for bit (one launch), the backward (one call: the reverse
     walk and the sums of its partials) gives dx, ddt, dA, dB, dC and dh0
@@ -1134,7 +1168,7 @@ def test_selective_scan_backward_matches_both_plain_versions(dev, B, S, C,
     got = torch.autograd.grad((y, h), leaves, (dy, dh))
     assert scan_ops.bwd_launches == b0 + 1
     _, _, hs = scan_ops.scan_forward(*ins, 256, save=True)
-    assert hs.shape == (B, -(-S // 32), C, N)
+    assert hs.shape == (B, -(-S // scan_ops.TS), C, N)
     again = scan_ops.selective_scan_bwd(*ins[:5], hs, dy, dh)
     want = scan_ref.selective_scan_bwd_ref(*ins[:5], hs, dy, dh)
     oracle_in = [t.clone().requires_grad_() for t in ins]

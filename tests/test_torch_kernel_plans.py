@@ -12,6 +12,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.grouped_gemm import ops as gg_ops
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.kernels.selective_scan import ops as scan_ops
+from repro_torch.kernels.selective_scan import ref as scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 
 CSRC = Path(flash_ops.__file__).resolve().parents[1] / "csrc"
@@ -376,6 +378,51 @@ def test_paged_tiles_match_source():
     # a GQA split holds whole tiles of every warp, an MLA split whole tiles
     assert paged_ops.SPLIT_UNIT % (paged_ops.GQ_WARPS * paged_ops.GQ_TILE) \
         == 0 and paged_ops.SPLIT_UNIT % paged_ops.ML_KT == 0
+
+
+# -------------------------------------------------- Mamba-1 selective scan
+def test_scan_constants_match_source():
+    """ops.py's scan constants are the ``constexpr``s selective_scan.cu
+    compiles with: the state widths it takes, the tile (the checkpoint
+    interval, ``ref.TILE``), the forward's lanes, channels and ring and the
+    backward's lanes (of a pair of channels) and channels (one dB and dC
+    partial a block); the forward's lanes a channel by state width."""
+    src = "selective_scan.cu"
+    assert (scan_ops.NMUL, scan_ops.N_MAX, scan_ops.TS, scan_ops.FTHREADS,
+            scan_ops.FSTAGES, scan_ops.BLANES, scan_ops.BBUF) == tuple(
+        _constexpr(src, n) for n in ("NMUL", "N_MAX", "TS", "FTHREADS",
+                                     "FSTAGES", "BLANES", "BBUF"))
+    assert scan_ops.TS == scan_ref.TILE
+    lanes = _asserted(src, r"flanes\(\d+\)")
+    assert len(lanes) == 2
+    for label, n in lanes.items():
+        assert scan_ops.flanes(int(label[7:-1])) == n, label
+    for N in range(scan_ops.NMUL, scan_ops.N_MAX + 1, scan_ops.NMUL):
+        assert N % scan_ops.flanes(N) == 0 and \
+            scan_ops.fcpb(N) * scan_ops.flanes(N) == scan_ops.FTHREADS
+    # the backward's lanes hold two channels each
+    assert scan_ops.BCPB == 2 * _constexpr(src, "BTHREADS") // scan_ops.BLANES
+    assert scan_ops.SMEM_LIMIT == LIMIT
+
+
+def test_scan_smem_law():
+    """Every instance (N = 8 .. 64) fits the shared memory a block may use,
+    and ops.py's laws give the bytes selective_scan.cu asserts. At jamba's
+    N 16 the backward keeps the whole 16-step interval's states and decays
+    in registers (one exp a state entry and step); a lane never holds more
+    than 136 of them."""
+    for N in range(scan_ops.NMUL, scan_ops.N_MAX + 1, scan_ops.NMUL):
+        assert 0 < scan_ops.fwd_smem_bytes(N) <= LIMIT, N
+        assert 0 < scan_ops.bwd_smem_bytes(N) <= LIMIT, N
+        entries = 2 * N // scan_ops.BLANES     # a lane: two channels
+        sub = scan_ops.sub_steps(entries)
+        assert scan_ops.TS % sub == 0 and (2 * sub + 1) * entries <= 136, N
+    found = _asserted("selective_scan.cu", r"(?:fwd|bwd)_smem_bytes\(\d+\)")
+    assert len(found) == 4
+    for label, n in found.items():
+        kind, N = re.match(r"(\w+)\((\d+)\)", label).groups()
+        assert getattr(scan_ops, kind)(int(N)) == n, label
+    assert scan_ops.sub_steps(2 * 16 // scan_ops.BLANES) == scan_ops.TS
 
 
 # --------------------------------------------------------- SSD intra-chunk

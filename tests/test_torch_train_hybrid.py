@@ -5,7 +5,7 @@ FFNs on the even ones) — the loss, ``moe_aux`` and every gradient leaf
 against ``jax.value_and_grad(loss_fn)``, and three train steps against
 ``jax.jit(make_train_step)`` on a state built by hand — and the selective
 scan's backward: ``selective_scan_bwd_ref`` (the reverse recurrence over
-the states saved every 32 steps, the CPU path of ``SelectiveScan``)
+the states saved every ``TILE`` steps, the CPU path of ``SelectiveScan``)
 against autograd through ``selective_scan_ref``. The JAX side runs on a
 1×1 mesh with Auto axes: on the default Explicit-axis mesh jamba's
 gradient raises a ``ShardingTypeError`` (the MoE class of
@@ -109,37 +109,62 @@ def _scan_inputs(B, S, C, N, dtype, seed=0):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
                                        (torch.float32, 1e-4)])
-@pytest.mark.parametrize("S,chunk", [(77, 32), (100, 48), (5, 32)])
-def test_scan_bwd_ref_matches_autograd(S, chunk, dtype, tol):
+@pytest.mark.parametrize("S,chunk,tile", [
+    pytest.param(77, 32, 32, id="77-32"), pytest.param(100, 48, 32,
+                                                       id="100-48"),
+    pytest.param(5, 32, 32, id="5-32"),
+    # the kernels' checkpoint interval: S short of one, just past one and
+    # several off the boundary
+    pytest.param(77, 32, scan_ref.TILE, id="77-32-kernel-tile"),
+    pytest.param(100, 48, scan_ref.TILE, id="100-48-kernel-tile"),
+    pytest.param(5, 32, scan_ref.TILE, id="5-32-kernel-tile"),
+    pytest.param(17, 32, scan_ref.TILE, id="17-32-kernel-tile")])
+def test_scan_bwd_ref_matches_autograd(S, chunk, tile, dtype, tol):
     """dx, ddt, dA, dB, dC and dh0 from the reverse recurrence over the
     saved tile states against autograd through the chunked log-step
     forward, with a nonzero h0 and dh_last, at S not a multiple of the tile
-    (32) or the chunk; each within ``tol`` of its largest value (f64: the
-    two orders of the same sums; f32: their round-off over ~100 steps)."""
+    (32, or the kernels' ``TILE``) or the chunk; each within ``tol`` of its
+    largest value (f64: the two orders of the same sums; f32: their
+    round-off over ~100 steps)."""
     ins, dy, dh = _scan_inputs(2, S, 24, 16, dtype)
     leaves = [t.clone().requires_grad_() for t in ins]
     y, h = scan_ref.selective_scan_ref(*leaves, chunk)
     want = torch.autograd.grad((y, h), leaves, (dy, dh))
-    y2, h2, hs = scan_ref.selective_scan_ref(*ins, chunk, tile=scan_ref.TILE)
+    y2, h2, hs = scan_ref.selective_scan_ref(*ins, chunk, tile=tile)
     assert torch.equal(y2, y.detach()) and torch.equal(h2, h.detach())
-    assert hs.shape == (2, -(-S // 32), 24, 16) and hs.dtype == dtype
-    got = scan_ref.selective_scan_bwd_ref(*ins[:5], hs, dy, dh)
+    assert hs.shape == (2, -(-S // tile), 24, 16) and hs.dtype == dtype
+    got = scan_ref.selective_scan_bwd_ref(*ins[:5], hs, dy, dh, tile=tile)
     for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dh0"), got, want):
         assert g.shape == w.shape and g.dtype == dtype, name
         assert _rel(g, w) < tol, (name, _rel(g, w))
 
 
+def _tile_states_are_the_recurrence(tile: int, chunk: int = 48):
+    ins, _, _ = _scan_inputs(2, 70, 16, 8, torch.float64, seed=3)
+    x, dt, A, Bm, Cm, h = ins
+    _, _, hs = scan_ref.selective_scan_ref(*ins, chunk, tile=tile)
+    assert hs.shape[1] == -(-70 // tile)
+    for t in range(70):
+        if t % tile == 0:
+            assert torch.allclose(hs[:, t // tile], h, rtol=0,
+                                  atol=1e-12), t
+        h = torch.exp(dt[:, t, :, None] * A) * h + \
+            (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+
+
 def test_scan_tile_states_are_the_recurrence():
     """The saved states are the state entering each tile of 32 steps (h0
     first), as the step-by-step recurrence gives them (f64)."""
-    ins, _, _ = _scan_inputs(2, 70, 16, 8, torch.float64, seed=3)
-    x, dt, A, Bm, Cm, h = ins
-    _, _, hs = scan_ref.selective_scan_ref(*ins, 48, tile=32)
-    for t in range(70):
-        if t % 32 == 0:
-            assert torch.allclose(hs[:, t // 32], h, rtol=0, atol=1e-12), t
-        h = torch.exp(dt[:, t, :, None] * A) * h + \
-            (dt[:, t] * x[:, t])[..., None] * Bm[:, t, None, :]
+    _tile_states_are_the_recurrence(32)
+
+
+@pytest.mark.parametrize("tile,chunk", [(scan_ref.TILE, 48),
+                                        (scan_ref.TILE, 7), (64, 48)])
+def test_scan_tile_states_are_the_recurrence_at(tile, chunk):
+    """The same at the kernels' checkpoint interval (``TILE``, one a
+    kernel tile), with chunks of JAX's scan that do not line up with it,
+    and at 64."""
+    _tile_states_are_the_recurrence(tile, chunk)
 
 
 def test_selective_scan_trains_through_its_autograd_function():
