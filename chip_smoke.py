@@ -102,7 +102,17 @@
    scaled by 0.05 so that rounds emit more than one token. The paged
    kernels of step 3 are also held at a verify's rows (each slot's table
    repeated 5 times at its last committed position, a never-filled slot
-   at position -1 merged to an empty row across the splits).
+   at position -1 merged to an empty row across the splits). Then serving
+   across cards on the ``model`` axis (``sharded_phase``): on one card the
+   main shape's paged GQA pools cut into 2 and 4 offset slices, the kernel
+   on each at base i·16/m, the partials merged by
+   ``decode.combine_shards`` and held against the unsharded kernel (each
+   slice's device ms and their sum beside it); where the machine shows 2+
+   cards, min(4, cards) NCCL ranks serve mistral-nemo-12b (and on 4
+   cards phi3.5-moe-42b) at full width and published depth through CUDA
+   graphs, their f32 depth-2 greedy streams held against one card's
+   engine, bf16 tok/s and a replayed quantum's busy share printed; with
+   one card a line says the multi-rank part did not run.
 5. The same (graphs twice, eager once, both quanta profiled) for
    deepseek-v2-236b (MLA + MoE) at full width with depth cut to 6 layers
    (the dense first layer and 5 MoE layers), with the f32 prefill →
@@ -215,8 +225,10 @@
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -3708,6 +3720,257 @@ def gather_phase(dev, entries) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------- sharded serving
+SHARD_SPLITS = (2, 4)        # model-axis sizes of the shards-in-turn check
+# the multi-rank run: serve_phase's engine and workload on every rank
+SHARD_KW = dict(max_slots=8, max_len=4096, page_size=16, decode_quantum=8)
+SHARD_MAX_NEW = 32
+SHARD_TIMEOUT_S = 600
+
+
+def shards_in_turn(dev, entries) -> None:
+    """The kv_seq-sharded paged decode on one card: the main shape's pools
+    (B 8, 256 pages of 16, Hkv 8, G 4, dh 128, bf16, §6 row 1's positions)
+    cut into m offset slices of 16/m (m in ``SHARD_SPLITS``), the kernel
+    run on each at base i·16/m, the partials merged by
+    ``decode.combine_shards`` (the helper a mesh's ``_combine`` reduces
+    with, here over the stacked slices) and held against the unsharded
+    kernel at the bf16 tolerance of tests/test_kernels.py, and against the
+    plain versions of the slices merged alike. Each slice's device ms and
+    their sum beside the unsharded call's. Comparison launches: not
+    counted on any path."""
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.serve.decode import combine_shards
+    bf16 = torch.bfloat16
+    q32, pk, pv, table, pos, pos_h = paged_gqa_inputs(
+        dev, hkv=8, grp=4, dh=128, max_len=4096,
+        pos_head=[4095, 0, 15, 16], dt=bf16)
+    q = q32.to(bf16)
+    N, ps, hkv, dh = pk.shape
+    kw = dict(page_size=ps, scale=dh ** -0.5)
+    o, m, l = ops.paged_attend_gqa(q, pk, pv, table, pos, 0, **kw)
+    whole = o / l[..., None]
+    whole_ms = sum(t for t, _ in kernels_ms(lambda: ops.paged_attend_gqa(
+        q, pk, pv, table, pos, 0, **kw), 20)[0].values())
+
+    def stacked(parts):
+        return [torch.stack(x) for x in zip(*parts)]
+
+    def merge(parts):
+        return combine_shards(*stacked(parts), lambda t: t.amax(0),
+                              lambda a, b: (a.sum(0), b.sum(0)))
+
+    report = {}
+    for n in SHARD_SPLITS:
+        psl = ps // n
+        slices = [(pk.view(N, n, psl, hkv, dh)[:, i].contiguous(),
+                   pv.view(N, n, psl, hkv, dh)[:, i].contiguous())
+                  for i in range(n)]
+        calls = [functools.partial(ops.paged_attend_gqa, q, sk, sv, table,
+                                   pos, i * psl, **kw)
+                 for i, (sk, sv) in enumerate(slices)]
+        got = merge([c() for c in calls])
+        plain = merge([ref.paged_flash_decode_gqa_ref(
+            q, sk, sv, table, pos, i * psl, **kw)
+            for i, (sk, sv) in enumerate(slices)])
+        err = float((got - whole).abs().max())
+        close = bool(torch.allclose(got, whole, rtol=BF16_TOL, atol=BF16_TOL))
+        e_plain = row_err(got, plain)
+        ms = [sum(t for t, _ in kernels_ms(c, 20)[0].values())
+              for c in calls]
+        routes = {ops.gqa_route(bf16, 4, dh)}
+        check(close and e_plain <= 1e-3,
+              f"paged decode sharded in turn over {n} offset slices of "
+              f"{psl} (base i·{psl}, page_size {ps}), merged by "
+              f"combine_shards: max |merged - unsharded kernel| {err:.3g} "
+              f"(bf16 tol {BF16_TOL}), |merged - merged plain| {e_plain:.3g}"
+              f" of a row's largest (tol 1e-3); route {routes}")
+        print(f"shards in turn m={n}: slices device "
+              f"{[round(t, 4) for t in ms]} ms, sum {sum(ms):.4f} ms, "
+              f"unsharded {whole_ms:.4f} ms ({CARD})")
+        report[n] = {"slices_ms": ms, "sum_ms": sum(ms), "err": err,
+                     "plain_row_err": e_plain}
+    for e in entries:
+        if e["name"] == "paged_attention_gqa":
+            e["shards_in_turn"] = {"unsharded_ms": whole_ms, **report}
+
+
+def _workload(vocab):
+    """serve_phase's workload: 12 prompts of 16-2000 tokens (seed 0)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(16, 2001, 12)
+    return lens, [rng.integers(0, vocab, n).tolist() for n in lens]
+
+
+def _shard_archs(m: int) -> tuple:
+    """mistral-nemo-12b always; phi3.5-moe-42b (which one card cannot
+    hold) on 4 cards."""
+    return ("mistral-nemo-12b",) + (("phi3.5-moe-42b-a6.6b",)
+                                    if m == 4 else ())
+
+
+def _f32_cfg(arch: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=2,
+                               param_dtype="float32")
+
+
+def _serve_f32(cfg, params, dev, **kw) -> list:
+    """The workload at f32, admission pinned, greedy: the streams."""
+    from repro_torch.serve.engine import Engine, Request
+    eng = Engine(cfg, params, device=dev, **SHARD_KW, **kw)
+    eng.tracker.f = lambda: PINNED_F
+    lens, prompts = _workload(cfg.vocab)
+    reqs = [Request(rid=i, prompt=p, max_new=SHARD_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    eng.run(reqs)
+    return [r.out for r in reqs]
+
+
+def sharded_rank(ctx, out_dir: str) -> None:
+    """One NCCL rank of the multi-rank run: for each of ``_shard_archs``,
+    the f32 depth-2 streams, then the bf16 model at its published depth
+    served twice through graphs, admission pinned (the first run
+    captures; the second's launch counts and decode tok/s are kept) and
+    one replayed quantum profiled. Rank 0 prints; every rank saves what
+    it saw and its failed checks."""
+    m, rank = ctx.axis_size("model"), ctx.axis_index("model")
+    if rank:                         # rank 0 prints for the ranks
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _sharded_rank(ctx, out_dir, m, rank)
+    return _sharded_rank(ctx, out_dir, m, rank)
+
+
+def _sharded_rank(ctx, out_dir: str, m: int, rank: int) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.params import init_params
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.kv_cache import page_bytes
+    dev = torch.device("cuda", torch.cuda.current_device())
+    global CARD
+    CARD = subprocess.run(
+        ["nvidia-smi", "-i", str(dev.index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    out = {"rank": rank, "card": CARD}
+    for arch in _shard_archs(m):
+        cfg32 = _f32_cfg(arch)
+        out[f"{arch}/f32"] = _serve_f32(
+            cfg32, init_params(cfg32, seed=0, device=dev, ctx=ctx), dev,
+            ctx=ctx)
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=dev, ctx=ctx)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        eng = Engine(cfg, params, device=dev, ctx=ctx, **SHARD_KW)
+        # the two runs form the same prefill groups only at one admission
+        # ratio: a group's padded shape moves its bf16 rounding (and MoE
+        # capacity couples its rows)
+        eng.tracker.f = lambda: PINNED_F
+        pool = eng.num_pages * page_bytes(cfg, eng.page_size // m)
+        check(eng.reserved_cache_bytes() == pool,
+              f"{arch} rank {rank}: the pools hold {eng.page_size // m} of "
+              f"each page's {eng.page_size} offsets "
+              f"({eng.reserved_cache_bytes()} B = {pool} B)")
+        lens, prompts = _workload(cfg.vocab)
+        first, _ = serve_run(eng, cfg, lens, prompts, SHARD_MAX_NEW)
+        before = _rate(eng)
+        again, launches = serve_run(eng, cfg, lens, prompts, SHARD_MAX_NEW)
+        tok, sec = _rate(eng, before)
+        check([r.out for r in again] == [r.out for r in first] and all(
+            r.done and len(r.out) == SHARD_MAX_NEW for r in again),
+            f"{arch} over {m} ranks: every request done, a second run gives "
+            "the same streams")
+        prof = profile_phase(eng, cfg)
+        out[arch] = {"tok_s": tok / sec, "launches": launches,
+                     "captures": eng.decode_captures, "init_s": init_s,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "profile": prof, "streams": [r.out for r in again]}
+        if rank == 0:
+            print(f"sharded {arch} over {m} ranks (bf16, {cfg.n_layers} "
+                  f"layers, graphs): decode {tok / sec:.1f} tok/s, one "
+                  f"quantum {prof['wall_ms']:.1f} ms wall, device busy "
+                  f"{prof['busy_ms']:.1f} ms "
+                  f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %), "
+                  f"{eng.decode_captures} captures, weights made in "
+                  f"{init_s:.1f} s ({CARD})", flush=True)
+        del eng, params
+        torch.cuda.empty_cache()
+    out["failures"] = FAILURES
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sharded_phase(dev, entries) -> None:
+    """Serving across cards on the ``model`` axis. Part 1 always runs on
+    one card (:func:`shards_in_turn`). Part 2 runs where the machine shows
+    more than one card: m = min(4, cards) NCCL ranks
+    (``launch/mesh.py::spawn_ranks``) serve mistral-nemo-12b (and on 4
+    cards phi3.5-moe-42b, which one card cannot hold) at full width and
+    published depth with serve_phase's engine settings through CUDA
+    graphs (:func:`sharded_rank`); their f32 depth-2 greedy streams are
+    held against one card's engine, every rank's streams and launch
+    counts against rank 0's, and the launches of rank 0's second run are
+    added to the kernels' entries ("<arch> sharded")."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.params import init_params
+    import tempfile
+    shards_in_turn(dev, entries)
+    n = torch.cuda.device_count()
+    print(f"cards: {n}")
+    print(subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                         text=True).stdout.strip())
+    if n < 2:
+        print("sharded serving across cards: NOT RUN, this machine shows "
+              f"{n} card; the multi-rank part needs 2 or more (the "
+              "shards-in-turn check above ran)")
+        return
+    m = min(4, n)
+    want = {}
+    for arch in _shard_archs(m):
+        cfg32 = _f32_cfg(arch)
+        want[arch] = _serve_f32(cfg32, init_params(cfg32, seed=0,
+                                                   device=dev), dev)
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        spawn_ranks(sharded_rank, m, d, device_type="cuda",
+                    timeout=SHARD_TIMEOUT_S)
+        print(f"{m} ranks ran in {time.perf_counter() - t0:.1f} s")
+        ranks = []
+        for i in range(m):
+            with open(os.path.join(d, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+    for r in ranks:
+        FAILURES.extend(f"rank {r['rank']}: {x}" for x in r["failures"])
+    for arch in _shard_archs(m):
+        check(all(r[f"{arch}/f32"] == want[arch] for r in ranks),
+              f"{arch} at f32, depth 2: the greedy streams of {m} ranks "
+              "equal one card's engine's")
+        check(all(r[arch]["streams"] == ranks[0][arch]["streams"] and
+                  r[arch]["launches"] == ranks[0][arch]["launches"]
+                  for r in ranks),
+              f"{arch} bf16 over {m} ranks: every rank emitted the same "
+              "streams and launched the same kernels")
+        where = f"{arch} sharded"
+        for e in entries:
+            if e["name"] in ("paged_attention_gqa", "flash_attention_fwd",
+                             "grouped_gemm"):
+                e["paths"] = list(e["paths"]) + [where]
+        path = ["paged_attention_gqa", "flash_attention_fwd"] + (
+            ["grouped_gemm"] if "moe" in arch else [])
+        _add_launches(entries, ranks[0][arch]["launches"], where, path)
+        print("report " + json.dumps({
+            "sharded": arch, "ranks": m, "card": ranks[0]["card"],
+            "tok_s": ranks[0][arch]["tok_s"],
+            "busy_share": ranks[0][arch]["profile"]["busy_ms"]
+            / ranks[0][arch]["profile"]["wall_ms"],
+            "peak_gib": [r[arch]["peak_gib"] for r in ranks],
+            "launches": ranks[0][arch]["launches"]}))
+
+
 def device_time(prof):
     """Device kernels of a profile, its lead-in left out: (busy µs as the
     union of their intervals, kernel count, {name: [µs, count]}). Counts
@@ -4819,7 +5082,8 @@ def main() -> int:
             e["sass"] = sass[e["name"]]
     timed(paged256_f32_report, dev)
     torch.cuda.empty_cache()
-    for phase in (hbb_phase, serve_phase, deepseek_phase, mamba_phase,
+    for phase in (hbb_phase, serve_phase, sharded_phase, deepseek_phase,
+                  mamba_phase,
                   jamba_phase, jamba_spec_phase, nemotron_phase,
                   gemma2_phase, danube_phase, gather_phase, whisper_phase,
                   internvl2_phase, train_phase, train_moe_phase,
@@ -4837,7 +5101,7 @@ def main() -> int:
             "passes_ms", "mla", "decode", "backward", "chunks", "n4096",
             "paged", "jamba", "scan", "scan_bwd", "g6", "shapes",
             "ssd", "sass", "sdpa_gathered_ms", "verify_rows_err",
-            "kernel_route")
+            "kernel_route", "shards_in_turn")
             if x in e)}
         for e in entries]}))
     print(smi)

@@ -9,6 +9,13 @@ so neither the head transpose nor the GQA broadcast is materialized. When a
 gradient is wanted, :class:`FlashAttention` (the custom VJP
 ``_attend_fwd``/``_attend_bwd``) saves the forward's lse and runs the
 backward kernel.
+
+On a mesh (a ``ctx`` whose ``model`` axis has m > 1 ranks) each rank holds
+its H/m query heads and Hkv/m KV heads (``wq``/``wk``/``wv`` cut on
+``heads``/``kv_heads``, ``wo`` on its first dim) and one all-reduce after
+``wo`` sums the ranks' heads. Heads that do not divide m take JAX's
+context-parallel path, which the port refuses
+(``transformer.py::check_sharded``).
 """
 from __future__ import annotations
 
@@ -17,20 +24,30 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, rmsnorm, rope_tables
+from repro_torch.sharding.axes import model_shard
+from repro_torch.sharding.collectives import all_reduce
 
 
 def gqa_project(cfg: ModelConfig, p, x: torch.Tensor, positions):
-    """x (B,S,D) → q (B,S,Hkv,G,dh), k,v (B,S,Hkv,dh). Applies rope."""
+    """x (B,S,D) → q (B,S,Hkv,G,dh), k,v (B,S,Hkv,dh) over the heads the
+    weights hold (a rank's H/m and Hkv/m on a mesh). Applies rope."""
     B, S, D = x.shape
-    q = (x @ p["wq"].reshape(D, -1)).view(B, S, cfg.n_heads, cfg.head_dim)
-    k = (x @ p["wk"].reshape(D, -1)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ p["wv"].reshape(D, -1)).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    H, Hkv, dh = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
+    q = (x @ p["wq"].reshape(D, -1)).view(B, S, H, dh)
+    k = (x @ p["wk"].reshape(D, -1)).view(B, S, Hkv, dh)
+    v = (x @ p["wv"].reshape(D, -1)).view(B, S, Hkv, dh)
     if cfg.use_rope:
-        cos, sin = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = rope_tables(positions, dh, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    G = cfg.n_heads // cfg.n_kv_heads
-    return q.reshape(B, S, cfg.n_kv_heads, G, cfg.head_dim), k, v
+    return q.reshape(B, S, Hkv, H // Hkv, dh), k, v
+
+
+def out_project(o: torch.Tensor, wo: torch.Tensor, ctx=None) -> torch.Tensor:
+    """The attention's out-projection: o (…, H·dv) @ wo (H, dv, D), the
+    ranks' heads summed by one all-reduce on a mesh."""
+    out = o @ wo.reshape(-1, wo.shape[-1])
+    return all_reduce(out, ctx) if model_shard(ctx)[0] > 1 else out
 
 
 class FlashAttention(torch.autograd.Function):
@@ -74,7 +91,7 @@ def attend(q, k, v, *, scale: float, causal: bool = True, window: int = 0,
 
 
 def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
-                  positions, causal: bool = True) -> torch.Tensor:
+                  positions, causal: bool = True, ctx=None) -> torch.Tensor:
     """The GQA block with no cache (training, whisper's encoder and
     decoder): project, attention (causal unless told), out-project. x
     (B,S,D) → (B,S,D)."""
@@ -82,7 +99,7 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
     q, k, v = gqa_project(cfg, p, x, positions)
     out = attend(q, k, v, scale=cfg.head_dim ** -0.5, causal=causal,
                  window=window, softcap=cfg.attn_softcap)
-    return out.reshape(B, S, -1) @ p["wo"].reshape(-1, D)
+    return out_project(out.reshape(B, S, -1), p["wo"], ctx)
 
 
 # --------------------------------------------------------------- MLA block
@@ -140,14 +157,14 @@ def mla_attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
 
 
 def attention(cfg: ModelConfig, p, x: torch.Tensor, *, window: int,
-              positions, causal: bool = True) -> torch.Tensor:
-    """The attention block of a layer with no cache: MLA (causal) or GQA
-    (JAX ``attention`` on one device, where the context-parallel branch
-    never applies)."""
+              positions, causal: bool = True, ctx=None) -> torch.Tensor:
+    """The attention block of a layer with no cache: MLA (causal, one
+    device) or GQA, head-parallel on a mesh (JAX ``attention``; its
+    context-parallel branch is refused before this is reached)."""
     if cfg.mla:
         return mla_attention(cfg, p, x, window=window, positions=positions)
     return gqa_attention(cfg, p, x, window=window, positions=positions,
-                         causal=causal)
+                         causal=causal, ctx=ctx)
 
 
 # --------------------------------------------------------- cross attention

@@ -1,6 +1,14 @@
 """Shared layer primitives (``repro/models/layers.py``): norm, rope, the
 gated and non-gated MLP, embedding, the f32 logits and the chunked
-cross-entropy, on one device."""
+cross-entropy.
+
+On a mesh (a ``ctx`` whose ``model`` axis has m > 1 ranks) the residual
+stream stays whole on every rank, where JAX scatters it over ``seq``; the
+results are the same up to the order of the sums. The MLP is Megatron's
+column- and row-parallel pair (``w_up``/``w_gate`` cut on ``mlp``,
+``w_down`` on its first dim, one all-reduce after ``w_down``); the
+embedding and the logits take the vocab axis cut in m parts (a masked
+lookup and an all-reduce; the logits' parts gathered)."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +16,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.sharding.axes import model_shard
+from repro_torch.sharding.collectives import all_gather, all_reduce
 
 F32 = torch.float32
 
@@ -68,27 +78,49 @@ def gate_fn(act: str):
 
 
 # ------------------------------------------------------------- dense MLP
-def mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
+def mlp(cfg: ModelConfig, p, x: torch.Tensor, ctx=None) -> torch.Tensor:
     """Gated (``w_gate``) or non-gated MLP, x (…, D) → (…, D), in the JAX
     order: up-projection, then the gate's product or the activation, then
-    the down-projection; projections on cuBLAS."""
+    the down-projection; projections on cuBLAS. On a mesh each rank holds
+    its columns of ``w_up``/``w_gate`` and rows of ``w_down``, and one
+    all-reduce sums the ranks' products."""
     h = x @ p["w_up"]
     if is_gated(cfg.act):
         h = gate_fn(cfg.act)(x @ p["w_gate"]) * h
     else:
         h = activation(cfg.act)(h)
-    return h @ p["w_down"]
+    out = h @ p["w_down"]
+    return all_reduce(out, ctx) if model_shard(ctx)[0] > 1 else out
 
 
 # -------------------------------------------------------------- embedding
+def _vocab_lookup(table: torch.Tensor, tokens: torch.Tensor,
+                  ctx) -> torch.Tensor:
+    """Rows of the vocab-sharded ``table`` (V/m, D): each rank looks up the
+    tokens in its part, zero elsewhere, and an all-reduce sums the parts
+    (each token's row comes from one rank, so the sum is exact)."""
+    m, i = model_shard(ctx)
+    rel = tokens.long() - i * table.shape[0]
+    mine = (rel >= 0) & (rel < table.shape[0])
+    h = table[rel.clamp(0, table.shape[0] - 1)]
+    h = torch.where(mine[..., None], h, torch.zeros((), dtype=h.dtype,
+                                                     device=h.device))
+    return all_reduce(h, ctx)
+
+
 def embed(cfg: ModelConfig, p, tokens: torch.Tensor,
-          frontend_embed: torch.Tensor | None = None) -> torch.Tensor:
+          frontend_embed: torch.Tensor | None = None,
+          ctx=None) -> torch.Tensor:
     """tokens (…) int → (…, D) in the parameter dtype, times sqrt(d) with
     ``embed_scale``. A front end (VLM): ``frontend_embed`` (B, F,
     frontend_dim) is projected by ``frontend_proj`` in the parameter dtype
     (and scaled alike), and replaces the first F positions of tokens (B, S)
-    (the tokens there are a pad id)."""
-    h = p["table"][tokens].to(cfg.pdtype)
+    (the tokens there are a pad id). On a mesh the table is cut on vocab
+    (:func:`_vocab_lookup`)."""
+    if model_shard(ctx)[0] > 1:
+        h = _vocab_lookup(p["table"], tokens, ctx).to(cfg.pdtype)
+    else:
+        h = p["table"][tokens].to(cfg.pdtype)
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     if frontend_embed is not None:
@@ -137,10 +169,14 @@ def matmul_f32(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def logits_fn(cfg: ModelConfig, embed_p, unembed_p,
-              h: torch.Tensor) -> torch.Tensor:
-    """h (…, D) → logits (…, V) fp32."""
+              h: torch.Tensor, ctx=None) -> torch.Tensor:
+    """h (…, D) → logits (…, V) fp32. On a mesh each rank computes its
+    part of the vocab and the parts are gathered in rank order, so every
+    rank holds the whole row (and a greedy argmax picks the lowest index
+    of a tie, as JAX's)."""
     w = embed_p["table"].T if cfg.tie_embeddings else unembed_p["w"]
-    return _softcap(matmul_f32(h, w.to(h.dtype)), cfg.final_softcap)
+    out = _softcap(matmul_f32(h, w.to(h.dtype)), cfg.final_softcap)
+    return all_gather(out, -1, ctx) if model_shard(ctx)[0] > 1 else out
 
 
 def chunked_ce_loss(cfg: ModelConfig, embed_p, unembed_p, h: torch.Tensor,

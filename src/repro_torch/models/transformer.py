@@ -11,6 +11,7 @@ the layers into the load-balancing loss.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -22,6 +23,7 @@ from repro_torch.models.layers import (chunked_ce_loss, embed,
                                        mlp, rmsnorm)
 from repro_torch.models.mamba import mamba_mixer
 from repro_torch.models.moe import aux_loss_from_stats, moe_block
+from repro_torch.sharding.axes import model_shard
 
 F32 = torch.float32
 
@@ -135,19 +137,66 @@ def check_supported(cfg: ModelConfig) -> None:
 # included (training keeps no cache); only its serving is refused.
 check_trainable = check_params
 
+# What JAX runs where a head count does not divide the model axis
+CP_GQA = ("repro/models/attention.py::cp_gqa_attention (context-parallel "
+          "GQA, which the port does not have yet)")
+
+
+def check_sharded(cfg: ModelConfig, ctx) -> None:
+    """The models the port runs on a mesh of m > 1 ranks on ``model``: GQA
+    decoders with a dense or MoE FFN and full attention, every cut dim
+    divisible by m (heads, KV heads, vocab, FFN width, experts). JAX's
+    sharding law would keep a dim that does not divide whole, or take
+    :data:`CP_GQA` for heads; the port refuses those, and the families
+    whose sharding waits (MLA, Mamba, whisper, a VLM front end,
+    sliding-window rings). A ``data`` axis above 1 is refused too. Nothing
+    to check on one rank."""
+    if ctx is None or math.prod(ctx.sizes.values()) == 1:
+        return
+    m = model_shard(ctx)[0]
+    if ctx.axis_size("data") * ctx.axis_size("pod") > 1:
+        raise ValueError(f"a data axis of {ctx.sizes} is not sharded yet: "
+                         "the port takes data = 1")
+    blocks = block_cfgs(cfg)
+    waits = [("whisper (encoder-decoder)", cfg.enc_dec),
+             ("MLA", cfg.mla is not None),
+             ("Mamba", any(bc.mixer == "mamba" for bc in blocks)),
+             ("a VLM front end", cfg.frontend != "none"),
+             ("sliding-window rings", any(bc.window for bc in blocks))]
+    for what, hit in waits:
+        if hit:
+            raise ValueError(f"{cfg.name}: {what} is not sharded over the "
+                             f"model axis yet")
+    if cfg.n_heads % m or cfg.n_kv_heads % m:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_heads} heads over {cfg.n_kv_heads} KV heads "
+            f"do not divide a model axis of {m}; JAX takes {CP_GQA}")
+    dims = {"vocab": cfg.vocab}
+    for i, bc in enumerate(blocks):
+        if bc.ffn == "dense":
+            dims[f"layer {i} FFN width"] = bc.d_ff
+        elif bc.ffn == "moe":
+            dims["experts"] = cfg.moe.n_experts
+            dims["shared-expert width"] = cfg.moe.n_shared * cfg.moe.d_expert
+    for what, n in dims.items():
+        if n % m:
+            raise ValueError(f"{cfg.name}: {what} {n} does not divide a "
+                             f"model axis of {m}")
+
 
 # ---------------------------------------------------------------- training
 def block_apply(cfg: ModelConfig, bc: BlockCfg, p, h: torch.Tensor,
-                positions):
+                positions, ctx=None):
     """One block, h (B,S,D) → (h', MoE router stats (2, E) f32 or None), in
     JAX ``block_apply``'s order: pre-norm, the mixer (GQA or MLA attention,
     or Mamba-1 or -2), the FFN (dense or MoE, where the block has one), and
     with ``use_post_norm`` each branch's output normed again (``post1``,
-    ``post2``) before its residual add."""
+    ``post2``) before its residual add. ``ctx``: the mesh, whose ranks hold
+    their blocks of ``p``."""
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "attn":
         y = attention(cfg, p["attn"], x, window=bc.window,
-                      positions=positions)
+                      positions=positions, ctx=ctx)
     else:
         y = mamba_mixer(cfg, p["mamba"], x)
     if cfg.use_post_norm:
@@ -157,28 +206,41 @@ def block_apply(cfg: ModelConfig, bc: BlockCfg, p, h: torch.Tensor,
     if bc.ffn != "none":
         x = rmsnorm(h, p["norm2"], cfg.norm_eps)
         if bc.ffn == "moe":
-            y, stats = moe_block(cfg, p["moe"], x)
+            y, stats = moe_block(cfg, p["moe"], x, ctx)
         else:
-            y = mlp(cfg, p["mlp"], x)
+            y = mlp(cfg, p["mlp"], x, ctx)
         if cfg.use_post_norm:
             y = rmsnorm(y, p["post2"], cfg.norm_eps)
         h = h + y
     return h, stats
 
 
-def apply_stack(cfg: ModelConfig, layers, h: torch.Tensor, positions):
+def _check_forward(cfg: ModelConfig, ctx) -> None:
+    """A mesh runs :func:`check_sharded`'s models forward only."""
+    if model_shard(ctx)[0] > 1:
+        check_sharded(cfg, ctx)
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "training on a mesh is not ported yet; run the sharded "
+                "stack under torch.no_grad()")
+
+
+def apply_stack(cfg: ModelConfig, layers, h: torch.Tensor, positions,
+                ctx=None):
     """Every layer in order, each under activation checkpointing when a
     gradient is wanted (only the layer inputs stay alive; the recompute
     routes as the forward did). → (h, the MoE stats summed over the layers,
     a dense layer of an MoE model adding zeros, as JAX's scan; None without
-    MoE)."""
+    MoE). On a mesh (``ctx``, forward only: training across cards waits for
+    a later slice, :func:`lm_hidden` checks) each rank runs its blocks of
+    every layer."""
     total = None
     for bc, p in zip(block_cfgs(cfg), layers):
         if torch.is_grad_enabled():
             h, stats = checkpoint(block_apply, cfg, bc, p, h, positions,
                                   use_reentrant=False)
         else:
-            h, stats = block_apply(cfg, bc, p, h, positions)
+            h, stats = block_apply(cfg, bc, p, h, positions, ctx)
         if stats is not None:
             total = stats if total is None else total + stats
     if total is None and cfg.moe is not None:
@@ -188,13 +250,14 @@ def apply_stack(cfg: ModelConfig, layers, h: torch.Tensor, positions):
 
 
 def lm_hidden(cfg: ModelConfig, params, tokens: torch.Tensor,
-              frontend_embed: torch.Tensor | None = None):
+              frontend_embed: torch.Tensor | None = None, ctx=None):
     """tokens (B,S) → (final hidden states (B,S,D), summed MoE stats or
     None). ``frontend_embed`` (B,F,frontend_dim) replaces the first F
-    positions (``layers.embed``)."""
-    h = embed(cfg, params["embed"], tokens, frontend_embed)
+    positions (``layers.embed``); ``ctx`` the mesh (:func:`apply_stack`)."""
+    _check_forward(cfg, ctx)
+    h = embed(cfg, params["embed"], tokens, frontend_embed, ctx)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, stats = apply_stack(cfg, params["layers"], h, positions)
+    h, stats = apply_stack(cfg, params["layers"], h, positions, ctx)
     return rmsnorm(h, params["final_norm"], cfg.norm_eps), stats
 
 

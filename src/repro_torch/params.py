@@ -18,7 +18,9 @@ plain list ``layers`` in layer order instead of stacked scan segments:
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,6 +40,15 @@ class ParamSpec:
     dtype: torch.dtype
     init: str = "normal"          # normal | ones | zeros
     scale: float = 0.02
+    # logical axis of each dim (``sharding/axes.py``), as JAX's
+    # ``ParamDef.axes`` without the stacked ``layers`` axis; None for a
+    # buffer that is never sharded (the decode caches)
+    axes: Optional[tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not match shape "
+                             f"{self.shape}")
 
 
 def tree_map(fn, tree, *rest, is_leaf=None):
@@ -83,39 +94,48 @@ def param_specs(cfg: ModelConfig):
     pdt = cfg.pdtype
     out_scale = 0.02 / max(1.0, (2 * max(cfg.n_layers, 1)) ** 0.5)
 
+    def w(shape, axes, dtype=pdt, init="normal", scale=0.02):
+        return ParamSpec(tuple(shape), dtype, init, scale, tuple(axes))
+
     def norm(n):
-        return ParamSpec((n,), F32, "ones")
+        return w((n,), (None,), F32, "ones")
 
     def attn():
         if cfg.mla is None:
-            return {"wq": ParamSpec((D, H, dh), pdt),
-                    "wk": ParamSpec((D, Hkv, dh), pdt),
-                    "wv": ParamSpec((D, Hkv, dh), pdt),
-                    "wo": ParamSpec((H, dh, D), pdt, scale=out_scale)}
+            return {"wq": w((D, H, dh), ("embed", "heads", "qk")),
+                    "wk": w((D, Hkv, dh), ("embed", "kv_heads", "qk")),
+                    "wv": w((D, Hkv, dh), ("embed", "kv_heads", "qk")),
+                    "wo": w((H, dh, D), ("heads", "qk", "embed"),
+                            scale=out_scale)}
         m = cfg.mla
-        return {"wdq": ParamSpec((D, m.q_lora), pdt),
+        return {"wdq": w((D, m.q_lora), ("embed", "lora")),
                 "q_norm": norm(m.q_lora),
-                "wuq": ParamSpec((m.q_lora, H, m.nope_dim + m.rope_dim), pdt),
-                "wdkv": ParamSpec((D, m.kv_lora), pdt),
+                "wuq": w((m.q_lora, H, m.nope_dim + m.rope_dim),
+                         ("lora", "heads", "qk")),
+                "wdkv": w((D, m.kv_lora), ("embed", "lora")),
                 "kv_norm": norm(m.kv_lora),
-                "wukv": ParamSpec((m.kv_lora, H, m.nope_dim + m.v_dim), pdt),
-                "wkr": ParamSpec((D, m.rope_dim), pdt),
-                "wo": ParamSpec((H, m.v_dim, D), pdt, scale=out_scale)}
+                "wukv": w((m.kv_lora, H, m.nope_dim + m.v_dim),
+                          ("lora", "heads", "qk")),
+                "wkr": w((D, m.rope_dim), ("embed", "qk")),
+                "wo": w((H, m.v_dim, D), ("heads", "v", "embed"),
+                        scale=out_scale)}
 
     def moe():
         m = cfg.moe
         E, Fe = m.n_experts, m.d_expert
-        d = {"router": ParamSpec((D, E), F32),
-             "w_up": ParamSpec((E, D, Fe), pdt),
-             "w_down": ParamSpec((E, Fe, D), pdt, scale=out_scale)}
+        d = {"router": w((D, E), ("embed", None), F32),
+             "w_up": w((E, D, Fe), ("experts", "embed", None)),
+             "w_down": w((E, Fe, D), ("experts", None, "embed"),
+                         scale=out_scale)}
         if is_gated(cfg.act):
-            d["w_gate"] = ParamSpec((E, D, Fe), pdt)
+            d["w_gate"] = w((E, D, Fe), ("experts", "embed", None))
         if m.n_shared:
             Fs = m.n_shared * Fe
-            d.update({"ws_up": ParamSpec((D, Fs), pdt),
-                      "ws_down": ParamSpec((Fs, D), pdt, scale=out_scale)})
+            d.update({"ws_up": w((D, Fs), ("embed", "mlp")),
+                      "ws_down": w((Fs, D), ("mlp", "embed"),
+                                   scale=out_scale)})
             if is_gated(cfg.act):
-                d["ws_gate"] = ParamSpec((D, Fs), pdt)
+                d["ws_gate"] = w((D, Fs), ("embed", "mlp"))
         return d
 
     def mamba():
@@ -123,37 +143,40 @@ def param_specs(cfg: ModelConfig):
         C, N, K = cfg.d_inner, s.d_state, s.d_conv
         if s.version == 1:
             r = max(1, -(-D // 16))                 # dt_rank = ceil(d / 16)
-            return {"wz": ParamSpec((D, C), pdt),
-                    "wx": ParamSpec((D, C), pdt),
-                    "conv_x": ParamSpec((K, C), pdt, scale=0.1),
-                    "conv_x_b": ParamSpec((C,), pdt, "zeros"),
-                    "w_bcdt": ParamSpec((C, r + 2 * N), pdt),
-                    "w_dt": ParamSpec((r, C), pdt),
-                    "dt_bias": ParamSpec((C,), F32, "zeros"),
-                    "A_log": ParamSpec((C, N), F32, "zeros"),
-                    "D_skip": ParamSpec((C,), F32, "ones"),
-                    "wo": ParamSpec((C, D), pdt, scale=out_scale)}
+            return {"wz": w((D, C), ("embed", "d_inner")),
+                    "wx": w((D, C), ("embed", "d_inner")),
+                    "conv_x": w((K, C), ("conv", "d_inner"), scale=0.1),
+                    "conv_x_b": w((C,), ("d_inner",), init="zeros"),
+                    "w_bcdt": w((C, r + 2 * N), ("d_inner", None)),
+                    "w_dt": w((r, C), (None, "d_inner")),
+                    "dt_bias": w((C,), ("d_inner",), F32, "zeros"),
+                    "A_log": w((C, N), ("d_inner", "ssm_state"), F32,
+                               "zeros"),
+                    "D_skip": w((C,), ("d_inner",), F32, "ones"),
+                    "wo": w((C, D), ("d_inner", "embed"), scale=out_scale)}
         H = C // s.head_dim
-        return {"wz": ParamSpec((D, C), pdt), "wx": ParamSpec((D, C), pdt),
-                "wB": ParamSpec((D, N), pdt), "wC": ParamSpec((D, N), pdt),
-                "wdt": ParamSpec((D, H), pdt),
-                "conv_x": ParamSpec((K, C), pdt, scale=0.1),
-                "conv_x_b": ParamSpec((C,), pdt, "zeros"),
-                "conv_B": ParamSpec((K, N), pdt, scale=0.1),
-                "conv_B_b": ParamSpec((N,), pdt, "zeros"),
-                "conv_C": ParamSpec((K, N), pdt, scale=0.1),
-                "conv_C_b": ParamSpec((N,), pdt, "zeros"),
-                "A_log": ParamSpec((H,), F32, "zeros"),
-                "D_skip": ParamSpec((H,), F32, "ones"),
-                "dt_bias": ParamSpec((H,), F32, "zeros"),
+        return {"wz": w((D, C), ("embed", "d_inner")),
+                "wx": w((D, C), ("embed", "d_inner")),
+                "wB": w((D, N), ("embed", "ssm_state")),
+                "wC": w((D, N), ("embed", "ssm_state")),
+                "wdt": w((D, H), ("embed", "ssm_heads")),
+                "conv_x": w((K, C), ("conv", "d_inner"), scale=0.1),
+                "conv_x_b": w((C,), ("d_inner",), init="zeros"),
+                "conv_B": w((K, N), ("conv", "ssm_state"), scale=0.1),
+                "conv_B_b": w((N,), ("ssm_state",), init="zeros"),
+                "conv_C": w((K, N), ("conv", "ssm_state"), scale=0.1),
+                "conv_C_b": w((N,), ("ssm_state",), init="zeros"),
+                "A_log": w((H,), ("ssm_heads",), F32, "zeros"),
+                "D_skip": w((H,), ("ssm_heads",), F32, "ones"),
+                "dt_bias": w((H,), ("ssm_heads",), F32, "zeros"),
                 "gn": norm(C),
-                "wo": ParamSpec((C, D), pdt, scale=out_scale)}
+                "wo": w((C, D), ("d_inner", "embed"), scale=out_scale)}
 
     def mlp(d_ff):
-        d = {"w_up": ParamSpec((D, d_ff), pdt),
-             "w_down": ParamSpec((d_ff, D), pdt, scale=out_scale)}
+        d = {"w_up": w((D, d_ff), ("embed", "mlp")),
+             "w_down": w((d_ff, D), ("mlp", "embed"), scale=out_scale)}
         if is_gated(cfg.act):
-            d["w_gate"] = ParamSpec((D, d_ff), pdt)
+            d["w_gate"] = w((D, d_ff), ("embed", "mlp"))
         return d
 
     def layer(bc):
@@ -170,6 +193,7 @@ def param_specs(cfg: ModelConfig):
                 d["post2"] = norm(D)
         return d
 
+    table = w((cfg.vocab, D), ("vocab", "embed"))
     if cfg.enc_dec:
         # whisper.py::encdec_defs: the decoder positions at scale 0.01, the
         # cross attention with GQA's shapes and scales, the unembedding tied
@@ -177,21 +201,21 @@ def param_specs(cfg: ModelConfig):
                "mlp": mlp(cfg.d_ff)}
         dec = {"norm1": norm(D), "self_attn": attn(), "norm_x": norm(D),
                "cross": attn(), "norm2": norm(D), "mlp": mlp(cfg.d_ff)}
-        return {"embed": {"table": ParamSpec((cfg.vocab, D), pdt)},
-                "dec_pos": ParamSpec((cfg.max_decoder_len, D), pdt,
-                                     scale=0.01),
+        return {"embed": {"table": table},
+                "dec_pos": w((cfg.max_decoder_len, D), (None, "embed"),
+                             scale=0.01),
                 "enc_layers": [enc] * cfg.n_enc_layers, "enc_norm": norm(D),
                 "dec_layers": [dec] * cfg.n_layers, "dec_norm": norm(D),
                 "unembed": {}}
-    emb = {"table": ParamSpec((cfg.vocab, D), pdt)}
+    emb = {"table": table}
     if cfg.frontend != "none" and cfg.frontend_dim:
-        emb["frontend_proj"] = ParamSpec((cfg.frontend_dim, D), pdt)
+        emb["frontend_proj"] = w((cfg.frontend_dim, D), ("frontend", "embed"))
     return {
         "embed": emb,
         "layers": [layer(bc) for bc in block_cfgs(cfg)],
         "final_norm": norm(D),
         "unembed": ({} if cfg.tie_embeddings
-                    else {"w": ParamSpec((D, cfg.vocab), pdt)}),
+                    else {"w": w((D, cfg.vocab), ("embed", "vocab"))}),
     }
 
 
@@ -199,18 +223,27 @@ def n_params(cfg: ModelConfig) -> int:
     return sum(int(np.prod(s.shape)) for s in tree_leaves(param_specs(cfg)))
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, ctx=None):
     """Seeded random weights made on ``device`` (the card unless
-    ``device="cpu"``). Same scales as the JAX init, not the same numbers."""
+    ``device="cpu"``). Same scales as the JAX init, not the same numbers.
+
+    With a sharded ``ctx`` (``sharding/axes.py::ShardCtx``) each leaf is
+    drawn whole from the same generator, this rank's block is kept and the
+    rest freed, one leaf at a time: a rank's block is the slice of the
+    one-device init."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
+    sharded = ctx is not None and math.prod(ctx.sizes.values()) > 1
 
     def leaf(spec: ParamSpec) -> torch.Tensor:
-        if spec.init == "ones":
-            return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-        if spec.init == "zeros":
-            return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+        if spec.init in ("ones", "zeros"):
+            shape = (ctx.local_shape(spec.axes, spec.shape) if sharded
+                     else spec.shape)
+            fill = torch.ones if spec.init == "ones" else torch.zeros
+            return fill(shape, dtype=spec.dtype, device=device)
         x = torch.randn(spec.shape, generator=gen, dtype=F32, device=device)
+        if sharded:
+            x = ctx.block(x, spec.axes).clone()
         return x.mul_(spec.scale).to(spec.dtype)
 
     return tree_map(leaf, param_specs(cfg))
@@ -232,14 +265,15 @@ def _unstack(stacked, n: int) -> list:
             for r in range(n)]
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None):
+def params_from_numpy(tree, cfg: ModelConfig, device=None, ctx=None):
     """Carry a JAX parameter tree (``materialize(model_defs(cfg), key)``,
     leaves as numpy or array-likes) across. Its ``blocks`` — one entry per
     scan segment (jamba: one 8-slot pattern of Mamba-1 and attention
     mixers, dense and MoE FFNs), leaves with a leading repeat axis — are
     unstacked into ``layers`` in layer order; an encoder-decoder's stacked
     ``enc_blocks`` and ``dec_blocks`` into ``enc_layers`` and
-    ``dec_layers``."""
+    ``dec_layers``. With a sharded ``ctx`` only this rank's block of each
+    leaf is carried to ``device``."""
     device = resolve_device(device)
     specs = param_specs(cfg)
     if cfg.enc_dec:
@@ -255,10 +289,12 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
             layers += [s[r] for r in range(seg.repeat) for s in slots]
         flat = {"embed": tree["embed"], "layers": layers,
                 "final_norm": tree["final_norm"], "unembed": tree["unembed"]}
-    out = tree_map(lambda a: _from_numpy(a, device), flat)
+    out = tree_map(lambda a: _from_numpy(a, "cpu"), flat)
     got = tree_map(lambda t: (tuple(t.shape), t.dtype), out)
     want = tree_map(lambda s: (s.shape, s.dtype), specs)
     if got != want:
         raise ValueError(f"parameter tree does not match {cfg.name}: "
                          f"got {got}, want {want}")
-    return out
+    if ctx is not None:
+        out = tree_map(lambda t, s: ctx.block(t, s.axes).clone(), out, specs)
+    return tree_map(lambda t: t.to(device), out)

@@ -50,6 +50,18 @@ distributions) and the commit of the accepted prefix (``decode_commit``).
 like ``decode_quantum``. ``plan_resume`` is the tier pool's retry law
 (``serve/multi_engine.py``).
 
+On a mesh of m ranks on ``model`` (``ctx``; GQA with a dense or MoE FFN
+through the paged kernel, ``transformer.py::check_sharded``) each rank
+projects its H/m query and Hkv/m KV heads, one all-gather makes every
+head whole on every rank, and each rank's pools hold the in-page offsets
+[i·ps/m, (i+1)·ps/m) of every page (JAX's ``kv_seq`` sharding): the write
+lands on the rank that owns ``pos mod ps`` (the others route it to the
+trash page 0), the kernel attends the whole query over the rank's offsets
+(``base = i·ps/m``, ``page_size = ps``), and ``_combine`` merges the
+ranks' partials exactly (an all-reduce MAX of ``m``, then one SUM of
+``o·c`` and ``l·c``). The out-projection, the MLP and the MoE each end in
+one all-reduce; the logits' vocab parts are gathered before sampling.
+
 An encoder-decoder (whisper) steps through ``whisper_decode_step``: each
 decoder layer writes its self row at ``pos`` into dense rows of
 ``max_decoder_len`` (a ``pos`` past them writes nothing) and attends over
@@ -65,23 +77,50 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import ops as paged_ops
+from repro_torch.models.attention import out_project
 from repro_torch.models.layers import (apply_rope, embed, logits_fn, mlp,
                                        rmsnorm, rope_tables)
 from repro_torch.models.mamba import mamba_step
 from repro_torch.models.moe import moe_decode
 from repro_torch.models.transformer import BlockCfg, block_cfgs
+from repro_torch.sharding.axes import model_shard
+from repro_torch.sharding.collectives import all_gather, all_reduce
 
 F32 = torch.float32
 NEG = -1e30
 
 
 # ------------------------------------------------------------ flash decode
-def _combine(o, m, l):
-    """Exact softmax from (o, m, l) partials. On one device there is one
-    partial per row, so this is o / l; ``m`` stays in the contract for the
-    cross-rank max/sum combine a sharded decode adds."""
-    del m
+def combine_shards(o, m, l, pmax, psum):
+    """Exact softmax of the shards' unnormalized (o, m, l) partials (JAX
+    ``_combine``): ``pmax(m)`` the largest ``m`` over the shards, each
+    shard's partial rescaled by ``c = exp(m - max)`` (a shard with no live
+    key, ``m <= NEG/2``, weighs 0), ``psum(o·c, l·c)`` their sums, then
+    o / l. The mesh reduces with collectives (:func:`_combine`); one card
+    holding the shards' partials stacked on a leading dim reduces over
+    it."""
+    m_g = pmax(m)
+    m_safe = torch.where(m_g <= NEG / 2, 0.0, m_g)
+    c = torch.exp(torch.where(m <= NEG / 2, NEG, m) - m_safe)
+    o, l = psum(o * c[..., None], l * c)
     return o / torch.clamp(l, min=1e-30)[..., None]
+
+
+def _psum_pair(o, l, ctx):
+    """(o, l) summed over the model axis in one all-reduce."""
+    ol = all_reduce(torch.cat([o, l[..., None]], dim=-1), ctx)
+    return ol[..., :-1], ol[..., -1]
+
+
+def _combine(o, m, l, ctx=None):
+    """Exact softmax from (o, m, l) partials: o / l for the one partial of
+    a row on one rank; on a mesh the ranks' partials of the row, merged by
+    :func:`combine_shards` over the model axis."""
+    if model_shard(ctx)[0] == 1:
+        return o / torch.clamp(l, min=1e-30)[..., None]
+    return combine_shards(o, m, l,
+                          lambda t: all_reduce(t, ctx, op="max"),
+                          lambda a, b: _psum_pair(a, b, ctx))
 
 
 def _local_write(cache, new_row, rel):
@@ -140,27 +179,38 @@ def _gathered(pool, page_table):
     return g.reshape((B, T * pool.shape[1]) + tuple(pool.shape[2:]))
 
 
-def _page_slot(pt, pos, ps: int):
-    """(page, offset) int64 (B,) where logical position ``pos`` (B,) lies
-    through page table ``pt`` (B,T) of ``ps``-row pages: computed once per
-    step for every layer's write."""
+def _page_slot(pt, pos, ps_loc: int, i: int = 0, msize: int = 1):
+    """(page, offset) int64 (B,) of this rank's pool where logical position
+    ``pos`` (B,) is written, through page table ``pt`` (B,T) of pages of
+    ``ps = ps_loc · msize`` rows, rank ``i`` holding in-page offsets
+    [i·ps_loc, (i+1)·ps_loc): computed once per step for every layer's
+    write. A rank that does not own ``pos mod ps`` writes the trash page 0
+    (JAX masks that write out)."""
     T = pt.shape[1]
+    ps = ps_loc * msize
     idx = torch.clamp(pos // ps, max=T - 1).long()
     page = pt.gather(1, idx[:, None])[:, 0]
     # a slot frozen at pos == max_len still scribbles each step; route it
     # to the trash page, never a live one
     page = torch.where(pos < T * ps, page, torch.zeros_like(page))
-    return page.long(), (pos % ps).long()
+    if msize == 1:
+        return page.long(), (pos % ps).long()
+    rel = pos % ps - i * ps_loc
+    mine = (rel >= 0) & (rel < ps_loc)
+    page = torch.where(mine, page, torch.zeros_like(page))
+    return page.long(), rel.clamp(0, ps_loc - 1).long()
 
 
-def _paged_write(pool, new_row, pt, pos, slot=None):
+def _paged_write(pool, new_row, pt, pos, i: int = 0, msize: int = 1,
+                 slot=None):
     """Write ``new_row`` (B,…) at logical position ``pos`` (B,) through page
-    table ``pt`` (B,T) into ``pool`` (N, ps, …), IN PLACE (``index_put_``),
-    at ``slot`` (:func:`_page_slot`) when the caller has it. Distinct live
-    slots hold disjoint pages (allocator invariant), so only the trash page
-    0 can receive duplicate writes."""
+    table ``pt`` (B,T) into rank ``i``'s ``pool`` (N, ps/msize, …) of a
+    model axis of ``msize`` (JAX ``_paged_write``), IN PLACE
+    (``index_put_``), at ``slot`` (:func:`_page_slot`) when the caller has
+    it. Distinct live slots hold disjoint pages (allocator invariant), so
+    only the trash page 0 can receive duplicate writes."""
     if slot is None:
-        slot = _page_slot(pt, pos, pool.shape[1])
+        slot = _page_slot(pt, pos, pool.shape[1], i, msize)
     pool.index_put_(slot, new_row)
     return pool
 
@@ -188,7 +238,7 @@ def _check_paged_args(page_table, pos, *, update: bool = True,
 
 def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
                      softcap: float, page_table=None, window: int = 0,
-                     slot=None, rows=None, update: bool = True):
+                     slot=None, rows=None, update: bool = True, ctx=None):
     """q (B,Hkv,G,dh); k_new/v_new (B,Hkv,dh); pos (B,) int32 → (out
     (B,Hkv,G,dh), k, v), the cache written in place.
 
@@ -199,7 +249,9 @@ def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
     :func:`_dense_attend`. Without a table it is
     dense rows (B, S, Hkv, dh), a ring of S slots with ``window``, and
     ``rows`` the layer's :func:`_dense_rows`: plain torch, as JAX's einsum
-    (``update=False`` attends without writing)."""
+    (``update=False`` attends without writing). On a mesh (``ctx``, the
+    paged kernel only) the pools are this rank's in-page offsets, q and
+    the new rows every head, and the ranks' partials are combined."""
     if page_table is None:
         rel, live = rows
         if update:
@@ -208,15 +260,17 @@ def flash_decode_gqa(q, k_new, v_new, pool_k, pool_v, pos, *, scale: float,
         k, v = pool_k, pool_v
     else:
         _check_paged_args(page_table, pos, update=update, window=window)
-        _paged_write(pool_k, k_new, page_table, pos, slot)
-        _paged_write(pool_v, v_new, page_table, pos, slot)
+        msize, i = model_shard(ctx)
+        _paged_write(pool_k, k_new, page_table, pos, i, msize, slot=slot)
+        _paged_write(pool_v, v_new, page_table, pos, i, msize, slot=slot)
         if rows is None:
             B, hkv, grp, dh = q.shape
+            ps_loc = pool_k.shape[1]
             o, m, l = paged_ops.paged_attend_gqa(
-                q, pool_k, pool_v, page_table, pos, 0,
-                page_size=pool_k.shape[1], scale=scale, softcap=softcap)
+                q, pool_k, pool_v, page_table, pos, i * ps_loc,
+                page_size=ps_loc * msize, scale=scale, softcap=softcap)
             out = _combine(o.reshape(B, hkv, grp, dh), m.reshape(B, hkv, grp),
-                           l.reshape(B, hkv, grp))
+                           l.reshape(B, hkv, grp), ctx)
             return out.to(q.dtype), pool_k, pool_v
         k, v = _gathered(pool_k, page_table), _gathered(pool_v, page_table)
         live = rows[1]
@@ -237,7 +291,7 @@ def flash_decode_mla(q_eff, new_row, pool, pos, *, kv_lora: int,
         ckv, live = pool, rows[1]
     else:
         _check_paged_args(page_table, pos)
-        _paged_write(pool, new_row, page_table, pos, slot)
+        _paged_write(pool, new_row, page_table, pos, slot=slot)
         if rows is None:
             o, m, l = paged_ops.paged_attend_mla(
                 q_eff, pool, page_table, pos, 0, page_size=pool.shape[1],
@@ -272,11 +326,12 @@ def _uses_pool(bc: BlockCfg, page_table) -> bool:
 
 
 def step_consts(cfg: ModelConfig, cache, pos, page_table,
-                paged_kernel: bool = True) -> Optional[StepConsts]:
+                paged_kernel: bool = True,
+                ctx=None) -> Optional[StepConsts]:
     """The per-step constants of a model's attention layers, or None when
     it has none (a pure Mamba stack): one rope width (MLA's rope dims, else the head
-    dim), one page size (every pool is the engine's), and one
-    :func:`_dense_rows` per shape of dense rows."""
+    dim), one page size (every pool is the engine's; on a mesh the slot is
+    this rank's), and one :func:`_dense_rows` per shape of dense rows."""
     attn = [(bc, c) for bc, c in zip(block_cfgs(cfg), cache["layers"])
             if bc.mixer == "attn"]
     if not attn:
@@ -291,7 +346,8 @@ def step_consts(cfg: ModelConfig, cache, pos, page_table,
         n = next(iter(c.values())).shape[1]        # page size, or rows
         if _uses_pool(bc, page_table):
             if slot is None:
-                slot = _page_slot(page_table, pos, n)
+                msize, i = model_shard(ctx)
+                slot = _page_slot(page_table, pos, n, i, msize)
                 if not paged_kernel:
                     gathered = _dense_rows(pos, page_table.shape[1] * n, 0)
         elif (n, bc.window) not in dense:
@@ -300,12 +356,26 @@ def step_consts(cfg: ModelConfig, cache, pos, page_table,
 
 
 # --------------------------------------------------------- per-block decode
+def _gather_heads(q, k, v, ctx):
+    """The ranks' heads of q (B,H/m,dh), k, v (B,Hkv/m,dh) made whole on
+    every rank in one all-gather, heads in rank order."""
+    B, Hl, dh = q.shape
+    Hkvl = k.shape[1]
+    qkv = all_gather(torch.cat([q, k, v], dim=1), 1, ctx)
+    qkv = qkv.view(B, -1, Hl + 2 * Hkvl, dh)                # (B, m, ·, dh)
+    q, k, v = qkv.split([Hl, Hkvl, Hkvl], dim=2)
+    return (q.reshape(B, -1, dh), k.reshape(B, -1, dh),
+            v.reshape(B, -1, dh))
+
+
 def gqa_decode(cfg: ModelConfig, p, x, cache, pos, window: int,
-               page_table, consts: StepConsts):
+               page_table, consts: StepConsts, ctx=None):
     """x (B,D) → (out (B,D), cache): the pools through ``page_table``, or
-    the layer's dense rows (a ring with ``window``) without one."""
+    the layer's dense rows (a ring with ``window``) without one. On a mesh
+    the rank's heads are projected, gathered whole for the attention, and
+    the rank's heads of its output out-projected (one all-reduce)."""
     B, D = x.shape
-    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    H, Hkv, dh = p["wq"].shape[1], p["wk"].shape[1], cfg.head_dim
     q = (x @ p["wq"].reshape(D, -1)).view(B, H, dh)
     k = (x @ p["wk"].reshape(D, -1)).view(B, Hkv, dh)
     v = (x @ p["wv"].reshape(D, -1)).view(B, Hkv, dh)
@@ -313,15 +383,20 @@ def gqa_decode(cfg: ModelConfig, p, x, cache, pos, window: int,
         cos, sin = consts.rope                                  # (B, dh/2)
         q = apply_rope(q[:, None], cos[:, None], sin[:, None])[:, 0]
         k = apply_rope(k[:, None], cos[:, None], sin[:, None])[:, 0]
-    qg = q.reshape(B, Hkv, H // Hkv, dh)
+    msize, i = model_shard(ctx)
+    if msize > 1:
+        q, k, v = _gather_heads(q, k, v, ctx)
+    qg = q.reshape(B, k.shape[1], -1, dh)
     rows = consts.gathered if page_table is not None else \
         consts.dense[(cache["k"].shape[1], window)]
     out, ck, cv = flash_decode_gqa(
         qg, k, v, cache["k"], cache["v"], pos, scale=dh ** -0.5,
         softcap=cfg.attn_softcap, page_table=page_table, window=window,
-        slot=consts.slot, rows=rows)
-    o = out.reshape(B, H * dh) @ p["wo"].reshape(-1, D)
-    return o, {"k": ck, "v": cv}
+        slot=consts.slot, rows=rows, ctx=ctx)
+    out = out.reshape(B, -1)
+    if msize > 1:                          # this rank's heads of the output
+        out = out[:, i * H * dh:(i + 1) * H * dh]
+    return out_project(out, p["wo"], ctx), {"k": ck, "v": cv}
 
 
 def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table,
@@ -360,7 +435,7 @@ def mla_decode(cfg: ModelConfig, p, x, cache, pos, page_table,
 
 
 def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
-                 page_table, consts: StepConsts):
+                 page_table, consts: StepConsts, ctx=None):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "mamba":
         y, new_cache = mamba_step(cfg, p["mamba"], x, cache)
@@ -372,14 +447,14 @@ def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
                                       consts)
         else:
             y, new_cache = gqa_decode(cfg, p["attn"], x, cache, pos,
-                                      bc.window, pt, consts)
+                                      bc.window, pt, consts, ctx)
     if cfg.use_post_norm:
         y = rmsnorm(y, p["post1"], cfg.norm_eps)
     h = h + y
     if bc.ffn != "none":
         x = rmsnorm(h, p["norm2"], cfg.norm_eps)
-        y = moe_decode(cfg, p["moe"], x) if bc.ffn == "moe" else \
-            mlp(cfg, p["mlp"], x)
+        y = moe_decode(cfg, p["moe"], x, ctx) if bc.ffn == "moe" else \
+            mlp(cfg, p["mlp"], x, ctx)
         if cfg.use_post_norm:
             y = rmsnorm(y, p["post2"], cfg.norm_eps)
         h = h + y
@@ -388,20 +463,25 @@ def block_decode(cfg: ModelConfig, bc: BlockCfg, p, cache, h, pos,
 
 # ------------------------------------------------------------- decode step
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos,
-                page_table=None, paged_kernel: bool = True):
+                page_table=None, paged_kernel: bool = True, ctx=None):
     """tokens (B,), pos (B,) int32 → (logits (B,V) f32, cache). The page
     pools and dense rows of ``cache`` are updated in place; Mamba states
     are replaced. ``page_table`` (B,T) int32 addresses the pools of a paged
     cache (read by the paged kernels, or with ``paged_kernel=False`` as
-    gathered views); None for the dense engine's."""
-    h = embed(cfg, params["embed"], tokens)
-    consts = step_consts(cfg, cache, pos, page_table, paged_kernel)
+    gathered views); None for the dense engine's. ``ctx``: the mesh, whose
+    ranks hold their blocks of ``params`` and their offsets of the pools
+    (the logits come out whole on every rank)."""
+    if model_shard(ctx)[0] > 1 and (page_table is None or not paged_kernel):
+        raise ValueError("a sharded decode reads page pools through the "
+                         "paged kernel (page_table given, paged_kernel=True)")
+    h = embed(cfg, params["embed"], tokens, ctx=ctx)
+    consts = step_consts(cfg, cache, pos, page_table, paged_kernel, ctx)
     layers = []
     for bc, p, c in zip(block_cfgs(cfg), params["layers"], cache["layers"]):
-        h, c = block_decode(cfg, bc, p, c, h, pos, page_table, consts)
+        h, c = block_decode(cfg, bc, p, c, h, pos, page_table, consts, ctx)
         layers.append(c)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(cfg, params["embed"], params["unembed"], h)
+    logits = logits_fn(cfg, params["embed"], params["unembed"], h, ctx)
     return logits, {"layers": layers}
 
 
@@ -499,10 +579,12 @@ def decode_loop(cfg: ModelConfig, params, cache, tokens, pos, active,
                 remaining, *, num_steps: int, eos_id: int, max_len: int,
                 page_table, temperature: float = 0.0, top_k: int = 0,
                 top_p: float = 0.0, generator=None,
-                paged_kernel: bool = True):
+                paged_kernel: bool = True, ctx=None):
     """A quantum of ``num_steps`` decode steps with on-device sampling and
     per-slot done masking; nothing is read back to the host
-    (``paged_kernel`` as in :func:`decode_step`).
+    (``paged_kernel`` and ``ctx`` as in :func:`decode_step`; on a mesh
+    every rank samples from the same whole logits with a generator seeded
+    alike, so every rank emits the same tokens).
 
     A slot emits while ``active``; it deactivates when its budget
     (``remaining``) drains, it samples ``eos_id``, or its write position
@@ -515,7 +597,7 @@ def decode_loop(cfg: ModelConfig, params, cache, tokens, pos, active,
     toks, msks = [], []
     for _ in range(num_steps):
         logits, cache = decode_step(cfg, params, cache, tokens, pos,
-                                    page_table, paged_kernel)
+                                    page_table, paged_kernel, ctx)
         nxt = _sample_tokens(logits, generator, temperature=temperature,
                              top_k=top_k, top_p=top_p)
         toks.append(torch.where(active, nxt, -1))
@@ -541,8 +623,9 @@ def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
                    remaining, page_table, packed, *, num_steps: int,
                    eos_id: int, max_len: int, temperature: float = 0.0,
                    top_k: int = 0, top_p: float = 0.0, generator=None,
-                   paged_kernel: bool = True):
-    """:func:`decode_loop` IN PLACE: the carry goes back into ``tokens``,
+                   paged_kernel: bool = True, ctx=None):
+    """:func:`decode_loop` IN PLACE (on a mesh each rank's own blocks and
+    offsets, ``ctx``): the carry goes back into ``tokens``,
     ``pos``, ``active`` and ``remaining``, each Mamba layer's new state
     into the state tensors of ``cache`` (the page pools are written in
     place as the loop runs), and the packed result (:func:`_pack`) into
@@ -553,7 +636,8 @@ def decode_quantum(cfg: ModelConfig, params, cache, tokens, pos, active,
         cfg, params, cache, tokens, pos, active, remaining,
         num_steps=num_steps, eos_id=eos_id, max_len=max_len,
         page_table=page_table, temperature=temperature, top_k=top_k,
-        top_p=top_p, generator=generator, paged_kernel=paged_kernel)
+        top_p=top_p, generator=generator, paged_kernel=paged_kernel,
+        ctx=ctx)
     new_cache, new_tokens, new_pos, new_active, new_remaining = carry
     for layer, new in zip(cache["layers"], new_cache["layers"]):
         for name, t in new.items():

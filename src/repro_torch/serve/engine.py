@@ -37,6 +37,18 @@ waits for its own stream alone. Each cycle returns a :class:`StepReport`,
 the tier-facing surface of the pool, and ``step_deadline_s`` is the
 per-step budget its supervisor reads.
 
+On a mesh (``Engine(ctx=)``, m ranks on ``model``, data = 1) the engine
+is SPMD: every rank runs this loop over its blocks of the parameters and
+its ``page_size / m`` in-page offsets of every pool page, and the model's
+collectives meet inside prefill and decode (inside each graph too). So
+every host decision must be the same on every rank: the requests and
+their order, the page allocator, the sampling generators (seeded alike,
+drawing from the same whole logits) and the emitted tokens are, but the
+measured times that feed the admission ratio ``f`` are not, and two ranks
+that admitted different groups would wait forever in different
+collectives. So rank 0's ``f`` is broadcast over the model axis at every
+admission (``_admission_f``).
+
 The port has ``Engine(fast=True)``, paged (with the paged kernel, the
 port's default, or the gathered-view decode, ``paged_kernel=False``:
 each slot's whole page table gathered into contiguous rows and attended
@@ -66,7 +78,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.chunking import cpu_chunk
 from repro_torch.core.tracker import ThroughputTracker
 from repro_torch.kernels import _build
-from repro_torch.models.transformer import block_cfgs, check_supported
+from repro_torch.models.transformer import (block_cfgs, check_sharded,
+                                            check_supported)
 from repro_torch.params import init_params
 from repro_torch.serve.decode import (_sample_tokens, decode_quantum,
                                      spec_decode_quantum)
@@ -74,6 +87,9 @@ from repro_torch.serve.graphs import DecodeGraphs
 from repro_torch.serve.kv_cache import (cache_defs, cache_kinds, make_cache,
                                         paged_cache_defs)
 from repro_torch.serve.prefill import bucket_len, prefill
+from repro_torch.sharding.axes import model_shard
+from repro_torch.sharding.collectives import broadcast
+from repro_torch.sharding.params import check_local
 
 
 class PromptTooLongError(ValueError):
@@ -242,7 +258,8 @@ class Engine:
                  top_k: int = 0, top_p: float = 0.0,
                  sample_seed: int = 0, graphs: bool | None = None,
                  draft_cfg: ModelConfig | None = None, draft_params=None,
-                 spec_k: int = 0, step_deadline_s: float | None = None):
+                 spec_k: int = 0, step_deadline_s: float | None = None,
+                 ctx=None):
         """Build a serving engine over an existing parameter tree
         (``params.init_params`` or ``params.params_from_numpy``) that lies
         on ``device`` (the card unless ``device="cpu"``).
@@ -273,9 +290,14 @@ class Engine:
         aligned pair from the target). ``step_deadline_s`` is the advisory
         wall-clock budget of one ``step`` (None: unbounded) that
         ``MultiEngine``'s watchdog reads; the engine never preempts a
-        quantum.
+        quantum. ``ctx`` (``sharding/axes.py::ShardCtx``) serves across the
+        ranks of its ``model`` axis (:meth:`_check_mesh`): ``params`` are
+        this rank's blocks (``init_params(..., ctx=ctx)``), and every rank
+        builds its engine with the same arguments and runs the same calls.
         """
         check_supported(cfg)
+        self.ctx = ctx
+        self.msize, self.rank = model_shard(ctx)
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
         if graphs and not on_card:
@@ -306,6 +328,7 @@ class Engine:
                              f"strings are Pallas-only), got {paged_kernel!r}")
         self.paged_kernel = paged_kernel
         self._check_spec(cfg, draft_cfg, spec_k)
+        self._check_mesh(cfg, params, paged, page_size)
         self.prefill_batch = prefill_batch or max_slots
         self.min_bucket = min_bucket
         # padded buckets are only sound when every mixer is attention: a
@@ -368,6 +391,36 @@ class Engine:
                 f"smallest window {min(windows)} — staged rows must all be "
                 f"in-window for every verify query")
 
+    def _check_mesh(self, cfg, params, paged, page_size) -> None:
+        """A mesh serves :func:`check_sharded`'s models with page pools
+        through the paged kernel, ``page_size`` a multiple of the model
+        axis and data = 1 (JAX's engine checks the same), no draft, and
+        ``params`` this rank's blocks. One rank checks nothing."""
+        if self.ctx is None or self.msize * self.ctx.axis_size("data") == 1:
+            return
+        check_sharded(cfg, self.ctx)
+        if not paged or not self.paged_kernel:
+            raise ValueError("a sharded engine pages its K/V and reads them "
+                             "through the paged kernel (paged=True, "
+                             "paged_kernel=True)")
+        if page_size <= 0 or page_size % self.msize:
+            raise ValueError(f"page_size {page_size} must be a positive "
+                             f"multiple of the model-axis size {self.msize}")
+        if self.spec:
+            raise ValueError("speculative decode on a mesh is not ported yet")
+        check_local(params, cfg, self.ctx)
+
+    def _admission_f(self) -> float:
+        """The admission ratio ``f`` the HBB budget reads: this engine's
+        tracker's, on a mesh rank 0's broadcast over the model axis, so
+        that ranks whose clocks measured differently admit the same
+        groups."""
+        f = self.tracker.f()
+        if self.msize == 1:
+            return f
+        t = torch.tensor([f], dtype=torch.float64, device=self.device)
+        return float(broadcast(t, self.ctx).item())
+
     def _make_draft(self, draft_params) -> None:
         """The draft's parameters and its dense cache (one row per position
         of every slot: the draft never reads a page table)."""
@@ -412,7 +465,7 @@ class Engine:
                                        self.pages_per_slot)
             self.cache = make_cache(paged_cache_defs(
                 cfg, num_pages=self.num_pages, page_size=page_size,
-                max_slots=max_slots, max_len=max_len), dev)
+                max_slots=max_slots, max_len=max_len, msize=self.msize), dev)
             self.page_table_dev = torch.tensor(self.alloc.table, device=dev)
             # the live-width prefixes the quanta read, one static buffer each
             self._tables = {self.pages_per_slot: self.page_table_dev}
@@ -633,7 +686,7 @@ class Engine:
             num_steps=self.decode_quantum, eos_id=self.eos_id,
             max_len=self.max_len, temperature=self.temperature,
             top_k=self.top_k, top_p=self.top_p, generator=self._gen,
-            paged_kernel=self.paged_kernel)
+            paged_kernel=self.paged_kernel, ctx=self.ctx)
 
     # ---- one engine cycle -------------------------------------------------
     def step(self) -> StepReport:
@@ -712,7 +765,7 @@ class Engine:
         budget."""
         r_tokens = sum(len(q.prompt) for q in self.pending)
         budget = cpu_chunk(S_f=self.quantum_tokens * self.max_slots,
-                           f=self.tracker.f(), r=r_tokens, n_cores=1)
+                           f=self._admission_f(), r=r_tokens, n_cores=1)
         take: list[Request] = []
         planned_pages = 0
         while self.pending and len(take) < len(free):
@@ -772,7 +825,7 @@ class Engine:
         logits, new_cache = prefill(
             self.cfg, self.params, toks_dev, max_len=self.max_len,
             prompt_len=pl_dev,
-            page_size=self.page_size if self.paged else None)
+            page_size=self.page_size if self.paged else None, ctx=self.ctx)
         draft_rows = None
         if self.spec:      # the draft's dense rows of the same prompts
             _, draft_rows = prefill(self.draft_cfg, self.draft_params,
@@ -825,7 +878,7 @@ class Engine:
             dst_dev = torch.tensor(dst, device=dev)
             src_dev = torch.tensor(page_src[dst].astype(np.int64),
                                    device=dev)
-            ps = self.page_size
+            ps = self.page_size // self.msize     # this rank's offsets
         for kind, pools, rows in zip(self.kinds, self.cache["layers"],
                                      new_cache["layers"]):
             for name, r in rows.items():
@@ -888,12 +941,13 @@ class Engine:
         return requests
 
 
-def make_engine(cfg: ModelConfig, *, seed: int = 0, device=None,
+def make_engine(cfg: ModelConfig, *, seed: int = 0, device=None, ctx=None,
                 **kw) -> Engine:
     """An :class:`Engine` over fresh parameters (``init_params(cfg, seed)``
-    on ``device``, the card unless ``device="cpu"``). Keeps the JAX
-    ``make_engine``'s default of a dense engine (``paged=False``), so the
-    same keywords build the same layout in both packages."""
+    on ``device``, the card unless ``device="cpu"``; this rank's blocks of
+    them on a mesh, ``ctx``). Keeps the JAX ``make_engine``'s default of a
+    dense engine (``paged=False``), so the same keywords build the same
+    layout in both packages."""
     kw.setdefault("paged", False)
-    return Engine(cfg, init_params(cfg, seed=seed, device=device),
-                  device=device, **kw)
+    return Engine(cfg, init_params(cfg, seed=seed, device=device, ctx=ctx),
+                  device=device, ctx=ctx, **kw)

@@ -31,6 +31,14 @@ kernel launches on the card, and the launches of an engine stepping in
 another thread meanwhile neither enter the capture's change nor leave the
 counts.
 
+On a mesh (``Engine(ctx=)``) the quantum holds the model's NCCL
+collectives, and a graph captures them with the kernels: every rank runs
+the same quanta with the same keys, so every rank captures the same
+sequence of collectives and every replay meets its peers' replays. The
+warm-up is each key's first run and no quantum's collective is a
+communicator's first (prefill ran before), so no communicator is made
+inside a capture.
+
 A capture or replay that fails raises; nothing falls back to the eager
 loop. Capture runs under ``capture_error_mode="thread_local"``: a call
 the capture forbids (a host-to-device copy, a synchronize) raises in the

@@ -11,7 +11,8 @@ slots for a sliding-window layer (position p lands in slot p mod Sc), as
 Paged engine (``paged_cache_defs``): every full-attention layer owns pools
 ``(num_pages, page_size, Hkv, dh)`` (MLA: one latent pool), addressed
 through the engine's per-slot page table; page 0 is the allocator's
-reserved trash page. Ring layers keep their dense per-slot rings beside
+reserved trash page. On a model axis of m ranks each rank's pools hold
+its ``page_size / m`` in-page offsets of every page. Ring layers keep their dense per-slot rings beside
 the pools: they are already bounded per slot.
 
 Either way a Mamba layer keeps its O(1) state densely per slot: Mamba-2
@@ -90,12 +91,18 @@ def _is_pooled(bc: BlockCfg) -> bool:
 
 
 def paged_cache_defs(cfg: ModelConfig, *, num_pages: int, page_size: int,
-                     max_slots: int, max_len: int):
+                     max_slots: int, max_len: int, msize: int = 1):
     """Cache defs per layer: a page pool for full attention, else the dense
     per-slot ring or Mamba state of ``max_slots`` slots of ``max_len``
-    tokens."""
+    tokens. On a model axis of ``msize`` ranks a rank's pool holds its
+    ``page_size / msize`` in-page offsets of every page, (N, ps/m, Hkv,
+    dh), as JAX's ``kv_seq``-sharded pools; ``page_size`` must be a
+    multiple of ``msize``."""
     check_supported(cfg)
-    return {"layers": [page_pool_defs(cfg, num_pages, page_size)
+    if page_size <= 0 or page_size % msize:
+        raise ValueError(f"page_size {page_size} must be a positive "
+                         f"multiple of the model-axis size {msize}")
+    return {"layers": [page_pool_defs(cfg, num_pages, page_size // msize)
                        if _is_pooled(bc) else
                        block_cache_defs(cfg, bc, max_slots, max_len)
                        for bc in block_cfgs(cfg)]}

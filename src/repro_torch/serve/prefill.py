@@ -18,6 +18,12 @@ A Mamba layer returns its decode state instead
 selective scan kernel for Mamba-1); its scan would absorb pad tokens, so
 the engine prefills such models in exact-length groups.
 
+On a mesh of m ranks on ``model`` (``ctx``: GQA with a dense or MoE FFN,
+page pools) each rank attends over its H/m heads (the out-projection, the
+MLP and the MoE each end in one all-reduce), the K and V rows are gathered
+whole over the heads, and a rank keeps its in-page offsets [i·ps/m,
+(i+1)·ps/m) of each page for the admit scatter into its pools.
+
 A front end (internvl2): ``prefill(frontend_embed=)`` replaces the first F
 positions of every row with the projected patch embeddings, whatever its
 ``prompt_len``; a prompt shorter than F is refused. An encoder-decoder
@@ -31,13 +37,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (attend, cross_kv, gqa_project,
-                                         mla_qkv)
+                                         mla_qkv, out_project)
 from repro_torch.models.layers import embed, logits_fn, mlp, rmsnorm
 from repro_torch.models.mamba import mamba_mixer
 from repro_torch.models.moe import moe_block
 from repro_torch.models.transformer import BlockCfg, block_cfgs
 from repro_torch.models.whisper import encode
 from repro_torch.serve.kv_cache import attn_cache_len
+from repro_torch.sharding.axes import model_shard
+from repro_torch.sharding.collectives import all_gather
 
 
 def _pad_to(k: torch.Tensor, Sc: int) -> torch.Tensor:
@@ -84,18 +92,20 @@ def bucket_len(n: int, *, min_bucket: int = 16,
 
 
 def gqa_prefill(cfg: ModelConfig, p, x, *, window: int, positions,
-                seq_len_cache: int, prompt_len=None):
+                seq_len_cache: int, prompt_len=None, ctx=None):
     """Attention + cache build. x (B,S,D) → (out, {"k", "v"}). Full
     attention: the rows padded to ``seq_len_cache``; pad rows land at
     positions ≥ prompt_len, which decode never attends before overwriting.
     A window: the ring of ``seq_len_cache`` slots, packed per row up to
-    ``prompt_len`` (B,) (S for every row when not given)."""
+    ``prompt_len`` (B,) (S for every row when not given). On a mesh the
+    rank's heads attend and the rows come out with every KV head."""
     B, S = x.shape[:2]
     q, k, v = gqa_project(cfg, p, x, positions)
     out = attend(q, k, v, scale=cfg.head_dim ** -0.5, causal=True,
                  window=window, softcap=cfg.attn_softcap)
-    o = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ \
-        p["wo"].reshape(-1, cfg.d_model)
+    o = out_project(out.reshape(B, S, -1), p["wo"], ctx)
+    if model_shard(ctx)[0] > 1:             # the rows of every KV head
+        k, v = all_gather(torch.stack([k, v]), 3, ctx).unbind(0)
     if window:
         if prompt_len is None:                  # every row is S real tokens
             prompt_len = torch.full((B,), S, device=x.device)
@@ -122,9 +132,21 @@ def mla_prefill(cfg: ModelConfig, p, x, *, positions, seq_len_cache: int):
     return o, {"ckv": _pad_to(ckv, seq_len_cache).to(cfg.pdtype)}
 
 
+def _rank_offsets(rows: torch.Tensor, page_size: int, ctx) -> torch.Tensor:
+    """Page-aligned rows (B, T·ps, …) → this rank's in-page offsets of each
+    page, (B, T·ps/m, …), the rows its pool pages take at admit."""
+    m, i = model_shard(ctx)
+    ps_loc = page_size // m
+    B, n = rows.shape[:2]
+    tail = tuple(rows.shape[2:])
+    paged = rows.reshape((B, n // page_size, page_size) + tail)
+    return paged[:, :, i * ps_loc:(i + 1) * ps_loc].reshape(
+        (B, -1) + tail)
+
+
 def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
                   seq_len: int, max_len: int | None = None,
-                  prompt_len=None, page_size: int | None = None):
+                  prompt_len=None, page_size: int | None = None, ctx=None):
     x = rmsnorm(h, p["norm1"], cfg.norm_eps)
     if bc.mixer == "mamba":
         y, cache = mamba_mixer(cfg, p["mamba"], x, return_state=True)
@@ -141,16 +163,19 @@ def block_prefill(cfg: ModelConfig, bc: BlockCfg, p, h, positions,
         else:
             y, cache = gqa_prefill(cfg, p["attn"], x, window=bc.window,
                                    positions=positions, seq_len_cache=Sc,
-                                   prompt_len=prompt_len)
+                                   prompt_len=prompt_len, ctx=ctx)
+            if model_shard(ctx)[0] > 1:
+                cache = {n: _rank_offsets(r, page_size, ctx)
+                         for n, r in cache.items()}
     if cfg.use_post_norm:
         y = rmsnorm(y, p["post1"], cfg.norm_eps)
     h = h + y
     if bc.ffn != "none":
         x = rmsnorm(h, p["norm2"], cfg.norm_eps)
         if bc.ffn == "moe":
-            y, _ = moe_block(cfg, p["moe"], x)
+            y, _ = moe_block(cfg, p["moe"], x, ctx)
         else:
-            y = mlp(cfg, p["mlp"], x)
+            y = mlp(cfg, p["mlp"], x, ctx)
         if cfg.use_post_norm:
             y = rmsnorm(y, p["post2"], cfg.norm_eps)
         h = h + y
@@ -175,7 +200,7 @@ def _check_frontend(frontend_embed, S: int, prompt_len) -> None:
 def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
             max_len: int | None = None, prompt_len: torch.Tensor | None = None,
             page_size: int | None = None,
-            frontend_embed: torch.Tensor | None = None):
+            frontend_embed: torch.Tensor | None = None, ctx=None):
     """tokens (B,S) → (last-token logits (B,V) f32, {"layers": [{"k","v"},
     {"ckv"} or the Mamba state ({"conv_x", "conv_B", "conv_C", "ssm"} for
     Mamba-2, {"conv_x", "ssm"} for Mamba-1)]}).
@@ -185,17 +210,24 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     (default S) sizes full-attention rows and the rings; ``page_size``
     sizes full-attention rows by the bucket (page-aligned) instead.
     ``frontend_embed`` (B,F,frontend_dim) replaces the first F positions
-    of every row (:func:`_check_frontend`).
+    of every row (:func:`_check_frontend`). ``ctx``: the mesh (the paged
+    layout only: ``page_size`` must be given), whose ranks hold their
+    blocks of ``params``; every rank returns the whole logits and its
+    offsets of the rows.
     """
     S = tokens.shape[1]
+    if model_shard(ctx)[0] > 1 and not page_size:
+        raise ValueError("a sharded prefill builds page-aligned rows: "
+                         "give page_size")
     if frontend_embed is not None:
         _check_frontend(frontend_embed, S, prompt_len)
-    h = embed(cfg, params["embed"], tokens, frontend_embed)
+    h = embed(cfg, params["embed"], tokens, frontend_embed, ctx)
     positions = torch.arange(S, device=tokens.device)
     caches = []
     for bc, p in zip(block_cfgs(cfg), params["layers"]):
         h, c = block_prefill(cfg, bc, p, h, positions, S, max_len,
-                             prompt_len=prompt_len, page_size=page_size)
+                             prompt_len=prompt_len, page_size=page_size,
+                             ctx=ctx)
         caches.append(c)
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     if prompt_len is None:
@@ -203,7 +235,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor,
     else:
         idx = torch.clamp(prompt_len.long() - 1, 0, S - 1)
         last = h[torch.arange(h.shape[0], device=h.device), idx]
-    logits = logits_fn(cfg, params["embed"], params["unembed"], last)
+    logits = logits_fn(cfg, params["embed"], params["unembed"], last, ctx)
     return logits, {"layers": caches}
 
 

@@ -26,6 +26,7 @@ from repro_torch.kernels.selective_scan import ref as scan_ref
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd import ref as ssd_ref
 from repro_torch.params import init_params, tree_leaves, tree_map
+from repro_torch.serve.decode import combine_shards
 from repro_torch.serve.engine import Engine, Request
 
 pytestmark = pytest.mark.cuda
@@ -588,6 +589,34 @@ def test_paged_gqa_mma_main_shape(dev, softcap, base, grp, dh):
     o, m, l = got
     assert torch.all(m[1] == -1e30) and torch.all(l[1] == 0) and \
         torch.all(o[1] == 0)
+
+
+@pytest.mark.parametrize("m", [2, 4])
+def test_paged_gqa_shards_in_turn(dev, m):
+    """The kv_seq-sharded decode at the main shape, one card: the pools
+    cut into m slices of 16/m in-page offsets (ps_loc 8 and 4; at 4 one
+    16-key tile spans four pages), each slice's partials at base i·16/m,
+    page_size 16, against the plain version's, and the merge
+    (``decode.combine_shards`` over the stacked slices) against the
+    unsharded kernel."""
+    q, pk, pv, pt, pos = _gqa_main(dev)
+    N, ps, hkv, dh = pk.shape
+    psl = ps // m
+    kw = dict(page_size=ps, scale=dh ** -0.5)
+    parts = []
+    for i in range(m):
+        sk, sv = (p.view(N, m, psl, hkv, dh)[:, i].contiguous()
+                  for p in (pk, pv))
+        got = paged_ops.paged_attend_gqa(q, sk, sv, pt, pos, i * psl, **kw)
+        _close_partials(got, paged_ref.paged_flash_decode_gqa_ref(
+            q, sk.nan_to_num(), sv.nan_to_num(), pt, pos, i * psl, **kw))
+        parts.append(got)
+    merged = combine_shards(*(torch.stack(x) for x in zip(*parts)),
+                            lambda t: t.amax(0),
+                            lambda a, b: (a.sum(0), b.sum(0)))
+    o, _, l = paged_ops.paged_attend_gqa(q, pk, pv, pt, pos, 0, **kw)
+    torch.testing.assert_close(merged, o / l.clamp_min(1e-30)[..., None],
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("base", [0, 8])

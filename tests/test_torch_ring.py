@@ -32,6 +32,9 @@ from repro_torch.serve import decode as tdec
 from repro_torch.serve import engine as teng
 from repro_torch.serve import prefill as tpre
 from repro_torch.train.step import make_state
+# the JAX oracles compile at XLA's lowest optimization level (most of
+# their time is compiling; f32 results agree to rounding)
+from test_torch_variants import _jit
 
 ATOL = 1e-4              # f32, as tests/test_torch_serve.py
 REL = 3e-2               # bf16, and decode against a full forward (test_serve)
@@ -56,6 +59,22 @@ def _model(arch, dtype="float32"):
     jp = prm.materialize(model_defs(jcfg), jax.random.PRNGKey(0))
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
     return jcfg, tcfg, jp, tp
+
+
+@pytest.fixture(scope="module")
+def jax_decode(ctx):
+    """JAX's ``decode_step`` jitted once per config and shared by the
+    module's decode loops: unjitted, its shard_map compiles at every
+    call."""
+    steps = {}
+
+    def step(jcfg, params, cache, tokens, pos):
+        fn = steps.get(jcfg)
+        if fn is None:
+            fn = steps[jcfg] = _jit(
+                lambda p, c, t, q: jdec.decode_step(jcfg, p, c, t, q, ctx))
+        return fn(params, cache, tokens, pos)
+    return step
 
 
 def _rel(got, want) -> float:
@@ -170,7 +189,7 @@ def test_dense_mla_decode_matches_jax(ctx):
 
 # ------------------------------------------------- decode past the window
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_sliding_window_ring_equivalence(ctx, dtype):
+def test_sliding_window_ring_equivalence(ctx, jax_decode, dtype):
     """Decoding 12 steps past the window of 32 (danube smoke) equals the
     full forward of the same tokens (the ring overwrite is exact; 3e-2
     relative, as tests/test_serve.py), and each step's logits equal JAX's
@@ -189,9 +208,9 @@ def test_sliding_window_ring_equivalence(ctx, dtype):
         logits, cache = tdec.decode_step(tcfg, tp, cache,
                                          torch.from_numpy(toks[:, S + t]),
                                          torch.from_numpy(pos))
-        jlogits, jcache = jdec.decode_step(jcfg, jp, jcache,
-                                           jnp.asarray(toks[:, S + t]),
-                                           jnp.asarray(pos), ctx)
+        jlogits, jcache = jax_decode(jcfg, jp, jcache,
+                                     jnp.asarray(toks[:, S + t]),
+                                     jnp.asarray(pos))
         if dtype == "float32":
             np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                        rtol=ATOL, atol=ATOL)
@@ -248,7 +267,7 @@ def test_gemma2_param_tree():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gemma2_prefill_decode_match_jax(ctx, dtype):
+def test_gemma2_prefill_decode_match_jax(ctx, jax_decode, dtype):
     """gemma2 smoke (local window 32 and global layers, attention softcap 50
     and final softcap 30, post-norm, geglu, tied and sqrt(d)-scaled
     embeddings): bucketed prefill logits and every cache row (rings and
@@ -287,9 +306,9 @@ def test_gemma2_prefill_decode_match_jax(ctx, dtype):
     pos = torch.from_numpy(lens.copy())
     for _ in range(12):
         logits, cache = tdec.decode_step(tcfg, tp, cache, tok, pos)
-        jlogits, jcache = jdec.decode_step(jcfg, jp, jcache,
-                                           jnp.asarray(tok.numpy()),
-                                           jnp.asarray(pos.numpy()), ctx)
+        jlogits, jcache = jax_decode(jcfg, jp, jcache,
+                                     jnp.asarray(tok.numpy()),
+                                     jnp.asarray(pos.numpy()))
         if f32:
             np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                        rtol=ATOL, atol=ATOL)
@@ -311,7 +330,7 @@ def test_post_norm_loss_and_grads_match_jax(ctx, dtype):
     toks = toks.astype(np.int32)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:],
              "mask": np.ones((4, 64), np.float32)}
-    (jloss, _), jg = jax.jit(jax.value_and_grad(
+    (jloss, _), jg = _jit(jax.value_and_grad(
         lambda p, b: jloss_fn(jcfg, p, b, ctx), has_aux=True))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tp = make_state(tp)["params"]

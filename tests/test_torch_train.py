@@ -44,6 +44,9 @@ from repro_torch.train.optimizer import (OptConfig, adamw_update,
                                          clip_by_global_norm, init_moments,
                                          schedule)
 from repro_torch.train.step import init_state, make_state, make_train_step
+# the JAX oracles compile at XLA's lowest optimization level (most of
+# their time is compiling; f32 results agree to rounding)
+from test_torch_variants import _jit
 
 ARCH = "mistral-nemo-12b"
 # f32: the same formulas in another sum order. bf16: both frameworks round
@@ -89,7 +92,7 @@ def test_loss_and_grads_match_jax(ctx, dtype, extra):
     jcfg, tcfg = _cfgs(dtype, **extra)
     jp = _jax_params(jcfg)
     batch = _batch(jcfg.vocab)
-    (jl, _), jg = jax.jit(jax.value_and_grad(
+    (jl, _), jg = _jit(jax.value_and_grad(
         lambda p, b: jloss_fn(jcfg, p, b, ctx), has_aux=True))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tp = make_state(_to_port(jp, tcfg))["params"]
@@ -125,7 +128,7 @@ def test_train_steps_match_jax(ctx, mb, moments, compression):
         jstate["ef"] = jinit_residuals(jp)
     tstate = make_state(_to_port(jp, tcfg), to,
                         CompressionConfig(compression))
-    jstep = jax.jit(jmake_train_step(jcfg, jo, ctx,
+    jstep = _jit(jmake_train_step(jcfg, jo, ctx,
                                      JCompression(compression),
                                      microbatches=mb))
     tstep = make_train_step(tcfg, to, CompressionConfig(compression),

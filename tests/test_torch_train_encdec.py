@@ -38,6 +38,9 @@ from repro_torch.models.model import loss_fn, synth_batch
 from repro_torch.params import params_from_numpy, tree_leaves
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import make_state, make_train_step
+# the JAX oracles compile at XLA's lowest optimization level (most of
+# their time is compiling; f32 results agree to rounding)
+from test_torch_variants import _jit
 
 WHISPER, VLM, MISTRAL = "whisper-large-v3", "internvl2-26b", \
     "mistral-nemo-12b"
@@ -100,7 +103,7 @@ def _rel(a, b) -> float:
 
 
 def _jgrad(jcfg, jp, batch, ctx):
-    return jax.jit(jax.value_and_grad(
+    return _jit(jax.value_and_grad(
         lambda p, b: jloss_fn(jcfg, p, b, ctx), has_aux=True))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
 
@@ -160,7 +163,7 @@ def test_whisper_train_steps_match_jax(auto_ctx):
     jstate = {"params": jp, "m": mom["m"], "v": mom["v"],
               "step": jnp.zeros((), jnp.int32)}
     tstate = make_state(_to_port(jp, tcfg), to)
-    jstep = jax.jit(jmake_train_step(jcfg, jo, auto_ctx))
+    jstep = _jit(jmake_train_step(jcfg, jo, auto_ctx))
     tstep = make_train_step(tcfg, to)
     batch = _batch(jcfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}

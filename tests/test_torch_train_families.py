@@ -47,6 +47,9 @@ from repro_torch.params import params_from_numpy, tree_leaves
 from repro_torch.train import checkpoint
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import make_state, make_train_step
+# the JAX oracles compile at XLA's lowest optimization level (most of
+# their time is compiling; f32 results agree to rounding)
+from test_torch_variants import _jit
 
 ROOT = Path(__file__).resolve().parents[1]
 PHI, DEEPSEEK, MAMBA2 = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-236b",
@@ -124,12 +127,12 @@ def test_loss_and_grads_match_jax(auto_ctx, arch, dtype):
     jcfg, tcfg = _cfgs(arch, dtype)
     jp = prm.materialize(model_defs(jcfg), jax.random.PRNGKey(0))
     batch = _batch(jcfg.vocab, seed=1)
-    (jl, jm), jg = jax.jit(jax.value_and_grad(
+    (jl, jm), jg = _jit(jax.value_and_grad(
         lambda p, b: jloss_fn(jcfg, p, b, auto_ctx), has_aux=True))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
     tp = make_state(_to_port(jp, tcfg))["params"]
     if jcfg.moe is not None:
-        jstats = jax.jit(lambda p, t: jlm_hidden(jcfg, p, t, auto_ctx)[1])(
+        jstats = _jit(lambda p, t: jlm_hidden(jcfg, p, t, auto_ctx)[1])(
             jp, jnp.asarray(batch["tokens"]))
         with torch.no_grad():
             _, stats = lm_hidden(tcfg, tp, _torch_batch(batch)["tokens"])
@@ -151,7 +154,7 @@ def test_loss_and_grads_match_jax(auto_ctx, arch, dtype):
         # to 3.4e-2 at this batch), the port's must lie no farther
         jcfg32, tcfg32 = _cfgs(arch, "float32")
         jp32 = jax.tree.map(lambda x: x.astype(jnp.float32), jp)
-        _, jg32 = jax.jit(jax.value_and_grad(
+        _, jg32 = _jit(jax.value_and_grad(
             lambda p, b: jloss_fn(jcfg32, p, b, auto_ctx), has_aux=True))(
             jp32, {k: jnp.asarray(v) for k, v in batch.items()})
         truth = tree_leaves(_to_port(jg32, tcfg32))
@@ -181,7 +184,7 @@ def test_train_steps_match_jax(auto_ctx, arch, mb, moments):
     jstate = {"params": jp, "m": mom["m"], "v": mom["v"],
               "step": jnp.zeros((), jnp.int32)}
     tstate = make_state(_to_port(jp, tcfg), to)
-    jstep = jax.jit(jmake_train_step(jcfg, jo, auto_ctx, microbatches=mb))
+    jstep = _jit(jmake_train_step(jcfg, jo, auto_ctx, microbatches=mb))
     tstep = make_train_step(tcfg, to, microbatches=mb)
     batch = _batch(jcfg.vocab)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -227,7 +230,7 @@ def test_moe_block_and_aux_grads_match_jax(auto_ctx, cf, n_shared):
         out, stats = jmoe.moe_block(jcfg, p, x, auto_ctx)
         return jnp.sum(out * r) + jmoe.aux_loss_from_stats(jcfg, stats)
 
-    jgp, jgx = jax.jit(jax.grad(jf, argnums=(0, 1)))(jp, jnp.asarray(x))
+    jgp, jgx = _jit(jax.grad(jf, argnums=(0, 1)))(jp, jnp.asarray(x))
     tp = {n: torch.from_numpy(np.asarray(v)).requires_grad_()
           for n, v in jp.items()}
     tx = torch.from_numpy(x).requires_grad_()

@@ -38,6 +38,9 @@ from repro_torch.models.transformer import lm_hidden
 from repro_torch.params import params_from_numpy, tree_leaves
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.step import make_state, make_train_step
+# the JAX oracles compile at XLA's lowest optimization level (most of
+# their time is compiling; f32 results agree to rounding)
+from test_torch_variants import _jit
 
 ARCH = "jamba-v0.1-52b"
 # tests/test_torch_train.py's tolerances: f32 the same formulas in another
@@ -89,7 +92,7 @@ def _rel(a, b) -> float:
 
 
 def _jgrad(jcfg, jp, batch, ctx):
-    return jax.jit(jax.value_and_grad(
+    return _jit(jax.value_and_grad(
         lambda p, b: jloss_fn(jcfg, p, b, ctx), has_aux=True))(
         jp, {k: jnp.asarray(v) for k, v in batch.items()})
 
@@ -207,7 +210,7 @@ def test_jamba_loss_and_grads_match_jax(auto_ctx, dtype):
     batch = _batch(jcfg.vocab, seed=BATCH_SEED)
     (jl, jm), jg = _jgrad(jcfg, jp, batch, auto_ctx)
     tp = make_state(_to_port(jp, tcfg))["params"]
-    jstats = jax.jit(lambda p, t: jlm_hidden(jcfg, p, t, auto_ctx)[1])(
+    jstats = _jit(lambda p, t: jlm_hidden(jcfg, p, t, auto_ctx)[1])(
         jp, jnp.asarray(batch["tokens"]))
     with torch.no_grad():
         _, stats = lm_hidden(tcfg, tp, _torch_batch(batch)["tokens"])
@@ -251,7 +254,7 @@ def test_jamba_train_steps_match_jax(auto_ctx):
     jstate = {"params": jp, "m": mom["m"], "v": mom["v"],
               "step": jnp.zeros((), jnp.int32)}
     tstate = make_state(_to_port(jp, tcfg), to)
-    jstep = jax.jit(jmake_train_step(jcfg, jo, auto_ctx))
+    jstep = _jit(jmake_train_step(jcfg, jo, auto_ctx))
     tstep = make_train_step(tcfg, to)
     batch = _batch(jcfg.vocab, seed=BATCH_SEED)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}

@@ -38,9 +38,10 @@ def main() -> int:
                     metavar="PHASE=VALUE")
     args = ap.parse_args()
     lr_d = dict(x.split("=") for x in args.lr_d)
-    cs.CARD = os.popen("nvidia-smi --query-gpu=name,power.limit "
-                       "--format=csv,noheader").read().strip()
-    print(cs.CARD)
+    cards = os.popen("nvidia-smi --query-gpu=name,power.limit "
+                     "--format=csv,noheader").read().strip()
+    print(cards)
+    cs.CARD = cards.splitlines()[0]          # card 0, beside each number
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"kernels built in {_build.build():.1f} s")
     dev = torch.device("cuda")
